@@ -1,0 +1,23 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
+
+A package beside ``paddle_tpu`` (the JAX reference, which stays as it
+is). It imports torch and numpy and never jax or paddle_tpu. Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``;
+every kernel the reference wrote in Pallas becomes a hand-written CUDA
+kernel under ``csrc/`` with a plain PyTorch version beside it, which is
+what a CPU tensor runs.
+
+This slice ports Llama inference and the continuous-batching serving
+engine: ``models.LlamaForCausalLM``, ``serve.ServeEngine`` and
+``serve.run_load``, over the paged-decode, flash-forward and
+RMSNorm-forward kernels.
+"""
+from . import convert, models, nn, serve
+from .convert import load_paddle_tpu_state
+from .core.place import resolve_device
+from .models import LlamaConfig, LlamaForCausalLM
+from .serve import ServeEngine, default_serving_setup, run_load, warm_engine
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "ServeEngine", "run_load",
+           "warm_engine", "default_serving_setup", "load_paddle_tpu_state",
+           "resolve_device", "convert", "models", "nn", "serve"]

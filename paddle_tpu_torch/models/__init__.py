@@ -1,0 +1,6 @@
+"""Model zoo of the port (the Llama family so far)."""
+from .llama import (LlamaAttention, LlamaConfig, LlamaDecoderLayer,
+                    LlamaForCausalLM, LlamaMLP, LlamaModel, LlamaRMSNorm)
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP", "LlamaRMSNorm"]

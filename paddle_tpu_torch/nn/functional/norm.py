@@ -1,0 +1,55 @@
+"""Normalization functional ops (the RMSNorm subset of the port).
+
+Counterpart of ``paddle_tpu/nn/functional/norm.py::rms_norm``. The
+routing is the reference's: the fused kernel when its gate passes, the
+plain composition otherwise.
+
+The port's gate states what ``csrc/rms_norm.cu`` accepts, not the TPU's
+(8, 128) tile rule: the ``use_cuda_rms_norm`` flag is on, x and w are
+float32, bfloat16 or float16, and w is ``[hidden]``. Any hidden size and
+row count pass. The plain composition (``_rms_norm_fwd`` in the
+reference: fp32 math, output in x's dtype) is the kernel's plain version
+``ops/cuda/rms_norm.rms_norm_reference``; a CPU tensor that passes the
+gate reaches it through the kernel's wrapper.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...core.flags import get_flag
+from ...ops.cuda import rms_norm as _kernel
+
+__all__ = ["rms_norm"]
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _use_kernel(x, w) -> bool:
+    return (get_flag("use_cuda_rms_norm") and x.dtype in _DTYPES
+            and w.dtype in _DTYPES and w.ndim == 1
+            and w.shape[0] == x.shape[-1])
+
+
+class _RmsNorm(torch.autograd.Function):
+    """Forward through the kernel; its backward (``_rms_bwd``) is not
+    ported yet."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        return _kernel.rms_norm_fwd(x.contiguous(), w.contiguous(), eps=eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "RMSNorm backward is not ported yet: the backward kernel "
+            "(_rms_bwd) comes with the training slice. Run inference under "
+            "torch.no_grad(), or turn the kernel off with "
+            "core.flags.set_flags({'use_cuda_rms_norm': False}).")
+
+
+def rms_norm(x, weight, epsilon=1e-6, name=None):
+    """RMSNorm over the last dim (reference
+    ``paddle.incubate.nn.functional.fused_rms_norm``)."""
+    if _use_kernel(x, weight):
+        return _RmsNorm.apply(x, weight, float(epsilon))
+    return _kernel.rms_norm_reference(x, weight, eps=float(epsilon))

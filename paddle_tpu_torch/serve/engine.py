@@ -1,0 +1,872 @@
+"""Continuous-batching serving engine over the paged KV block pool.
+
+Counterpart of ``paddle_tpu/serve/engine.py``, with the same scheduling
+contract:
+
+- **Admission: FIFO.** ``submit()`` refuses a request that could never
+  run (``prompt + max_new_tokens`` over ``max_seq_len``, or a KV working
+  set larger than the pool) with ``ValueError`` and queues the rest.
+  Each ``step()`` admits from the queue head while a slot and blocks are
+  free; the head blocks the line.
+- **Continuous batching.** A finished stream frees its slot and blocks
+  at once; the next queued request prefills into that slot on the next
+  ``step()`` while the others keep decoding.
+- **Eviction: youngest-first.** When a growing stream needs a block and
+  the pool is dry, the most recently admitted stream is evicted and
+  re-queued at the FRONT with its tokens (it re-prefills on
+  re-admission). The oldest stream is never a victim.
+- **Prefix cache** (``prefix_cache=True``): full blocks are shared
+  between streams with equal prefixes, with copy-on-write when a prompt
+  is matched in full (``serve/prefix.py``).
+- **Decode bursts** (``decode_burst=N``): up to N decode ticks per
+  scheduler pass, eos latched per row inside the burst, tokens copied
+  to the host once per burst.
+
+What differs from the reference, and why:
+
+- PyTorch runs eagerly: there is no compiled step, so the reference's
+  ``serve.decode_traces`` / ``serve.prefill_traces`` counters have no
+  counterpart, and a prefill runs on the prompt's own length (no
+  power-of-two padding buckets).
+- The KV pool is updated IN PLACE (``index_put_`` on a flat view of
+  each layer's ``[KVH, blocks, block_size, DH]`` tensors), where the
+  reference donated the pool buffers to each jitted call. Torch indexing
+  has no ``mode="drop"``: the rows that the reference fenced off with an
+  out-of-range slot id (idle slots, rows latched at eos in a burst) are
+  left out of the write, or write back the pool's own values.
+- Sampling draws from a ``torch.Generator`` on the engine's device
+  (seeded from ``seed``), so sampled streams are reproducible within the
+  port but differ from the reference's ``jax.random`` streams; greedy
+  streams match the reference token for token.
+- Llama family only; ``trace=`` and ``slo=`` (request tracing, SLO
+  monitors) are not ported yet and raise.
+
+Attention over the pool is ``ops/cuda/paged_attention``'s
+``paged_attention_decode``: the hand-written CUDA kernel for CUDA
+tensors (``attention_backend="auto"`` or ``"kernel"``), its plain
+version for CPU tensors or with ``attention_backend="reference"``. Cold
+prefill attention is the reference's plain fp32 softmax, not a kernel.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from dataclasses import dataclass, field
+from typing import Deque, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import observability as obs
+from ..core.generator import make_generator
+from ..core.place import device_of, resolve_device
+from ..incubate.nn.functional import _rope_tables
+from ..incubate.nn.functional._rope_common import rotate_half
+from ..models import generation as _gen
+from ..ops.cuda.paged_attention import paged_attention_decode
+from .pool import BlockPool, PoolExhaustedError
+from .prefix import PrefixCache
+
+__all__ = ["ServeEngine", "Request", "PoolExhaustedError"]
+
+# --- serve. metric subsystem (the reference's names) --------------------
+_M_QUEUE_DEPTH = obs.gauge(
+    "serve.queue_depth", "requests waiting for a decode slot")
+_M_POOL_OCCUPANCY = obs.gauge(
+    "serve.pool_occupancy", "fraction of KV pool blocks allocated")
+_M_BATCH_FILL = obs.gauge(
+    "serve.batch_fill", "active streams / max_slots at the last step")
+_M_TOKENS_PER_SEC = obs.gauge(
+    "serve.tokens_per_sec", "aggregate generated tokens/sec over run()")
+_M_ADMITTED = obs.counter(
+    "serve.requests_admitted", "requests scheduled into a decode slot "
+    "(re-admissions after preemption count again)")
+_M_FINISHED = obs.counter(
+    "serve.requests_finished", "requests completed, by reason "
+    "(eos / max_new_tokens)")
+_M_REJECTED = obs.counter(
+    "serve.requests_rejected", "submissions refused at validation, by "
+    "reason")
+_M_PREEMPTIONS = obs.counter(
+    "serve.preemptions", "streams evicted mid-decode, by reason")
+_M_STALLS = obs.counter(
+    "serve.admission_stalls", "scheduler passes where the queue head "
+    "could not be admitted, by reason")
+_M_TOKENS = obs.counter(
+    "serve.tokens_generated", "tokens emitted across all streams")
+_M_DECODE_STEPS = obs.counter(
+    "serve.decode_steps", "batched decode steps executed")
+_M_TTFT = obs.histogram(
+    "serve.ttft_seconds", "submit -> first generated token wall time "
+    "(queue wait included)")
+_M_REQUEST_SECONDS = obs.histogram(
+    "serve.request_seconds", "submit -> finish wall time per request")
+_M_DECODE_SECONDS = obs.histogram(
+    "serve.decode_step_seconds", "wall time of one batched decode pass "
+    "(one tick, or one burst of ticks), tokens back on the host")
+_M_PREFILL_SECONDS = obs.histogram(
+    "serve.prefill_seconds", "wall time of one prefill call")
+_M_PREFIX_HITS = obs.counter(
+    "serve.prefix_hits", "admissions that mounted shared KV blocks "
+    "from the prefix cache")
+_M_PREFIX_BLOCKS = obs.counter(
+    "serve.prefix_blocks_shared", "full KV blocks mounted read-only "
+    "from the prefix cache at admission — prefill was skipped for "
+    "those tokens")
+_M_COW = obs.counter(
+    "serve.cow_copies", "copy-on-write block duplications where a "
+    "stream diverged inside a shared prefix block")
+_M_BURST_TOKENS = obs.counter(
+    "serve.burst_tokens", "tokens generated inside multi-step decode "
+    "bursts")
+_M_HOST_RT = obs.counter(
+    "serve.host_roundtrips", "device->host token copies — one per "
+    "decode pass, so decode_burst=N cuts this ~N x per token")
+
+QUEUED = "QUEUED"
+RUNNING = "RUNNING"
+FINISHED = "FINISHED"
+
+
+@dataclass
+class Request:
+    """One stream: prompt in, tokens out, scheduling state in between."""
+
+    id: int
+    prompt: np.ndarray                     # [t0] int32
+    max_new_tokens: int
+    eos_token_id: Optional[int] = None
+    temperature: float = 0.0               # 0.0 = greedy
+    submit_time: float = 0.0
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
+    finish_reason: Optional[str] = None
+    state: str = QUEUED
+    ids: List[int] = field(default_factory=list)   # prompt + generated
+    blocks: List[int] = field(default_factory=list)
+    slot: Optional[int] = None
+    admit_seq: int = -1                    # recency rank for eviction
+    preemptions: int = 0
+    warmup: bool = False                   # excluded from TTFT telemetry
+    # prefix-cache bookkeeping (see the reference's Request)
+    prefix_node: Optional[object] = field(default=None, repr=False)
+    registered_upto: int = 0
+    shared_blocks: int = 0
+    prefilled_tokens: int = 0
+
+    @property
+    def n_prompt(self) -> int:
+        return len(self.prompt)
+
+    @property
+    def n_generated(self) -> int:
+        return len(self.ids) - self.n_prompt
+
+    @property
+    def output_ids(self) -> List[int]:
+        """Generated tokens only (prompt excluded)."""
+        return self.ids[self.n_prompt:]
+
+    @property
+    def ttft(self) -> Optional[float]:
+        if self.first_token_time is None:
+            return None
+        return self.first_token_time - self.submit_time
+
+
+class ServeEngine:
+    """Continuous-batching server over a paged KV pool (module docstring
+    has the contract). Llama family.
+
+    Usage::
+
+        model = LlamaForCausalLM(cfg)                  # on the card
+        eng = ServeEngine(model, max_slots=4, block_size=32,
+                          num_blocks=64, max_seq_len=256)
+        r1 = eng.submit(prompt_ids, max_new_tokens=32, eos_token_id=2)
+        eng.run()
+        print(r1.output_ids, r1.ttft)
+
+    ``device=None`` means the card (raises without one); the model must
+    already live on the engine's device. ``prefix_cache`` turns on
+    cross-request KV block sharing; ``decode_burst`` is the most decode
+    ticks run per scheduler pass (1 = one tick per step).
+    """
+
+    def __init__(self, model, *, max_slots: int = 4, block_size: int = 32,
+                 num_blocks: int = 64, max_seq_len: int = 256,
+                 seed: int = 0, name: str = "default",
+                 attention_backend: str = "auto", clock=None,
+                 trace=None, slo=None, prefix_cache: bool = False,
+                 decode_burst: int = 1, device=None):
+        if trace:
+            raise NotImplementedError(
+                "ServeEngine(trace=...): request tracing "
+                "(observability/tracing.py) is not ported yet")
+        if slo:
+            raise NotImplementedError(
+                "ServeEngine(slo=...): SLO monitoring (observability/slo.py) "
+                "is not ported yet")
+        if not hasattr(model, "llama"):
+            raise NotImplementedError(
+                f"the port's ServeEngine supports the Llama family; got "
+                f"{type(model).__name__}")
+        if max_slots < 1:
+            raise ValueError(
+                f"max_slots must be >= 1, got {max_slots} — with no "
+                f"decode slot nothing can ever be admitted and every "
+                f"step loop would spin forever")
+        if attention_backend not in ("auto", "kernel", "reference"):
+            raise ValueError(
+                f"attention_backend must be 'auto', 'kernel' or "
+                f"'reference', got {attention_backend!r}")
+        self.device = resolve_device(device)
+        if device_of(model) != self.device:
+            raise ValueError(
+                f"the model lives on {device_of(model)} but the engine runs "
+                f"on {self.device}; build the model on the engine's device")
+        self.name = str(name)
+        self.max_slots = int(max_slots)
+        self.block_size = int(block_size)
+        self.max_seq_len = int(max_seq_len)
+        self._clock = clock if clock is not None else time.perf_counter
+        self.max_blocks_per_seq = -(-self.max_seq_len // self.block_size)
+        self.pool = BlockPool(num_blocks, block_size)
+        self._backend = attention_backend
+
+        self._p = _gen._decode_family(model)
+        self._nh, self._nkv = self._p["nh"], self._p["nkv"]
+        self._dh, self._L = self._p["dh"], len(self._p["layers"])
+        self._dtype = self._p["embed"].dtype
+        shape = (self._nkv, self.pool.num_blocks, self.block_size, self._dh)
+        self._caches = [
+            (torch.zeros(shape, dtype=self._dtype, device=self.device),
+             torch.zeros(shape, dtype=self._dtype, device=self.device))
+            for _ in range(self._L)]
+        # fp32 rope tables, built once (position-only, shared by every
+        # layer and call)
+        self._cos, self._sin = _rope_tables(
+            self.max_seq_len, self._dh, self._p["theta"], True,
+            torch.float32, self.device)
+
+        # host-side slot state
+        self._slots: List[Optional[Request]] = [None] * self.max_slots
+        self._tables = np.zeros(
+            (self.max_slots, self.max_blocks_per_seq), np.int32)
+        self._lens = np.zeros(self.max_slots, np.int32)
+        self._tokens = np.zeros(self.max_slots, np.int32)
+        self._temps = np.zeros(self.max_slots, np.float32)
+        self._eos = np.full(self.max_slots, -1, np.int32)   # -1 = none
+
+        self._prefix: Optional[PrefixCache] = (
+            PrefixCache(self.block_size) if prefix_cache else None)
+        if int(decode_burst) < 1:
+            raise ValueError(
+                f"decode_burst must be >= 1, got {decode_burst}")
+        self.decode_burst = int(decode_burst)
+        # power-of-two burst lengths actually run
+        self.burst_lens_used: set = set()
+
+        self.queue: Deque[Request] = collections.deque()
+        self.finished: List[Request] = []
+        self._next_id = 0
+        self._admit_counter = 0
+        self._n_tokens = 0
+        self._n_preempts = 0
+        # decode-tick sampler (device) and first-token sampler (host)
+        self._gen = make_generator(seed, self.device)
+        self._rng = np.random.default_rng(seed)
+
+    # -- submission --------------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int = 32,
+               eos_token_id: Optional[int] = None,
+               temperature: float = 0.0,
+               warmup: bool = False) -> Request:
+        """Validate and enqueue one stream (FIFO). Raises ``ValueError``
+        for requests that could NEVER run; a request that merely has to
+        wait for blocks is queued. ``warmup`` keeps the request out of
+        the ``serve.ttft_seconds`` histogram."""
+        if isinstance(prompt, torch.Tensor):
+            prompt = prompt.detach().cpu().numpy()
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            _M_REJECTED.inc(engine=self.name, reason="empty_prompt")
+            raise ValueError("submit: prompt is empty")
+        if max_new_tokens < 1:
+            _M_REJECTED.inc(engine=self.name, reason="bad_max_new_tokens")
+            raise ValueError(
+                f"submit: max_new_tokens must be >= 1, got "
+                f"{max_new_tokens}")
+        total = prompt.size + int(max_new_tokens)
+        if total > self.max_seq_len:
+            _M_REJECTED.inc(engine=self.name, reason="too_long")
+            raise ValueError(
+                f"submit: prompt ({prompt.size}) + max_new_tokens "
+                f"({max_new_tokens}) = {total} exceeds the engine's "
+                f"max_seq_len ({self.max_seq_len})")
+        # the last generated token is emitted but never written back, so
+        # the KV working set is total - 1 positions
+        need = self.pool.blocks_for_tokens(total - 1)
+        if need > self.pool.num_blocks:
+            _M_REJECTED.inc(engine=self.name, reason="pool_too_small")
+            raise ValueError(
+                f"submit: request needs {need} KV blocks "
+                f"(block_size={self.block_size}) but the whole pool is "
+                f"{self.pool.num_blocks} — it can never be admitted")
+        req = Request(
+            id=self._next_id, prompt=prompt,
+            max_new_tokens=int(max_new_tokens),
+            eos_token_id=(None if eos_token_id is None
+                          else int(eos_token_id)),
+            temperature=float(temperature),
+            submit_time=self._clock(),
+            ids=[int(t) for t in prompt], warmup=bool(warmup))
+        self._next_id += 1
+        self.queue.append(req)
+        _M_QUEUE_DEPTH.set(len(self.queue), engine=self.name)
+        return req
+
+    # -- engine loop -------------------------------------------------------
+    @property
+    def n_active(self) -> int:
+        """Streams currently holding a decode slot."""
+        return sum(1 for r in self._slots if r is not None)
+
+    @property
+    def has_work(self) -> bool:
+        """True while anything is queued or decoding."""
+        return bool(self.queue) or any(r is not None for r in self._slots)
+
+    def step(self) -> int:
+        """One scheduler iteration: admit from the queue into free slots
+        (prefill), then one decode pass (one tick, or a burst) for every
+        active stream. Returns the number of streams active this step."""
+        self._admit()
+        n_active = self.n_active
+        if n_active:
+            if self.decode_burst > 1:
+                self._decode_burst_once()
+            else:
+                self._decode_once()
+        _M_QUEUE_DEPTH.set(len(self.queue), engine=self.name)
+        _M_POOL_OCCUPANCY.set(round(self.pool.occupancy, 4),
+                              engine=self.name)
+        _M_BATCH_FILL.set(round(n_active / self.max_slots, 4),
+                          engine=self.name)
+        return n_active
+
+    def run(self, max_steps: int = 100_000) -> List[Request]:
+        """Drive :meth:`step` until queue and slots drain; returns the
+        finished requests. Sets ``serve.tokens_per_sec`` over the run."""
+        t0 = self._clock()
+        tok0 = sum(r.n_generated for r in self.finished)
+        steps = 0
+        while self.has_work:
+            self.step()
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError(
+                    f"run(): exceeded max_steps={max_steps} with "
+                    f"{len(self.queue)} queued and "
+                    f"{sum(1 for r in self._slots if r)} active — "
+                    f"scheduler is not making progress")
+        dt = self._clock() - t0
+        n_tok = sum(r.n_generated for r in self.finished) - tok0
+        if dt > 0 and n_tok:
+            _M_TOKENS_PER_SEC.set(round(n_tok / dt, 2), engine=self.name)
+        return self.finished
+
+    # -- scheduling --------------------------------------------------------
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self._slots):
+            if r is None:
+                return i
+        return None
+
+    def _admit(self):
+        """FIFO admission from the queue head into free slots, with the
+        prefix cache's longest-prefix match and copy-on-write (see the
+        reference's ``_admit``)."""
+        bs = self.block_size
+        while self.queue:
+            slot = self._free_slot()
+            if slot is None:
+                _M_STALLS.inc(engine=self.name, reason="no_free_slot")
+                return
+            req = self.queue[0]
+            # resumed streams re-prefill prompt+generated minus the
+            # pending last token; fresh streams prefill the prompt (a
+            # COPY: _prefill appends the first token to req.ids)
+            prefill_ids = list(req.ids[:-1] if req.n_generated > 0
+                               else req.ids)
+            n_pre = len(prefill_ids)
+            matched: List[int] = []
+            cow = False
+            if self._prefix is not None:
+                matched = self._prefix.match(prefill_ids)
+                # a full-prompt match must still produce the last
+                # token's logits: recompute it into a CoW copy
+                cow = bool(matched) and len(matched) * bs >= n_pre
+            read_only = matched[:-1] if cow else matched
+            if read_only:
+                self.pool.acquire(read_only)
+                self._prefix.note_acquired(read_only)
+            need = self.pool.blocks_for_tokens(n_pre) - len(read_only)
+            evictable = (self._prefix.evictable_blocks
+                         if self._prefix is not None else 0)
+            if need > self.pool.free_blocks + evictable:
+                # head-of-line blocking is the FIFO contract; put the
+                # acquired prefix references back
+                if read_only:
+                    self._prefix.note_cached(
+                        self.pool.release(read_only, retain=read_only))
+                _M_STALLS.inc(engine=self.name, reason="no_free_blocks")
+                return
+            self.queue.popleft()
+            fresh = self._alloc_blocks(need)
+            req.blocks = list(read_only) + fresh
+            req.shared_blocks = len(read_only)
+            if cow:
+                # fresh[0] sits at the divergence position: duplicate the
+                # shared block's K/V so the recomputed last token writes
+                # into private pages
+                self._cow(matched[-1], fresh[0])
+                _M_COW.inc(engine=self.name)
+            if read_only or cow:
+                _M_PREFIX_HITS.inc(engine=self.name)
+                _M_PREFIX_BLOCKS.inc(len(read_only), engine=self.name)
+            if self._prefix is not None:
+                req.prefix_node = self._prefix.node_for(prefill_ids)
+                req.registered_upto = len(matched)
+            req.slot = slot
+            req.state = RUNNING
+            req.admit_seq = self._admit_counter
+            self._admit_counter += 1
+            self._slots[slot] = req
+            row = np.zeros(self.max_blocks_per_seq, np.int32)
+            row[:len(req.blocks)] = req.blocks
+            self._tables[slot] = row
+            # shared tokens are resident KV the suffix attends to but
+            # never recomputes; under CoW the suffix is the last token
+            start = (n_pre - 1) if cow else len(read_only) * bs
+            self._prefill(req, prefill_ids, start=start)
+            _M_ADMITTED.inc(engine=self.name)
+            if req.state is FINISHED:
+                continue        # eos / max_new hit on the first token
+            self._lens[slot] = n_pre
+            self._tokens[slot] = req.ids[-1]
+            self._temps[slot] = req.temperature
+            self._eos[slot] = (-1 if req.eos_token_id is None
+                               else req.eos_token_id)
+
+    def _alloc_blocks(self, n: int) -> List[int]:
+        """Pool alloc backed by prefix-cache eviction (LRU refcount-0
+        cached blocks first). Raises ``PoolExhaustedError`` when even
+        eviction cannot cover ``n``."""
+        if self._prefix is not None and n > self.pool.free_blocks:
+            self._prefix.evict(self.pool, n - self.pool.free_blocks)
+        return self.pool.alloc(n)
+
+    def _prefill(self, req: Request, prefill_ids: List[int],
+                 start: int = 0):
+        """Prefill this stream's KV. ``start`` tokens are already
+        resident (mounted from the prefix cache), so only the suffix is
+        computed — through the block table, where each suffix row attends
+        to the shared prefix it never recomputed. ``start == 0`` is the
+        cold path (in-prompt causal attention)."""
+        suffix = prefill_ids[start:]
+        n = len(suffix)
+        req.prefilled_tokens += n
+        with _M_PREFILL_SECONDS.time(engine=self.name), torch.no_grad():
+            ids = torch.tensor(suffix, dtype=torch.long, device=self.device)
+            table_row = torch.tensor(self._tables[req.slot],
+                                     device=self.device)
+            if start == 0:
+                logits = self._prefill_impl(ids, table_row)
+            else:
+                logits = self._suffix_prefill_impl(ids, start, table_row)
+            if req.n_generated == 0:
+                logits = logits.cpu().numpy()
+        if req.n_generated == 0:
+            # fresh stream: its FIRST token comes from the prefill logits
+            # (the TTFT moment); resumed streams already hold theirs
+            tok = self._sample_host(logits, req.temperature)
+            now = self._clock()
+            req.first_token_time = now
+            if not req.warmup:
+                _M_TTFT.observe(now - req.submit_time, engine=self.name)
+            self._append_token(req, tok)
+        else:
+            # resumed streams append nothing; their just-refilled full
+            # blocks still need trie registration
+            self._register_full_blocks(req)
+
+    def _sample_host(self, logits: np.ndarray, temperature: float) -> int:
+        """First-token sampling (host-side, numpy, as the reference).
+        Greedy at temperature 0."""
+        if temperature <= 0.0:
+            return int(np.argmax(logits))
+        z = logits.astype(np.float64) / max(temperature, 1e-6)
+        z -= z.max()
+        prob = np.exp(z)
+        prob /= prob.sum()
+        return int(self._rng.choice(logits.shape[0], p=prob))
+
+    def _register_full_blocks(self, req: Request):
+        """Register every newly-FULL block of this stream in the prefix
+        trie (written positions are ``len(ids) - 1``)."""
+        if self._prefix is None or req.prefix_node is None:
+            return
+        bs = self.block_size
+        full = (len(req.ids) - 1) // bs
+        while req.registered_upto < full:
+            b = req.registered_upto
+            req.prefix_node = self._prefix.register(
+                req.prefix_node, req.ids[b * bs:(b + 1) * bs],
+                req.blocks[b])
+            req.registered_upto += 1
+
+    def _release_blocks(self, req: Request):
+        """Drop this stream's references; trie-registered blocks whose
+        refcount hits 0 stay cached (matchable), the rest are freed."""
+        if self._prefix is not None:
+            retain = [b for b in req.blocks
+                      if self._prefix.is_registered(b)]
+            self._prefix.note_cached(
+                self.pool.release(req.blocks, retain=retain))
+        else:
+            self.pool.free(req.blocks)
+        req.blocks = []
+
+    def _append_token(self, req: Request, tok: int,
+                      now: Optional[float] = None):
+        """``now`` carries the in-burst step-boundary timestamp of a token
+        produced inside a burst; None reads the clock."""
+        req.ids.append(int(tok))
+        self._n_tokens += 1
+        _M_TOKENS.inc(engine=self.name)
+        self._register_full_blocks(req)
+        if req.eos_token_id is not None and tok == req.eos_token_id:
+            self._finish(req, "eos", now=now)
+        elif req.n_generated >= req.max_new_tokens:
+            self._finish(req, "max_new_tokens", now=now)
+
+    def _finish(self, req: Request, reason: str,
+                now: Optional[float] = None):
+        self._release_blocks(req)
+        if req.slot is not None:
+            self._clear_slot(req.slot)
+        req.slot = None
+        req.state = FINISHED
+        req.finish_reason = reason
+        req.finish_time = self._clock() if now is None else now
+        self.finished.append(req)
+        _M_FINISHED.inc(engine=self.name, reason=reason)
+        _M_REQUEST_SECONDS.observe(req.finish_time - req.submit_time,
+                                   engine=self.name)
+
+    def _clear_slot(self, slot: int):
+        self._slots[slot] = None
+        self._tables[slot] = 0
+        self._lens[slot] = 0
+        self._tokens[slot] = 0
+        self._temps[slot] = 0.0
+        self._eos[slot] = -1
+
+    def _preempt_youngest(self) -> Request:
+        """Evict the most recently admitted active stream back to the
+        FRONT of the queue; the oldest is never a victim."""
+        victims = [r for r in self._slots if r is not None]
+        victim = max(victims, key=lambda r: r.admit_seq)
+        self._release_blocks(victim)
+        self._clear_slot(victim.slot)
+        victim.slot = None
+        victim.state = QUEUED
+        victim.preemptions += 1
+        self._n_preempts += 1
+        self.queue.appendleft(victim)
+        _M_PREEMPTIONS.inc(engine=self.name, reason="pool_exhausted")
+        return victim
+
+    def _ensure_blocks(self, lookahead: int = 1):
+        """Every active stream needs the block its next token writes
+        into; allocate at block boundaries, evicting youngest-first when
+        the pool runs dry. ``lookahead > 1`` (bursts) pre-allocates for
+        the next ``lookahead`` tokens, but only the must-have block is
+        worth a preemption — otherwise the burst just shrinks."""
+        for req in sorted((r for r in self._slots if r is not None),
+                          key=lambda r: r.admit_seq):
+            if req.slot is None:
+                continue          # evicted by an older stream this pass
+            la = max(1, min(lookahead,
+                            req.max_new_tokens - req.n_generated))
+            bi = int(self._lens[req.slot]) // self.block_size
+            target = (int(self._lens[req.slot]) + la - 1) // self.block_size
+            while target >= len(req.blocks):
+                try:
+                    new = self._alloc_blocks(1)
+                except PoolExhaustedError:
+                    if len(req.blocks) > bi:
+                        break     # next token covered; burst shrinks
+                    if self._preempt_youngest() is req:
+                        break     # req went back to the queue itself
+                    continue
+                req.blocks.extend(new)
+                self._tables[req.slot, len(req.blocks) - 1] = new[0]
+
+    def _decode_once(self):
+        self._ensure_blocks()
+        active_np = np.array([r is not None for r in self._slots], bool)
+        if not active_np.any():
+            return                # everyone was preempted away
+        with _M_DECODE_SECONDS.time(engine=self.name):
+            ys, _ = self._run_ticks(1, active_np)
+        _M_DECODE_STEPS.inc(engine=self.name)
+        _M_HOST_RT.inc(engine=self.name)
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            self._lens[slot] += 1
+            self._append_token(req, int(ys[0, slot]))
+            if req.state is not FINISHED:
+                self._tokens[slot] = req.ids[-1]
+
+    def _pick_burst_len(self) -> int:
+        """Burst length: never cross a block boundary (blocks are
+        allocated on the host) or any stream's max length mid-burst,
+        rounded DOWN to a power of two (as the reference, which compiled
+        one scan per power of two)."""
+        n = self.decode_burst
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            cap = len(req.blocks) * self.block_size - int(
+                self._lens[slot])
+            n = min(n, cap, req.max_new_tokens - req.n_generated)
+        n = max(1, n)
+        return 1 << (n.bit_length() - 1)
+
+    def _decode_burst_once(self):
+        """One scheduler pass's worth of decode as a burst: N ticks run
+        back to back on the device (sampling, eos latching and length
+        advance included), then the host replays the emitted token
+        matrix through the normal finish/registration bookkeeping, each
+        token stamped at its interpolated in-burst step boundary."""
+        self._ensure_blocks(lookahead=self.decode_burst)
+        active_np = np.array([r is not None for r in self._slots], bool)
+        if not active_np.any():
+            return                # everyone was preempted away
+        n = self._pick_burst_len()
+        self.burst_lens_used.add(n)
+        t0 = self._clock()
+        with _M_DECODE_SECONDS.time(engine=self.name):
+            ys, emitted = self._run_ticks(n, active_np)
+        t1 = self._clock()
+        _M_DECODE_STEPS.inc(n, engine=self.name)
+        _M_HOST_RT.inc(engine=self.name)
+        per_step = (t1 - t0) / n
+        n_emitted = 0
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            for j in range(int(emitted[slot])):
+                self._lens[slot] += 1
+                n_emitted += 1
+                self._append_token(req, int(ys[j, slot]),
+                                   now=t0 + per_step * (j + 1))
+                if req.state is FINISHED:
+                    break
+            if req.state is not FINISHED:
+                self._tokens[slot] = req.ids[-1]
+        _M_BURST_TOKENS.inc(n_emitted, engine=self.name)
+
+    def warm_burst(self, n: int):
+        """Run ``n`` decode ticks over idle slot state (every row
+        inactive: no KV write lands, outputs are discarded, the sampler
+        draws from a throwaway generator) so kernel builds and library
+        start-up happen before serving traffic."""
+        self._run_ticks(int(n), np.zeros(self.max_slots, bool),
+                        generator=make_generator(0, self.device))
+
+    # -- device work -------------------------------------------------------
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(a, device=self.device)
+
+    @torch.no_grad()
+    def _run_ticks(self, n: int, active_np: np.ndarray, generator=None):
+        """``n`` decode ticks over every slot from the host slot state.
+        Each tick runs :meth:`_decode_core`, then latches eos per row: a
+        finished row keeps ticking but freezes (its length stops, its KV
+        write is suppressed, its later tokens are never read). Returns
+        (tokens [n, B], emitted per slot [B]) as numpy — the one
+        device-to-host copy of the pass."""
+        gen = self._gen if generator is None else generator
+        tokens, lens = self._t(self._tokens), self._t(self._lens)
+        tables, temps = self._t(self._tables), self._t(self._temps)
+        eos = self._t(self._eos)
+        live = self._t(active_np)
+        # the rows that may write K/V: slots active when the pass began
+        rows = torch.tensor(np.flatnonzero(active_np), dtype=torch.long,
+                            device=self.device)
+        emitted = torch.zeros(self.max_slots, dtype=torch.int32,
+                              device=self.device)
+        ys = []
+        for tick in range(n):
+            # rows can only be latched after the first tick
+            keep = None if tick == 0 else live[rows]
+            nxt = self._decode_core(tokens, lens, live, tables, temps, rows,
+                                    keep, gen)
+            hit = live & (eos >= 0) & (nxt == eos)
+            tokens = torch.where(live, nxt, tokens)
+            lens = torch.where(live, lens + 1, lens)
+            emitted = emitted + live.to(torch.int32)
+            live = live & ~hit
+            ys.append(nxt)
+        return torch.stack(ys).cpu().numpy(), emitted.cpu().numpy()
+
+    def _decode_core(self, tokens, lens, active, tables, temps, rows, keep,
+                     gen):
+        """ONE batched decode tick over every slot: write each active
+        stream's pending token into its KV block (``rows`` write;
+        ``keep`` masks rows latched at eos, None = all live), attend
+        through the block tables (paged decode attention), project,
+        sample."""
+        b = self.max_slots
+        nh, dh, bs = self._nh, self._dh, self.block_size
+        p = self._p
+        x = p["embed"][tokens.long()]                      # [B, H]
+        pos = lens.long()
+        rope = self._rope_rows(pos)
+        lengths = torch.where(active, pos + 1, 0).to(torch.int32)
+        bi = torch.clamp(pos // bs, 0, self.max_blocks_per_seq - 1)
+        phys = tables.long().gather(1, bi[:, None])[:, 0]
+        slot = phys * bs + pos % bs
+
+        def attn(q, _k, _v, kc, vc):
+            return paged_attention_decode(
+                q, kc, vc, lengths, tables,
+                backend=self._backend).reshape(b, nh * dh)
+
+        out = self._stack_layers(x, rope, slot, rows, keep, attn)
+        logits = _gen._head_logits(p, out).float()          # [B, V]
+        return _gen._sample_slot_tokens(logits, temps, gen)
+
+    def _scatter_kv(self, kc, vc, k_new, v_new, slot, rows, live):
+        """Write per-row K/V ([rows, kvh, dh]) into the pool IN PLACE at
+        flat slot ids. Only the rows in ``rows`` write (None = all): the
+        reference fenced idle slots off with an out-of-range id under
+        ``mode="drop"``; torch has no drop mode, and clamping would
+        overwrite the last block, so those rows are left out. ``live``
+        (per written row) keeps the pool's own values for rows latched
+        at eos inside a burst."""
+        nb, bs = self.pool.num_blocks, self.block_size
+        kc_f = kc.view(self._nkv, nb * bs, self._dh)
+        vc_f = vc.view(self._nkv, nb * bs, self._dh)
+        if rows is not None:
+            slot, k_new, v_new = slot[rows], k_new[rows], v_new[rows]
+        k_new, v_new = k_new.transpose(0, 1), v_new.transpose(0, 1)
+        if live is not None:
+            keep = live[None, :, None]
+            k_new = torch.where(keep, k_new, kc_f[:, slot])
+            v_new = torch.where(keep, v_new, vc_f[:, slot])
+        kc_f[:, slot] = k_new
+        vc_f[:, slot] = v_new
+
+    def _rope_rows(self, pos):
+        """fp32 cos/sin rows at per-row positions ``pos``: [rows, 1, dh]."""
+        return self._cos[pos][:, None, :], self._sin[pos][:, None, :]
+
+    def _rope(self, q, k, cos, sin):
+        """Rotate q/k ([rows, heads, dh]) in fp32, cast back."""
+        q32, k32 = q.float(), k.float()
+        q = q32 * cos + rotate_half(q32, True) * sin
+        k = k32 * cos + rotate_half(k32, True) * sin
+        return q.to(self._dtype), k.to(self._dtype)
+
+    def _stack_layers(self, x, rope, slot, rows, live, attn):
+        """ONE transformer stack for decode and both prefills: norm,
+        projections, rope, K/V scatter into the pool, attention via the
+        given closure, residual + FFN, final norm. ``x`` is [rows, H];
+        ``attn(q, k, v, kc, vc) -> [rows, nh*dh]`` is the only thing the
+        callers differ in. Returns the normed hidden [rows, H]."""
+        n = x.shape[0]
+        nh, kvh, dh = self._nh, self._nkv, self._dh
+        dtype, p = self._dtype, self._p
+        eps = p["eps"]
+        for lp, (kc, vc) in zip(p["layers"], self._caches):
+            h = _gen._rms(x, lp["ln1"], eps, dtype)
+            q = F.linear(h, lp["wq"]).reshape(n, nh, dh)
+            k = F.linear(h, lp["wk"]).reshape(n, kvh, dh)
+            v = F.linear(h, lp["wv"]).reshape(n, kvh, dh)
+            q, k = self._rope(q, k, *rope)
+            self._scatter_kv(kc, vc, k, v, slot, rows, live)
+            ctx = attn(q, k, v, kc, vc)
+            x = x + F.linear(ctx.to(dtype), lp["wo"])
+            x = x + _gen._llama_ffn(_gen._rms(x, lp["ln2"], eps, dtype), lp,
+                                    dtype)
+        return _gen._rms(x, p["norm"], eps, dtype)
+
+    def _positions_to_slots(self, positions, table_row):
+        bs = self.block_size
+        bi = torch.clamp(positions // bs, 0, self.max_blocks_per_seq - 1)
+        return table_row.long()[bi] * bs + positions % bs
+
+    def _prefill_impl(self, ids, table_row):
+        """Prompt prefill for ONE stream: causal self-attention over the
+        prompt (plain fp32 softmax, as the reference), K/V written into
+        this stream's pool blocks, the last token's logits returned."""
+        n = ids.shape[0]
+        nh, kvh, dh = self._nh, self._nkv, self._dh
+        group = nh // kvh
+        positions = torch.arange(n, device=self.device)
+        x = self._p["embed"][ids]                          # [n, H]
+        rope = self._rope_rows(positions)
+        causal = positions[None, :] <= positions[:, None]  # [Tq, Tk]
+        slot = self._positions_to_slots(positions, table_row)
+
+        def attn(q, k, v, _kc, _vc):
+            k_rep = torch.repeat_interleave(k, group, dim=1) if group > 1 else k
+            v_rep = torch.repeat_interleave(v, group, dim=1) if group > 1 else v
+            scores = torch.einsum("qhd,khd->hqk", q.float(),
+                                  k_rep.float()) * (dh ** -0.5)
+            scores = scores.masked_fill(~causal[None], float("-inf"))
+            probs = torch.softmax(scores, dim=-1)
+            return torch.einsum("hqk,khd->qhd", probs,
+                                v_rep.float()).reshape(n, nh * dh)
+
+        out = self._stack_layers(x, rope, slot, None, None, attn)
+        return _gen._head_logits(self._p, out[n - 1:n])[0].float()
+
+    def _suffix_prefill_impl(self, ids, start, table_row):
+        """Prefill of the UNSHARED suffix only, for a stream whose first
+        ``start`` tokens were mounted from the prefix cache: suffix K/V
+        goes into this stream's own blocks at positions ``start + i``,
+        then each suffix row attends THROUGH the block table (length
+        ``start + i + 1``) with the paged decode attention, so it sees
+        the shared resident prefix plus the suffix rows written so far —
+        scatter precedes attention per layer, exactly as in decode."""
+        n = ids.shape[0]
+        nh, dh = self._nh, self._dh
+        positions = start + torch.arange(n, device=self.device)
+        x = self._p["embed"][ids]
+        rope = self._rope_rows(positions)
+        slot = self._positions_to_slots(positions, table_row)
+        lengths = (positions + 1).to(torch.int32)
+        tables_rep = table_row[None, :].expand(n, table_row.shape[0])
+
+        def attn(q, _k, _v, kc, vc):
+            return paged_attention_decode(
+                q, kc, vc, lengths, tables_rep,
+                backend=self._backend).reshape(n, nh * dh)
+
+        out = self._stack_layers(x, rope, slot, None, None, attn)
+        return _gen._head_logits(self._p, out[n - 1:n])[0].float()
+
+    @torch.no_grad()
+    def _cow(self, src: int, dst: int):
+        """Copy-on-write: duplicate one physical block's K/V across every
+        layer into a private block, in place."""
+        for kc, vc in self._caches:
+            kc[:, dst] = kc[:, src]
+            vc[:, dst] = vc[:, src]

@@ -1,0 +1,113 @@
+"""Package-level rules of the PyTorch/CUDA port (paddle_tpu_torch).
+
+- it imports neither jax nor anything of paddle_tpu (checked in a fresh
+  interpreter and by an AST scan of every module);
+- its entry points run on the card by default and raise when there is
+  none, unless the caller passes ``device="cpu"``;
+- a CPU tensor never reaches a kernel: with the kernel loader broken, the
+  whole inference path still runs on the CPU and no launch is counted;
+- chip_smoke.py alone, or without a card, exits non-zero and prints no
+  result.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServeEngine
+from paddle_tpu_torch.core.place import resolve_device
+from paddle_tpu_torch.ops.cuda import _build
+from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+from paddle_tpu_torch.ops.cuda import paged_attention as tpa
+from paddle_tpu_torch.ops.cuda import rms_norm as trn
+from paddle_tpu_torch.serve import default_serving_setup
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = Path(paddle_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_pulls_in_no_jax_and_no_reference_package():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serve, "
+            "paddle_tpu_torch.models, paddle_tpu_torch.convert; "
+            "print('\\n'.join(sys.modules))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=120,
+                         check=True).stdout.split()
+    assert "paddle_tpu_torch.serve.engine" in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(PKG)) for p in PKG.rglob("*.py")))
+def test_no_module_imports_jax_or_the_reference(path):
+    tree = ast.parse((PKG / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert [n for n in names if _forbidden(n)] == []
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LlamaConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        default_serving_setup()
+    model = LlamaForCausalLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(model)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert default_serving_setup("cpu")[0].hidden_size == cfg.hidden_size
+    ServeEngine(model, device="cpu")
+
+
+def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"a CPU run tried to load the {name} kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    counts = (tfa.launches, trn.launches, tpa.launches)
+    # head_dim 64: the flash and RMSNorm gates pass, so the forward goes
+    # through the kernel wrappers, which send CPU tensors to plain code
+    cfg = LlamaConfig.tiny(hidden_size=128, num_attention_heads=2,
+                           num_key_value_heads=2)
+    model = LlamaForCausalLM(cfg, device="cpu").eval()
+    with torch.no_grad():
+        logits = model(torch.randint(0, 256, (2, 16)))
+    assert torch.isfinite(logits).all()
+    eng = ServeEngine(model, max_slots=2, block_size=8, num_blocks=8,
+                      max_seq_len=32, name="t_pkg", device="cpu",
+                      prefix_cache=True)
+    for _ in range(2):
+        eng.submit(np.arange(1, 18), max_new_tokens=4)   # 2nd: prefix hit
+        eng.run()
+    assert all(r.state == "FINISHED" for r in eng.finished)
+    assert (tfa.launches, trn.launches, tpa.launches) == counts
+
+
+def test_chip_smoke_fails_without_the_package_or_a_card(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"],
+                          cwd=str(tmp_path), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
