@@ -6,15 +6,21 @@ Phases, each fatal on failure:
 1. device  — the card's name and power limit, torch and CUDA versions;
 2. build   — compile every kernel from ``paddle_tpu_torch/csrc`` (nvcc,
              one process per source, all at once);
-3. kernels — each hand-written kernel against its plain PyTorch version
-             on the card, at the serving and prefill shapes, with its
-             time beside the plain version's, a PyTorch library call's
-             where one computes the same function, and its bound;
+3. kernels — each hand-written kernel (forward and backward) against
+             its plain PyTorch version on the card, at the serving,
+             prefill and training shapes, with its time beside the plain
+             version's, a PyTorch library call's where one computes the
+             same function, and its bound;
 4. forward — ``LlamaForCausalLM`` at the serving width (bf16), counting
              kernel launches, then fp32 logits of kernels vs plain;
 5. serve   — the continuous-batching ``ServeEngine`` under Poisson load
              through the paged kernel, then fp32 greedy streams of the
-             kernel engine vs the reference engine.
+             kernel engine vs the reference engine;
+6. train   — ``bench.py:bench_llama``'s training step (645M Llama, bf16,
+             batch 4 x 2048, ``AdamW(multi_precision=True)``): launch
+             counts per step, falling loss, tokens/s, MFU, peak memory and
+             the device-busy share; then fp32 loss and gradients of the
+             kernels vs the plain compositions at 2 layers.
 
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}``.
@@ -158,25 +164,60 @@ def bound_ms(n_bytes: float, flops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def timings(kernel, plain, library, n_bytes, flops, dtype_name,
+            plain_iters=20):
+    """Device ms of the kernel, its plain version and the library call
+    (None when there is none), and the bound: a dict of the kernels-line
+    numbers."""
+    b_ms, by = bound_ms(n_bytes, flops, dtype_name)
+    return dict(ms=device_ms(kernel),
+                plain_ms=device_ms(plain, iters=plain_iters),
+                library_ms=None if library is None else device_ms(library),
+                bound_ms=b_ms, bound_by=by)
+
+
+def show(label, t):
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    log(f"  {label}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"library {lib}, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+
+
+def library_grad(torch, fn, inputs, grad):
+    """A callable that runs the backward of ``fn(*inputs)`` for ``grad``
+    on a kept graph (``torch.autograd.grad(..., retain_graph=True)``)."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
 def phase_rms_norm(torch, dev, report):
-    """RMSNorm kernel vs ``rms_norm_reference`` at the decode (8 rows)
-    and prefill (4 x 512 rows) row counts of the serving model, hidden
-    2048. Both compute in fp32 and round once: tolerance
-    ``tolerance(dtype, 1e-5)``, i.e. 1e-5 (fp32) plus two output ulps of
-    |y| (bf16, fp16)."""
+    """RMSNorm forward and backward kernels vs ``rms_norm_reference`` /
+    ``rms_norm_bwd_reference``: forward at the decode (8 rows), prefill
+    (4 x 512) and training (4 x 2048) row counts, backward at the
+    training rows, hidden 2048. Both compute in fp32 and round once:
+    tolerance ``tolerance(dtype, 1e-5)`` for y and dx, i.e. 1e-5 (fp32)
+    plus two output ulps (bf16, fp16); dw, a sum over 8192 rows of values
+    up to ~300, ``tolerance(dtype, 1e-3)`` (the fp32 sum taken in block
+    partials instead of one pass)."""
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
+    F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(1)
-    main = None
-    for rows in (8, 2048):
+    eps = 1e-6
+    main = {}
+    for rows in (8, 2048, 8192):
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             x = torch.randn(rows, 2048, generator=g, device=dev).to(dt)
             w = (1 + 0.1 * torch.randn(2048, generator=g, device=dev)).to(dt)
-            y = rn.rms_norm_fwd(x, w, eps=1e-6)
-            ref = rn.rms_norm_reference(x, w, eps=1e-6)
+            y = rn.rms_norm_fwd(x, w, eps=eps)
+            ref = rn.rms_norm_reference(x, w, eps=eps)
             torch.cuda.synchronize()
             atol, rtol = tolerance(dt, 1e-5)
             err, share = close_err(y, ref, atol, rtol)
@@ -184,25 +225,58 @@ def phase_rms_norm(torch, dev, report):
             log(f"  rms_norm rows={rows} {name}: max_abs_err={err:.3g}, "
                 f"{share:.3g} of the tolerance ({atol} + {rtol:.3g}|ref|)")
             check(share <= 1.0, f"rms_norm rows={rows} {name} err {err}")
-            if rows == 2048 and dt == torch.bfloat16:
-                main = (x, w, err)
-    x, w, err = main
-    ms = device_ms(lambda: rn.rms_norm_fwd(x, w, eps=1e-6))
-    plain = device_ms(lambda: rn.rms_norm_reference(x, w, eps=1e-6))
-    lib = device_ms(lambda: torch.nn.functional.rms_norm(
-        x, (x.shape[-1],), w, 1e-6))
-    n = x.numel()
-    b_ms, by = bound_ms(2 * n * x.element_size() + w.numel() * w.element_size(),
-                        4 * n, "float32")
-    log(f"  rms_norm [2048, 2048] bf16: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, torch rms_norm {lib:.4f} ms, bound {b_ms:.4f} ms "
-        f"({by})")
+            if rows < 8192:
+                if rows == 2048 and dt == torch.bfloat16:
+                    main["fwd_serve"] = (x, w, err)
+                continue
+            gy = torch.randn(rows, 2048, generator=g, device=dev).to(dt)
+            dx, dw = rn.rms_norm_bwd(x, w, gy, eps=eps)
+            rdx, rdw = rn.rms_norm_bwd_reference(x, w, gy, eps=eps)
+            torch.cuda.synchronize()
+            e_dx, s_dx = close_err(dx, rdx, atol, rtol)
+            atol_w, _ = tolerance(dt, 1e-3)
+            e_dw, s_dw = close_err(dw, rdw, atol_w, rtol)
+            log(f"  rms_norm_bwd rows={rows} {name}: dx err {e_dx:.3g} "
+                f"({s_dx:.3g} of its tolerance), dw err {e_dw:.3g} "
+                f"({s_dw:.3g} of {atol_w} + {rtol:.3g}|ref|, |dw| max "
+                f"{float(rdw.float().abs().max()):.3g})")
+            check(s_dx <= 1.0 and s_dw <= 1.0,
+                  f"rms_norm_bwd rows={rows} {name} dx {e_dx} dw {e_dw}")
+            if dt == torch.bfloat16:
+                main["fwd_train"] = (x, w, err)
+                main["bwd"] = (x, w, gy, max(e_dx, e_dw))
+
+    def fwd_times(x, w):
+        n = x.numel()
+        return timings(lambda: rn.rms_norm_fwd(x, w, eps=eps),
+                       lambda: rn.rms_norm_reference(x, w, eps=eps),
+                       lambda: F.rms_norm(x, (x.shape[-1],), w, eps),
+                       nbytes(x, x, w), 4 * n, "float32")
+
+    x, w, err = main["fwd_serve"]
+    serve_t = fwd_times(x, w)
+    show("rms_norm [2048, 2048] bf16", serve_t)
+    x, w, err = main["fwd_train"]
+    t = fwd_times(x, w)
+    show("rms_norm [8192, 2048] bf16 (training shape)", t)
     report["rms_norm"] = dict(
         name="rms_norm_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/rms_norm.cu",
-        replaces="paddle_tpu/ops/pallas/rms_norm.py:53",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-        library_ms=lib)
+        replaces="paddle_tpu/ops/pallas/rms_norm.py:53", max_abs_err=err,
+        **t, at_serving_shape=dict(max_abs_err=main["fwd_serve"][2],
+                                   **serve_t))
+    x, w, gy, err = main["bwd"]
+    t = timings(lambda: rn.rms_norm_bwd(x, w, gy, eps=eps),
+                lambda: rn.rms_norm_bwd_reference(x, w, gy, eps=eps),
+                library_grad(torch, lambda a, b: F.rms_norm(
+                    a, (a.shape[-1],), b, eps), (x, w), gy),
+                nbytes(x, w, gy, x, w), 10 * x.numel(), "float32")
+    show("rms_norm_bwd [8192, 2048] bf16", t)
+    report["rms_norm_bwd"] = dict(
+        name="rms_norm_bwd", route="cuda",
+        source="paddle_tpu_torch/csrc/rms_norm.cu",
+        replaces="paddle_tpu/ops/pallas/rms_norm.py:75", max_abs_err=err,
+        **t)
 
 
 def _pages_case(torch, dev, g, b, nh, kvh, dh, page, pps, num_pages, lens,
@@ -346,49 +420,159 @@ def phase_flash(torch, dev, report):
         f"{rn_kept}, identical={bool(torch.equal(kept, rkept))}")
     check(torch.equal(kept, rkept), "flash dropout keep mask differs")
 
-    q, k, v = main
-    sc = q.shape[-1] ** -0.5
-    ms = device_ms(lambda: fa._flash_fwd_kernel(
-        q, k, v, None, None, causal=True, scale=sc, dropout_rate=0.0))
-    plain = device_ms(lambda: fa._flash_fwd_reference(
-        q, k, v, causal=True, scale=sc), iters=5)
-    lib = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    flops = 4 * b * h * sq * sk * d / 2
-    n_bytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() \
-        + b * h * sq * 4
-    b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
-    log(f"  flash causal [4,16,512,128] bf16: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, torch sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
-        f"({by})")
+    def fwd_times(q, k, v):
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        sc = d ** -0.5
+        return timings(
+            lambda: fa._flash_fwd_kernel(q, k, v, None, None, causal=True,
+                                         scale=sc, dropout_rate=0.0),
+            lambda: fa._flash_fwd_reference(q, k, v, causal=True, scale=sc),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True),
+            nbytes(q, k, v, q) + b * h * sq * 4,
+            4 * b * h * sq * sk * d / 2, "bfloat16", plain_iters=5)
+
+    serve_t = fwd_times(*main)
+    show("flash causal [4,16,512,128] bf16", serve_t)
+    q, k, v = (rnd(4, 16, 2048, 128, dt=bf16) for _ in range(3))
+    out, _ = fa._flash_fwd_kernel(q, k, v, None, None, causal=True,
+                                  scale=128 ** -0.5, dropout_rate=0.0)
+    rout, _ = fa._flash_fwd_reference(q, k, v, causal=True,
+                                      scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    atol, rtol = tolerance(bf16, 1e-4)
+    err, share = close_err(out, rout, atol, rtol)
+    log(f"  flash causal [4,16,2048,128] bfloat16 (training shape): out err "
+        f"{err:.3g}, {share:.3g} of the tolerance")
+    check(share <= 1.0, "flash at the training shape")
+    t = fwd_times(q, k, v)
+    show("flash causal [4,16,2048,128] bf16 (training shape)", t)
     report["flash"] = dict(
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:190",
-        max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=by, library_ms=lib)
+        max_abs_err=err, **t,
+        at_serving_shape=dict(max_abs_err=main_err, **serve_t))
+
+
+def phase_flash_bwd(torch, dev, report):
+    """Flash-backward kernels vs ``_flash_bwd_reference``, both fed the
+    forward kernel's out and lse: the training shape (causal
+    [4,16,2048,128]) and, at small shapes, Sq != Sk, GQA with fully
+    masked rows (whose gradients must be exactly 0), [1, Sk] and [B, Sk]
+    key biases with a fully masked batch, and dropout 0.1 at a fixed
+    seed (the same keep bits as the forward). Both accumulate in fp32
+    (the kernels tile by tile, the GQA group inside the block; the plain
+    version in whole einsums) and round once: tolerance
+    ``tolerance(dtype, 1e-4)`` on each of dq, dk, dv, i.e. 1e-4 (fp32,
+    sums over up to 2048 keys or rows of gradients up to ~10) plus two
+    output ulps (bf16, fp16)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def rnd(*shape, dt):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    bias_b = torch.zeros(2, 300, device=dev)
+    bias_b[0] = float("-inf")
+    bias_b[1, ::3] = -1e9
+    cases = [
+        ("causal B4 H16 S2048 D128 (training shape)",
+         (4, 16, 16, 2048, 2048, 128), dict(causal=True)),
+        ("noncausal Sq100 Sk300 D64", (2, 4, 4, 100, 300, 64), {}),
+        ("causal Sq80 Sk48 GQA8/2 (masked rows)", (2, 8, 2, 80, 48, 128),
+         dict(causal=True)),
+        ("bias[1,Sk] GQA4/1", (2, 4, 1, 64, 300, 128),
+         dict(bias=rnd(1, 300, dt=f32))),
+        ("bias[B,Sk] with a masked batch", (2, 4, 4, 64, 300, 64),
+         dict(bias=bias_b)),
+        ("causal dropout 0.1 GQA4/2", (2, 4, 2, 128, 128, 128),
+         dict(causal=True, seed=seed, rate=0.1)),
+    ]
+    main = None
+    for label, (b, h, hkv, sq, sk, d), kw in cases:
+        for dt in (f32, bf16, torch.float16):
+            q, k, v = rnd(b, h, sq, d, dt=dt), rnd(b, hkv, sk, d, dt=dt), \
+                rnd(b, hkv, sk, d, dt=dt)
+            do = rnd(b, h, sq, d, dt=dt)
+            args = (kw.get("seed"), kw.get("bias"))
+            st = dict(causal=kw.get("causal", False), scale=d ** -0.5,
+                      dropout_rate=kw.get("rate", 0.0))
+            out, lse = fa._flash_fwd_kernel(q, k, v, *args, **st)
+            got = fa._flash_bwd_kernel(q, k, v, out, lse, do, *args, **st)
+            ref = fa._flash_bwd_reference(q, k, v, out, lse, do, *args, **st)
+            torch.cuda.synchronize()
+            name = str(dt).replace("torch.", "")
+            atol, rtol = tolerance(dt, 1e-4)
+            res = [close_err(a, r, atol, rtol) for a, r in zip(got, ref)]
+            log(f"  flash_bwd {label} {name}: " + ", ".join(
+                f"{n} err {e:.3g} ({sh:.3g} of the tolerance)"
+                for n, (e, sh) in zip(("dq", "dk", "dv"), res)))
+            check(all(sh <= 1.0 for _, sh in res), f"flash_bwd {label} {name}")
+            if label.startswith("causal Sq80"):
+                check(bool((got[0][:, :, :32] == 0).all()),
+                      "flash_bwd: fully masked rows must give dq 0")
+            if label.startswith("bias[B"):
+                check(all(bool((x[0] == 0).all()) for x in got),
+                      "flash_bwd: a fully masked batch must give 0 grads")
+            if label.startswith("causal B4") and dt == bf16:
+                main = (q, k, v, out, lse, do, max(e for e, _ in res))
+            del q, k, v, do, out, lse, got, ref
+    q, k, v, out, lse, do, err = main
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    sc = d ** -0.5
+    kw = dict(causal=True, scale=sc, dropout_rate=0.0)
+    t = timings(
+        lambda: fa._flash_bwd_kernel(q, k, v, out, lse, do, None, None, **kw),
+        lambda: fa._flash_bwd_reference(q, k, v, out, lse, do, **kw),
+        library_grad(torch, lambda a, b_, c: torch.nn.functional
+                     .scaled_dot_product_attention(a, b_, c, is_causal=True),
+                     (q, k, v), do),
+        nbytes(q, k, v, out, do, q, k, v) + lse.numel() * 4,
+        5 * 2 * b * h * sq * sk * d / 2, "bfloat16", plain_iters=5)
+    show("flash_bwd causal [4,16,2048,128] bf16", t)
+    report["flash_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:404",
+        max_abs_err=err, **t)
+    del main, q, k, v, out, lse, do
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
 # main-path phases
 # ---------------------------------------------------------------------------
-def _kernel_modules():
+def _counters():
+    """Each kernel's launch count: report key -> (module, attribute)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
-    return {"flash": fa, "rms_norm": rn, "paged": pa}
+    return {"flash": (fa, "launches"), "flash_bwd": (fa, "bwd_launches"),
+            "rms_norm": (rn, "launches"), "rms_norm_bwd": (rn, "bwd_launches"),
+            "paged": (pa, "launches")}
 
 
 def reset_counts():
-    for mod in _kernel_modules().values():
-        mod.launches = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_counts():
-    return {k: mod.launches for k, mod in _kernel_modules().items()}
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+
+
+def record_launches(report, path, counts):
+    """Keep each kernel's count from one main-path run under
+    ``launches_by_path[path]``."""
+    for key, n in counts.items():
+        report[key].setdefault("launches_by_path", {})[path] = n
 
 
 def phase_forward(torch, dev, report):
@@ -430,8 +614,7 @@ def phase_forward(torch, dev, report):
         check(counts["flash"] == nl, f"flash launches {counts['flash']} != {nl}")
         check(counts["rms_norm"] == 2 * nl + 1,
               f"rms_norm launches {counts['rms_norm']} != {2 * nl + 1}")
-        report["flash"]["launches"] = counts["flash"]
-        report["rms_norm"]["launches"] = counts["rms_norm"]
+        record_launches(report, "forward", counts)
         fwd_ms = time_ms(lambda: model(ids), iters=5, warmup=1)
         with flags_scope(use_cuda_flash_attention=False,
                          use_cuda_rms_norm=False):
@@ -483,10 +666,20 @@ def profile_decode(torch, eng, vocab, steps=16):
     eng.run()
 
 
+#: profiler kernel names by kind, for the per-kind sums of profile_kernels
+KERNEL_KINDS = (
+    ("flash (port)", ("flash_fwd_kernel", "flash_bwd_")),
+    ("RMSNorm (port)", ("rms_norm_",)),
+    ("paged decode (port)", ("paged_decode_kernel",)),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "sm90_xmma")),
+)
+
+
 def profile_kernels(torch, fn, n, wall_ms, label):
     """Run ``fn`` ``n`` times under ``torch.profiler`` and print the
     device kernel time per call by kernel name, and the busy share
-    against ``wall_ms`` (the unprofiled time of one call)."""
+    against ``wall_ms`` (the unprofiled time of one call). Returns the
+    kernel ms per call (None if the profiler saw no kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -501,13 +694,24 @@ def profile_kernels(torch, fn, n, wall_ms, label):
     if busy_ms <= 0:
         log(f"  {label}: {wall_ms:.3f} ms; device time not measured (the "
             f"profiler saw no kernels)")
-        return
+        return None
     log(f"  {label}: {wall_ms:.3f} ms wall, {busy_ms:.3f} ms of kernels "
         f"({busy_ms / wall_ms:.1%} busy, "
         f"{sum(e.count for e in kernels) / n:.0f} kernels per call)")
     for e in sorted(kernels, key=_dev_us, reverse=True)[:6]:
         log(f"    {_dev_us(e) / n / 1e3:8.4f} ms/call  x{e.count // n:<4d}"
             f" {e.key[:90]}")
+    kinds = {}
+    for e in kernels:
+        kind = next((k for k, pats in KERNEL_KINDS if any(
+            p in e.key for p in pats)), "other (elementwise, copies, "
+                                          "reductions)")
+        ms, cnt = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (ms + _dev_us(e) / n / 1e3, cnt + e.count // n)
+    log("    by kind: " + "; ".join(
+        f"{k} {ms:.3f} ms x{cnt}" for k, (ms, cnt) in
+        sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    return busy_ms
 
 
 def phase_serve(torch, dev, report):
@@ -564,7 +768,7 @@ def phase_serve(torch, dev, report):
     check(counts["paged"] == nl * res.engine_steps,
           f"paged launches {counts['paged']} != layers x decode steps "
           f"{nl * res.engine_steps}")
-    report["paged"]["launches"] = counts["paged"]
+    record_launches(report, "serve", counts)
     profile_decode(torch, eng, config.vocab_size)
     del eng, model
     torch.cuda.empty_cache()
@@ -612,6 +816,149 @@ def phase_serve(torch, dev, report):
     torch.cuda.empty_cache()
 
 
+#: bench.py:bench_llama's training configuration (bench.py:258-264)
+TRAIN_CONFIG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                    num_hidden_layers=10, num_attention_heads=16,
+                    num_key_value_heads=16, max_position_embeddings=2048)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
+
+
+def phase_train(torch, dev, report):
+    """``bench.py:bench_llama``'s step at its full width and depth (645M
+    parameters, bf16, batch 4 x 2048, labels = ids rolled by one,
+    ``AdamW(learning_rate=3e-4, multi_precision=True)``, weight decay
+    0.01): one warm-up step, then ``TRAIN_STEPS`` timed steps on the same
+    batch. Every step must launch flash forward and backward once per
+    layer and the RMSNorm forward and backward twice per layer plus the
+    final norm; every loss must be finite and the last below the first.
+    MFU is bench.py's formula (bench.py:310-312) against the 989 TFLOP/s
+    bf16 peak. Then 2 layers at full width in fp32 (TF32 off), batch
+    2 x 512: the loss and every parameter gradient through the kernels
+    vs through the plain compositions (flags off). Tolerances: loss 1e-4
+    absolute (a mean of ~10.4 over 1022 tokens, fp32 sums in another
+    order); each gradient within 1e-4 of its own max |g| (the kernels
+    and the plain einsums sum in another order; the CPU tests measure
+    about 1e-6 between two fp32 implementations). The full-width step is
+    also timed on the plain compositions (flags off) for comparison."""
+    import dataclasses
+
+    from paddle_tpu_torch.core.flags import flags_scope
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    config = LlamaConfig(**TRAIN_CONFIG, dtype="bfloat16")
+    nl, hid = config.num_hidden_layers, config.hidden_size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = LlamaForCausalLM(config, device=dev, seed=0)
+    n_params = model.num_parameters()
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                multi_precision=True)
+    g = torch.Generator(device=dev).manual_seed(9)
+    ids = torch.randint(0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g, device=dev)
+    labels = torch.roll(ids, -1, dims=1)
+
+    def step():
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    t0 = time.perf_counter()
+    warm = float(step())
+    log(f"  model: {n_params / 1e6:.1f}M parameters, bf16; warm-up step "
+        f"{time.perf_counter() - t0:.2f} s, loss {warm:.4f}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = {"flash": nl, "flash_bwd": nl, "rms_norm": 2 * nl + 1,
+                "rms_norm_bwd": 2 * nl + 1, "paged": 0}
+    log(f"  {TRAIN_STEPS} steps: launches {counts}, losses "
+        f"{[round(x, 4) for x in losses]}")
+    for key, n in per_step.items():
+        check(counts[key] == n * TRAIN_STEPS,
+              f"{key} launches {counts[key]} != {n} x {TRAIN_STEPS} steps")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    record_launches(report, "train", counts)
+    step_ms = dt / TRAIN_STEPS * 1e3
+    tok_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
+    attn_flops = 12 * nl * hid * TRAIN_SEQ
+    mfu = tok_s * (6 * n_params + attn_flops) / PEAK_FLOPS["bfloat16"]
+    log(f"  train step: {step_ms:.2f} ms mean, {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} (bench.py's formula, 989 TFLOP/s bf16 peak), peak "
+        f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
+    busy = profile_kernels(torch, step, 1, step_ms, "train step, kernels")
+    # the optimizer's share of the step: AdamW's update alone, device time
+    loss, _ = model(ids, labels=labels)
+    loss.backward()
+    opt_ms = device_ms(opt.step, iters=3, warmup=1)
+    opt.clear_grad()
+    log(f"  AdamW step alone: {opt_ms:.2f} ms of device time per update")
+    # the same step on the plain compositions (flags off), for comparison
+    with flags_scope(use_cuda_flash_attention=False, use_cuda_rms_norm=False):
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) / 3 * 1e3
+        profile_kernels(torch, step, 1, plain_ms,
+                        "train step, plain compositions")
+    report["train"] = dict(step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
+                           peak_bytes=peak, losses=losses,
+                           busy_share=None if busy is None else busy / step_ms,
+                           optimizer_ms=opt_ms, plain_step_ms=plain_ms)
+    del model, opt
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = LlamaForCausalLM(dataclasses.replace(
+        config, num_hidden_layers=2, dtype="float32"), device=dev, seed=0)
+    ids2 = ids[:2, :512]
+    labels2 = labels[:2, :512].clone()
+    labels2[:, -1] = -100
+
+    def loss_and_grads():
+        loss, _ = model(ids2, labels=labels2)
+        loss.backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    reset_counts()
+    k_loss, k_grads = loss_and_grads()
+    k_counts = read_counts()
+    with flags_scope(use_cuda_flash_attention=False, use_cuda_rms_norm=False):
+        p_loss, p_grads = loss_and_grads()
+    torch.cuda.synchronize()
+    check(read_counts() == k_counts, "the plain run launched a kernel")
+    check(min(k_counts[k] for k in ("flash", "flash_bwd", "rms_norm",
+                                    "rms_norm_bwd")) > 0,
+          f"the fp32 kernel run missed a kernel: {k_counts}")
+    worst = max(((float((k_grads[n] - gp).abs().max())
+                  / float(gp.abs().max()), n) for n, gp in p_grads.items()))
+    log(f"  fp32 2 layers [2, 512], kernels vs plain: loss {k_loss:.6f} vs "
+        f"{p_loss:.6f} (diff {abs(k_loss - p_loss):.3g}, tol 1e-4); worst "
+        f"gradient {worst[1]} off by {worst[0]:.3g} of its max |g| "
+        f"(tol 1e-4) over {len(p_grads)} gradients")
+    check(abs(k_loss - p_loss) <= 1e-4, "fp32 training loss differs")
+    check(worst[0] <= 1e-4, f"fp32 gradient {worst[1]} differs")
+    del model, k_grads, p_grads
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     try:
@@ -651,12 +998,21 @@ def main() -> int:
         phase_rms_norm(torch, dev, report)
         phase_paged(torch, dev, report)
         phase_flash(torch, dev, report)
+        phase_flash_bwd(torch, dev, report)
         log("[forward]")
         phase_forward(torch, dev, report)
         log("[serve]")
         phase_serve(torch, dev, report)
-        missing = [r["name"] for r in report.values() if "launches" not in r]
-        check(not missing, f"no main-path launch count for {missing}")
+        log("[train]")
+        phase_train(torch, dev, report)
+        train = report.pop("train")
+        # launches: this slice's main path (training) for the kernels it
+        # runs, the serving path for the paged kernel
+        for key, r in report.items():
+            r["launches"] = r["launches_by_path"]["serve" if key == "paged"
+                                                  else "train"]
+        idle = [r["name"] for r in report.values() if not r["launches"]]
+        check(not idle, f"no main-path launch for {idle}")
     except Exception as exc:  # every phase is fatal: report and fail
         import traceback
 
@@ -664,6 +1020,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {exc!r}", file=sys.stderr)
         return 1
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
+    log(json.dumps({"train": train}))
     log(json.dumps({"kernels": list(report.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -7,12 +7,13 @@ every kernel the reference wrote in Pallas becomes a hand-written CUDA
 kernel under ``csrc/`` with a plain PyTorch version beside it, which is
 what a CPU tensor runs.
 
-This slice ports Llama inference and the continuous-batching serving
-engine: ``models.LlamaForCausalLM``, ``serve.ServeEngine`` and
-``serve.run_load``, over the paged-decode, flash-forward and
-RMSNorm-forward kernels.
+Two slices are ported. Serving: ``models.LlamaForCausalLM``,
+``serve.ServeEngine`` and ``serve.run_load``, over the paged-decode,
+flash-forward and RMSNorm-forward kernels. Training: the model's
+``labels=`` loss, ``loss.backward()`` through the flash- and
+RMSNorm-backward kernels, and ``optimizer.AdamW``.
 """
-from . import convert, models, nn, serve
+from . import convert, models, nn, optimizer, serve
 from .convert import load_paddle_tpu_state
 from .core.place import resolve_device
 from .models import LlamaConfig, LlamaForCausalLM
@@ -20,4 +21,4 @@ from .serve import ServeEngine, default_serving_setup, run_load, warm_engine
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "ServeEngine", "run_load",
            "warm_engine", "default_serving_setup", "load_paddle_tpu_state",
-           "resolve_device", "convert", "models", "nn", "serve"]
+           "resolve_device", "convert", "models", "nn", "optimizer", "serve"]

@@ -14,10 +14,11 @@ from typing import Dict
 __all__ = ["get_flag", "set_flags", "flags_scope"]
 
 _FLAGS: Dict[str, bool] = {
-    # scaled_dot_product_attention takes the flash-forward kernel when
-    # its gate passes (nn/functional/attention.py)
+    # scaled_dot_product_attention takes the flash kernels (forward
+    # and backward) when their gate passes (nn/functional/attention.py)
     "use_cuda_flash_attention": True,
-    # rms_norm takes the RMSNorm-forward kernel when its gate passes
+    # rms_norm takes the RMSNorm kernels (forward and backward) when
+    # their gate passes
     # (nn/functional/norm.py)
     "use_cuda_rms_norm": True,
 }

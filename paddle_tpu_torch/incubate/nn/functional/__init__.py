@@ -3,14 +3,18 @@
 Counterpart of ``paddle_tpu/incubate/nn/functional/__init__.py``:
 ``_rope_tables``, ``fused_rotary_position_embedding`` and ``swiglu``.
 The reference leaves all three to XLA, so here they are plain PyTorch.
+``fused_linear_cross_entropy`` lives in ``fused_linear_ce.py``, as in the
+reference.
 """
 from __future__ import annotations
 
 import torch
 
 from ._rope_common import rotate_half
+from .fused_linear_ce import fused_linear_cross_entropy
 
-__all__ = ["fused_rotary_position_embedding", "swiglu", "rotate_half"]
+__all__ = ["fused_rotary_position_embedding", "swiglu", "rotate_half",
+           "fused_linear_cross_entropy"]
 
 
 def _rope_tables(s, d, base, use_neox, dtype, device=None):

@@ -1,4 +1,4 @@
-"""Llama model family — the inference forward of the port.
+"""Llama model family — the inference forward and the training loss.
 
 Counterpart of ``paddle_tpu/models/llama.py``. Modules are
 ``torch.nn.Module``s with the reference's names (so parameter names
@@ -7,10 +7,13 @@ Linear weights are torch's ``[out, in]`` where the reference keeps
 paddle's ``[in, out]`` (``convert.load_paddle_tpu_state`` transposes).
 
 Attention goes through ``nn.functional.scaled_dot_product_attention``
-(the flash-forward kernel when its gate passes) and RMSNorm through
-``nn.functional.rms_norm`` (the RMSNorm-forward kernel). Training
-(``labels=``), activation recompute and context parallelism wait for
-later slices and raise ``NotImplementedError``.
+(the flash kernels when their gate passes) and RMSNorm through
+``nn.functional.rms_norm`` (the RMSNorm kernels), forward and backward. ``labels=``
+returns the loss: through the chunked fused lm-head cross-entropy when
+``config.fused_lm_head_ce`` is set, through ``cross_entropy`` on full
+logits otherwise. ``recompute=True`` checkpoints each decoder layer.
+Context parallelism waits for the distributed slice and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ from torch import nn
 
 from ..core.generator import make_generator
 from ..core.place import resolve_device
-from ..incubate.nn.functional import fused_rotary_position_embedding, swiglu
+from ..distributed.fleet.utils import recompute
+from ..incubate.nn.functional import (fused_linear_cross_entropy,
+                                      fused_rotary_position_embedding, swiglu)
 from ..nn import functional as F
 
 __all__ = ["LlamaConfig", "LlamaRMSNorm", "LlamaAttention", "LlamaMLP",
@@ -43,7 +48,9 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
-    recompute: bool = False
+    recompute: bool = False  # activation checkpointing per decoder layer
+    # labels= loss through the chunked fused lm-head + cross-entropy
+    fused_lm_head_ce: bool = True
     # compute-time q|k|v weight concat: one [h+2*kv, h] projection; the
     # parameters stay separate
     fused_qkv: bool = False
@@ -174,7 +181,12 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, position_ids=None, attention_mask=None):
         hidden_states = self.embed_tokens(input_ids)
         for layer in self.layers:
-            hidden_states = layer(hidden_states, position_ids, attention_mask)
+            if self.config.recompute:
+                hidden_states = recompute(layer, hidden_states, position_ids,
+                                          attention_mask)
+            else:
+                hidden_states = layer(hidden_states, position_ids,
+                                      attention_mask)
         return self.norm(hidden_states)
 
 
@@ -186,10 +198,6 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        if config.recompute:
-            raise NotImplementedError(
-                "LlamaConfig.recompute (activation checkpointing) waits for "
-                "the training slice of the port")
         if config.context_parallel:
             raise NotImplementedError(
                 "LlamaConfig.context_parallel waits for the distributed "
@@ -213,13 +221,23 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, position_ids=None, attention_mask=None,
                 labels=None):
-        if labels is not None:
-            raise NotImplementedError(
-                "LlamaForCausalLM(labels=...) — the loss and its fused "
-                "lm-head cross-entropy wait for the training slice of the "
-                "port")
+        """Logits [B, S, V]; with ``labels`` (``-100`` ignored) the mean
+        token loss: ``(loss, None)`` through the fused lm-head
+        cross-entropy, or ``(loss, logits)`` when
+        ``config.fused_lm_head_ce`` is off."""
         hidden_states = self.llama(input_ids, position_ids, attention_mask)
-        return self.lm_head(hidden_states)
+        h, v = self.config.hidden_size, self.config.vocab_size
+        if labels is not None and self.config.fused_lm_head_ce:
+            loss = fused_linear_cross_entropy(
+                hidden_states.reshape(-1, h), self.lm_head.weight,
+                labels.reshape(-1), ignore_index=-100)
+            return loss, None
+        logits = self.lm_head(hidden_states)
+        if labels is not None:
+            loss = F.cross_entropy(logits.reshape(-1, v), labels.reshape(-1),
+                                   ignore_index=-100)
+            return loss, logits
+        return logits
 
     def num_parameters(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -2,7 +2,8 @@
 
 Counterpart of ``paddle_tpu/nn/functional/attention.py``. Layout is
 paddle's [batch, seqlen, num_heads, head_dim]. Routing follows the
-reference: the flash-forward kernel when its gate passes, the plain
+reference: the flash kernels (forward and backward, through
+``_FlashAttention``) when the gate passes, the plain
 composition (``_sdpa_plain`` / ``_sdpa_mask_plain``, the reference's
 ``_sdpa_xla`` / ``_sdpa_mask_xla``) otherwise.
 
@@ -23,6 +24,7 @@ import math
 import torch
 
 from ...core.flags import get_flag
+from ...core.generator import use_generator
 from ...ops.cuda.flash_attention import (KERNEL_HEAD_DIMS,
                                          flash_attention_fused)
 
@@ -36,7 +38,7 @@ def _attn_dropout(probs, generator, dropout_p):
     if dropout_p > 0.0:
         if generator is None:
             raise ValueError("attention dropout needs a torch.Generator")
-        keep = torch.rand(probs.shape, generator=generator,
+        keep = torch.rand(probs.shape, generator=use_generator(generator),
                           device=probs.device) < (1.0 - dropout_p)
         probs = torch.where(keep, probs / (1.0 - dropout_p),
                             torch.zeros((), dtype=probs.dtype,

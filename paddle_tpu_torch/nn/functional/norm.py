@@ -31,20 +31,21 @@ def _use_kernel(x, w) -> bool:
 
 
 class _RmsNorm(torch.autograd.Function):
-    """Forward through the kernel; its backward (``_rms_bwd``) is not
-    ported yet."""
+    """Forward and backward through the kernels; saves x and w (r is
+    recomputed from x in the backward, as the reference does)."""
 
     @staticmethod
     def forward(ctx, x, w, eps):
-        return _kernel.rms_norm_fwd(x.contiguous(), w.contiguous(), eps=eps)
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _kernel.rms_norm_fwd(x, w, eps=eps)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "RMSNorm backward is not ported yet: the backward kernel "
-            "(_rms_bwd) comes with the training slice. Run inference under "
-            "torch.no_grad(), or turn the kernel off with "
-            "core.flags.set_flags({'use_cuda_rms_norm': False}).")
+        x, w = ctx.saved_tensors
+        dx, dw = _kernel.rms_norm_bwd(x, w, grad.contiguous(), eps=ctx.eps)
+        return dx, dw, None
 
 
 def rms_norm(x, weight, epsilon=1e-6, name=None):

@@ -1,16 +1,16 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain
-version.
+"""Flash attention: the hand-written CUDA kernels and their plain
+versions.
 
-Counterpart of the forward half of
-``paddle_tpu/ops/pallas/flash_attention.py`` (kernel source
-``csrc/flash_attention.cu``): ``_flash_fwd_bhsd``,
-``flash_attention_bshd``, ``flash_attention_fused`` and the
-``_dropout_keep`` counter hash, reproduced bit for bit. The backward
-(``_flash_bwd_bhsd``) waits for the training slice, so the autograd
-function's backward raises.
+Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py`` (kernel
+source ``csrc/flash_attention.cu``): ``_flash_fwd_bhsd``,
+``_flash_bwd_bhsd``, ``flash_attention_bshd``, ``flash_attention_fused``
+and the ``_dropout_keep`` counter hash, reproduced bit for bit. The
+backward reuses the seed the forward drew, so it regenerates the same
+keep mask.
 
-Routing: a CPU tensor takes :func:`_flash_fwd_reference`; a CUDA tensor
-launches the kernel or raises. There is no fallback between the two.
+Routing: a CPU tensor takes :func:`_flash_fwd_reference` /
+:func:`_flash_bwd_reference`; a CUDA tensor launches the kernel or
+raises. There is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -23,17 +23,20 @@ from . import _build
 from ...core.generator import draw_seed
 
 __all__ = ["flash_attention_bshd", "flash_attention_fused",
-           "launches", "KERNEL_HEAD_DIMS"]
+           "launches", "bwd_launches", "KERNEL_HEAD_DIMS"]
 
 NEG_INF = float("-inf")
 #: head dims the kernel is compiled for
 KERNEL_HEAD_DIMS = (64, 128)
 _U32 = 0xFFFFFFFF
 
-#: kernel launches since the count was last reset
+#: forward kernel launches since the count was last reset
 launches = 0
+#: backward launches (one dq and one dk/dv kernel each) since the reset
+bwd_launches = 0
 
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -48,6 +51,20 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = _build.load("flash_attention").flash_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_uint, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def _mul32(x, c):
@@ -117,47 +134,94 @@ def _check(q, k, v, seed, key_bias, dropout_rate):
         raise ValueError("flash attention: dropout_rate > 0 needs a seed")
 
 
+def _scores(q, k, key_bias, *, causal, scale):
+    """fp32 logits [B,H,Sq,Sk] under the kernels' bias and causal mask,
+    with k/v repeated to q's heads: (s, repeat)."""
+    b, h, sq, _ = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+
+    def repeat(t):
+        return t.float().repeat_interleave(g, dim=1) if g > 1 else t.float()
+
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), repeat(k)) * scale
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(rows + (sk - sq) >= cols, s, NEG_INF)
+    return s, repeat
+
+
+def _keep_scale(q, sk, seed, dropout_rate):
+    """The dropout keep mask times 1 / (1 - rate), [B,H,Sq,Sk] fp32."""
+    b, h, sq, _ = q.shape
+    dev = q.device
+    bh = (torch.arange(b, dtype=torch.int64, device=dev)[:, None] * h
+          + torch.arange(h, dtype=torch.int64, device=dev)[None, :])
+    rows = torch.arange(sq, dtype=torch.int64, device=dev)[:, None]
+    cols = torch.arange(sk, dtype=torch.int64, device=dev)[None, :]
+    keep = _keep_mask(_as_int64(seed, dev).reshape(-1)[0],
+                      bh[:, :, None, None], rows, cols, dropout_rate)
+    return keep.to(torch.float32) * (1.0 / (1.0 - dropout_rate))
+
+
 def _flash_fwd_reference(q, k, v, seed=None, key_bias=None, *, causal,
                          scale, dropout_rate=0.0):
     """The forward kernel's arithmetic in plain PyTorch, untiled:
     (out [B,H,Sq,D] in q's dtype, lse [B,H,Sq] fp32)."""
     _check(q, k, v, seed, key_bias, dropout_rate)
-    b, h, sq, _ = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    g = h // hkv
-    kf = k.float().repeat_interleave(g, dim=1) if g > 1 else k.float()
-    vf = v.float().repeat_interleave(g, dim=1) if g > 1 else v.float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
-    if key_bias is not None:
-        s = s + key_bias.float()[:, None, None, :]
-    dev = q.device
-    rows = torch.arange(sq, dtype=torch.int64, device=dev)[:, None]
-    cols = torch.arange(sk, dtype=torch.int64, device=dev)[None, :]
-    if causal:
-        s = torch.where(rows + (sk - sq) >= cols, s, NEG_INF)
+    s, repeat = _scores(q, k, key_bias, causal=causal, scale=scale)
     m = s.amax(dim=-1, keepdim=True)
     m_eff = torch.where(m == NEG_INF, 0.0, m)
     p = torch.exp(s - m_eff)
     l = p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
-        bh = (torch.arange(b, dtype=torch.int64, device=dev)[:, None] * h
-              + torch.arange(h, dtype=torch.int64, device=dev)[None, :])
-        keep = _keep_mask(_as_int64(seed, dev).reshape(-1)[0],
-                          bh[:, :, None, None], rows, cols, dropout_rate)
-        p = p * keep.to(torch.float32) * (1.0 / (1.0 - dropout_rate))
-    acc = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+        p = p * _keep_scale(q, k.shape[2], seed, dropout_rate)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p, repeat(v))
     l_safe = torch.where(l == 0.0, 1.0, l)
     out = (acc / l_safe).to(q.dtype)
     lse = torch.where(l == 0.0, NEG_INF, m + torch.log(l_safe))[..., 0]
     return out, lse
 
 
-def _flash_fwd_kernel(q, k, v, seed, key_bias, *, causal, scale,
-                      dropout_rate):
-    global launches
-    dev = q.device
+def _flash_bwd_reference(q, k, v, out, lse, do, seed=None, key_bias=None, *,
+                         causal, scale, dropout_rate=0.0):
+    """The backward kernels' arithmetic in plain PyTorch, untiled:
+    (dq in q's dtype, dk, dv in k's dtype). P comes from the saved lse
+    (0 where lse is -inf, so a fully masked row has zero gradients), and
+    the GQA group's per-q-head dk/dv are summed in fp32."""
+    _check(q, k, v, seed, key_bias, dropout_rate)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    s, repeat = _scores(q, k, key_bias, causal=causal, scale=scale)
+    lse_safe = torch.where(lse == NEG_INF, 0.0, lse.float())[..., None]
+    p = torch.exp(s - lse_safe)
+    dof = do.float()
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, repeat(v))
+    p_drop = p
+    if dropout_rate > 0.0:
+        keep = _keep_scale(q, sk, seed, dropout_rate)
+        p_drop, dp = p * keep, dp * keep
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, repeat(k))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_drop, dof)
+    if h != hkv:
+        dk = dk.reshape(b, hkv, h // hkv, sk, d).sum(dim=2)
+        dv = dv.reshape(b, hkv, h // hkv, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_args(q, k, v, seed, key_bias, dropout_rate):
+    """Check what the kernels take and return the launch arguments they
+    share: (bias pointer, bias batch stride, seed pointer, dropout
+    threshold, keep scale, the seed tensor kept alive)."""
+    dev = q.device
+    b, _, _, d = q.shape
+    sk = k.shape[2]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel: head dim {d} not in "
                          f"{KERNEL_HEAD_DIMS}")
@@ -184,6 +248,17 @@ def _flash_fwd_kernel(q, k, v, seed, key_bias, *, causal, scale,
         seed_ptr = seed.data_ptr()
         thresh = int(min(float(dropout_rate), 1.0) * 2147483647.0)
         inv_keep = 1.0 / (1.0 - dropout_rate)
+    return bias_ptr, bias_stride, seed_ptr, thresh, inv_keep, seed
+
+
+def _flash_fwd_kernel(q, k, v, seed, key_bias, *, causal, scale,
+                      dropout_rate):
+    global launches
+    dev = q.device
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    bias_ptr, bias_stride, seed_ptr, thresh, inv_keep, _seed = _kernel_args(
+        q, k, v, seed, key_bias, dropout_rate)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     status = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
@@ -194,6 +269,38 @@ def _flash_fwd_kernel(q, k, v, seed, key_bias, *, causal, scale,
     _build.check_status(status, "flash_fwd")
     launches += 1
     return out, lse
+
+
+def _flash_bwd_kernel(q, k, v, out, lse, do, seed, key_bias, *, causal,
+                      scale, dropout_rate):
+    global bwd_launches
+    dev = q.device
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    bias_ptr, bias_stride, seed_ptr, thresh, inv_keep, _seed = _kernel_args(
+        q, k, v, seed, key_bias, dropout_rate)
+    for name, t in (("out", out), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != dev:
+            raise ValueError(f"flash bwd kernel: {name} must match q "
+                             f"({tuple(q.shape)}, {q.dtype}, {dev})")
+    if lse.shape != (b, h, sq):
+        raise ValueError(f"flash bwd kernel: lse must be [B,H,Sq], got "
+                         f"{tuple(lse.shape)}")
+    do = do.contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    status = _bwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), bias_ptr, bias_stride, seed_ptr,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, sk, d,
+        float(scale), int(bool(causal)), int(dropout_rate > 0.0), thresh,
+        float(inv_keep), _build.DTYPE_CODES[q.dtype], _build.stream_ptr(dev))
+    _build.check_status(status, "flash_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
 
 
 def _flash_fwd_bhsd(q, k, v, seed=None, key_bias=None, *, causal, scale,
@@ -211,6 +318,22 @@ def _flash_fwd_bhsd(q, k, v, seed=None, key_bias=None, *, causal, scale,
         raise ValueError(f"flash attention: unsupported device {q.device}")
     return _flash_fwd_kernel(q, k, v, seed, key_bias, causal=causal,
                              scale=scale, dropout_rate=dropout_rate)
+
+
+def _flash_bwd_bhsd(q, k, v, out, lse, do, seed=None, key_bias=None, *,
+                    causal, scale, dropout_rate=0.0):
+    """Gradients of :func:`_flash_fwd_bhsd`: q, out, do [B,H,Sq,D], k, v
+    [B,Hkv,Sk,D], lse [B,H,Sq] from the forward -> (dq, dk, dv). ``seed``
+    and ``key_bias`` must be the forward's. CPU tensors run the plain
+    version, CUDA tensors the kernels."""
+    _check(q, k, v, seed, key_bias, dropout_rate)
+    kw = dict(causal=causal, scale=scale, dropout_rate=dropout_rate)
+    if q.device.type == "cpu":
+        return _flash_bwd_reference(q, k, v, out, lse, do, seed, key_bias,
+                                    **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention: unsupported device {q.device}")
+    return _flash_bwd_kernel(q, k, v, out, lse, do, seed, key_bias, **kw)
 
 
 def flash_attention_bshd(q, k, v, *extras, causal=False, scale=None,
@@ -232,24 +355,31 @@ def flash_attention_bshd(q, k, v, *extras, causal=False, scale=None,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward through the flash kernel; the backward kernel
-    (``_flash_bwd_bhsd``) is not ported yet."""
+    """Flash attention in paddle's [B, S, H, D] layout through the forward
+    and backward kernels. Saves q, k, v, out and lse in [B, H, S, D] and
+    the seed the forward drew: the backward regenerates the same dropout
+    bits from it and never draws a new one."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, seed, causal, scale, dropout_rate):
-        extras = [t for t in (key_bias, seed) if t is not None]
-        out, _lse = flash_attention_bshd(
-            q, k, v, *extras, causal=causal, scale=scale,
-            dropout_rate=dropout_rate, has_bias=key_bias is not None)
-        return out
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        out, lse = _flash_fwd_bhsd(qt, kt, vt, seed, key_bias,
+                                   causal=causal, scale=scale,
+                                   dropout_rate=dropout_rate)
+        ctx.save_for_backward(qt, kt, vt, out, lse, key_bias, seed)
+        ctx.statics = dict(causal=causal, scale=scale,
+                           dropout_rate=dropout_rate)
+        return out.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash attention backward is not ported yet: the backward "
-            "kernels (_flash_bwd_bhsd) come with the training slice. Run "
-            "inference under torch.no_grad(), or turn the kernel off with "
-            "core.flags.set_flags({'use_cuda_flash_attention': False}).")
+        qt, kt, vt, out, lse, key_bias, seed = ctx.saved_tensors
+        do = grad_out.contiguous().transpose(1, 2).contiguous()
+        dq, dk, dv = _flash_bwd_bhsd(qt, kt, vt, out, lse, do, seed,
+                                     key_bias, **ctx.statics)
+        # key_bias is a mask and the seed an integer: neither takes a grad
+        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+                None, None, None, None, None)
 
 
 def flash_attention_fused(q, k, v, *, causal=False, scale=None,

@@ -1,14 +1,16 @@
 """The port's flash-attention forward (paddle_tpu_torch/ops/cuda/
 flash_attention.py) against the reference package's Pallas kernel
-(paddle_tpu/ops/pallas/flash_attention.py::_flash_fwd_bhsd), on the CPU.
+(paddle_tpu/ops/pallas/flash_attention.py::_flash_fwd_bhsd), on the CPU;
+the backward is held in test_torch_flash_backward.py.
 
 The reference runs its kernel under the Pallas interpreter here (as its
 own tests do off TPU); the port runs its plain version, which is what a
 CPU tensor takes. Same numpy inputs, fp32. Tolerances: out 2e-6 and
 lse 2e-6 absolute (one fp32 online softmax tile by tile vs one dense
-softmax: only the order of the sums differs). The dropout keep mask is
-compared bit for bit. The CUDA kernel is held against the same plain
-version on the card by chip_smoke.py.
+softmax: only the order of the sums differs); gradients 2e-5 absolute
+(as in test_torch_flash_backward.py). The dropout keep mask is compared
+bit for bit. The CUDA kernel is held against the same plain version on
+the card by chip_smoke.py.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 
 TOL = 2e-6
+GRAD_TOL = 2e-5
 
 
 def _inputs(seed, b, h, hkv, sq, sk, d):
@@ -120,14 +123,24 @@ def test_bshd_layout_wrapper_matches():
 
 
 def test_cpu_never_launches_and_backward_waits():
+    # the backward no longer waits: on CPU tensors it runs the plain
+    # version, launches nothing, and gives autograd's gradients of the
+    # plain forward
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in _inputs(7, 1, 2, 2, 8, 8, 64))
     qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
-    before = tfa.launches
+    before = (tfa.launches, tfa.bwd_launches)
     out = tfa.flash_attention_fused(qs, ks, vs, causal=True)
-    assert tfa.launches == before
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    out.sum().backward()
+    assert (tfa.launches, tfa.bwd_launches) == before
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    ref, _ = tfa._flash_fwd_reference(q, k, v, causal=True, scale=0.125)
+    ref.sum().backward()
+    for a, b in zip(got, (q.grad, k.grad, v.grad)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=GRAD_TOL)
     with pytest.raises(ValueError, match="Generator"):
         tfa.flash_attention_fused(qs, ks, vs, dropout_p=0.1)
     with pytest.raises(ValueError, match="key_bias"):

@@ -109,12 +109,20 @@ def test_bridge_checks_names_and_shapes():
 
 
 def test_later_slices_raise():
-    _, tm, _ = _pair()
-    ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm(ids, labels=ids)
-    with pytest.raises(NotImplementedError, match="recompute"):
-        LlamaForCausalLM(LlamaConfig.tiny(recompute=True), device="cpu")
+    # labels= and recompute=True arrived with the training slice: the
+    # loss comes back (and matches the reference's, test_torch_train.py),
+    # and a recompute model gives the same loss; context parallelism still
+    # waits for the distributed slice
+    jm, tm, params = _pair()
+    ids = np.random.default_rng(3).integers(0, 256, (1, 6))
+    want, _ = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(ids))
+    loss, logits = tm(torch.from_numpy(ids), labels=torch.from_numpy(ids))
+    assert logits is None
+    np.testing.assert_allclose(loss.item(), float(want), rtol=0, atol=TOL)
+    rm = LlamaForCausalLM(LlamaConfig.tiny(recompute=True), device="cpu")
+    load_paddle_tpu_state(rm, params)
+    rloss, _ = rm(torch.from_numpy(ids), labels=torch.from_numpy(ids))
+    torch.testing.assert_close(rloss, loss, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="context_parallel"):
         LlamaForCausalLM(LlamaConfig.tiny(context_parallel="ring"),
                          device="cpu")

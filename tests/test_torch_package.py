@@ -5,7 +5,8 @@
 - its entry points run on the card by default and raise when there is
   none, unless the caller passes ``device="cpu"``;
 - a CPU tensor never reaches a kernel: with the kernel loader broken, the
-  whole inference path still runs on the CPU and no launch is counted;
+  whole inference path and a training step still run on the CPU and no
+  launch is counted;
 - chip_smoke.py alone, or without a card, exits non-zero and prints no
   result.
 """
@@ -27,6 +28,7 @@ from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 from paddle_tpu_torch.ops.cuda import paged_attention as tpa
 from paddle_tpu_torch.ops.cuda import rms_norm as trn
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serve import default_serving_setup
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -85,7 +87,12 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
         raise AssertionError(f"a CPU run tried to load the {name} kernel")
 
     monkeypatch.setattr(_build, "load", no_build)
-    counts = (tfa.launches, trn.launches, tpa.launches)
+
+    def launches():
+        return (tfa.launches, tfa.bwd_launches, trn.launches,
+                trn.bwd_launches, tpa.launches)
+
+    counts = launches()
     # head_dim 64: the flash and RMSNorm gates pass, so the forward goes
     # through the kernel wrappers, which send CPU tensors to plain code
     cfg = LlamaConfig.tiny(hidden_size=128, num_attention_heads=2,
@@ -101,7 +108,16 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
         eng.submit(np.arange(1, 18), max_new_tokens=4)   # 2nd: prefix hit
         eng.run()
     assert all(r.state == "FINISHED" for r in eng.finished)
-    assert (tfa.launches, trn.launches, tpa.launches) == counts
+    # a training step: the loss, the backward through the kernels'
+    # autograd functions, and AdamW
+    model.train()
+    opt = AdamW(parameters=model.parameters(), multi_precision=True)
+    ids = torch.randint(0, 256, (2, 16))
+    loss, _ = model(ids, labels=ids)
+    loss.backward()
+    opt.step()
+    assert torch.isfinite(loss)
+    assert launches() == counts
 
 
 def test_chip_smoke_fails_without_the_package_or_a_card(tmp_path):
