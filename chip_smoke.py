@@ -8,9 +8,9 @@ Phases, each fatal on failure:
              one process per source, all at once);
 3. kernels — each hand-written kernel (forward and backward) against
              its plain PyTorch version on the card, at the serving,
-             prefill and training shapes, with its time beside the plain
-             version's, a PyTorch library call's where one computes the
-             same function, and its bound;
+             prefill, training, packed-attention and calibration shapes,
+             with its time beside the plain version's, a PyTorch library
+             call's where one computes the same function, and its bound;
 4. forward — ``LlamaForCausalLM`` at the serving width (bf16), counting
              kernel launches, then fp32 logits of kernels vs plain;
 5. serve   — the continuous-batching ``ServeEngine`` under Poisson load
@@ -20,7 +20,18 @@ Phases, each fatal on failure:
              batch 4 x 2048, ``AdamW(multi_precision=True)``): launch
              counts per step, falling loss, tokens/s, MFU, peak memory and
              the device-busy share; then fp32 loss and gradients of the
-             kernels vs the plain compositions at 2 layers.
+             kernels vs the plain compositions at 2 layers;
+7. varlen  — packed-sequence attention through ``flash_attn_unpadded``
+             and ``flash_attn_varlen_qkvpacked`` (8 documents packed into
+             8192 tokens, 16 heads of 128, bf16, causal), forward and
+             ``.backward()``: launch counts, equal results of the two
+             entry points, output vs the plain version;
+8. calibrate — ``tools/conv_calibration.measure_shape`` of the port at
+             ResNet-50 shapes 2 and 17 (batch 64) through the tiled
+             matmul kernel.
+
+Each kernel's ``launches`` in the ``kernels`` line is its count on its
+own main path (``main_path``: serve, train, varlen or calibrate).
 
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}``.
@@ -31,6 +42,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -545,18 +557,296 @@ def phase_flash_bwd(torch, dev, report):
     torch.cuda.empty_cache()
 
 
+#: the varlen full-width case: bench_llama's 4 x 2048 token budget packed
+#: from documents of unequal length, boundaries off the 32-row tiles
+VARLEN_LENS = [1801, 377, 2048, 655, 1013, 250, 1537, 511]
+VARLEN_HEADS, VARLEN_DIM = 16, 128
+
+
+def _cu(torch, lens, dev):
+    return torch.tensor([0, *itertools.accumulate(lens)], dtype=torch.int32,
+                        device=dev)
+
+
+def _varlen_library(torch, q, k, v, cu, max_len, out_ref, do):
+    """One PyTorch call for the same varlen causal attention, timed beside
+    the kernels and never on the port's path: the varlen flash behind
+    nested-tensor SDPA (``aten._flash_attention_forward`` / ``_backward``
+    with ``cum_seq_q`` / ``cum_seq_k``). Returns (forward callable,
+    backward callable, what it is); the callables are None, and the text
+    says why, where this torch has no such call for these inputs."""
+    scale = q.shape[-1] ** -0.5
+    aten = torch.ops.aten
+    try:
+        res = aten._flash_attention_forward(q, k, v, cu, cu, max_len, max_len,
+                                            0.0, True, False, scale=scale)
+        out, lse, rng_state, unused = res[0], res[1], res[2], res[3]
+        bwd = aten._flash_attention_backward(do, q, k, v, out, lse, cu, cu,
+                                             max_len, max_len, 0.0, True,
+                                             rng_state, unused, scale=scale)
+        torch.cuda.synchronize()
+    except Exception as exc:      # no varlen flash in this torch build
+        return None, None, f"none: aten._flash_attention_forward on " \
+            f"packed inputs raised {type(exc).__name__}: {exc}"[:300]
+    del bwd
+    err = max_err(out, out_ref)
+    return (lambda: aten._flash_attention_forward(
+        q, k, v, cu, cu, max_len, max_len, 0.0, True, False, scale=scale),
+        lambda: aten._flash_attention_backward(
+            do, q, k, v, out, lse, cu, cu, max_len, max_len, 0.0, True,
+            rng_state, unused, scale=scale),
+        f"aten._flash_attention_forward/_backward (varlen, cum_seq_q/k); "
+        f"its output differs from the kernel's by {err:.3g}")
+
+
+def phase_varlen(torch, dev, report):
+    """The varlen kernels (forward, backward dq and dk/dv) vs
+    ``_vflash_fwd_reference`` / ``_vflash_bwd_reference``, the backward
+    from the forward kernel's out and lse: the full-width case (packed
+    T 8192 from ``VARLEN_LENS``, 16 heads of 128, bf16, causal) and, at
+    small T, GQA 16/4 with a zero-length segment, len_k != len_q causal
+    and not, rows past cu[-1], D 64, and dropout 0.1 at a fixed seed
+    (keep mask compared through one-hot values), in fp32, bf16 and fp16.
+    Both accumulate in fp32 (the kernels tile by tile) and round once:
+    tolerance ``tolerance(dtype, 1e-4)`` on out, dq, dk and dv, i.e. 1e-4
+    (fp32, sums over up to 2048 keys) plus two output ulps (bf16, fp16);
+    lse within 1e-4. Then one segment of 2048 against the dense forward
+    kernel at [1, 16, 2048, 128], within the same tolerance."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
+
+    g = torch.Generator(device=dev).manual_seed(10)
+
+    def rnd(*shape, dt):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    seed = torch.tensor([2024], dtype=torch.int32, device=dev)
+    cases = [
+        ("full width T8192 H16 D128 causal", VARLEN_LENS, VARLEN_LENS, 16,
+         16, 128, dict(causal=True)),
+        ("GQA 16/4 with a zero-length segment", [300, 0, 211, 89],
+         [300, 0, 211, 89], 16, 4, 128, dict(causal=True)),
+        ("len_k != len_q causal, rows past cu[-1]", [100, 37, 250, 0],
+         [180, 20, 250, 9], 8, 2, 128, dict(causal=True, extra_q=13)),
+        ("len_k != len_q noncausal D64", [100, 37, 250], [180, 20, 250], 8,
+         8, 64, {}),
+        ("dropout 0.1 GQA 8/2", [129, 64, 300], [129, 64, 300], 8, 2, 128,
+         dict(causal=True, seed=seed, rate=0.1)),
+    ]
+    main = None
+    for label, lq, lk, h, hkv, d, kw in cases:
+        cu_q, cu_k = _cu(torch, lq, dev), _cu(torch, lk, dev)
+        tq, tk = sum(lq) + kw.get("extra_q", 0), sum(lk)
+        st = dict(causal=kw.get("causal", False), scale=d ** -0.5,
+                  dropout_rate=kw.get("rate", 0.0))
+        dts = (bf16,) if label.startswith("full") else (f32, bf16,
+                                                        torch.float16)
+        for dt in dts:
+            q, k, v = rnd(tq, h, d, dt=dt), rnd(tk, hkv, d, dt=dt), \
+                rnd(tk, hkv, d, dt=dt)
+            do = rnd(tq, h, d, dt=dt)
+            args = (q, k, v, cu_q, cu_k)
+            out, lse = fv._vflash_fwd_kernel(*args, kw.get("seed"), **st)
+            rout, rlse = fv._vflash_fwd_reference(*args, kw.get("seed"), **st)
+            got = fv._vflash_bwd_kernel(*args, out, lse, do, kw.get("seed"),
+                                        **st)
+            ref = fv._vflash_bwd_reference(*args, out, lse, do,
+                                           kw.get("seed"), **st)
+            torch.cuda.synchronize()
+            name = str(dt).replace("torch.", "")
+            atol, rtol = tolerance(dt, 1e-4)
+            e_out, s_out = close_err(out, rout, atol, rtol)
+            e_lse = max_err(lse, rlse)
+            res = [close_err(a, r, atol, rtol) for a, r in zip(got, ref)]
+            log(f"  vflash {label} {name}: out err {e_out:.3g} ({s_out:.3g} "
+                f"of the tolerance), lse err {e_lse:.3g} (tol 1e-4); " +
+                ", ".join(f"{n} err {e:.3g} ({sh:.3g})" for n, (e, sh) in
+                          zip(("dq", "dk", "dv"), res)))
+            check(s_out <= 1.0 and e_lse <= 1e-4, f"vflash {label} {name}")
+            check(all(sh <= 1.0 for _, sh in res),
+                  f"vflash_bwd {label} {name}")
+            if "rows past" in label:
+                # the first 17 rows of segment 1 see no key (len_k 20 <
+                # len_q 37 under bottom-right causal), nor do the rows past
+                # cu[-1]; no row sees the 9 keys of segment 3 (len_q 0)
+                dead = [slice(100, 117), slice(sum(lq), tq)]
+                check(all(bool(torch.isinf(lse[:, s]).all())
+                          and bool((out[s] == 0).all())
+                          and bool((got[0][s] == 0).all()) for s in dead),
+                      "vflash: rows that see no key must give lse -inf, "
+                      "out 0 and dq 0")
+                check(bool((got[1][sum(lk[:3]):] == 0).all())
+                      and bool((got[2][sum(lk[:3]):] == 0).all()),
+                      "vflash: keys no row sees must give dk, dv 0")
+            if label.startswith("full"):
+                main = (q, k, v, cu_q, out, lse, do, e_out,
+                        max(e for e, _ in res))
+            del q, k, v, do, out, lse, rout, rlse, got, ref
+    # the keep mask itself: q = 0 gives every visible key p = 1, and
+    # one-hot values make out[row, d] = keep[row, d] / (1 - rate) / l
+    cu = _cu(torch, [50, 78], dev)
+    q = torch.zeros(128, 4, 128, device=dev)
+    v = torch.eye(128, device=dev)[:, None, :].expand(128, 2, 128).contiguous()
+    k = rnd(128, 2, 128, dt=f32)
+    st = dict(causal=True, scale=128 ** -0.5, dropout_rate=0.1)
+    out, _ = fv._vflash_fwd_kernel(q, k, v, cu, cu, seed, **st)
+    rout, _ = fv._vflash_fwd_reference(q, k, v, cu, cu, seed, **st)
+    kept, rkept = out > 0, rout > 0
+    log(f"  vflash dropout keep mask: kernel keeps {int(kept.sum())}, plain "
+        f"keeps {int(rkept.sum())}, identical={bool(torch.equal(kept, rkept))}")
+    check(torch.equal(kept, rkept), "vflash dropout keep mask differs")
+    # one segment of 2048 is the dense kernel's causal attention
+    q, k, v = (rnd(2048, 16, 128, dt=bf16) for _ in range(3))
+    cu = _cu(torch, [2048], dev)
+    out, lse = fv._vflash_fwd_kernel(q, k, v, cu, cu, None, causal=True,
+                                     scale=128 ** -0.5, dropout_rate=0.0)
+    dout, dlse = fa._flash_fwd_kernel(
+        *(t.transpose(0, 1)[None].contiguous() for t in (q, k, v)), None,
+        None, causal=True, scale=128 ** -0.5, dropout_rate=0.0)
+    torch.cuda.synchronize()
+    atol, rtol = tolerance(bf16, 1e-4)
+    e_out, share = close_err(out, dout[0].transpose(0, 1), atol, rtol)
+    e_lse = max_err(lse, dlse[0])
+    log(f"  vflash one segment of 2048 vs the dense flash kernel at "
+        f"[1,16,2048,128] bf16: out err {e_out:.3g} ({share:.3g} of the "
+        f"tolerance), lse err {e_lse:.3g}")
+    check(share <= 1.0 and e_lse <= 1e-4, "vflash vs dense flash")
+    del q, k, v, out, lse, dout, dlse
+
+    q, k, v, cu, out, lse, do, e_fwd, e_bwd = main
+    t_tok, h, d = q.shape
+    cols = torch.arange(t_tok, device=dev)
+    seg_q, seg_k, bound = fv._seg_vectors(cu, cu, t_tok, t_tok)
+    n_pairs = int(((seg_q[:, None] == seg_k[None, :])
+                   & (cols[None, :] <= bound[:, None])).sum())
+    check(n_pairs == sum(n * (n + 1) // 2 for n in VARLEN_LENS),
+          f"visible pairs {n_pairs}")
+    fwd_flops = 4 * d * h * n_pairs
+    st = dict(causal=True, scale=d ** -0.5, dropout_rate=0.0)
+    args = (q, k, v, cu, cu)
+    lib_fwd, lib_bwd, lib_note = _varlen_library(
+        torch, q, k, v, cu, max(VARLEN_LENS), out, do)
+    log(f"  vflash library: {lib_note}")
+    t = timings(lambda: fv._vflash_fwd_kernel(*args, None, **st),
+                lambda: fv._vflash_fwd_reference(*args, None, **st), lib_fwd,
+                nbytes(q, k, v, out, lse, cu), fwd_flops, "bfloat16",
+                plain_iters=5)
+    show("vflash T8192 H16 D128 causal bf16", t)
+    report["vflash"] = dict(
+        name="flash_attn_varlen_fwd", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_attention_varlen.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention_varlen.py:158",
+        max_abs_err=e_fwd, library=lib_note, **t)
+    t = timings(
+        lambda: fv._vflash_bwd_kernel(*args, out, lse, do, None, **st),
+        lambda: fv._vflash_bwd_reference(*args, out, lse, do, None, **st),
+        lib_bwd, nbytes(q, k, v, out, do, lse, cu, q, k, v),
+        2.5 * fwd_flops, "bfloat16", plain_iters=5)
+    show("vflash_bwd (dq + dk/dv kernels) T8192 H16 D128 causal bf16", t)
+    report["vflash_bwd"] = dict(
+        name="flash_attn_varlen_bwd", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_attention_varlen.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention_varlen.py:328",
+        kernels=["vflash_bwd_dq_kernel", "vflash_bwd_dkv_kernel"],
+        max_abs_err=e_bwd, library=lib_note, **t)
+    del main, q, k, v, out, lse, do, args, lib_fwd, lib_bwd
+    # equal work: 4 segments of 2048 is the dense kernels' training shape
+    # [4, 16, 2048, 128] packed, so the ratio is the cost per tile; the
+    # forward once more with q, k, v sliced from [T, 17, 128] tensors, a
+    # token stride that is not a power of two
+    cu = _cu(torch, [2048] * 4, dev)
+    q, k, v, do = (rnd(8192, 16, 128, dt=bf16) for _ in range(4))
+    args = (q, k, v, cu, cu)
+    out, lse = fv._vflash_fwd_kernel(*args, None, **st)
+    wide = [rnd(8192, 17, 128, dt=bf16)[:, :16] for _ in range(3)]
+    for key, fn in (("vflash", lambda: fv._vflash_fwd_kernel(
+            *args, None, **st)), ("vflash_bwd", lambda: fv._vflash_bwd_kernel(
+                *args, out, lse, do, None, **st))):
+        dense = "flash" if key == "vflash" else "flash_bwd"
+        ms = device_ms(fn)
+        report[key]["at_4x2048"] = dict(ms=ms,
+                                        dense_ms=report[dense]["ms"])
+        log(f"  {key} at 4 x 2048 (the dense training shape, packed): "
+            f"{ms:.4f} ms vs the dense kernel's {report[dense]['ms']:.4f} "
+            f"ms ({ms / report[dense]['ms']:.2f}x)")
+    ms = device_ms(lambda: fv._vflash_fwd_kernel(*wide, cu, cu, None, **st))
+    report["vflash"]["at_4x2048"]["token_stride_17x128_ms"] = ms
+    log(f"  vflash at 4 x 2048, token stride 17 x 128: {ms:.4f} ms")
+    del q, k, v, do, out, lse, args, wide
+    torch.cuda.empty_cache()
+
+
+#: conv_calibration's ResNet-50 shapes 2 and 17 at batch 64: the probe's
+#: (m, kp, np), K and C_out padded to 128
+TILED_MM_SHAPES = {2: (200704, 640, 128), 17: (3136, 4608, 512)}
+
+
+def phase_tiled_mm(torch, dev, report):
+    """The calibration probe's tiled matmul kernel vs ``tiled_mm_reference``
+    (an fp32 product of the bf16 operands, rounded once) at ResNet-50
+    shapes 2 and 17 and at a ragged shape (m, k, n not tile multiples).
+    Both accumulate in fp32 and round once to bf16: tolerance
+    ``tolerance(bfloat16, 1e-4)``, i.e. 1e-4 plus two bf16 ulps of |ref|
+    (sums of up to 4608 products in another order can round to the
+    neighbouring bf16 value)."""
+    from paddle_tpu_torch.ops.cuda import tiled_mm as tm
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf16 = torch.bfloat16
+    atol, rtol = tolerance(bf16, 1e-4)
+    times = {}
+    for label, (m, k, n) in [("ragged", (1000, 300, 200))] + [
+            (f"shape {i}", mkn) for i, mkn in TILED_MM_SHAPES.items()]:
+        a = torch.randn(m, k, generator=g, device=dev).to(bf16)
+        b = (torch.randn(k, n, generator=g, device=dev) * 0.05).to(bf16)
+        out = tm._tiled_mm_kernel(a, b)
+        ref = tm.tiled_mm_reference(a, b)
+        torch.cuda.synchronize()
+        err, share = close_err(out, ref, atol, rtol)
+        log(f"  tiled_mm {label} [{m},{k}]x[{k},{n}] bf16: max_abs_err="
+            f"{err:.3g}, {share:.3g} of the tolerance ({atol} + "
+            f"{rtol:.3g}|ref|)")
+        check(share <= 1.0, f"tiled_mm {label} err {err}")
+        if label == "ragged":
+            continue
+        t = timings(lambda: tm._tiled_mm_kernel(a, b),
+                    lambda: tm.tiled_mm_reference(a, b),
+                    lambda: torch.matmul(a, b), nbytes(a, b, out),
+                    2 * m * k * n, "bfloat16", plain_iters=5)
+        show(f"tiled_mm {label} [{m},{k}]x[{k},{n}] bf16", t)
+        times[label] = dict(max_abs_err=err, **t)
+        del a, b, out, ref
+    report["tiled_mm"] = dict(
+        name="tiled_mm", route="cuda", source="paddle_tpu_torch/csrc/tiled_mm.cu",
+        replaces="tools/conv_calibration.py:145", **times["shape 2"],
+        at_shape_17=times["shape 17"])
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # main-path phases
 # ---------------------------------------------------------------------------
 def _counters():
     """Each kernel's launch count: report key -> (module, attribute)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
+    from paddle_tpu_torch.ops.cuda import tiled_mm as tm
 
     return {"flash": (fa, "launches"), "flash_bwd": (fa, "bwd_launches"),
             "rms_norm": (rn, "launches"), "rms_norm_bwd": (rn, "bwd_launches"),
-            "paged": (pa, "launches")}
+            "paged": (pa, "launches"), "vflash": (fv, "launches"),
+            "vflash_bwd": (fv, "dq_launches"),
+            "vflash_bwd_dkv": (fv, "dkv_launches"),
+            "tiled_mm": (tm, "launches")}
+
+
+#: each kernel's main path: the one run whose count is its ``launches``
+MAIN_PATH = {"paged": "serve", "flash": "train", "flash_bwd": "train",
+             "rms_norm": "train", "rms_norm_bwd": "train", "vflash": "varlen",
+             "vflash_bwd": "varlen", "tiled_mm": "calibrate"}
 
 
 def reset_counts():
@@ -572,7 +862,11 @@ def record_launches(report, path, counts):
     """Keep each kernel's count from one main-path run under
     ``launches_by_path[path]``."""
     for key, n in counts.items():
-        report[key].setdefault("launches_by_path", {})[path] = n
+        if key == "vflash_bwd_dkv":     # the second kernel of vflash_bwd
+            report["vflash_bwd"].setdefault("dkv_launches_by_path", {})[
+                path] = n
+        else:
+            report[key].setdefault("launches_by_path", {})[path] = n
 
 
 def phase_forward(torch, dev, report):
@@ -668,7 +962,9 @@ def profile_decode(torch, eng, vocab, steps=16):
 
 #: profiler kernel names by kind, for the per-kind sums of profile_kernels
 KERNEL_KINDS = (
+    ("varlen flash (port)", ("vflash_",)),
     ("flash (port)", ("flash_fwd_kernel", "flash_bwd_")),
+    ("tiled matmul (port)", ("tiled_mm_kernel",)),
     ("RMSNorm (port)", ("rms_norm_",)),
     ("paged decode (port)", ("paged_decode_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "sm90_xmma")),
@@ -880,7 +1176,8 @@ def phase_train(torch, dev, report):
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated(dev)
     per_step = {"flash": nl, "flash_bwd": nl, "rms_norm": 2 * nl + 1,
-                "rms_norm_bwd": 2 * nl + 1, "paged": 0}
+                "rms_norm_bwd": 2 * nl + 1, "paged": 0, "vflash": 0,
+                "vflash_bwd": 0, "vflash_bwd_dkv": 0, "tiled_mm": 0}
     log(f"  {TRAIN_STEPS} steps: launches {counts}, losses "
         f"{[round(x, 4) for x in losses]}")
     for key, n in per_step.items():
@@ -959,6 +1256,106 @@ def phase_train(torch, dev, report):
     torch.cuda.empty_cache()
 
 
+def phase_varlen_path(torch, dev, report):
+    """The packed-attention path a user takes: ``flash_attn_unpadded`` at
+    the full-width case (packed T 8192 from ``VARLEN_LENS``, 16 heads of
+    128, bf16, causal) on leaf tensors, then ``.backward()``; and the same
+    values through ``flash_attn_varlen_qkvpacked`` from one [T, 3, H, D]
+    tensor, then ``.backward()``. Each call must launch the forward, dq
+    and dk/dv kernels exactly once and no other kernel. The two calls
+    read the same values, so their outputs and gradients must be equal;
+    the output must be finite and within ``tolerance(bfloat16, 1e-4)`` of
+    the plain version on the same inputs."""
+    import paddle_tpu_torch.nn.functional as TF
+    from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    t_tok, h, d = sum(VARLEN_LENS), VARLEN_HEADS, VARLEN_DIM
+    cu = _cu(torch, VARLEN_LENS, dev)
+    qkv = torch.randn(t_tok, 3, h, d, generator=g, device=dev).to(
+        torch.bfloat16)
+    do = torch.randn(t_tok, h, d, generator=g, device=dev).to(torch.bfloat16)
+    leaves = [qkv[:, i].contiguous().requires_grad_() for i in range(3)]
+    qkv.requires_grad_()
+    mx = max(VARLEN_LENS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out, sm = TF.flash_attn_unpadded(*leaves, cu, cu, mx, mx, d ** -0.5,
+                                     causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    pout, _ = TF.flash_attn_varlen_qkvpacked(qkv, cu, cu, mx, mx,
+                                             scale=d ** -0.5, causal=True)
+    pout.backward(do)
+    torch.cuda.synchronize()
+    counts2 = read_counts()
+    log(f"  flash_attn_unpadded [{t_tok}, {h}, {d}] bf16 causal, forward + "
+        f"backward: {wall_ms:.2f} ms wall (first call), launches {counts}; "
+        f"with flash_attn_varlen_qkvpacked too: {counts2}")
+    varlen_keys = ("vflash", "vflash_bwd", "vflash_bwd_dkv")
+    for key, n in counts2.items():
+        want = 2 if key in varlen_keys else 0
+        check(n == want and counts[key] == want // 2,
+              f"{key} launches {counts[key]}, {n} != {want // 2}, {want}")
+    check(sm is None and tuple(out.shape) == (t_tok, h, d),
+          f"flash_attn_unpadded returned {tuple(out.shape)}, {sm!r}")
+    check(bool(torch.isfinite(out).all()), "varlen output not finite")
+    check(all(bool(torch.isfinite(t.grad).all()) for t in leaves),
+          "varlen gradients not finite")
+    same = bool(torch.equal(out, pout)) and all(
+        bool(torch.equal(t.grad, qkv.grad[:, i]))
+        for i, t in enumerate(leaves))
+    log(f"  qkvpacked output and gradients equal the unpadded call's: "
+        f"{same}")
+    check(same, "flash_attn_varlen_qkvpacked differs from "
+                "flash_attn_unpadded on the same values")
+    ref, _ = fv._vflash_fwd_reference(*(t.detach() for t in leaves), cu, cu,
+                                      causal=True, scale=d ** -0.5)
+    atol, rtol = tolerance(torch.bfloat16, 1e-4)
+    err, share = close_err(out.detach(), ref, atol, rtol)
+    log(f"  output vs the plain version: max_abs_err={err:.3g}, {share:.3g} "
+        f"of the tolerance")
+    check(share <= 1.0, f"varlen path output differs by {err}")
+    record_launches(report, "varlen", counts2)
+    del qkv, do, leaves, out, pout, ref
+    torch.cuda.empty_cache()
+
+
+#: conv_calibration's shapes the calibrate path measures, batch and iters
+CALIBRATE_SHAPES, CALIBRATE_BATCH, CALIBRATE_ITERS = (2, 17), 64, 5
+
+
+def phase_calibrate(torch, dev, report):
+    """``paddle_tpu_torch.tools.conv_calibration.measure_shape`` at
+    ResNet-50 shapes 2 and 17, batch 64, ``CALIBRATE_ITERS`` timed calls
+    each after its 3 warm-up calls: the tiled kernel must launch exactly
+    that often and every time must be a positive finite number. Prints
+    each shape's JSON line as ``--shape i`` does."""
+    from paddle_tpu_torch.tools import conv_calibration as cc
+
+    reset_counts()
+    for i in CALIBRATE_SHAPES:
+        r = cc.shape_record(i, CALIBRATE_BATCH, CALIBRATE_ITERS)
+        times = [r[k] for k in ("t_conv", "t_gemm", "t_pallas")]
+        log(f"  shape {i}: {json.dumps(r)}")
+        log("    TFLOP/s: conv {:.1f}, gemm {:.1f}, tiled kernel {:.1f}".format(
+            *(r["flops"] / t / 1e12 for t in times)))
+        check(all(math.isfinite(t) and t > 0 for t in times),
+              f"calibration times {r}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = len(CALIBRATE_SHAPES) * (3 + CALIBRATE_ITERS)
+    log(f"  launches {counts}")
+    for key, n in counts.items():
+        check(n == (want if key == "tiled_mm" else 0),
+              f"{key} launches {n} on the calibrate path")
+    record_launches(report, "calibrate", counts)
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     try:
@@ -999,6 +1396,8 @@ def main() -> int:
         phase_paged(torch, dev, report)
         phase_flash(torch, dev, report)
         phase_flash_bwd(torch, dev, report)
+        phase_varlen(torch, dev, report)
+        phase_tiled_mm(torch, dev, report)
         log("[forward]")
         phase_forward(torch, dev, report)
         log("[serve]")
@@ -1006,12 +1405,17 @@ def main() -> int:
         log("[train]")
         phase_train(torch, dev, report)
         train = report.pop("train")
-        # launches: this slice's main path (training) for the kernels it
-        # runs, the serving path for the paged kernel
+        log("[varlen]")
+        phase_varlen_path(torch, dev, report)
+        log("[calibrate]")
+        phase_calibrate(torch, dev, report)
+        # launches: each kernel's count on its own main path
         for key, r in report.items():
-            r["launches"] = r["launches_by_path"]["serve" if key == "paged"
-                                                  else "train"]
+            r["main_path"] = MAIN_PATH[key]
+            r["launches"] = r["launches_by_path"][MAIN_PATH[key]]
         idle = [r["name"] for r in report.values() if not r["launches"]]
+        if not report["vflash_bwd"]["dkv_launches_by_path"]["varlen"]:
+            idle.append("vflash_bwd_dkv_kernel")
         check(not idle, f"no main-path launch for {idle}")
     except Exception as exc:  # every phase is fatal: report and fail
         import traceback

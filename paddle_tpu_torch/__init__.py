@@ -7,11 +7,15 @@ every kernel the reference wrote in Pallas becomes a hand-written CUDA
 kernel under ``csrc/`` with a plain PyTorch version beside it, which is
 what a CPU tensor runs.
 
-Two slices are ported. Serving: ``models.LlamaForCausalLM``,
+Three slices are ported. Serving: ``models.LlamaForCausalLM``,
 ``serve.ServeEngine`` and ``serve.run_load``, over the paged-decode,
 flash-forward and RMSNorm-forward kernels. Training: the model's
 ``labels=`` loss, ``loss.backward()`` through the flash- and
-RMSNorm-backward kernels, and ``optimizer.AdamW``.
+RMSNorm-backward kernels, and ``optimizer.AdamW``. Packed attention:
+``nn.functional.flash_attention.flash_attn_unpadded`` and
+``nn.functional.flash_attn_varlen_qkvpacked``, forward and backward over
+the varlen kernels; and ``tools.conv_calibration`` over the tiled matmul
+kernel.
 """
 from . import convert, models, nn, optimizer, serve
 from .convert import load_paddle_tpu_state

@@ -1,6 +1,44 @@
-"""Functional ops of the port (the Llama training subset)."""
-from .attention import scaled_dot_product_attention
+"""Functional ops of the port: the Llama training subset and the
+flash-attention entry points. ``flash_attention`` here is the submodule,
+as in paddle (``flash_attention.flash_attention`` is the dense function,
+``flash_attention.flash_attn_unpadded`` the varlen one)."""
+import torch
+
+from . import flash_attention
+from .attention import scaled_dot_product_attention, sdp_kernel
+from .flash_attention import flash_attn_unpadded
 from .loss import cross_entropy
 from .norm import rms_norm
 
-__all__ = ["scaled_dot_product_attention", "rms_norm", "cross_entropy"]
+__all__ = ["scaled_dot_product_attention", "sdp_kernel", "flash_attention",
+           "flash_attn_unpadded", "flash_attn_qkvpacked",
+           "flash_attn_varlen_qkvpacked", "rms_norm", "cross_entropy"]
+
+
+def flash_attn_qkvpacked(qkv, dropout=0.0, causal=False, return_softmax=False,
+                         fixed_seed_offset=None, rng_name="", training=True,
+                         name=None, generator=None):
+    """``flash_attention`` over a packed qkv [B, S, 3, H, D]; returns
+    ``(out [B, S, H, D], None)``. As in the reference,
+    ``fixed_seed_offset`` and ``rng_name`` are not passed on."""
+    q, k, v = torch.unbind(qkv, 2)
+    return flash_attention.flash_attention(
+        q, k, v, dropout=dropout, causal=causal, return_softmax=return_softmax,
+        training=training, generator=generator)
+
+
+def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                                max_seqlen_k, scale=None, dropout=0.0,
+                                causal=False, return_softmax=False,
+                                fixed_seed_offset=None, rng_name="",
+                                varlen_padded=True, training=True, name=None,
+                                generator=None):
+    """``flash_attn_unpadded`` over a packed varlen qkv [T, 3, H, D]; q, k
+    and v are read in place from it. As in the reference, ``scale`` is
+    passed on as given, so the default ``None`` raises ``TypeError``, and
+    ``fixed_seed_offset`` and ``rng_name`` are not passed on."""
+    q, k, v = torch.unbind(qkv, 1)
+    return flash_attn_unpadded(
+        q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+        scale=scale, dropout=dropout, causal=causal,
+        return_softmax=return_softmax, training=training, generator=generator)

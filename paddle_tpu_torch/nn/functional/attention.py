@@ -23,12 +23,12 @@ import math
 
 import torch
 
-from ...core.flags import get_flag
+from ...core.flags import get_flag, set_flags
 from ...core.generator import use_generator
 from ...ops.cuda.flash_attention import (KERNEL_HEAD_DIMS,
                                          flash_attention_fused)
 
-__all__ = ["scaled_dot_product_attention"]
+__all__ = ["scaled_dot_product_attention", "flash_attention", "sdp_kernel"]
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -127,3 +127,38 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                      generator=generator)
     return _sdpa_plain(q, k, v, generator, causal=bool(is_causal),
                        scale=scale, dropout_p=p)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None, generator=None):
+    """``paddle.nn.functional.flash_attention.flash_attention``: attention
+    in layout [B, S, H, D] through :func:`scaled_dot_product_attention`,
+    returning ``(out, None)``. As in the reference, ``fixed_seed_offset``
+    and ``rng_name`` are not passed on; dropout draws from
+    ``generator``."""
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training, generator=generator)
+    return out, None
+
+
+class sdp_kernel:
+    """Context manager selecting the attention kernel, as paddle's: with
+    ``enable_flash=False`` the flash kernels are off inside it (the
+    ``use_cuda_flash_attention`` flag), and the previous setting comes
+    back on exit. ``enable_math`` and ``enable_mem_efficient`` are
+    accepted and change nothing, as in the reference."""
+
+    def __init__(self, enable_flash=True, enable_math=True,
+                 enable_mem_efficient=True):
+        self.enable_flash = enable_flash
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = set_flags(
+            {"use_cuda_flash_attention": self.enable_flash})
+        return self
+
+    def __exit__(self, *exc):
+        set_flags(self._prev)
+        return False

@@ -27,7 +27,8 @@ __all__ = ["KERNEL_SOURCES", "DTYPE_CODES", "build", "load", "build_dir",
            "check_status", "smem_limit", "stream_ptr"]
 
 #: every kernel library of the port, by csrc/ file stem
-KERNEL_SOURCES = ("rms_norm", "paged_attention", "flash_attention")
+KERNEL_SOURCES = ("rms_norm", "paged_attention", "flash_attention",
+                  "flash_attention_varlen", "tiled_mm")
 
 #: element-type codes shared with csrc/common.cuh (enum DTypeCode)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

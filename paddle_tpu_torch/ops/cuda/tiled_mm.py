@@ -1,0 +1,80 @@
+"""The conv-calibration tool's matmul probe: a hand-written CUDA kernel
+and its plain version.
+
+Counterpart of ``pallas_mm`` and its body ``mk`` in
+``tools/conv_calibration.py`` (kernel source ``csrc/tiled_mm.cu``): bf16
+``a [m, k]`` times bf16 ``b [k, n]`` -> bf16 ``[m, n]``, accumulated in
+fp32 and rounded once. Any m, k and n are taken.
+
+Routing: a CPU tensor takes :func:`tiled_mm_reference`; a CUDA tensor
+launches the kernel or raises. There is no fallback between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["tiled_mm", "tiled_mm_reference", "launches"]
+
+#: kernel launches since the count was last reset
+launches = 0
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load("tiled_mm").tiled_mm
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(a, b):
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"tiled_mm wants a [m, k] and b [k, n], got "
+                         f"{tuple(a.shape)} / {tuple(b.shape)}")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"tiled_mm takes bfloat16, got {a.dtype} / {b.dtype}")
+    if 0 in a.shape or b.shape[1] == 0:
+        raise ValueError("tiled_mm: empty operand")
+
+
+def tiled_mm_reference(a, b):
+    """The kernel's arithmetic in plain PyTorch: an fp32 product of the
+    bf16 operands, rounded once to bf16 (``mk``'s
+    ``preferred_element_type=float32`` then ``astype``)."""
+    _check(a, b)
+    return torch.matmul(a.float(), b.float()).to(torch.bfloat16)
+
+
+def _tiled_mm_kernel(a, b):
+    global launches
+    if b.device != a.device:
+        raise ValueError(f"tiled_mm kernel: b on {b.device}, a on {a.device}")
+    a, b = a.contiguous(), b.contiguous()
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    status = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
+                       _build.stream_ptr(a.device))
+    _build.check_status(status, "tiled_mm")
+    launches += 1
+    return out
+
+
+def tiled_mm(a, b):
+    """bf16 ``a @ b`` with fp32 accumulation. CPU tensors run the plain
+    version, CUDA tensors the kernel."""
+    _check(a, b)
+    if a.device.type == "cpu":
+        return tiled_mm_reference(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"tiled_mm: unsupported device {a.device}")
+    return _tiled_mm_kernel(a, b)

@@ -5,8 +5,9 @@
 - its entry points run on the card by default and raise when there is
   none, unless the caller passes ``device="cpu"``;
 - a CPU tensor never reaches a kernel: with the kernel loader broken, the
-  whole inference path and a training step still run on the CPU and no
-  launch is counted;
+  whole inference path, a training step, varlen attention forward and
+  backward and the calibration probe still run on the CPU and no launch
+  is counted;
 - chip_smoke.py alone, or without a card, exits non-zero and prints no
   result.
 """
@@ -25,9 +26,12 @@ import paddle_tpu_torch
 from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServeEngine
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.ops.cuda import _build
+from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+from paddle_tpu_torch.ops.cuda import flash_attention_varlen as tvf
 from paddle_tpu_torch.ops.cuda import paged_attention as tpa
 from paddle_tpu_torch.ops.cuda import rms_norm as trn
+from paddle_tpu_torch.ops.cuda import tiled_mm as ttm
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serve import default_serving_setup
 
@@ -42,13 +46,17 @@ def _forbidden(name: str) -> bool:
 
 def test_import_pulls_in_no_jax_and_no_reference_package():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serve, "
-            "paddle_tpu_torch.models, paddle_tpu_torch.convert; "
+            "paddle_tpu_torch.models, paddle_tpu_torch.convert, "
+            "paddle_tpu_torch.nn.functional.flash_attention, "
+            "paddle_tpu_torch.tools.conv_calibration; "
             "print('\\n'.join(sys.modules))")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(ROOT), timeout=120,
                          check=True).stdout.split()
     assert "paddle_tpu_torch.serve.engine" in out
+    assert "paddle_tpu_torch.ops.cuda.flash_attention_varlen" in out
+    assert "paddle_tpu_torch.ops.cuda.tiled_mm" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -90,7 +98,8 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
 
     def launches():
         return (tfa.launches, tfa.bwd_launches, trn.launches,
-                trn.bwd_launches, tpa.launches)
+                trn.bwd_launches, tpa.launches, tvf.launches,
+                tvf.dq_launches, tvf.dkv_launches, ttm.launches)
 
     counts = launches()
     # head_dim 64: the flash and RMSNorm gates pass, so the forward goes
@@ -117,6 +126,18 @@ def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
     loss.backward()
     opt.step()
     assert torch.isfinite(loss)
+    # packed varlen attention, forward and backward, at a kernel head dim,
+    # through both entry points; and the calibration probe
+    cu = torch.tensor([0, 5, 16], dtype=torch.int32)
+    qkv = torch.randn(16, 3, 2, 64, requires_grad=True)
+    out, _ = TF.flash_attn_unpadded(*torch.unbind(qkv, 1), cu, cu, 11, 11,
+                                    0.125, causal=True)
+    out2, _ = TF.flash_attn_varlen_qkvpacked(qkv, cu, cu, 11, 11, scale=0.125,
+                                             causal=True)
+    (out + out2).sum().backward()
+    assert torch.isfinite(qkv.grad).all()
+    a = torch.randn(40, 64).to(torch.bfloat16)
+    assert ttm.tiled_mm(a, a.t()).shape == (40, 40)
     assert launches() == counts
 
 
