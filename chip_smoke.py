@@ -33,6 +33,12 @@ Phases, each fatal on failure:
 Each kernel's ``launches`` in the ``kernels`` line is its count on its
 own main path (``main_path``: serve, train, varlen or calibrate).
 
+The dense flash kernels take a route fixed by the dtype: fp32 runs the
+CUDA-core kernels, bf16 and fp16 the tensor-core kernels
+(``FLASH_KERNELS``). The kernel phases check both routes against the
+plain versions; the bf16 forward and training phases read the profiler's
+per-kernel counts and fail unless only the tensor-core kernels ran.
+
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}``.
 
@@ -45,6 +51,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -360,8 +367,10 @@ def phase_flash(torch, dev, report):
     """Flash-forward kernel vs ``_flash_fwd_reference``: causal and not,
     Sq != Sk, GQA, [1, Sk] and [B, Sk] key biases, fully masked rows
     (lse -inf), and dropout 0.1 at a fixed seed, whose keep mask must be
-    identical (read back through one-hot values). Both accumulate in
-    fp32 (the kernel tile by tile) and round once: tolerance
+    identical in every dtype (read back through one-hot values). fp32
+    runs the CUDA-core kernel, bf16 and fp16 the tensor-core kernel (P
+    split hi + lo for P.V). Both accumulate in fp32 (the kernel tile by
+    tile) and round once: tolerance
     ``tolerance(dtype, 1e-4)``, i.e. 1e-4 (fp32, sums over up to 512
     keys) plus two output ulps of |out| (bf16, fp16); lse within 1e-4."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -396,6 +405,8 @@ def phase_flash(torch, dev, report):
          dict(bias=bias_b)),
         ("causal dropout 0.1", (2, 4, 2, 128, 128, 128),
          dict(causal=True, seed=seed, rate=0.1)),
+        ("causal Sq1 Sk77 GQA4/2 D64 (one row)", (3, 4, 2, 1, 77, 64),
+         dict(causal=True)),
     ]
     main_err = None
     for label, (b, h, hkv, sq, sk, d), kw in cases:
@@ -419,18 +430,40 @@ def phase_flash(torch, dev, report):
             if label.startswith("causal B4") and dt == bf16:
                 main_err = e_out
                 main = (q, k, v)
-    # the keep mask itself: q = 0 gives every visible key p = 1, and
-    # one-hot values make out[row, d] = keep[row, d] / (1 - rate) / l
+    # the keep mask itself, on both routes: q = 0 gives every visible key
+    # p = 1, and one-hot values (exact in every dtype) make
+    # out[row, d] = keep[row, d] / (1 - rate) / l
     b, h, s, d = 2, 4, 96, 128
-    q = torch.zeros(b, h, s, d, device=dev)
-    v = torch.eye(d, device=dev)[:s].expand(b, h, s, d).contiguous()
-    k = rnd(b, h, s, d, dt=f32)
-    (out, _), (rout, _) = run(q, k, v, seed=seed, causal=True, rate=0.1)
-    kept, rkept = out > 0, rout > 0
-    n_kept, rn_kept = int(kept.sum()), int(rkept.sum())
-    log(f"  flash dropout keep mask: kernel keeps {n_kept}, plain keeps "
-        f"{rn_kept}, identical={bool(torch.equal(kept, rkept))}")
-    check(torch.equal(kept, rkept), "flash dropout keep mask differs")
+    for dt in (f32, bf16, torch.float16):
+        q = torch.zeros(b, h, s, d, device=dev, dtype=dt)
+        v = torch.eye(d, device=dev, dtype=dt)[:s].expand(b, h, s, d) \
+            .contiguous()
+        k = rnd(b, h, s, d, dt=dt)
+        (out, _), (rout, _) = run(q, k, v, seed=seed, causal=True, rate=0.1)
+        kept, rkept = out > 0, rout > 0
+        n_kept, rn_kept = int(kept.sum()), int(rkept.sum())
+        name = str(dt).replace("torch.", "")
+        log(f"  flash dropout keep mask {name}: kernel keeps {n_kept}, plain "
+            f"keeps {rn_kept}, identical={bool(torch.equal(kept, rkept))}")
+        check(torch.equal(kept, rkept), f"flash dropout keep mask differs "
+                                        f"({name})")
+    # a contiguous view that starts off a 16-byte boundary: the tensor-core
+    # route copies it first (16-byte row copies), with the same result
+    b, h, s, d = 2, 4, 70, 64
+    buf = rnd(3 * b * h * s * d + 1, dt=bf16)
+    q, k, v = (buf[1 + i * b * h * s * d:1 + (i + 1) * b * h * s * d]
+               .view(b, h, s, d) for i in range(3))
+    out, lse = fa._flash_fwd_kernel(q, k, v, None, None, causal=True,
+                                    scale=d ** -0.5, dropout_rate=0.0)
+    aout, alse = fa._flash_fwd_kernel(q.clone(), k.clone(), v.clone(), None,
+                                      None, causal=True, scale=d ** -0.5,
+                                      dropout_rate=0.0)
+    torch.cuda.synchronize()
+    log(f"  flash on views off a 16-byte boundary (q at byte "
+        f"{q.data_ptr() % 16}): equal to aligned copies "
+        f"{bool(torch.equal(out, aout) and torch.equal(lse, alse))}")
+    check(torch.equal(out, aout) and torch.equal(lse, alse),
+          "flash on misaligned views differs")
 
     def fwd_times(q, k, v):
         b, h, sq, d = q.shape
@@ -464,6 +497,7 @@ def phase_flash(torch, dev, report):
         name="flash_attention_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:190",
+        kernels=dict(zip(("bf16/fp16", "fp32"), FLASH_KERNELS["fwd"])),
         max_abs_err=err, **t,
         at_serving_shape=dict(max_abs_err=main_err, **serve_t))
 
@@ -474,9 +508,11 @@ def phase_flash_bwd(torch, dev, report):
     [4,16,2048,128]) and, at small shapes, Sq != Sk, GQA with fully
     masked rows (whose gradients must be exactly 0), [1, Sk] and [B, Sk]
     key biases with a fully masked batch, and dropout 0.1 at a fixed
-    seed (the same keep bits as the forward). Both accumulate in fp32
-    (the kernels tile by tile, the GQA group inside the block; the plain
-    version in whole einsums) and round once: tolerance
+    seed (the same keep bits as the forward). fp32 runs the CUDA-core
+    kernels, bf16 and fp16 the tensor-core kernels (P and dS split
+    hi + lo). Both accumulate in fp32 (the kernels tile by tile, the GQA
+    group inside the block; the plain version in whole einsums) and round
+    once: tolerance
     ``tolerance(dtype, 1e-4)`` on each of dq, dk, dv, i.e. 1e-4 (fp32,
     sums over up to 2048 keys or rows of gradients up to ~10) plus two
     output ulps (bf16, fp16)."""
@@ -504,6 +540,8 @@ def phase_flash_bwd(torch, dev, report):
          dict(bias=bias_b)),
         ("causal dropout 0.1 GQA4/2", (2, 4, 2, 128, 128, 128),
          dict(causal=True, seed=seed, rate=0.1)),
+        ("causal Sq1 Sk77 GQA4/2 D64 (one row)", (3, 4, 2, 1, 77, 64),
+         dict(causal=True)),
     ]
     main = None
     for label, (b, h, hkv, sq, sk, d), kw in cases:
@@ -552,6 +590,9 @@ def phase_flash_bwd(torch, dev, report):
         name="flash_attention_bwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:404",
+        kernels={"bf16/fp16": [FLASH_KERNELS["dq"][0],
+                               FLASH_KERNELS["dkv"][0]],
+                 "fp32": [FLASH_KERNELS["dq"][1], FLASH_KERNELS["dkv"][1]]},
         max_abs_err=err, **t)
     del main, q, k, v, out, lse, do
     torch.cuda.empty_cache()
@@ -873,7 +914,9 @@ def phase_forward(torch, dev, report):
     """``LlamaForCausalLM`` at ``default_serving_setup``'s width (10
     layers, hidden 2048, 16 heads of 128, vocab 32000), batch 4 x 512.
     bf16: the flash kernel must launch once per layer and the RMSNorm
-    kernel twice per layer plus the final norm. fp32 (TF32 off): logits
+    kernel twice per layer plus the final norm, and the profiler must
+    show the tensor-core flash kernel once per layer and the CUDA-core
+    one never. fp32 (TF32 off): logits
     through the kernels vs the same model on its plain compositions
     (flags off); tolerance 1e-3 absolute on logits of magnitude ~3
     (fp32 sums in another order through 10 layers)."""
@@ -918,8 +961,9 @@ def phase_forward(torch, dev, report):
             f"({4 * 512 / fwd_ms * 1e3:.0f} tokens/s with kernels)")
         # device time too: the wall times above include host launch gaps,
         # which vary between calls on a shared host
-        profile_kernels(torch, lambda: model(ids), 3, fwd_ms,
-                        "bf16 forward [4, 512], kernels")
+        _, per_kernel = profile_kernels(torch, lambda: model(ids), 3, fwd_ms,
+                                        "bf16 forward [4, 512], kernels")
+        check_flash_route(per_kernel, {"fwd": nl}, "bf16 forward [4, 512]")
         with flags_scope(use_cuda_flash_attention=False,
                          use_cuda_rms_norm=False):
             profile_kernels(torch, lambda: model(ids), 3, fwd_plain,
@@ -960,10 +1004,43 @@ def profile_decode(torch, eng, vocab, steps=16):
     eng.run()
 
 
+#: the dense flash kernels of each step, (tensor cores: bf16/fp16, CUDA
+#: cores: fp32); a dtype runs one route only
+FLASH_KERNELS = {
+    "fwd": ("flash_fwd_tc_kernel", "flash_fwd_kernel"),
+    "dq": ("flash_bwd_dq_tc_kernel", "flash_bwd_dq_kernel"),
+    "dkv": ("flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_kernel"),
+}
+
+
+def flash_launches(per_kernel):
+    """Launches of each dense flash kernel in ``per_kernel`` (profiler
+    kernel name -> launches per call). A name counts where it is not
+    preceded by a letter, so ``vflash_*`` (the varlen kernels) and the
+    other route's names never count; mangled names count too."""
+    names = [n for pair in FLASH_KERNELS.values() for n in pair]
+    return {n: sum(c for key, c in per_kernel.items()
+                   if re.search(rf"(?<![a-z]){n}", key)) for n in names}
+
+
+def check_flash_route(per_kernel, want, label):
+    """Fail unless the profile ran each tensor-core flash kernel ``want``
+    (step -> count) times and no CUDA-core flash kernel."""
+    got = flash_launches(per_kernel)
+    log(f"  {label}: dense flash kernels {got}")
+    for step, (tc, cc) in FLASH_KERNELS.items():
+        check(got[cc] == 0, f"{label}: the CUDA-core {cc} ran ({got[cc]} "
+                            f"launches) on the bf16 path")
+        check(got[tc] == want.get(step, 0),
+              f"{label}: {tc} launched {got[tc]} times, want "
+              f"{want.get(step, 0)}")
+
+
 #: profiler kernel names by kind, for the per-kind sums of profile_kernels
 KERNEL_KINDS = (
     ("varlen flash (port)", ("vflash_",)),
-    ("flash (port)", ("flash_fwd_kernel", "flash_bwd_")),
+    ("flash (port)", ("flash_fwd_kernel", "flash_fwd_tc_kernel",
+                      "flash_bwd_")),
     ("tiled matmul (port)", ("tiled_mm_kernel",)),
     ("RMSNorm (port)", ("rms_norm_",)),
     ("paged decode (port)", ("paged_decode_kernel",)),
@@ -975,7 +1052,8 @@ def profile_kernels(torch, fn, n, wall_ms, label):
     """Run ``fn`` ``n`` times under ``torch.profiler`` and print the
     device kernel time per call by kernel name, and the busy share
     against ``wall_ms`` (the unprofiled time of one call). Returns the
-    kernel ms per call (None if the profiler saw no kernels)."""
+    kernel ms per call (None if the profiler saw no kernels) and the
+    launches per call of each kernel by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -987,10 +1065,11 @@ def profile_kernels(torch, fn, n, wall_ms, label):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(_dev_us(e) for e in kernels) / n / 1e3
+    per_kernel = {e.key: e.count // n for e in kernels}
     if busy_ms <= 0:
         log(f"  {label}: {wall_ms:.3f} ms; device time not measured (the "
             f"profiler saw no kernels)")
-        return None
+        return None, per_kernel
     log(f"  {label}: {wall_ms:.3f} ms wall, {busy_ms:.3f} ms of kernels "
         f"({busy_ms / wall_ms:.1%} busy, "
         f"{sum(e.count for e in kernels) / n:.0f} kernels per call)")
@@ -1007,7 +1086,7 @@ def profile_kernels(torch, fn, n, wall_ms, label):
     log("    by kind: " + "; ".join(
         f"{k} {ms:.3f} ms x{cnt}" for k, (ms, cnt) in
         sorted(kinds.items(), key=lambda kv: -kv[1][0])))
-    return busy_ms
+    return busy_ms, per_kernel
 
 
 def phase_serve(torch, dev, report):
@@ -1126,7 +1205,9 @@ def phase_train(torch, dev, report):
     0.01): one warm-up step, then ``TRAIN_STEPS`` timed steps on the same
     batch. Every step must launch flash forward and backward once per
     layer and the RMSNorm forward and backward twice per layer plus the
-    final norm; every loss must be finite and the last below the first.
+    final norm, and the profiled step must show the tensor-core flash
+    forward, dq and dk/dv kernels once per layer each and no CUDA-core
+    flash kernel; every loss must be finite and the last below the first.
     MFU is bench.py's formula (bench.py:310-312) against the 989 TFLOP/s
     bf16 peak. Then 2 layers at full width in fp32 (TF32 off), batch
     2 x 512: the loss and every parameter gradient through the kernels
@@ -1193,7 +1274,10 @@ def phase_train(torch, dev, report):
     log(f"  train step: {step_ms:.2f} ms mean, {tok_s:.1f} tokens/s, MFU "
         f"{mfu:.4f} (bench.py's formula, 989 TFLOP/s bf16 peak), peak "
         f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
-    busy = profile_kernels(torch, step, 1, step_ms, "train step, kernels")
+    busy, per_kernel = profile_kernels(torch, step, 1, step_ms,
+                                       "train step, kernels")
+    check_flash_route(per_kernel, {"fwd": nl, "dq": nl, "dkv": nl},
+                      "bf16 train step")
     # the optimizer's share of the step: AdamW's update alone, device time
     loss, _ = model(ids, labels=labels)
     loss.backward()

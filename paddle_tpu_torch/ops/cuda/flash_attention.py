@@ -10,7 +10,13 @@ keep mask.
 
 Routing: a CPU tensor takes :func:`_flash_fwd_reference` /
 :func:`_flash_bwd_reference`; a CUDA tensor launches the kernel or
-raises. There is no fallback between the two.
+raises. There is no fallback between the two. On the card the dtype
+picks the kernels (in the C entry points): fp32 runs the CUDA-core
+kernels (``flash_fwd_kernel``, ``flash_bwd_dq_kernel``,
+``flash_bwd_dkv_kernel``), bf16 and fp16 the tensor-core kernels
+(``flash_fwd_tc_kernel``, ``flash_bwd_dq_tc_kernel``,
+``flash_bwd_dkv_tc_kernel``), which copy rows in 16-byte chunks and so
+take tensors that start on a 16-byte boundary (:func:`_aligned`).
 """
 from __future__ import annotations
 
@@ -215,6 +221,12 @@ def _flash_bwd_reference(q, k, v, out, lse, do, seed=None, key_bias=None, *,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _aligned(t):
+    """``t`` itself if it starts on a 16-byte boundary, else a copy that
+    does (a contiguous view into a larger tensor may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _kernel_args(q, k, v, seed, key_bias, dropout_rate):
     """Check what the kernels take and return the launch arguments they
     share: (bias pointer, bias batch stride, seed pointer, dropout
@@ -259,6 +271,7 @@ def _flash_fwd_kernel(q, k, v, seed, key_bias, *, causal, scale,
     hkv, sk = k.shape[1], k.shape[2]
     bias_ptr, bias_stride, seed_ptr, thresh, inv_keep, _seed = _kernel_args(
         q, k, v, seed, key_bias, dropout_rate)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     status = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
@@ -286,7 +299,8 @@ def _flash_bwd_kernel(q, k, v, out, lse, do, seed, key_bias, *, causal,
     if lse.shape != (b, h, sq):
         raise ValueError(f"flash bwd kernel: lse must be [B,H,Sq], got "
                          f"{tuple(lse.shape)}")
-    do = do.contiguous()
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(
+        do.contiguous())
     lse = lse.to(torch.float32).contiguous()
     delta = (do.float() * out.float()).sum(dim=-1)
     dq = torch.empty_like(q)
