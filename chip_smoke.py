@@ -25,19 +25,22 @@ Phases, each fatal on failure:
              and ``flash_attn_varlen_qkvpacked`` (8 documents packed into
              8192 tokens, 16 heads of 128, bf16, causal), forward and
              ``.backward()``: launch counts, equal results of the two
-             entry points, output vs the plain version;
+             entry points, output vs the plain version, the kernels that
+             ran by name (profiler);
 8. calibrate — ``tools/conv_calibration.measure_shape`` of the port at
              ResNet-50 shapes 2 and 17 (batch 64) through the tiled
-             matmul kernel.
+             matmul kernel, and the tiled kernel that ran by name.
 
 Each kernel's ``launches`` in the ``kernels`` line is its count on its
 own main path (``main_path``: serve, train, varlen or calibrate).
 
-The dense flash kernels take a route fixed by the dtype: fp32 runs the
-CUDA-core kernels, bf16 and fp16 the tensor-core kernels
-(``FLASH_KERNELS``). The kernel phases check both routes against the
-plain versions; the bf16 forward and training phases read the profiler's
-per-kernel counts and fail unless only the tensor-core kernels ran.
+The dense flash kernels and the varlen forward take a route fixed by the
+dtype: fp32 runs the CUDA-core kernels, bf16 and fp16 the tensor-core
+kernels (``FLASH_KERNELS``, ``VARLEN_KERNELS``). The kernel phases check
+both routes against the plain versions; the bf16 forward, training and
+varlen phases read the profiler's per-kernel counts and fail unless only
+the tensor-core kernels ran. The tiled matmul has one route, the tensor
+cores, and the calibrate path fails if any other tiled kernel ran.
 
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}``.
@@ -108,6 +111,28 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+def profiled(fn, n: int, cpu: bool = False):
+    """``torch.profiler``'s event averages over ``n`` calls of ``fn``,
+    after one more call in the profiler's warm-up step: tracing starts
+    there, so the ``n`` recorded calls are whole (a profile that starts
+    with the first recorded call can miss that call's first kernels).
+    The schedule's own ``ProfilerStep#`` ranges, which span each step on
+    the device too, are left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    got = []        # the events are cleared when the recorded steps end
+    with profile(activities=acts,
+                 schedule=schedule(wait=0, warmup=1, active=n),
+                 on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
+        for _ in range(n + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for e in got[0] if not e.key.startswith("ProfilerStep")]
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one call: the summed duration of every GPU
     kernel and copy it ran, from ``torch.profiler`` over ``iters`` calls.
@@ -116,16 +141,11 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     :func:`time_ms` (and says so) if the profiler sees no device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_dev_us(e) for e in prof.key_averages()
+    total = sum(_dev_us(e) for e in profiled(fn, iters)
                 if e.device_type == DeviceType.CUDA)
     if total <= 0:
         log("  (profiler saw no device time: timing with CUDA events)")
@@ -646,8 +666,13 @@ def phase_varlen(torch, dev, report):
     from the forward kernel's out and lse: the full-width case (packed
     T 8192 from ``VARLEN_LENS``, 16 heads of 128, bf16, causal) and, at
     small T, GQA 16/4 with a zero-length segment, len_k != len_q causal
-    and not, rows past cu[-1], D 64, and dropout 0.1 at a fixed seed
-    (keep mask compared through one-hot values), in fp32, bf16 and fp16.
+    and not, rows past cu[-1], D 64, segments shorter than 16 rows inside
+    one 64-row tile, and dropout 0.1 at a fixed seed (keep mask compared
+    through one-hot values), in fp32, bf16 and fp16 (fp32 takes the
+    CUDA-core forward, bf16 and fp16 the tensor-core forward); bf16 views
+    that the kernel cannot read in place (token stride not a multiple of
+    8, start off a 16-byte boundary) must give the output of their
+    contiguous copies exactly.
     Both accumulate in fp32 (the kernels tile by tile) and round once:
     tolerance ``tolerance(dtype, 1e-4)`` on out, dq, dk and dv, i.e. 1e-4
     (fp32, sums over up to 2048 keys) plus two output ulps (bf16, fp16);
@@ -674,6 +699,8 @@ def phase_varlen(torch, dev, report):
          8, 64, {}),
         ("dropout 0.1 GQA 8/2", [129, 64, 300], [129, 64, 300], 8, 2, 128,
          dict(causal=True, seed=seed, rate=0.1)),
+        ("segments of 9 and 5 rows inside 64-row tiles", [40, 9, 70, 5, 100],
+         [40, 9, 70, 5, 100], 8, 2, 128, dict(causal=True)),
     ]
     main = None
     for label, lq, lk, h, hkv, d, kw in cases:
@@ -727,16 +754,44 @@ def phase_varlen(torch, dev, report):
     # the keep mask itself: q = 0 gives every visible key p = 1, and
     # one-hot values make out[row, d] = keep[row, d] / (1 - rate) / l
     cu = _cu(torch, [50, 78], dev)
-    q = torch.zeros(128, 4, 128, device=dev)
-    v = torch.eye(128, device=dev)[:, None, :].expand(128, 2, 128).contiguous()
-    k = rnd(128, 2, 128, dt=f32)
     st = dict(causal=True, scale=128 ** -0.5, dropout_rate=0.1)
-    out, _ = fv._vflash_fwd_kernel(q, k, v, cu, cu, seed, **st)
-    rout, _ = fv._vflash_fwd_reference(q, k, v, cu, cu, seed, **st)
-    kept, rkept = out > 0, rout > 0
-    log(f"  vflash dropout keep mask: kernel keeps {int(kept.sum())}, plain "
-        f"keeps {int(rkept.sum())}, identical={bool(torch.equal(kept, rkept))}")
-    check(torch.equal(kept, rkept), "vflash dropout keep mask differs")
+    k32 = rnd(128, 2, 128, dt=f32)
+    for dt in (f32, bf16, torch.float16):
+        q = torch.zeros(128, 4, 128, device=dev, dtype=dt)
+        v = torch.eye(128, device=dev, dtype=dt)[:, None, :].expand(
+            128, 2, 128).contiguous()
+        k = k32.to(dt)
+        out, _ = fv._vflash_fwd_kernel(q, k, v, cu, cu, seed, **st)
+        rout, _ = fv._vflash_fwd_reference(q, k, v, cu, cu, seed, **st)
+        kept, rkept = out > 0, rout > 0
+        name = str(dt).replace("torch.", "")
+        log(f"  vflash dropout keep mask {name}: kernel keeps "
+            f"{int(kept.sum())}, plain keeps {int(rkept.sum())}, "
+            f"identical={bool(torch.equal(kept, rkept))}")
+        check(torch.equal(kept, rkept), f"vflash dropout keep mask differs "
+                                        f"({name})")
+    # views the tensor-core forward cannot read in place are copied first:
+    # the output equals that of their contiguous copies
+    lens = [100, 37, 250]
+    cu = _cu(torch, lens, dev)
+    t_v = sum(lens)
+    k, v = rnd(t_v, 2, 128, dt=bf16), rnd(t_v, 2, 128, dt=bf16)
+    st = dict(causal=True, scale=128 ** -0.5, dropout_rate=0.0)
+    views = {
+        "token stride 8 * 128 + 4": rnd(t_v, 8 * 128 + 4, dt=bf16)[
+            :, :8 * 128].unflatten(1, (8, 128)),
+        "start 2 bytes off 16": rnd(t_v * 8 * 128 + 1, dt=bf16)[1:].view(
+            t_v, 8, 128),
+    }
+    for label, qv in views.items():
+        out, lse = fv._vflash_fwd_kernel(qv, k, v, cu, cu, None, **st)
+        cout, clse = fv._vflash_fwd_kernel(qv.contiguous().clone(), k, v, cu,
+                                           cu, None, **st)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out, cout)) and bool(torch.equal(lse, clse))
+        log(f"  vflash bf16 view, {label} (stride {qv.stride(0)}, data_ptr "
+            f"% 16 = {qv.data_ptr() % 16}): equals its contiguous copy: {same}")
+        check(same, f"vflash view {label} differs from its contiguous copy")
     # one segment of 2048 is the dense kernel's causal attention
     q, k, v = (rnd(2048, 16, 128, dt=bf16) for _ in range(3))
     cu = _cu(torch, [2048], dev)
@@ -778,7 +833,8 @@ def phase_varlen(torch, dev, report):
         name="flash_attn_varlen_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_varlen.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention_varlen.py:158",
-        max_abs_err=e_fwd, library=lib_note, **t)
+        kernels=[VARLEN_KERNELS["fwd"][0]], max_abs_err=e_fwd,
+        library=lib_note, **t)
     t = timings(
         lambda: fv._vflash_bwd_kernel(*args, out, lse, do, None, **st),
         lambda: fv._vflash_bwd_reference(*args, out, lse, do, None, **st),
@@ -823,21 +879,32 @@ def phase_varlen(torch, dev, report):
 TILED_MM_SHAPES = {2: (200704, 640, 128), 17: (3136, 4608, 512)}
 
 
+#: small shapes of the tiled-matmul check: (m, k, n) with m and n not
+#: tile multiples, aligned (k, n multiples of 8: 16-byte copies) and not
+#: (element copies), in one K range and split into several
+TILED_MM_SMALL = {"ragged": (1000, 300, 200),
+                  "aligned, m and n not tile multiples": (1000, 320, 200),
+                  "aligned, over a wave of tiles": (20000, 320, 200),
+                  "unaligned, over a wave of tiles": (20000, 300, 196),
+                  "aligned, split K": (1000, 2000, 200),
+                  "unaligned, split K": (1000, 2004, 196)}
+
+
 def phase_tiled_mm(torch, dev, report):
     """The calibration probe's tiled matmul kernel vs ``tiled_mm_reference``
     (an fp32 product of the bf16 operands, rounded once) at ResNet-50
-    shapes 2 and 17 and at a ragged shape (m, k, n not tile multiples).
+    shapes 2 and 17 and at the ``TILED_MM_SMALL`` shapes.
     Both accumulate in fp32 and round once to bf16: tolerance
     ``tolerance(bfloat16, 1e-4)``, i.e. 1e-4 plus two bf16 ulps of |ref|
     (sums of up to 4608 products in another order can round to the
     neighbouring bf16 value)."""
-    from paddle_tpu_torch.ops.cuda import tiled_mm as tm
+    from paddle_tpu_torch.ops.cuda import _build, tiled_mm as tm
 
     g = torch.Generator(device=dev).manual_seed(11)
     bf16 = torch.bfloat16
     atol, rtol = tolerance(bf16, 1e-4)
     times = {}
-    for label, (m, k, n) in [("ragged", (1000, 300, 200))] + [
+    for label, (m, k, n) in list(TILED_MM_SMALL.items()) + [
             (f"shape {i}", mkn) for i, mkn in TILED_MM_SHAPES.items()]:
         a = torch.randn(m, k, generator=g, device=dev).to(bf16)
         b = (torch.randn(k, n, generator=g, device=dev) * 0.05).to(bf16)
@@ -845,23 +912,24 @@ def phase_tiled_mm(torch, dev, report):
         ref = tm.tiled_mm_reference(a, b)
         torch.cuda.synchronize()
         err, share = close_err(out, ref, atol, rtol)
-        log(f"  tiled_mm {label} [{m},{k}]x[{k},{n}] bf16: max_abs_err="
-            f"{err:.3g}, {share:.3g} of the tolerance ({atol} + "
-            f"{rtol:.3g}|ref|)")
+        splits = tm._tile_config(m, k, n, _build.sm_count(dev))
+        log(f"  tiled_mm {label} [{m},{k}]x[{k},{n}] bf16, {splits} K "
+            f"range(s): max_abs_err={err:.3g}, {share:.3g} of the "
+            f"tolerance ({atol} + {rtol:.3g}|ref|)")
         check(share <= 1.0, f"tiled_mm {label} err {err}")
-        if label == "ragged":
+        if label in TILED_MM_SMALL:
             continue
         t = timings(lambda: tm._tiled_mm_kernel(a, b),
                     lambda: tm.tiled_mm_reference(a, b),
                     lambda: torch.matmul(a, b), nbytes(a, b, out),
                     2 * m * k * n, "bfloat16", plain_iters=5)
         show(f"tiled_mm {label} [{m},{k}]x[{k},{n}] bf16", t)
-        times[label] = dict(max_abs_err=err, **t)
+        times[label] = dict(max_abs_err=err, k_splits=splits, **t)
         del a, b, out, ref
     report["tiled_mm"] = dict(
         name="tiled_mm", route="cuda", source="paddle_tpu_torch/csrc/tiled_mm.cu",
-        replaces="tools/conv_calibration.py:145", **times["shape 2"],
-        at_shape_17=times["shape 17"])
+        replaces="tools/conv_calibration.py:145", kernels=list(TILED_KERNELS),
+        **times["shape 2"], at_shape_17=times["shape 17"])
     torch.cuda.empty_cache()
 
 
@@ -1013,12 +1081,12 @@ FLASH_KERNELS = {
 }
 
 
-def flash_launches(per_kernel):
-    """Launches of each dense flash kernel in ``per_kernel`` (profiler
+def named_launches(per_kernel, names):
+    """Launches of each kernel of ``names`` in ``per_kernel`` (profiler
     kernel name -> launches per call). A name counts where it is not
-    preceded by a letter, so ``vflash_*`` (the varlen kernels) and the
-    other route's names never count; mangled names count too."""
-    names = [n for pair in FLASH_KERNELS.values() for n in pair]
+    preceded by a letter, so ``vflash_*`` (the varlen kernels) never count
+    as dense flash kernels; mangled names count too. No name of a route is
+    a part of another's."""
     return {n: sum(c for key, c in per_kernel.items()
                    if re.search(rf"(?<![a-z]){n}", key)) for n in names}
 
@@ -1026,7 +1094,8 @@ def flash_launches(per_kernel):
 def check_flash_route(per_kernel, want, label):
     """Fail unless the profile ran each tensor-core flash kernel ``want``
     (step -> count) times and no CUDA-core flash kernel."""
-    got = flash_launches(per_kernel)
+    got = named_launches(per_kernel,
+                         [n for pair in FLASH_KERNELS.values() for n in pair])
     log(f"  {label}: dense flash kernels {got}")
     for step, (tc, cc) in FLASH_KERNELS.items():
         check(got[cc] == 0, f"{label}: the CUDA-core {cc} ran ({got[cc]} "
@@ -1036,12 +1105,24 @@ def check_flash_route(per_kernel, want, label):
               f"{want.get(step, 0)}")
 
 
+#: the varlen kernels of a bf16 forward + backward: the forward by route
+#: (tensor cores: bf16/fp16, CUDA cores: fp32), the backward's two kernels
+VARLEN_KERNELS = {
+    "fwd": ("vflash_fwd_tc_kernel", "vflash_fwd_kernel"),
+    "dq": ("vflash_bwd_dq_kernel",),
+    "dkv": ("vflash_bwd_dkv_kernel",),
+}
+#: the tiled matmul's kernels: the tensor-core product, and the pass that
+#: adds the K ranges' fp32 partials where the shape splits K
+TILED_KERNELS = ("tiled_mm_tc_kernel", "tiled_mm_reduce_kernel")
+
+
 #: profiler kernel names by kind, for the per-kind sums of profile_kernels
 KERNEL_KINDS = (
     ("varlen flash (port)", ("vflash_",)),
     ("flash (port)", ("flash_fwd_kernel", "flash_fwd_tc_kernel",
                       "flash_bwd_")),
-    ("tiled matmul (port)", ("tiled_mm_kernel",)),
+    ("tiled matmul (port)", ("tiled_mm_",)),
     ("RMSNorm (port)", ("rms_norm_",)),
     ("paged decode (port)", ("paged_decode_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "sm90_xmma")),
@@ -1055,14 +1136,8 @@ def profile_kernels(torch, fn, n, wall_ms, label):
     kernel ms per call (None if the profiler saw no kernels) and the
     launches per call of each kernel by name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
+    kernels = [e for e in profiled(fn, n, cpu=True)
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(_dev_us(e) for e in kernels) / n / 1e3
     per_kernel = {e.key: e.count // n for e in kernels}
@@ -1349,7 +1424,10 @@ def phase_varlen_path(torch, dev, report):
     and dk/dv kernels exactly once and no other kernel. The two calls
     read the same values, so their outputs and gradients must be equal;
     the output must be finite and within ``tolerance(bfloat16, 1e-4)`` of
-    the plain version on the same inputs."""
+    the plain version on the same inputs. Then a forward + backward under
+    the profiler must show ``vflash_fwd_tc_kernel`` once per call, the
+    CUDA-core ``vflash_fwd_kernel`` never, and each backward kernel once;
+    its kernel time is the path's forward + backward ms."""
     import paddle_tpu_torch.nn.functional as TF
     from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
 
@@ -1404,6 +1482,30 @@ def phase_varlen_path(torch, dev, report):
         f"of the tolerance")
     check(share <= 1.0, f"varlen path output differs by {err}")
     record_launches(report, "varlen", counts2)
+
+    # which kernels the path ran, by name: the tensor-core forward once per
+    # call, never the CUDA-core forward; each backward kernel once
+    def fwd_bwd():
+        o, _ = TF.flash_attn_unpadded(*leaves, cu, cu, mx, mx, d ** -0.5,
+                                      causal=True)
+        o.backward(do)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, per_kernel = profile_kernels(
+        torch, fwd_bwd, 2, wall_ms, "flash_attn_unpadded forward + backward")
+    names = [n for ns in VARLEN_KERNELS.values() for n in ns]
+    got = named_launches(per_kernel, names)
+    log(f"  varlen kernels per call: {got}")
+    for n in names:
+        want = 0 if n == VARLEN_KERNELS["fwd"][1] else 1
+        check(got[n] == want, f"varlen path: {n} launched {got[n]} times per "
+                              f"call, want {want}")
+    report["vflash"]["path_fwd_bwd_kernel_ms"] = busy_ms
     del qkv, do, leaves, out, pout, ref
     torch.cuda.empty_cache()
 
@@ -1417,7 +1519,11 @@ def phase_calibrate(torch, dev, report):
     ResNet-50 shapes 2 and 17, batch 64, ``CALIBRATE_ITERS`` timed calls
     each after its 3 warm-up calls: the tiled kernel must launch exactly
     that often and every time must be a positive finite number. Prints
-    each shape's JSON line as ``--shape i`` does."""
+    each shape's JSON line as ``--shape i`` does. Then one more call per
+    shape under the profiler, which must show the tensor-core tiled
+    kernel 4 times, its reduce pass 4 times where the shape splits K
+    (``TILED_KERNELS``), and no other tiled kernel."""
+    from paddle_tpu_torch.ops.cuda import _build, tiled_mm as tm
     from paddle_tpu_torch.tools import conv_calibration as cc
 
     reset_counts()
@@ -1437,6 +1543,26 @@ def phase_calibrate(torch, dev, report):
         check(n == (want if key == "tiled_mm" else 0),
               f"{key} launches {n} on the calibrate path")
     record_launches(report, "calibrate", counts)
+    # which tiled kernels the path ran, by name: only the tensor-core one,
+    # and its reduce pass where the shape splits K (3 warm-up + 1 timed
+    # call per shape)
+    for i in CALIBRATE_SHAPES:
+        d = cc.conv_dims(*cc.RESNET50_CONVS[i][:6], CALIBRATE_BATCH)
+        split = tm._tile_config(d["m"], d["kp"], d["np"],
+                                _build.sm_count(dev)) > 1
+        t0 = time.perf_counter()
+        cc.shape_record(i, CALIBRATE_BATCH, 1)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        _, per_kernel = profile_kernels(
+            torch, lambda: cc.shape_record(i, CALIBRATE_BATCH, 1), 1,
+            wall_ms, f"calibrate shape {i}, one timed call")
+        tiled = {k: c for k, c in per_kernel.items() if "tiled_mm" in k}
+        want = {TILED_KERNELS[0]: 4, TILED_KERNELS[1]: 4 if split else 0}
+        log(f"  shape {i} tiled kernels: {tiled}")
+        check(named_launches(tiled, TILED_KERNELS) == want
+              and sum(tiled.values()) == sum(want.values()),
+              f"calibrate shape {i}: tiled kernels {tiled}, want {want} and "
+              f"no other")
     torch.cuda.empty_cache()
 
 

@@ -31,7 +31,6 @@
 // through shared memory. Row max is a warp reduction per tile; the row
 // sum stays lane-partial until the end. Any Sq and Sk are accepted
 // (ragged tiles are masked); D is 64 or 128.
-#include <initializer_list>
 #include <type_traits>
 
 #include "flash_mma.cuh"
@@ -628,8 +627,6 @@ static int launch_flash_bwd_cc(const void* q, const void* k, const void* v, cons
 // score and dP tiles at 16 registers each; the dq kernel re-reads Q and
 // dO from shared memory rather than keep their fragments in registers.
 
-// a 64-row tile: the forward's and dq's q rows, and every key tile
-constexpr int kTcBlk = 64;
 // q rows per step of the dk/dv kernel: with 16 keys of dK and dV per warp
 // in fp32 registers (2 * D / 2 per thread), a 32-row step keeps the score
 // and dP tiles at 16 registers each
@@ -1248,14 +1245,6 @@ static int launch_flash_bwd(const void* q, const void* k, const void* v, const v
     return launch_flash_bwd_tc<T, D>(q, k, v, dout, lse, delta, bias, bias_batch_stride, seed,
                                      dq, dk, dv, B, H, Hkv, Sq, Sk, scale, causal, dropout,
                                      thresh, inv_keep, s);
-}
-
-// The tensor-core kernels copy rows in 16-byte chunks: every tensor must
-// start on a 16-byte boundary (the wrapper guarantees it).
-static bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
-  return true;
 }
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const float* bias,

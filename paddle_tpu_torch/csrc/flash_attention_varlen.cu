@@ -15,28 +15,36 @@
 // -inf, and gradients 0. Dropout applies the dense kernels' counter hash
 // (flash_common.cuh) on (q head, packed row, packed col) to P.V only.
 //
+// Routes, fixed by the dtype in the C entry point vflash_fwd: bf16 and
+// fp16 take the tensor-core forward (vflash_fwd_tc_kernel, second part of
+// this file); fp32 takes the CUDA-core forward (vflash_fwd_kernel), since
+// TF32's 10-bit mantissa cannot hold the fp32 outputs to 1e-4. The
+// backward (vflash_bwd_dq_kernel, vflash_bwd_dkv_kernel) runs on the CUDA
+// cores in every dtype and takes either forward's out and lse.
+//
 // What bounds it on the H100: operations, 4 * D * H * sum_i len_q,i * len_k,i
 // FLOPs forward (about half of that causal) and 2.5 times that backward (five
-// products), over the 989 TFLOP/s bf16 tensor-core peak. Like the dense
-// kernels this first version does its math on the CUDA cores in fp32, far from
-// that bound; wgmma and TMA are the tuning PR's work.
+// products), over the 989 TFLOP/s bf16 tensor-core peak. The CUDA-core
+// kernels do their math in fp32 (67 TFLOP/s peak), far from that bound.
 //
-// Design: the dense kernels' tiles (32 q rows x 32 keys, 4 warps of 8 rows,
-// fp32 in shared memory), reading the packed tensors in place at their token
-// stride: there is no transpose to [H, T, D] and no padding of T. Where the
-// TPU visits every (q block, k block) pair and skips those whose segment
-// ranges are disjoint, here a q tile loops only over the keys of its own
-// segments, [cu_k[first segment], cu_k[last segment + 1]), cut under causal
-// at its largest row bound; a key tile of the dk/dv kernel loops only over
-// the q rows of its segments, from the first row that sees its first key.
-// The work so stays about sum_i len_i^2 rather than T^2; a tile that
+// CUDA-core design: the dense kernels' tiles (32 q rows x 32 keys, 4 warps
+// of 8 rows, fp32 in shared memory), reading the packed tensors in place at
+// their token stride: there is no transpose to [H, T, D] and no padding of
+// T. Where the TPU visits every (q block, k block) pair and skips those whose
+// segment ranges are disjoint, here a q tile loops only over the keys of its
+// own segments, [cu_k[first segment], cu_k[last segment + 1]), cut under
+// causal at its largest row bound; a key tile of the dk/dv kernel loops only
+// over the q rows of its segments, from the first row that sees its first
+// key. The work so stays about sum_i len_i^2 rather than T^2; a tile that
 // straddles a segment boundary pays for both segments' keys. The element
 // mask is the segment test above. GQA reads kv head h / (H / Hkv); the dk/dv
 // kernel loops over the group's q heads and keeps dk and dv in fp32
 // registers, cast once.
 #include <limits.h>
 
-#include "flash_common.cuh"
+#include <type_traits>
+
+#include "flash_mma.cuh"
 
 __device__ __forceinline__ int warp_min_i(int v) {
 #pragma unroll
@@ -50,23 +58,47 @@ __device__ __forceinline__ int warp_max_i(int v) {
   return v;
 }
 
-// The keys [begin, end) that the q rows [q0, q0 + 32) may see: those of their
-// segments, and under causal none past their largest bound. Called by a whole
-// warp; lane i looks at row q0 + i.
-__device__ int2 q_tile_keys(const int* __restrict__ seg_q, const int* __restrict__ bound,
-                            const int* __restrict__ cu_k, int q0, int Tq, int Tk, int n_seqs,
-                            int causal, int lane) {
-  const int row = q0 + lane;
-  const int s = row < Tq ? seg_q[row] : n_seqs;
-  const bool ok = s < n_seqs;  // rows past cu_q[-1] carry the sentinel n_seqs
-  const int lo = warp_min_i(ok ? s : INT_MAX);
-  const int hi = warp_max_i(ok ? s : -1);
-  const int last = warp_max_i(ok ? bound[row] : -1);
-  if (hi < 0) return make_int2(0, 0);
+// The keys [begin, end) that the q rows [q0, q0 + ROWS) may see: those of
+// their segments, and under causal none past their largest bound. `seg` is
+// the rows' one segment when every row lies in the same segment (then the
+// keys [begin, end) are all of that segment), else -1; `min_bound` is the
+// smallest bound of the rows that lie in a segment. Called by a whole warp;
+// lane i looks at rows q0 + i, q0 + 32 + i, ...
+struct QTileKeys {
+  int begin, end, seg, min_bound;
+};
+
+template <int ROWS>
+__device__ QTileKeys q_tile_keys(const int* __restrict__ seg_q, const int* __restrict__ bound,
+                                 const int* __restrict__ cu_k, int q0, int Tq, int Tk,
+                                 int n_seqs, int causal, int lane) {
+  static_assert(ROWS % 32 == 0, "whole warps of rows");
+  int lo = INT_MAX, hi = -1, last = -1, first = INT_MAX;
+  bool all_in = true;
+#pragma unroll
+  for (int r = 0; r < ROWS / 32; ++r) {
+    const int row = q0 + 32 * r + lane;
+    const int s = row < Tq ? seg_q[row] : n_seqs;
+    if (s < n_seqs) {  // rows past cu_q[-1] carry the sentinel n_seqs
+      lo = min(lo, s);
+      hi = max(hi, s);
+      const int b = bound[row];
+      last = max(last, b);
+      first = min(first, b);
+    } else {
+      all_in = false;
+    }
+  }
+  lo = warp_min_i(lo);
+  hi = warp_max_i(hi);
+  last = warp_max_i(last);
+  first = warp_min_i(first);
+  all_in = __all_sync(0xffffffffu, all_in);
+  if (hi < 0) return {0, 0, -1, -1};
   const int begin = max(cu_k[lo], 0);
   int end = min(cu_k[hi + 1], Tk);
   if (causal) end = min(end, last + 1);
-  return make_int2(begin, max(begin, end));
+  return {begin, max(begin, end), all_in && lo == hi ? lo : -1, first};
 }
 
 // The q rows [begin, end) that may see a key of [k0, k0 + 32): those of the
@@ -123,8 +155,8 @@ vflash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (warp == 0) {
-    const int2 r = q_tile_keys(seg_q, bound, cu_k, q0, Tq, Tk, n_seqs, causal, lane);
-    if (lane == 0) keys_s = r;
+    const QTileKeys r = q_tile_keys<kFaBQ>(seg_q, bound, cu_k, q0, Tq, Tk, n_seqs, causal, lane);
+    if (lane == 0) keys_s = make_int2(r.begin, r.end);
   }
   for (int i = tid; i < kFaBQ * D; i += kFaThreads) {
     const int r = i / D, c = i - r * D;
@@ -278,8 +310,8 @@ vflash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (warp == 0) {
-    const int2 r = q_tile_keys(seg_q, bound, cu_k, q0, Tq, Tk, n_seqs, causal, lane);
-    if (lane == 0) keys_s = r;
+    const QTileKeys r = q_tile_keys<kFaBQ>(seg_q, bound, cu_k, q0, Tq, Tk, n_seqs, causal, lane);
+    if (lane == 0) keys_s = make_int2(r.begin, r.end);
   }
   for (int i = tid; i < kFaBQ * D; i += kFaThreads) {
     const int r = i / D, c = i - r * D;
@@ -575,6 +607,252 @@ vflash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   }
 }
 
+// ===========================================================================
+// Tensor-core forward (bf16, fp16): vflash_fwd_tc_kernel computes what
+// vflash_fwd_kernel computes and is held to the same plain version
+// (_vflash_fwd_reference) at the same tolerance.
+//
+// What bounds it on the H100: operations, 4 * D * H * (visible pairs) FLOPs
+// over the 989 TFLOP/s bf16/fp16 tensor-core peak. At the full-width case
+// (8192 tokens packed from 8 documents, 16 heads of 128, causal) that is
+// 48.0 GFLOP, 0.0486 ms; the bytes (q, k, v, out once) take 0.040 ms.
+//
+// What the design does about it: it is the dense flash_fwd_tc_kernel
+// (flash_attention.cu) over packed segments. Every product runs on the
+// tensor cores (mma.sync m16n8k16, fp32 accumulation, flash_mma.cuh); a
+// block of 4 warps takes 64 q rows of one q head, Q stays in registers as
+// A fragments, and K and V tiles of 64 keys are double-buffered with
+// cp.async in the input type (padded rows, ldmatrix), read in place at the
+// packed tensors' token strides (load_rows). The block loops only over the
+// keys of its rows' segments, [k_begin, k_end) from q_tile_keys<64>:
+// k_begin is a segment start, so key tiles are not 64-aligned; each tile
+// row is a token addressed on its own, so that costs nothing. Softmax,
+// masks and dropout run on the accumulator fragments in registers, and
+// the element mask is evaluated only on tiles that need it: a tile needs
+// none when all 64 rows lie in one segment (its keys are then that
+// segment's), the tile is whole (k0 + 64 <= k_end), and under causal its
+// last key is at most the rows' smallest bound. Every other tile tests
+// col < k_end, seg_k[col] == seg_q[row] (seg_k of the tile is copied to
+// shared memory beside K and V) and col <= bound[row] per element; a q
+// tile that straddles a segment boundary always takes that path.
+//
+// Why P is split: P is fp32 and the tensor cores take it only as 16-bit
+// inputs. In a CPU model of the dense kernels' rounding, P rounded once to
+// bf16 misses chip_smoke.py's tolerance(dtype, 1e-4) by 12.1x; split as
+// hi = T(p), lo = T(p - hi) with both products summed in fp32 it reaches
+// 0.48 of it (tests/test_torch_flash_tc_numerics.py, which models this
+// kernel's packed tiling too). So P.V takes two MMAs, and the row sum l
+// comes from the fp32 p, undropped.
+//
+// Resources (ptxas -v for sm_90a; no spills) and dynamic shared memory:
+//   vflash_fwd_tc_kernel  D 128: 218 / 218 registers (bf16 / fp16), 85.5 KB;
+//                         D 64: 158 / 157, 45.5 KB
+// Registers allow two blocks (8 warps) per SM, which the shared memory
+// also fits.
+
+template <int D>
+static constexpr size_t vflash_fwd_tc_smem_bytes() {  // Q, 2 stages of K, V and seg_k
+  return sizeof(uint16_t) * 5 * (size_t)kTcBlk * (D + kTcPad) + sizeof(int) * 2 * kTcBlk;
+}
+
+// One block of 4 warps per (q head, 64-row q tile): warp w owns q rows
+// q0 + 16w .. q0 + 16w + 15 and loops over 64-key tiles from k_begin.
+// Grid (H, q tiles), heads fastest and the q tiles from the last: the
+// blocks in flight read every head of one stretch of tokens (whole token
+// rows of k and v), and within a segment the later rows, which see more
+// keys, start first. out [Tq, H, D] (contiguous), lse [H, Tq].
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+vflash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     long long q_stride, long long k_stride, long long v_stride,
+                     const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                     const int* __restrict__ bound, const int* __restrict__ cu_k,
+                     const int* __restrict__ seed_ptr, T* __restrict__ out,
+                     float* __restrict__ lse, int Tq, int Tk, int H, int Hkv, int n_seqs,
+                     float scale, int causal, int dropout, uint32_t thresh, float inv_keep) {
+  constexpr int LD = D + kTcPad;
+  constexpr int KS = D / 16;      // k-steps of Q K^T
+  constexpr int NT = kTcBlk / 8;  // score n-tiles (8 keys each)
+  constexpr int DT = D / 8;       // output n-tiles
+  const int h = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * kTcBlk;
+  const int hk = h / (H / Hkv);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);                    // [64][LD]
+  T* k_s = q_s + kTcBlk * LD;                                 // [2][64][LD]
+  T* v_s = k_s + 2 * kTcBlk * LD;                             // [2][64][LD]
+  int* sk_s = reinterpret_cast<int*>(v_s + 2 * kTcBlk * LD);  // [2][64] seg_k
+  __shared__ QTileKeys keys_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const T* kh = k + hk * D;
+  const T* vh = v + hk * D;
+
+  load_rows<T, kTcBlk, D>(q_s, q + h * D, q_stride, q0, Tq, tid);
+  cp_async_commit();
+  if (warp == 0) {
+    const QTileKeys r = q_tile_keys<kTcBlk>(seg_q, bound, cu_k, q0, Tq, Tk, n_seqs, causal, lane);
+    if (lane == 0) keys_s = r;
+  }
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  int seg_r[2], bound_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8;
+    seg_r[i] = row < Tq ? seg_q[row] : -1;  // -1 matches no key
+    bound_r[i] = row < Tq ? bound[row] : -1;
+  }
+  const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
+  __syncthreads();
+  const QTileKeys keys = keys_s;
+  const int k_begin = keys.begin, k_end = keys.end;
+  const int n_tiles = (k_end - k_begin + kTcBlk - 1) / kTcBlk;
+
+  // keys [k0, k0 + 64) into stage st; keys at or past k_end zero-filled
+  auto load_kv = [&](int st, int k0) {
+    load_rows<T, kTcBlk, D>(k_s + st * kTcBlk * LD, kh, k_stride, k0, k_end, tid);
+    load_rows<T, kTcBlk, D>(v_s + st * kTcBlk * LD, vh, v_stride, k0, k_end, tid);
+    if (tid < kTcBlk) {
+      const bool ok = k0 + tid < k_end;
+      cp_async4(sk_s + st * kTcBlk + tid, ok ? seg_k + k0 + tid : seg_k, ok);
+    }
+  };
+  if (n_tiles > 0) load_kv(0, k_begin);
+  cp_async_commit();
+
+  float o[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t qf[KS][4];
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = k_begin + j * kTcBlk;
+    if (j + 1 < n_tiles) {
+      load_kv((j + 1) & 1, k0 + kTcBlk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) ldsm_x4(qf[ks], frag_a<LD>(q_s, warp * 16, ks * 16, lane));
+    }
+    const T* kt = k_s + (j & 1) * kTcBlk * LD;
+    const T* vt = v_s + (j & 1) * kTcBlk * LD;
+    const int* skt = sk_s + (j & 1) * kTcBlk;
+
+    float s[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, frag_b_nk<LD>(kt, np * 16, ks * 16, lane));
+        mma16816<T>(s[2 * np], qf[ks], kb[0], kb[1]);
+        mma16816<T>(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+      }
+
+    // logits; the element mask only where the tile needs it (a uniform
+    // branch: every thread of the block takes the same side)
+    const bool no_mask = keys.seg >= 0 && k0 + kTcBlk <= k_end &&
+                         (!causal || k0 + kTcBlk - 1 <= keys.min_bound);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + 2 * t4 + (e & 1);
+        const int i = e >> 1;
+        float x = s[nt][e] * scale;
+        if (!no_mask) {
+          const int col = k0 + c;
+          const bool vis = col < k_end && skt[c] == seg_r[i] && (!causal || col <= bound_r[i]);
+          if (!vis) x = -INFINITY;
+        }
+        s[nt][e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    float alpha[2], mel[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = quad_max(mx[i]);
+      // a row may still see no key: keep exp arguments finite so it stays
+      // exactly 0 instead of NaN (the TPU kernel's m_eff)
+      const float m_eff = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = exp2f((m[i] - m_eff) * kLog2e);
+      mel[i] = m_eff * kLog2e;
+      m[i] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[nt][e], kLog2e, -mel[e >> 1]));
+        rs[e >> 1] += p;  // the denominator: fp32 p, undropped
+        if (dropout) {
+          const int col = k0 + nt * 8 + 2 * t4 + (e & 1);
+          const int row = row0 + (e >> 1) * 8;
+          p = dropout_keep(seed, (uint32_t)h, (uint32_t)row, (uint32_t)col, thresh) ? p * inv_keep
+                                                                                   : 0.f;
+        }
+        s[nt][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+
+    // o += P V, P as hi + lo
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t ah[4], al[4];
+      acc_to_a<T>(s[2 * kk], s[2 * kk + 1], ah, al);
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, frag_b_kn<LD>(vt, kk * 16, dp * 16, lane));
+        mma16816<T>(o[2 * dp], al, vb[0], vb[1]);
+        mma16816<T>(o[2 * dp], ah, vb[0], vb[1]);
+        mma16816<T>(o[2 * dp + 1], al, vb[2], vb[3]);
+        mma16816<T>(o[2 * dp + 1], ah, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // this stage is reloaded by the next iteration's copy
+  }
+  cp_async_wait<0>();  // a block with no key tile still has Q's copy in flight
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lt = quad_sum(l[i]);
+    const int row = row0 + i * 8;
+    if (row < Tq) {
+      const float ls = lt == 0.f ? 1.f : lt;
+      T* orow = out + ((long long)row * H + h) * D + 2 * t4;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<uint32_t*>(orow + dt * 8) =
+            pack2<T>(o[dt][2 * i] / ls, o[dt][2 * i + 1] / ls);
+      if (t4 == 0) lse[(long long)h * Tq + row] = lt == 0.f ? -INFINITY : m[i] + logf(ls);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // C entry points. q/k/v are read at a token stride in elements (a token's
 // heads and head dims contiguous); dout, out and the gradients are
@@ -590,6 +868,58 @@ static bool bad_shape(int Tq, int Tk, int H, int Hkv, int n_seqs) {
   return Tq <= 0 || Tk <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || n_seqs <= 0;
 }
 
+// What the forward launches share.
+struct VFwdArgs {
+  const void *q, *k, *v;
+  long long q_stride, k_stride, v_stride;
+  const int *seg_q, *seg_k, *bound, *cu_k, *seed;
+  void* out;
+  float* lse;
+  int Tq, Tk, H, Hkv, n_seqs;
+  float scale;
+  int causal, dropout;
+  uint32_t thresh;
+  float inv_keep;
+};
+
+template <typename T, int D>
+static int launch_vflash_fwd_cc(const VFwdArgs& a, cudaStream_t s) {
+  constexpr size_t smem = vflash_fwd_smem_bytes<D>();
+  const cudaError_t e = opt_in_smem(vflash_fwd_kernel<T, D>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.Tq + kFaBQ - 1) / kFaBQ, a.H);
+  vflash_fwd_kernel<T, D><<<grid, kFaThreads, smem, s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride, a.seg_q,
+      a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.out, a.lse, a.Tq, a.Tk, a.H, a.Hkv, a.n_seqs,
+      a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+static int launch_vflash_fwd_tc(const VFwdArgs& a, cudaStream_t s) {
+  constexpr size_t smem = vflash_fwd_tc_smem_bytes<D>();
+  const cudaError_t e = opt_in_smem(vflash_fwd_tc_kernel<T, D>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int q_tiles = (a.Tq + kTcBlk - 1) / kTcBlk;
+  if (q_tiles > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
+  const dim3 grid(a.H, q_tiles);
+  vflash_fwd_tc_kernel<T, D><<<grid, kTcThreads, smem, s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride, a.seg_q,
+      a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.out, a.lse, a.Tq, a.Tk, a.H, a.Hkv, a.n_seqs,
+      a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
+// The route is the dtype's: fp32 -> the CUDA-core kernel, bf16/fp16 -> the
+// tensor-core kernel. No fallback between them.
+template <typename T, int D>
+static int launch_vflash_fwd(const VFwdArgs& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch_vflash_fwd_cc<T, D>(a, s);
+  else
+    return launch_vflash_fwd_tc<T, D>(a, s);
+}
+
 extern "C" int vflash_fwd(const void* q, const void* k, const void* v, long long q_stride,
                           long long k_stride, long long v_stride, const int* seg_q,
                           const int* seg_k, const int* bound, const int* cu_k, const int* seed,
@@ -597,25 +927,19 @@ extern "C" int vflash_fwd(const void* q, const void* k, const void* v, long long
                           int n_seqs, float scale, int causal, int dropout, unsigned int thresh,
                           float inv_keep, int dtype, void* stream) {
   if (bad_shape(Tq, Tk, H, Hkv, n_seqs)) return (int)cudaErrorInvalidValue;
+  // the tensor-core kernel copies each token's head in 16-byte pieces
+  if (dtype != kF32 && (!aligned16({q, k, v, out}) || q_stride % 8 || k_stride % 8 ||
+                        v_stride % 8))
+    return (int)cudaErrorMisalignedAddress;
+  const VFwdArgs a{q,   k,   v,  q_stride, k_stride, v_stride, seg_q,  seg_k,
+                   bound, cu_k, seed, out, lse,  Tq,  Tk, H, Hkv, n_seqs, scale,
+                   causal, dropout, thresh, inv_keep};
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((Tq + kFaBQ - 1) / kFaBQ, H);
-#define VFWD(DIM)                                                                             \
-  {                                                                                           \
-    constexpr size_t smem = vflash_fwd_smem_bytes<DIM>();                                     \
-    cudaError_t e = opt_in_smem(vflash_fwd_kernel<T, DIM>, smem);                             \
-    if (e != cudaSuccess) return (int)e;                                                      \
-    vflash_fwd_kernel<T, DIM><<<grid, kFaThreads, smem, s>>>(                                 \
-        (const T*)q, (const T*)k, (const T*)v, q_stride, k_stride, v_stride, seg_q, seg_k,    \
-        bound, cu_k, seed, (T*)out, lse, Tq, Tk, H, Hkv, n_seqs, scale, causal, dropout,      \
-        thresh, inv_keep);                                                                    \
-    return (int)cudaGetLastError();                                                           \
-  }
   DISPATCH_DTYPE(dtype, T, {
-    if (D == 64) VFWD(64)
-    if (D == 128) VFWD(128)
+    if (D == 64) return launch_vflash_fwd<T, 64>(a, s);
+    if (D == 128) return launch_vflash_fwd<T, 128>(a, s);
     return (int)cudaErrorInvalidValue;
   })
-#undef VFWD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,6 +13,8 @@
 // tile goes from the accumulators into P.V without shared memory.
 #pragma once
 
+#include <initializer_list>
+
 #include "flash_common.cuh"
 
 // a block of 4 warps; each warp owns 16 rows of the block's row tile
@@ -22,6 +24,8 @@ constexpr int kTcThreads = kTcWarps * 32;
 // row by 4 banks, so the 8 row addresses of one ldmatrix hit 8 distinct
 // bank groups (no conflicts) and every row stays 16-byte aligned
 constexpr int kTcPad = 8;
+// a 64-row tile: the flash forwards' and dq's q rows, and every key tile
+constexpr int kTcBlk = 64;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -50,11 +54,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [row0, row0 + ROWS) of a [*, D] row-major tensor into a padded
-// tile; rows at or past n_rows are zero-filled
+// rows [row0, row0 + ROWS) of a tensor whose row r holds D contiguous
+// elements at src + r * stride (stride a multiple of 8, src 16-byte
+// aligned) into a padded tile; rows at or past n_rows are zero-filled
 template <typename T, int ROWS, int D>
-__device__ __forceinline__ void load_tile(T* tile, const T* __restrict__ src, int row0,
-                                          int n_rows, int tid) {
+__device__ __forceinline__ void load_rows(T* tile, const T* __restrict__ src, long long stride,
+                                          int row0, int n_rows, int tid) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
   static_assert(ROWS * CH % kTcThreads == 0, "whole chunks per thread");
 #pragma unroll
@@ -63,8 +68,23 @@ __device__ __forceinline__ void load_tile(T* tile, const T* __restrict__ src, in
     const int r = i / CH, c = i - r * CH;
     const bool ok = row0 + r < n_rows;
     cp_async16(tile + r * (D + kTcPad) + c * 8,
-               ok ? src + (long long)(row0 + r) * D + c * 8 : src, ok);
+               ok ? src + (long long)(row0 + r) * stride + c * 8 : src, ok);
   }
+}
+
+// rows [row0, row0 + ROWS) of a [*, D] row-major tensor
+template <typename T, int ROWS, int D>
+__device__ __forceinline__ void load_tile(T* tile, const T* __restrict__ src, int row0,
+                                          int n_rows, int tid) {
+  load_rows<T, ROWS, D>(tile, src, D, row0, n_rows, tid);
+}
+
+// The tensor-core kernels copy rows in 16-byte chunks: every tensor must
+// start on a 16-byte boundary (the wrappers guarantee it).
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  return true;
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 import torch
 
 __all__ = ["KERNEL_SOURCES", "DTYPE_CODES", "build", "load", "build_dir",
-           "check_status", "smem_limit", "stream_ptr"]
+           "check_status", "smem_limit", "sm_count", "stream_ptr"]
 
 #: every kernel library of the port, by csrc/ file stem
 KERNEL_SOURCES = ("rms_norm", "paged_attention", "flash_attention",
@@ -134,6 +134,17 @@ def smem_limit(device: torch.device) -> int:
         _smem_limits[idx] = int(getattr(
             props, "shared_memory_per_block_optin", 232448))
     return _smem_limits[idx]
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (132 on an H100 SXM)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -205,11 +205,17 @@ def _packed(t):
     """``t`` itself where its heads and head dims are contiguous (a packed
     [T, H, D] tensor, or one of q, k, v unbound from a packed qkv), which
     the kernels read in place at its token stride; else a contiguous
-    copy."""
+    copy. bf16 and fp16 go to the tensor-core forward, which copies each
+    token's head in 16-byte pieces: read in place, such a tensor must also
+    start on a 16-byte boundary with a token stride that is a multiple of
+    8 elements (a head's offset, h * D * 2 bytes, is then one too)."""
     _, h, d = t.shape
-    if t.stride(2) == 1 and (h == 1 or t.stride(1) == d):
+    in_place = t.stride(2) == 1 and (h == 1 or t.stride(1) == d)
+    if in_place and t.dtype != torch.float32:
+        in_place = t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
+    if in_place:
         return t
-    return t.contiguous()
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
 
 
 def _kernel_args(q, k, v, cu_q, cu_k, seed, dropout_rate):

@@ -41,6 +41,10 @@ def _reference_tool():
 
 
 REF = _reference_tool()
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+CHIP_SMOKE = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(CHIP_SMOKE)
 
 
 def test_resnet50_table_is_the_reference_table():
@@ -121,3 +125,76 @@ def test_measure_shape_needs_a_card(monkeypatch):
         tcc.measure_shape(64, 56, 56, 64, 3, 1, 64, 1, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcc.main(["--shape", "2", "--iters", "1"])
+
+
+# The tiled matmul's K split is a rule of the shape (_tile_config): one K
+# range where the 128 x 128 tiles of C alone give each of the H100's 132 SMs
+# a block; else the fewest ranges that do, each at least MIN_SPLIT_STEPS
+# K steps. The kernel adds the ranges' fp32 partials in a fixed order.
+
+def _probe_shape(i, batch=64):
+    cin, h, w, cout, kk, stride, _ = tcc.RESNET50_CONVS[i]
+    d = tcc.conv_dims(cin, h, w, cout, kk, stride, batch)
+    return d["m"], d["kp"], d["np"]
+
+
+def test_split_rule_at_the_calibrate_shapes():
+    assert _probe_shape(2) == (200704, 640, 128)
+    assert _probe_shape(17) == (3136, 4608, 512)
+    assert ttm._tile_config(*_probe_shape(2)) == 1
+    assert ttm._blocks(3136, 512) == 100         # 32 of 132 SMs idle
+    assert ttm._tile_config(*_probe_shape(17)) == 2
+    assert ttm._blocks(3136, 512) * 2 >= ttm.H100_SMS
+
+
+@pytest.mark.parametrize("i", range(len(REF.RESNET50_CONVS)))
+def test_split_rule_fills_a_wave_where_it_can(i):
+    m, k, n = _probe_shape(i)
+    splits = ttm._tile_config(m, k, n)
+    tiles = ttm._blocks(m, n)
+    steps = -(-k // ttm.K_STEP)
+    if tiles >= ttm.H100_SMS:
+        assert splits == 1
+    else:
+        # a wave of blocks, or as many ranges as K allows
+        assert (tiles * splits >= ttm.H100_SMS
+                or splits == steps // ttm.MIN_SPLIT_STEPS)
+        assert tiles * (splits - 1) < ttm.H100_SMS  # the fewest that do
+    assert splits == 1 or steps // splits >= ttm.MIN_SPLIT_STEPS
+
+
+def test_split_rule_takes_the_card_sm_count_and_short_k():
+    assert ttm._tile_config(3136, 4608, 512, sms=100) == 1
+    assert ttm._tile_config(1000, 300, 200) == 1     # 5 K steps: no split
+    assert ttm._tile_config(1000, 2000, 200) == 8    # 16 tiles, 32 steps
+
+
+def _split_model(a, b, splits):
+    """The kernel's split-K arithmetic: K ranges of whole 64-steps, each
+    summed in fp32, the partials added in order and rounded once."""
+    k = a.shape[1]
+    steps = -(-k // ttm.K_STEP)
+    k_split = -(-steps // splits) * ttm.K_STEP
+    part = [a[:, k0:k0 + k_split].float() @ b[k0:k0 + k_split].float()
+            for k0 in range(0, k, k_split)]
+    acc = part[0]
+    for p in part[1:]:
+        acc = acc + p
+    return acc.to(torch.bfloat16), len(part)
+
+
+@pytest.mark.parametrize("m, k, n", [(1000, 2000, 200), (1000, 2004, 196),
+                                     (49, 4608, 512)])
+def test_split_k_within_the_kernel_check(m, k, n):
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    b = torch.from_numpy((rng.normal(size=(k, n)) * 0.05).astype(np.float32)
+                         ).to(torch.bfloat16)
+    splits = ttm._tile_config(m, k, n)
+    got, ranges = _split_model(a, b, splits)
+    assert splits > 1 and 1 < ranges <= splits
+    atol, rtol = CHIP_SMOKE.tolerance(torch.bfloat16, 1e-4)
+    _, share = CHIP_SMOKE.close_err(got, ttm.tiled_mm_reference(a, b), atol,
+                                    rtol)
+    assert share <= 1.0

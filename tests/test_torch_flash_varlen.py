@@ -271,3 +271,45 @@ def test_dense_flash_attention_and_sdp_kernel():
                                    causal=True)
     assert get_flag("use_cuda_flash_attention")
     np.testing.assert_allclose(plain.numpy(), got.numpy(), rtol=0, atol=1e-5)
+
+
+# The kernels read packed q, k, v in place at their token stride. The bf16
+# and fp16 forward runs on the tensor cores and copies each token's head in
+# 16-byte pieces, so the wrapper (_packed) reads such a tensor in place
+# only where it starts on a 16-byte boundary and its token stride is a
+# multiple of 8 elements; anything else is copied first.
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_packed_reads_aligned_views_in_place(dtype):
+    qkv = torch.randn(40, 3, 4, 64).to(dtype)
+    for i in range(3):                  # token stride 3 * H * D
+        view = qkv[:, i]
+        assert tvf._packed(view).data_ptr() == view.data_ptr()
+    wide = torch.randn(40, 17, 128).to(dtype)[:, :16]    # token stride 2176
+    assert tvf._packed(wide).data_ptr() == wide.data_ptr()
+    dense = torch.randn(40, 4, 64).to(dtype)
+    assert tvf._packed(dense) is dense
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_packed_copies_views_the_tensor_cores_cannot_read(dtype):
+    odd_stride = torch.randn(40, 4 * 64 + 4).to(dtype)[:, :256].unflatten(
+        1, (4, 64))                     # token stride 260: not a multiple of 8
+    off16 = torch.randn(40 * 256 + 1).to(dtype)[1:].view(40, 4, 64)
+    assert odd_stride.stride(0) % 8 and off16.data_ptr() % 16
+    for view in (odd_stride, off16):
+        got = tvf._packed(view)
+        assert got.data_ptr() != view.data_ptr()
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, view)
+
+
+def test_packed_fp32_reads_any_token_stride_in_place():
+    # the fp32 forward runs on the CUDA cores and reads element by element
+    odd_stride = torch.randn(40, 4 * 64 + 4)[:, :256].unflatten(1, (4, 64))
+    assert tvf._packed(odd_stride).data_ptr() == odd_stride.data_ptr()
+    # heads not contiguous: copied in every dtype
+    split_heads = torch.randn(40, 64, 4).transpose(1, 2)
+    assert tvf._packed(split_heads).is_contiguous()
