@@ -34,13 +34,15 @@ Phases, each fatal on failure:
 Each kernel's ``launches`` in the ``kernels`` line is its count on its
 own main path (``main_path``: serve, train, varlen or calibrate).
 
-The dense flash kernels and the varlen forward take a route fixed by the
-dtype: fp32 runs the CUDA-core kernels, bf16 and fp16 the tensor-core
-kernels (``FLASH_KERNELS``, ``VARLEN_KERNELS``). The kernel phases check
-both routes against the plain versions; the bf16 forward, training and
-varlen phases read the profiler's per-kernel counts and fail unless only
-the tensor-core kernels ran. The tiled matmul has one route, the tensor
-cores, and the calibrate path fails if any other tiled kernel ran.
+The dense and varlen flash kernels take a route fixed by the dtype: fp32
+runs the CUDA-core kernels, bf16 and fp16 the tensor-core kernels
+(``FLASH_KERNELS``, ``VARLEN_KERNELS``). The kernel phases check both
+routes against the plain versions (the varlen kernels at every head dim
+they are compiled for, 32 to 256 by 32, and at two they pad to); the bf16
+forward, training and varlen phases read the profiler's per-kernel counts
+and fail unless only the tensor-core kernels ran. The tiled matmul has one
+route, the tensor cores, and the calibrate path fails if any other tiled
+kernel ran.
 
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}``.
@@ -111,13 +113,18 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+#: host pause after recording starts, before the first recorded call (s)
+PROFILE_START_GAP = 0.05
+
+
 def profiled(fn, n: int, cpu: bool = False):
     """``torch.profiler``'s event averages over ``n`` calls of ``fn``,
-    after one more call in the profiler's warm-up step: tracing starts
-    there, so the ``n`` recorded calls are whole (a profile that starts
-    with the first recorded call can miss that call's first kernels).
-    The schedule's own ``ProfilerStep#`` ranges, which span each step on
-    the device too, are left out."""
+    after one more call in the profiler's warm-up step and a pause of
+    ``PROFILE_START_GAP`` once recording has started: a recorded call that
+    begins at the start of recording can lose its first kernels (a bf16
+    forward once lost its first layer, one flash launch of 10) or the
+    whole trace. The schedule's own ``ProfilerStep#`` ranges, which span
+    each step on the device too, are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -126,10 +133,12 @@ def profiled(fn, n: int, cpu: bool = False):
     with profile(activities=acts,
                  schedule=schedule(wait=0, warmup=1, active=n),
                  on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
-        for _ in range(n + 1):
+        for i in range(n + 1):
             fn()
             torch.cuda.synchronize()
             prof.step()
+            if i == 0:          # recording starts at this step
+                time.sleep(PROFILE_START_GAP)
     return [e for e in got[0] if not e.key.startswith("ProfilerStep")]
 
 
@@ -195,6 +204,32 @@ def close_err(a, b, atol: float, rtol: float):
     fin = b.isfinite()
     share = (a[fin] - b[fin]).abs() / (atol + rtol * b[fin].abs())
     return err, float(share.max())
+
+
+def ptxas_table(text: str):
+    """One line per kernel of a ``ptxas -v`` log: name<dtype, D>,
+    registers and spill bytes (stores / loads)."""
+    rows, name, spill = [], None, ""
+    types = (("13__nv_bfloat16", "bf16"), ("6__half", "fp16"), ("f", "fp32"))
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            n = int(m.group(1))
+            base, rest = m.group(2)[:n], m.group(2)[n:]
+            dt = next((t for code, t in types if rest.startswith("I" + code)),
+                      "?")
+            dim = re.search(r"Li(\d+)E", rest)
+            name = f"{base}<{dt}, {dim.group(1) if dim else '?'}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spill {m.group(1)} / {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return rows
 
 
 def bound_ms(n_bytes: float, flops: float, dtype_name: str):
@@ -666,18 +701,23 @@ def phase_varlen(torch, dev, report):
     from the forward kernel's out and lse: the full-width case (packed
     T 8192 from ``VARLEN_LENS``, 16 heads of 128, bf16, causal) and, at
     small T, GQA 16/4 with a zero-length segment, len_k != len_q causal
-    and not, rows past cu[-1], D 64, segments shorter than 16 rows inside
-    one 64-row tile, and dropout 0.1 at a fixed seed (keep mask compared
-    through one-hot values), in fp32, bf16 and fp16 (fp32 takes the
-    CUDA-core forward, bf16 and fp16 the tensor-core forward); bf16 views
-    that the kernel cannot read in place (token stride not a multiple of
-    8, start off a 16-byte boundary) must give the output of their
-    contiguous copies exactly.
+    and not, rows past cu[-1], segments shorter than 16 rows inside one
+    64-row tile, dropout 0.1 at a fixed seed (keep mask compared through
+    one-hot values), and every head dim the kernels are compiled for (32
+    to 256 by 32) or pad to (80 -> 96, 200 -> 224), in fp32, bf16 and fp16
+    (fp32 takes the CUDA-core kernels, bf16 and fp16 the tensor-core
+    kernels); bf16 views that the kernel cannot read in place (token
+    stride not a multiple of 8, start off a 16-byte boundary) must give
+    the output of their contiguous copies exactly; head dim 288 must raise
+    ``ValueError``.
     Both accumulate in fp32 (the kernels tile by tile) and round once:
     tolerance ``tolerance(dtype, 1e-4)`` on out, dq, dk and dv, i.e. 1e-4
     (fp32, sums over up to 2048 keys) plus two output ulps (bf16, fp16);
     lse within 1e-4. Then one segment of 2048 against the dense forward
-    kernel at [1, 16, 2048, 128], within the same tolerance."""
+    kernel at [1, 16, 2048, 128], within the same tolerance. Then the
+    timings: the full-width case, 4 x 2048 packed beside the dense
+    kernels, and the head-dim sweep (``VARLEN_SWEEP_DIMS``) against the
+    library."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
 
@@ -701,6 +741,21 @@ def phase_varlen(torch, dev, report):
          dict(causal=True, seed=seed, rate=0.1)),
         ("segments of 9 and 5 rows inside 64-row tiles", [40, 9, 70, 5, 100],
          [40, 9, 70, 5, 100], 8, 2, 128, dict(causal=True)),
+        ("D 32 GQA 8/2", [129, 64, 300], [129, 64, 300], 8, 2, 32,
+         dict(causal=True)),
+        ("D 80 (padded to 96) dropout 0.1 GQA 8/2", [129, 64, 300],
+         [129, 64, 300], 8, 2, 80, dict(causal=True, seed=seed, rate=0.1)),
+        ("D 96 len_k != len_q", [100, 37, 250], [180, 20, 250], 8, 4, 96,
+         dict(causal=True)),
+        ("D 160 GQA 8/2 segments inside tiles", [40, 9, 70, 5, 300],
+         [40, 9, 70, 5, 300], 8, 2, 160, dict(causal=True)),
+        ("D 192 noncausal", [100, 37, 250], [180, 20, 250], 4, 4, 192, {}),
+        ("D 200 (padded to 224) GQA 8/2", [129, 64, 300], [129, 64, 300], 8,
+         2, 200, dict(causal=True)),
+        ("D 256 GQA 8/2 segments inside tiles", [40, 9, 70, 5, 300],
+         [40, 9, 70, 5, 300], 8, 2, 256, dict(causal=True)),
+        ("D 256 dropout 0.1 len_k != len_q noncausal", [100, 37, 250],
+         [180, 20, 250], 4, 2, 256, dict(seed=seed, rate=0.1)),
     ]
     main = None
     for label, lq, lk, h, hkv, d, kw in cases:
@@ -809,6 +864,18 @@ def phase_varlen(torch, dev, report):
         f"tolerance), lse err {e_lse:.3g}")
     check(share <= 1.0 and e_lse <= 1e-4, "vflash vs dense flash")
     del q, k, v, out, lse, dout, dlse
+    # above the largest head dim the kernels are compiled for, the entry
+    # point raises (and names the limit)
+    q = torch.zeros(16, 2, 288, device=dev, dtype=bf16)
+    cu = _cu(torch, [7, 9], dev)
+    try:
+        fv.flash_attn_varlen_thd(q, q, q, cu, cu, causal=True)
+        raised = "nothing"
+    except ValueError as exc:
+        raised = f"ValueError: {exc}"
+    log(f"  vflash at head dim 288 raised {raised}")
+    check(raised.startswith("ValueError") and "256" in raised,
+          f"vflash at head dim 288 raised {raised}")
 
     q, k, v, cu, out, lse, do, e_fwd, e_bwd = main
     t_tok, h, d = q.shape
@@ -833,8 +900,8 @@ def phase_varlen(torch, dev, report):
         name="flash_attn_varlen_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_varlen.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention_varlen.py:158",
-        kernels=[VARLEN_KERNELS["fwd"][0]], max_abs_err=e_fwd,
-        library=lib_note, **t)
+        kernels=dict(zip(("bf16/fp16", "fp32"), VARLEN_KERNELS["fwd"])),
+        max_abs_err=e_fwd, library=lib_note, **t)
     t = timings(
         lambda: fv._vflash_bwd_kernel(*args, out, lse, do, None, **st),
         lambda: fv._vflash_bwd_reference(*args, out, lse, do, None, **st),
@@ -845,7 +912,9 @@ def phase_varlen(torch, dev, report):
         name="flash_attn_varlen_bwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_varlen.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention_varlen.py:328",
-        kernels=["vflash_bwd_dq_kernel", "vflash_bwd_dkv_kernel"],
+        kernels={"bf16/fp16": [VARLEN_KERNELS["dq"][0],
+                               VARLEN_KERNELS["dkv"][0]],
+                 "fp32": [VARLEN_KERNELS["dq"][1], VARLEN_KERNELS["dkv"][1]]},
         max_abs_err=e_bwd, library=lib_note, **t)
     del main, q, k, v, out, lse, do, args, lib_fwd, lib_bwd
     # equal work: 4 segments of 2048 is the dense kernels' training shape
@@ -872,6 +941,68 @@ def phase_varlen(torch, dev, report):
     log(f"  vflash at 4 x 2048, token stride 17 x 128: {ms:.4f} ms")
     del q, k, v, do, out, lse, args, wide
     torch.cuda.empty_cache()
+    varlen_sweep(torch, dev, report)
+
+
+#: head dims of the varlen timing sweep (the full-width packing, 16 heads)
+VARLEN_SWEEP_DIMS = (32, 64, 96, 128, 256)
+
+
+def varlen_sweep(torch, dev, report):
+    """The varlen forward and backward kernels at each head dim of
+    ``VARLEN_SWEEP_DIMS`` on the full-width packing (T 8192 from
+    ``VARLEN_LENS``, 16 heads, bf16, causal): held against the plain
+    version at ``tolerance(bfloat16, 1e-4)`` (lse within 1e-4), then timed
+    beside the library's varlen flash and the bound. Kept under
+    ``report["vflash"]["d_sweep"]`` and ``report["vflash_bwd"]["d_sweep"]``
+    by head dim."""
+    from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf16 = torch.bfloat16
+    atol, rtol = tolerance(bf16, 1e-4)
+    t_tok, h = sum(VARLEN_LENS), VARLEN_HEADS
+    cu = _cu(torch, VARLEN_LENS, dev)
+    n_pairs = sum(n * (n + 1) // 2 for n in VARLEN_LENS)
+    for key in ("vflash", "vflash_bwd"):
+        report[key]["d_sweep"] = {}
+    for d in VARLEN_SWEEP_DIMS:
+        q, k, v, do = (torch.randn(t_tok, h, d, generator=g, device=dev)
+                       .to(bf16) for _ in range(4))
+        st = dict(causal=True, scale=d ** -0.5, dropout_rate=0.0)
+        args = (q, k, v, cu, cu)
+        out, lse = fv._vflash_fwd_kernel(*args, None, **st)
+        got = fv._vflash_bwd_kernel(*args, out, lse, do, None, **st)
+        rout, rlse = fv._vflash_fwd_reference(*args, **st)
+        ref = fv._vflash_bwd_reference(*args, out, lse, do, **st)
+        torch.cuda.synchronize()
+        shares = [close_err(out, rout, atol, rtol)[1]] + [
+            close_err(a, r, atol, rtol)[1] for a, r in zip(got, ref)]
+        e_lse = max_err(lse, rlse)
+        log(f"  vflash sweep D {d}: out, dq, dk, dv "
+            f"{', '.join(f'{x:.3g}' for x in shares)} of the tolerance, lse "
+            f"err {e_lse:.3g}")
+        check(max(shares) <= 1.0 and e_lse <= 1e-4, f"vflash sweep D {d}")
+        del rout, rlse, ref, got
+        lib_fwd, lib_bwd, _ = _varlen_library(
+            torch, q, k, v, cu, max(VARLEN_LENS), out, do)
+        flops = 4 * d * h * n_pairs
+        for key, kernel, lib, n_bytes, fl in (
+                ("vflash", lambda: fv._vflash_fwd_kernel(*args, None, **st),
+                 lib_fwd, nbytes(q, k, v, out, lse, cu), flops),
+                ("vflash_bwd", lambda: fv._vflash_bwd_kernel(
+                    *args, out, lse, do, None, **st), lib_bwd,
+                 nbytes(q, k, v, out, do, lse, cu, q, k, v), 2.5 * flops)):
+            b_ms, by = bound_ms(n_bytes, fl, "bfloat16")
+            t = dict(ms=device_ms(kernel),
+                     library_ms=None if lib is None else device_ms(lib),
+                     bound_ms=b_ms, bound_by=by)
+            report[key]["d_sweep"][d] = t
+            lib_s = "none" if lib is None else f"{t['library_ms']:.4f} ms"
+            log(f"  {key} sweep D {d}: kernel {t['ms']:.4f} ms, library "
+                f"{lib_s}, bound {b_ms:.4f} ms ({by})")
+        del q, k, v, do, out, lse, args, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
 
 
 #: conv_calibration's ResNet-50 shapes 2 and 17 at batch 64: the probe's
@@ -1105,12 +1236,12 @@ def check_flash_route(per_kernel, want, label):
               f"{want.get(step, 0)}")
 
 
-#: the varlen kernels of a bf16 forward + backward: the forward by route
-#: (tensor cores: bf16/fp16, CUDA cores: fp32), the backward's two kernels
+#: the varlen kernels of each step, (tensor cores: bf16/fp16, CUDA cores:
+#: fp32); a dtype runs one route only
 VARLEN_KERNELS = {
     "fwd": ("vflash_fwd_tc_kernel", "vflash_fwd_kernel"),
-    "dq": ("vflash_bwd_dq_kernel",),
-    "dkv": ("vflash_bwd_dkv_kernel",),
+    "dq": ("vflash_bwd_dq_tc_kernel", "vflash_bwd_dq_kernel"),
+    "dkv": ("vflash_bwd_dkv_tc_kernel", "vflash_bwd_dkv_kernel"),
 }
 #: the tiled matmul's kernels: the tensor-core product, and the pass that
 #: adds the K ranges' fp32 partials where the shape splits K
@@ -1425,9 +1556,10 @@ def phase_varlen_path(torch, dev, report):
     read the same values, so their outputs and gradients must be equal;
     the output must be finite and within ``tolerance(bfloat16, 1e-4)`` of
     the plain version on the same inputs. Then a forward + backward under
-    the profiler must show ``vflash_fwd_tc_kernel`` once per call, the
-    CUDA-core ``vflash_fwd_kernel`` never, and each backward kernel once;
-    its kernel time is the path's forward + backward ms."""
+    the profiler must show each tensor-core kernel (``vflash_fwd_tc_kernel``,
+    ``vflash_bwd_dq_tc_kernel``, ``vflash_bwd_dkv_tc_kernel``) once per
+    call and no CUDA-core varlen kernel; its kernel time is the path's
+    forward + backward ms."""
     import paddle_tpu_torch.nn.functional as TF
     from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
 
@@ -1483,8 +1615,8 @@ def phase_varlen_path(torch, dev, report):
     check(share <= 1.0, f"varlen path output differs by {err}")
     record_launches(report, "varlen", counts2)
 
-    # which kernels the path ran, by name: the tensor-core forward once per
-    # call, never the CUDA-core forward; each backward kernel once
+    # which kernels the path ran, by name: each tensor-core kernel once per
+    # call, never a CUDA-core one
     def fwd_bwd():
         o, _ = TF.flash_attn_unpadded(*leaves, cu, cu, mx, mx, d ** -0.5,
                                       causal=True)
@@ -1498,13 +1630,13 @@ def phase_varlen_path(torch, dev, report):
     wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, per_kernel = profile_kernels(
         torch, fwd_bwd, 2, wall_ms, "flash_attn_unpadded forward + backward")
-    names = [n for ns in VARLEN_KERNELS.values() for n in ns]
+    names = [n for pair in VARLEN_KERNELS.values() for n in pair]
     got = named_launches(per_kernel, names)
     log(f"  varlen kernels per call: {got}")
-    for n in names:
-        want = 0 if n == VARLEN_KERNELS["fwd"][1] else 1
-        check(got[n] == want, f"varlen path: {n} launched {got[n]} times per "
-                              f"call, want {want}")
+    for tc, cc in VARLEN_KERNELS.values():
+        check(got[tc] == 1 and got[cc] == 0,
+              f"varlen path: {tc} launched {got[tc]} times per call, want 1; "
+              f"the CUDA-core {cc} {got[cc]}, want 0")
     report["vflash"]["path_fwd_bwd_kernel_ms"] = busy_ms
     del qkv, do, leaves, out, pout, ref
     torch.cuda.empty_cache()
@@ -1601,6 +1733,10 @@ def main() -> int:
                            for line in lg.read_text().splitlines()
                            if "Used" in line and "registers" in line})
             log(f"  {lg.stem.split('-')[0]}: {' | '.join(regs)}")
+        # the varlen kernels by dtype and head dim
+        for row in ptxas_table(_build._target("flash_attention_varlen")
+                               .with_suffix(".log").read_text()):
+            log(f"    {row}")
         log("[kernels]")
         phase_rms_norm(torch, dev, report)
         phase_paged(torch, dev, report)

@@ -15,12 +15,17 @@
 // -inf, and gradients 0. Dropout applies the dense kernels' counter hash
 // (flash_common.cuh) on (q head, packed row, packed col) to P.V only.
 //
-// Routes, fixed by the dtype in the C entry point vflash_fwd: bf16 and
-// fp16 take the tensor-core forward (vflash_fwd_tc_kernel, second part of
-// this file); fp32 takes the CUDA-core forward (vflash_fwd_kernel), since
-// TF32's 10-bit mantissa cannot hold the fp32 outputs to 1e-4. The
-// backward (vflash_bwd_dq_kernel, vflash_bwd_dkv_kernel) runs on the CUDA
-// cores in every dtype and takes either forward's out and lse.
+// Routes, fixed by the dtype in the C entry points vflash_fwd,
+// vflash_bwd_dq and vflash_bwd_dkv: bf16 and fp16 take the tensor-core
+// kernels (vflash_fwd_tc_kernel, vflash_bwd_dq_tc_kernel,
+// vflash_bwd_dkv_tc_kernel; second part of this file); fp32 takes the
+// CUDA-core kernels (vflash_fwd_kernel, vflash_bwd_dq_kernel,
+// vflash_bwd_dkv_kernel), since TF32's 10-bit mantissa cannot hold the fp32
+// outputs to 1e-4. No kernel is instantiated for a dtype outside its route.
+//
+// Head dims: every kernel is instantiated for each multiple of 32 from 32
+// to 256 (with_head_dim); the wrapper zero-pads any other D up to 256 to
+// the next one and raises above 256.
 //
 // What bounds it on the H100: operations, 4 * D * H * sum_i len_q,i * len_k,i
 // FLOPs forward (about half of that causal) and 2.5 times that backward (five
@@ -101,20 +106,39 @@ __device__ QTileKeys q_tile_keys(const int* __restrict__ seg_q, const int* __res
   return {begin, max(begin, end), all_in && lo == hi ? lo : -1, first};
 }
 
-// The q rows [begin, end) that may see a key of [k0, k0 + 32): those of the
-// keys' segments and, under causal, none before the first row of the first
-// segment whose bound reaches the tile's first key. A whole warp; lane i
-// looks at key k0 + i.
-__device__ int2 k_tile_rows(const int* __restrict__ seg_k, const int* __restrict__ cu_q,
-                            const int* __restrict__ cu_k, int k0, int Tq, int Tk, int n_seqs,
-                            int causal, int lane) {
-  const int key = k0 + lane;
-  const int s = key < Tk ? seg_k[key] : n_seqs + 1;
-  const bool ok = s < n_seqs;
-  const int lo = warp_min_i(ok ? s : INT_MAX);
-  const int hi = warp_max_i(ok ? s : -1);
-  const int first = warp_min_i(ok ? key : INT_MAX);
-  if (hi < 0) return make_int2(0, 0);
+// The q rows [begin, end) that may see a key of [k0, k0 + KEYS): those of
+// the keys' segments and, under causal, none before the first row of the
+// first segment whose bound reaches the tile's first key. `seg` is the keys'
+// one segment when every key lies in the same segment, else -1. Called by a
+// whole warp; lane i looks at keys k0 + i, k0 + 32 + i, ...
+struct KTileRows {
+  int begin, end, seg;
+};
+
+template <int KEYS>
+__device__ KTileRows k_tile_rows(const int* __restrict__ seg_k, const int* __restrict__ cu_q,
+                                 const int* __restrict__ cu_k, int k0, int Tq, int Tk,
+                                 int n_seqs, int causal, int lane) {
+  static_assert(KEYS % 32 == 0, "whole warps of keys");
+  int lo = INT_MAX, hi = -1, first = INT_MAX;
+  bool all_in = true;
+#pragma unroll
+  for (int r = 0; r < KEYS / 32; ++r) {
+    const int key = k0 + 32 * r + lane;
+    const int s = key < Tk ? seg_k[key] : n_seqs + 1;
+    if (s < n_seqs) {  // keys past cu_k[-1] carry the sentinel n_seqs + 1
+      lo = min(lo, s);
+      hi = max(hi, s);
+      first = min(first, key);
+    } else {
+      all_in = false;
+    }
+  }
+  lo = warp_min_i(lo);
+  hi = warp_max_i(hi);
+  first = warp_min_i(first);
+  all_in = __all_sync(0xffffffffu, all_in);
+  if (hi < 0) return {0, 0, -1};
   int begin = cu_q[lo];
   if (causal) {
     // bound[row] = cu_k[lo] + (row - cu_q[lo]) + len_k - len_q >= first
@@ -123,7 +147,7 @@ __device__ int2 k_tile_rows(const int* __restrict__ seg_k, const int* __restrict
   }
   begin = max(begin, 0);
   const int end = min(cu_q[hi + 1], Tq);
-  return make_int2(begin, max(begin, end));
+  return {begin, max(begin, end), all_in && lo == hi ? lo : -1};
 }
 
 template <int D>
@@ -276,7 +300,17 @@ vflash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 //   dV = (keep * c * P)^T dO,  dS = P * (keep * c * (dO V^T) - delta) * scale,
 //   dQ = dS K,  dK = dS^T Q
 // (keep: the forward's dropout bit, c = 1 / (1 - rate)). lse -inf is read as
-// 0, so a row that saw no key has P = 0 and gradients 0, never NaN.
+// 0, so a row that saw no key has P = 0 and gradients 0, never NaN. The two
+// CUDA-core kernels below are fp32's route; bf16 and fp16 take the
+// tensor-core backward at the end of this file.
+//
+// Resources of the CUDA-core kernels (ptxas -v for sm_90a, fp32, as
+// chip_smoke.py's [build] phase prints them; spill stores / loads) and
+// dynamic shared memory, D 64 / 128 / 256:
+//   vflash_fwd_kernel      96 (spill 20 / 20 B) / 147 / 168 (16 / 16 B)
+//                          registers; 28.1 / 52.1 / 100.1 KB
+//   vflash_bwd_dq_kernel   128 (12 / 16 B) / 147 / 180; 36.3 / 68.3 / 132.3 KB
+//   vflash_bwd_dkv_kernel  142 / 144 / 246; 40.8 / 72.8 / 136.8 KB
 
 template <int D>
 static constexpr size_t vflash_dq_smem_bytes() {
@@ -468,8 +502,8 @@ vflash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (warp == 0) {
-    const int2 r = k_tile_rows(seg_k, cu_q, cu_k, k0, Tq, Tk, n_seqs, causal, lane);
-    if (lane == 0) rows_s = r;
+    const KTileRows r = k_tile_rows<kFaBK>(seg_k, cu_q, cu_k, k0, Tq, Tk, n_seqs, causal, lane);
+    if (lane == 0) rows_s = make_int2(r.begin, r.end);
   }
   for (int i = tid; i < kFaBK * D; i += kFaThreads) {
     const int r = i / D, c = i - r * D;
@@ -644,16 +678,30 @@ vflash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 // kernel's packed tiling too). So P.V takes two MMAs, and the row sum l
 // comes from the fp32 p, undropped.
 //
-// Resources (ptxas -v for sm_90a; no spills) and dynamic shared memory:
-//   vflash_fwd_tc_kernel  D 128: 218 / 218 registers (bf16 / fp16), 85.5 KB;
-//                         D 64: 158 / 157, 45.5 KB
-// Registers allow two blocks (8 warps) per SM, which the shared memory
-// also fits.
+// Head dims above 128: the output tile o[D/8][4] alone takes D / 2 fp32
+// registers a thread (128 at D 256), so Q's fragments, which take D / 4
+// more, are re-read from shared memory at each key tile (as the dq kernels
+// read Q and dO) instead of held in registers; and the shared memory,
+// 5 x 64 x (D + 8) 16-bit values (165.5 KB at D 256), leaves room for one
+// block per SM from D 192 up.
+//
+// Resources (ptxas -v for sm_90a, bf16 / fp16, as chip_smoke.py's [build]
+// phase prints them; spill stores / loads) and dynamic shared memory:
+//   vflash_fwd_tc_kernel  D 64: 158 / 157 registers, 45.5 KB;
+//                         D 128: 218 / 218, 85.5 KB;
+//                         D 256: 255 / 255 (spill 24 / 16 B each), 165.5 KB
+//                         (D 224 spills most: 136 / 100 and 224 / 188 B)
+// Up to D 128 registers and shared memory allow two blocks (8 warps) per
+// SM.
 
 template <int D>
 static constexpr size_t vflash_fwd_tc_smem_bytes() {  // Q, 2 stages of K, V and seg_k
   return sizeof(uint16_t) * 5 * (size_t)kTcBlk * (D + kTcPad) + sizeof(int) * 2 * kTcBlk;
 }
+
+// blocks per SM the tensor-core kernels are compiled for: two up to D 128,
+// one above (the register and shared-memory footprints grow with D)
+__host__ __device__ constexpr int tc_min_blocks(int D) { return D <= 128 ? 2 : 1; }
 
 // One block of 4 warps per (q head, 64-row q tile): warp w owns q rows
 // q0 + 16w .. q0 + 16w + 15 and loops over 64-key tiles from k_begin.
@@ -662,7 +710,7 @@ static constexpr size_t vflash_fwd_tc_smem_bytes() {  // Q, 2 stages of K, V and
 // rows of k and v), and within a segment the later rows, which see more
 // keys, start first. out [Tq, H, D] (contiguous), lse [H, Tq].
 template <typename T, int D>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
 vflash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      long long q_stride, long long k_stride, long long v_stride,
                      const int* __restrict__ seg_q, const int* __restrict__ seg_k,
@@ -674,6 +722,7 @@ vflash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   constexpr int KS = D / 16;      // k-steps of Q K^T
   constexpr int NT = kTcBlk / 8;  // score n-tiles (8 keys each)
   constexpr int DT = D / 8;       // output n-tiles
+  constexpr bool kQInRegs = D <= 128;
   const int h = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * kTcBlk;
   const int hk = h / (H / Hkv);
 
@@ -727,7 +776,7 @@ vflash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  uint32_t qf[KS][4];
+  uint32_t qf[kQInRegs ? KS : 1][4];  // Q's A fragments, where D <= 128
 
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = k_begin + j * kTcBlk;
@@ -739,9 +788,12 @@ vflash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (j == 0) {
+    if constexpr (kQInRegs) {
+      if (j == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) ldsm_x4(qf[ks], frag_a<LD>(q_s, warp * 16, ks * 16, lane));
+        for (int ks = 0; ks < KS; ++ks)
+          ldsm_x4(qf[ks], frag_a<LD>(q_s, warp * 16, ks * 16, lane));
+      }
     }
     const T* kt = k_s + (j & 1) * kTcBlk * LD;
     const T* vt = v_s + (j & 1) * kTcBlk * LD;
@@ -753,14 +805,22 @@ vflash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = qf[ks][r];
+      } else {
+        ldsm_x4(a, frag_a<LD>(q_s, warp * 16, ks * 16, lane));
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kb[4];
         ldsm_x4(kb, frag_b_nk<LD>(kt, np * 16, ks * 16, lane));
-        mma16816<T>(s[2 * np], qf[ks], kb[0], kb[1]);
-        mma16816<T>(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+        mma16816<T>(s[2 * np], a, kb[0], kb[1]);
+        mma16816<T>(s[2 * np + 1], a, kb[2], kb[3]);
       }
+    }
 
     // logits; the element mask only where the tile needs it (a uniform
     // branch: every thread of the block takes the same side)
@@ -853,6 +913,485 @@ vflash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ===========================================================================
+// Tensor-core backward (bf16, fp16): vflash_bwd_dq_tc_kernel and
+// vflash_bwd_dkv_tc_kernel compute what vflash_bwd_dq_kernel and
+// vflash_bwd_dkv_kernel compute and are held to the same plain version
+// (_vflash_bwd_reference) at the same tolerance.
+//
+// What bounds them on the H100: operations, 5 products of 2 * D * H *
+// (visible pairs) FLOPs over the 989 TFLOP/s bf16/fp16 tensor-core peak. At
+// the full-width case (8192 tokens packed from 8 documents, 16 heads of
+// 128, causal) that is 120.1 GFLOP, 0.1214 ms.
+//
+// What the design does about it: it is the dense flash_bwd_dq_tc_kernel and
+// flash_bwd_dkv_tc_kernel (flash_attention.cu) over packed segments, with
+// the varlen forward's key ranges and mask rule. Every product runs on the
+// tensor cores (mma.sync m16n8k16, fp32 accumulation); tiles stay in the
+// input type in shared memory, read in place at the packed tensors' token
+// strides (load_rows), and the streamed tiles are double-buffered with
+// cp.async.
+//   dq: one block of 4 warps per (q head, 64-row q tile), grid order as the
+//   forward's. It loops over the 64-key tiles of q_tile_keys<64> from
+//   k_begin (a segment start), S = Q K^T and dP = dO V^T from Q and dO
+//   re-read from shared memory, dS = P * (dP - delta) * scale in registers,
+//   dQ += dS K.
+//   dk/dv: one block per (kv head, 64-key tile); warp w owns keys
+//   k0 + 16w .. k0 + 16w + 15. It loops over the GQA group's q heads and,
+//   for each, over the q rows [begin, end) of k_tile_rows<64> in steps of
+//   32 rows (Q, dO, lse, delta, seg_q and bound of a step double-buffered),
+//   computes the transposed tiles S^T = K Q^T and dP^T = V dO^T, then
+//   dV += (keep * c * P)^T dO and dK += dS^T Q. The group sum stays in fp32
+//   registers and is cast once: deterministic, no atomics.
+// The element mask is evaluated only on tiles that need it. A dq tile needs
+// none by the forward's rule (all 64 rows in one segment, the key tile
+// whole, under causal its last key at most the rows' smallest bound). A
+// dk/dv step needs none when all 64 keys lie in one segment s, the step's
+// 32 rows all lie in s (seg_q of its first and last row is s; seg_q does
+// not decrease along the rows), and under causal the tile's last key is at
+// most the first row's bound (bound grows along a segment's rows).
+//
+// Why P and dS are split: as in the dense kernels (flash_attention.cu),
+// a single bf16 rounding of dS before dS K misses chip_smoke.py's
+// tolerance (tests/test_torch_flash_varlen_tc_backward.py models this
+// kernel's tiling and rounding), so dS K, P^T dO and dS^T Q each take
+// hi = T(x) and lo = T(x - hi), two MMAs summed in fp32.
+//
+// Head dims above 128. dq: the fp32 dQ tile takes D / 2 registers a
+// thread (128 at D 256), so the score and dP tiles are taken 32 keys at a
+// time (16 registers each) instead of 64. dk/dv: per-warp fp32 dK and dV
+// take D registers a thread (256 at D 256), so the block makes two passes
+// over the q rows, each accumulating and writing half of dK's and dV's
+// columns (S^T and dP^T are computed in both passes: 8 MMA products where
+// one pass does 6).
+//
+// Resources (ptxas -v for sm_90a, bf16 / fp16, as chip_smoke.py's [build]
+// phase prints them; spill stores / loads) and dynamic shared memory,
+// D 64 / 128 / 256:
+//   vflash_bwd_dq_tc_kernel   202 / 202, 236 / 236, 255 / 255 registers (D 256
+//                             spills 4 / 4 B each; D 224 128 / 192 and
+//                             208 / 292 B); 54.5 / 102.5 / 198.5 KB
+//   vflash_bwd_dkv_tc_kernel  166 / 166, 242 / 252, 255 / 247 registers (D 256
+//                             bf16 spills 20 / 28 B); 37.0 / 69.0 / 133.0 KB
+// Up to D 128 two blocks (8 warps) fit an SM; above, one. Being right
+// above D 128 is what this design asks; the spills there are left as they
+// are (PERF.md has the times by head dim).
+
+// q rows per step of the dk/dv kernel: with 16 keys of dK and dV per warp
+// in fp32 registers, a 32-row step keeps the score and dP tiles at 16
+// registers each (the dense kernel's kTcDkvRows)
+constexpr int kTcDkvRows = 32;
+
+// keys per score step of the dq kernel
+__host__ __device__ constexpr int dq_sub_keys(int D) { return D <= 128 ? kTcBlk : kTcBlk / 2; }
+// dK/dV columns per pass of the dk/dv kernel
+__host__ __device__ constexpr int dkv_pass_cols(int D) { return D <= 128 ? D : D / 2; }
+
+template <int D>
+static constexpr size_t vflash_dq_tc_smem_bytes() {  // Q, dO, 2 stages of K, V and seg_k
+  return sizeof(uint16_t) * 6 * (size_t)kTcBlk * (D + kTcPad) + sizeof(int) * 2 * kTcBlk;
+}
+
+// dq [Tq, H, D] (contiguous); dout [Tq, H, D] (contiguous); lse, delta [H, Tq].
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
+vflash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, long long q_stride, long long k_stride,
+                        long long v_stride, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                        const int* __restrict__ bound, const int* __restrict__ cu_k,
+                        const int* __restrict__ seed_ptr, T* __restrict__ dq, int Tq, int Tk,
+                        int H, int Hkv, int n_seqs, float scale, int causal, int dropout,
+                        uint32_t thresh, float inv_keep) {
+  constexpr int LD = D + kTcPad;
+  constexpr int KS = D / 16;              // k-steps of Q K^T and dO V^T
+  constexpr int KSUB = dq_sub_keys(D);    // keys per score step
+  constexpr int NT = KSUB / 8;            // score n-tiles per step
+  constexpr int DT = D / 8;               // dQ n-tiles
+  const int h = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * kTcBlk;
+  const int hk = h / (H / Hkv);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);                    // [64][LD]
+  T* do_s = q_s + kTcBlk * LD;                                // [64][LD]
+  T* k_s = do_s + kTcBlk * LD;                                // [2][64][LD]
+  T* v_s = k_s + 2 * kTcBlk * LD;                             // [2][64][LD]
+  int* sk_s = reinterpret_cast<int*>(v_s + 2 * kTcBlk * LD);  // [2][64] seg_k
+  __shared__ QTileKeys keys_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const T* kh = k + hk * D;
+  const T* vh = v + hk * D;
+
+  load_rows<T, kTcBlk, D>(q_s, q + h * D, q_stride, q0, Tq, tid);
+  load_rows<T, kTcBlk, D>(do_s, dout + h * D, (long long)H * D, q0, Tq, tid);
+  cp_async_commit();
+  if (warp == 0) {
+    const QTileKeys r = q_tile_keys<kTcBlk>(seg_q, bound, cu_k, q0, Tq, Tk, n_seqs, causal, lane);
+    if (lane == 0) keys_s = r;
+  }
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  int seg_r[2], bound_r[2];
+  float lse_l2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8;
+    const bool ok = row < Tq;
+    seg_r[i] = ok ? seg_q[row] : -1;  // -1 matches no key
+    bound_r[i] = ok ? bound[row] : -1;
+    const float lv = ok ? lse[(long long)h * Tq + row] : 0.f;
+    lse_l2[i] = (lv == -INFINITY ? 0.f : lv) * kLog2e;  // a row that saw no key: P = 0
+    dl[i] = ok ? delta[(long long)h * Tq + row] : 0.f;
+  }
+  const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
+  __syncthreads();
+  const QTileKeys keys = keys_s;
+  const int k_begin = keys.begin, k_end = keys.end;
+  const int n_tiles = (k_end - k_begin + kTcBlk - 1) / kTcBlk;
+
+  // keys [k0, k0 + 64) into stage st; keys at or past k_end zero-filled
+  auto load_kv = [&](int st, int k0) {
+    load_rows<T, kTcBlk, D>(k_s + st * kTcBlk * LD, kh, k_stride, k0, k_end, tid);
+    load_rows<T, kTcBlk, D>(v_s + st * kTcBlk * LD, vh, v_stride, k0, k_end, tid);
+    if (tid < kTcBlk) {
+      const bool ok = k0 + tid < k_end;
+      cp_async4(sk_s + st * kTcBlk + tid, ok ? seg_k + k0 + tid : seg_k, ok);
+    }
+  };
+  if (n_tiles > 0) load_kv(0, k_begin);
+  cp_async_commit();
+
+  float acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = k_begin + j * kTcBlk;
+    if (j + 1 < n_tiles) {
+      load_kv((j + 1) & 1, k0 + kTcBlk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* kt = k_s + (j & 1) * kTcBlk * LD;
+    const T* vt = v_s + (j & 1) * kTcBlk * LD;
+    const int* skt = sk_s + (j & 1) * kTcBlk;
+    // the forward's rule (a uniform branch)
+    const bool no_mask = keys.seg >= 0 && k0 + kTcBlk <= k_end &&
+                         (!causal || k0 + kTcBlk - 1 <= keys.min_bound);
+
+#pragma unroll
+    for (int c0 = 0; c0 < kTcBlk; c0 += KSUB) {
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][e] = 0.f;
+          dp[i][e] = 0.f;
+        }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, frag_a<LD>(q_s, warp * 16, ks * 16, lane));
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t kb[4];
+          ldsm_x4(kb, frag_b_nk<LD>(kt, c0 + np * 16, ks * 16, lane));
+          mma16816<T>(s[2 * np], a, kb[0], kb[1]);
+          mma16816<T>(s[2 * np + 1], a, kb[2], kb[3]);
+        }
+        ldsm_x4(a, frag_a<LD>(do_s, warp * 16, ks * 16, lane));
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t vb[4];
+          ldsm_x4(vb, frag_b_nk<LD>(vt, c0 + np * 16, ks * 16, lane));
+          mma16816<T>(dp[2 * np], a, vb[0], vb[1]);
+          mma16816<T>(dp[2 * np + 1], a, vb[2], vb[3]);
+        }
+      }
+
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + nt * 8 + 2 * t4 + (e & 1);
+          const int i = e >> 1;
+          const int col = k0 + c;
+          const bool vis = no_mask || (col < k_end && skt[c] == seg_r[i] &&
+                                       (!causal || col <= bound_r[i]));
+          const float p = vis ? exp2f(fmaf(s[nt][e] * scale, kLog2e, -lse_l2[i])) : 0.f;
+          float d = dp[nt][e];
+          if (dropout) {
+            const int row = row0 + i * 8;
+            d = dropout_keep(seed, (uint32_t)h, (uint32_t)row, (uint32_t)col, thresh)
+                    ? d * inv_keep
+                    : 0.f;
+          }
+          s[nt][e] = p * (d - dl[i]) * scale;  // dS
+        }
+
+      // dQ += dS K, dS as hi + lo; K read as [key][d] = [k][n]
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        uint32_t ah[4], al[4];
+        acc_to_a<T>(s[2 * kk], s[2 * kk + 1], ah, al);
+#pragma unroll
+        for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
+          uint32_t kb[4];
+          ldsm_x4_trans(kb, frag_b_kn<LD>(kt, c0 + kk * 16, dp2 * 16, lane));
+          mma16816<T>(acc[2 * dp2], al, kb[0], kb[1]);
+          mma16816<T>(acc[2 * dp2], ah, kb[0], kb[1]);
+          mma16816<T>(acc[2 * dp2 + 1], al, kb[2], kb[3]);
+          mma16816<T>(acc[2 * dp2 + 1], ah, kb[2], kb[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is reloaded by the next iteration's copy
+  }
+  cp_async_wait<0>();  // a block with no key tile still has Q's and dO's copies in flight
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8;
+    if (row < Tq) {
+      T* orow = dq + ((long long)row * H + h) * D + 2 * t4;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<uint32_t*>(orow + dt * 8) = pack2<T>(acc[dt][2 * i], acc[dt][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+static constexpr size_t vflash_dkv_tc_smem_bytes() {
+  // K, V; 2 stages of Q and dO; 2 stages of lse, delta, seg_q and bound
+  return sizeof(uint16_t) * (2 * (size_t)kTcBlk + 4 * (size_t)kTcDkvRows) * (D + kTcPad) +
+         sizeof(float) * 8 * kTcDkvRows;
+}
+
+// dk, dv [Tk, Hkv, D] (contiguous). Grid (Hkv, key tiles), heads fastest.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(D))
+vflash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, long long q_stride, long long k_stride,
+                         long long v_stride, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                         const int* __restrict__ bound, const int* __restrict__ cu_q,
+                         const int* __restrict__ cu_k, const int* __restrict__ seed_ptr,
+                         T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H, int Hkv,
+                         int n_seqs, float scale, int causal, int dropout, uint32_t thresh,
+                         float inv_keep) {
+  constexpr int LD = D + kTcPad;
+  constexpr int KS = D / 16;
+  constexpr int BQ = kTcDkvRows;
+  constexpr int NQ = BQ / 8;              // n-tiles of q rows
+  constexpr int DC = dkv_pass_cols(D);    // dK/dV columns per pass
+  constexpr int DT = DC / 8;
+  static_assert(BQ == 32, "one warp stages each per-row vector of a step");
+  const int hk = blockIdx.x, k0 = blockIdx.y * kTcBlk;
+  const int G = H / Hkv;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);                      // [64][LD]
+  T* v_s = k_s + kTcBlk * LD;                                   // [64][LD]
+  T* q_s = v_s + kTcBlk * LD;                                   // [2][32][LD]
+  T* do_s = q_s + 2 * BQ * LD;                                  // [2][32][LD]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * BQ * LD);  // [2][32]
+  float* dl_s = lse_s + 2 * BQ;                                 // [2][32]
+  int* sq_s = reinterpret_cast<int*>(dl_s + 2 * BQ);            // [2][32] seg_q
+  int* bd_s = sq_s + 2 * BQ;                                    // [2][32] bound
+  __shared__ KTileRows rows_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  load_rows<T, kTcBlk, D>(k_s, k + hk * D, k_stride, k0, Tk, tid);
+  load_rows<T, kTcBlk, D>(v_s, v + hk * D, v_stride, k0, Tk, tid);
+  cp_async_commit();
+  if (warp == 0) {
+    const KTileRows r = k_tile_rows<kTcBlk>(seg_k, cu_q, cu_k, k0, Tq, Tk, n_seqs, causal, lane);
+    if (lane == 0) rows_s = r;
+  }
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  int segk_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    segk_r[i] = key < Tk ? seg_k[key] : -2;  // -2 matches no row
+  }
+  const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
+  __syncthreads();
+  const KTileRows rows = rows_s;
+  const int q_begin = rows.begin, q_end = rows.end;
+  const int n_qt = (q_end - q_begin + BQ - 1) / BQ;
+  const int n_it = G * n_qt;
+
+  // step it (q head hk * G + it / n_qt, rows from q_begin + (it % n_qt) * 32)
+  // into stage st; rows at or past q_end zero-filled
+  auto load_step = [&](int it, int st) {
+    const int hh = it / n_qt;
+    const int q0 = q_begin + (it - hh * n_qt) * BQ;
+    const int h = hk * G + hh;
+    load_rows<T, BQ, D>(q_s + st * BQ * LD, q + h * D, q_stride, q0, q_end, tid);
+    load_rows<T, BQ, D>(do_s + st * BQ * LD, dout + h * D, (long long)H * D, q0, q_end, tid);
+    const int r = tid & (BQ - 1), row = q0 + r;
+    const bool ok = row < q_end;
+    switch (tid / BQ) {  // warp w stages one per-row vector
+      case 0:
+        cp_async4(lse_s + st * BQ + r, ok ? lse + (long long)h * Tq + row : lse, ok);
+        break;
+      case 1:
+        cp_async4(dl_s + st * BQ + r, ok ? delta + (long long)h * Tq + row : delta, ok);
+        break;
+      case 2:
+        cp_async4(sq_s + st * BQ + r, ok ? seg_q + row : seg_q, ok);
+        break;
+      default:
+        cp_async4(bd_s + st * BQ + r, ok ? bound + row : bound, ok);
+    }
+  };
+
+  for (int c0 = 0; c0 < D; c0 += DC) {  // one pass up to D 128, two above
+    if (n_it > 0) load_step(0, 0);
+    cp_async_commit();
+
+    float acc_k[DT][4], acc_v[DT][4];
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_k[i][e] = 0.f;
+        acc_v[i][e] = 0.f;
+      }
+
+    for (int it = 0; it < n_it; ++it) {
+      if (it + 1 < n_it) {
+        load_step(it + 1, (it + 1) & 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int hh = it / n_qt;
+      const int q0 = q_begin + (it - hh * n_qt) * BQ;
+      const int h = hk * G + hh;
+      const int st = it & 1;
+      const T* qt = q_s + st * BQ * LD;
+      const T* dot = do_s + st * BQ * LD;
+      const float* ls = lse_s + st * BQ;
+      const float* dls = dl_s + st * BQ;
+      const int* sqs = sq_s + st * BQ;
+      const int* bds = bd_s + st * BQ;
+
+      // transposed tiles: rows are this warp's 16 keys, columns 32 q rows
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][e] = 0.f;
+          dp[i][e] = 0.f;
+        }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, frag_a<LD>(k_s, warp * 16, ks * 16, lane));
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t qb[4];
+          ldsm_x4(qb, frag_b_nk<LD>(qt, np * 16, ks * 16, lane));
+          mma16816<T>(s[2 * np], a, qb[0], qb[1]);
+          mma16816<T>(s[2 * np + 1], a, qb[2], qb[3]);
+        }
+        ldsm_x4(a, frag_a<LD>(v_s, warp * 16, ks * 16, lane));
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t ob[4];
+          ldsm_x4(ob, frag_b_nk<LD>(dot, np * 16, ks * 16, lane));
+          mma16816<T>(dp[2 * np], a, ob[0], ob[1]);
+          mma16816<T>(dp[2 * np + 1], a, ob[2], ob[3]);
+        }
+      }
+
+      // the step needs no mask when keys and rows lie in one segment and,
+      // under causal, the first row sees the tile's last key (uniform)
+      const bool no_mask = rows.seg >= 0 && q0 + BQ <= q_end && sqs[0] == rows.seg &&
+                           sqs[BQ - 1] == rows.seg && (!causal || k0 + kTcBlk - 1 <= bds[0]);
+#pragma unroll
+      for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + 2 * t4 + (e & 1);
+          const int row = q0 + c;
+          const int key = key0 + (e >> 1) * 8;
+          const bool vis = no_mask || (row < q_end && sqs[c] == segk_r[e >> 1] &&
+                                       (!causal || key <= bds[c]));
+          const float lv = ls[c];
+          const float p =
+              vis ? exp2f(fmaf(s[nt][e] * scale, kLog2e, -(lv == -INFINITY ? 0.f : lv) * kLog2e))
+                  : 0.f;
+          float pd = p, d = dp[nt][e];
+          if (dropout) {
+            const bool keep = dropout_keep(seed, (uint32_t)h, (uint32_t)row, (uint32_t)key, thresh);
+            pd = keep ? p * inv_keep : 0.f;
+            d = keep ? d * inv_keep : 0.f;
+          }
+          s[nt][e] = pd;                         // dropped P^T
+          dp[nt][e] = p * (d - dls[c]) * scale;  // dS^T
+        }
+
+      // dV += P^T dO and dK += dS^T Q over this step's 32 q rows (2
+      // k-steps), columns [c0, c0 + DC); dO and Q read as [row][d] = [k][n]
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk) {
+        uint32_t ph[4], pl[4], dh[4], dlo[4];
+        acc_to_a<T>(s[2 * kk], s[2 * kk + 1], ph, pl);
+        acc_to_a<T>(dp[2 * kk], dp[2 * kk + 1], dh, dlo);
+#pragma unroll
+        for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
+          uint32_t bo[4], bq[4];
+          ldsm_x4_trans(bo, frag_b_kn<LD>(dot, kk * 16, c0 + dp2 * 16, lane));
+          mma16816<T>(acc_v[2 * dp2], pl, bo[0], bo[1]);
+          mma16816<T>(acc_v[2 * dp2], ph, bo[0], bo[1]);
+          mma16816<T>(acc_v[2 * dp2 + 1], pl, bo[2], bo[3]);
+          mma16816<T>(acc_v[2 * dp2 + 1], ph, bo[2], bo[3]);
+          ldsm_x4_trans(bq, frag_b_kn<LD>(qt, kk * 16, c0 + dp2 * 16, lane));
+          mma16816<T>(acc_k[2 * dp2], dlo, bq[0], bq[1]);
+          mma16816<T>(acc_k[2 * dp2], dh, bq[0], bq[1]);
+          mma16816<T>(acc_k[2 * dp2 + 1], dlo, bq[2], bq[3]);
+          mma16816<T>(acc_k[2 * dp2 + 1], dh, bq[2], bq[3]);
+        }
+      }
+      __syncthreads();  // this stage is reloaded by a later copy
+    }
+    cp_async_wait<0>();  // a tile no row sees still has K's and V's copies in flight
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + i * 8;
+      if (key < Tk) {
+        const long long o = ((long long)key * Hkv + hk) * D + c0 + 2 * t4;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          *reinterpret_cast<uint32_t*>(dk + o + dt * 8) =
+              pack2<T>(acc_k[dt][2 * i], acc_k[dt][2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(dv + o + dt * 8) =
+              pack2<T>(acc_v[dt][2 * i], acc_v[dt][2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // C entry points. q/k/v are read at a token stride in elements (a token's
 // heads and head dims contiguous); dout, out and the gradients are
@@ -868,12 +1407,39 @@ static bool bad_shape(int Tq, int Tk, int H, int Hkv, int n_seqs) {
   return Tq <= 0 || Tk <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || n_seqs <= 0;
 }
 
-// What the forward launches share.
-struct VFwdArgs {
+// The tensor-core kernels copy each token's head in 16-byte pieces: every
+// tensor on a 16-byte boundary, token strides multiples of 8 elements.
+static bool tc_unaligned(int dtype, std::initializer_list<const void*> ptrs, long long q_stride,
+                         long long k_stride, long long v_stride) {
+  return dtype != kF32 && (!aligned16(ptrs) || q_stride % 8 || k_stride % 8 || v_stride % 8);
+}
+
+// Calls f(std::integral_constant<int, D>) for an instantiated head dim:
+// every multiple of 32 from 32 to 256. Another D returns
+// cudaErrorInvalidValue (the wrapper pads D up to one of these).
+template <typename F>
+static int with_head_dim(int D, F&& f) {
+  switch (D) {
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 96: return f(std::integral_constant<int, 96>());
+    case 128: return f(std::integral_constant<int, 128>());
+    case 160: return f(std::integral_constant<int, 160>());
+    case 192: return f(std::integral_constant<int, 192>());
+    case 224: return f(std::integral_constant<int, 224>());
+    case 256: return f(std::integral_constant<int, 256>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// What the launches share.
+struct VArgs {
   const void *q, *k, *v;
   long long q_stride, k_stride, v_stride;
-  const int *seg_q, *seg_k, *bound, *cu_k, *seed;
-  void* out;
+  const void* dout;
+  const float *lse_in, *delta;
+  const int *seg_q, *seg_k, *bound, *cu_q, *cu_k, *seed;
+  void *out, *dq, *dk, *dv;
   float* lse;
   int Tq, Tk, H, Hkv, n_seqs;
   float scale;
@@ -882,42 +1448,120 @@ struct VFwdArgs {
   float inv_keep;
 };
 
+// The route is the dtype's: fp32 -> the CUDA-core kernels, bf16/fp16 ->
+// the tensor-core kernels. No fallback between them.
 template <typename T, int D>
-static int launch_vflash_fwd_cc(const VFwdArgs& a, cudaStream_t s) {
-  constexpr size_t smem = vflash_fwd_smem_bytes<D>();
-  const cudaError_t e = opt_in_smem(vflash_fwd_kernel<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.Tq + kFaBQ - 1) / kFaBQ, a.H);
-  vflash_fwd_kernel<T, D><<<grid, kFaThreads, smem, s>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride, a.seg_q,
-      a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.out, a.lse, a.Tq, a.Tk, a.H, a.Hkv, a.n_seqs,
-      a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
+static int launch_vflash_fwd(const VArgs& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr size_t smem = vflash_fwd_smem_bytes<D>();
+    const cudaError_t e = opt_in_smem(vflash_fwd_kernel<T, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((a.Tq + kFaBQ - 1) / kFaBQ, a.H);
+    vflash_fwd_kernel<T, D><<<grid, kFaThreads, smem, s>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride,
+        a.seg_q, a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.out, a.lse, a.Tq, a.Tk, a.H, a.Hkv,
+        a.n_seqs, a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
+  } else {
+    constexpr size_t smem = vflash_fwd_tc_smem_bytes<D>();
+    const cudaError_t e = opt_in_smem(vflash_fwd_tc_kernel<T, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int q_tiles = (a.Tq + kTcBlk - 1) / kTcBlk;
+    if (q_tiles > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
+    const dim3 grid(a.H, q_tiles);
+    vflash_fwd_tc_kernel<T, D><<<grid, kTcThreads, smem, s>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride,
+        a.seg_q, a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.out, a.lse, a.Tq, a.Tk, a.H, a.Hkv,
+        a.n_seqs, a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-static int launch_vflash_fwd_tc(const VFwdArgs& a, cudaStream_t s) {
-  constexpr size_t smem = vflash_fwd_tc_smem_bytes<D>();
-  const cudaError_t e = opt_in_smem(vflash_fwd_tc_kernel<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int q_tiles = (a.Tq + kTcBlk - 1) / kTcBlk;
-  if (q_tiles > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
-  const dim3 grid(a.H, q_tiles);
-  vflash_fwd_tc_kernel<T, D><<<grid, kTcThreads, smem, s>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride, a.seg_q,
-      a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.out, a.lse, a.Tq, a.Tk, a.H, a.Hkv, a.n_seqs,
-      a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
+static int launch_vflash_bwd_dq(const VArgs& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr size_t smem = vflash_dq_smem_bytes<D>();
+    const cudaError_t e = opt_in_smem(vflash_bwd_dq_kernel<T, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((a.Tq + kFaBQ - 1) / kFaBQ, a.H);
+    vflash_bwd_dq_kernel<T, D><<<grid, kFaThreads, smem, s>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride,
+        (const T*)a.dout, a.lse_in, a.delta, a.seg_q, a.seg_k, a.bound, a.cu_k, a.seed,
+        (T*)a.dq, a.Tq, a.Tk, a.H, a.Hkv, a.n_seqs, a.scale, a.causal, a.dropout, a.thresh,
+        a.inv_keep);
+  } else {
+    constexpr size_t smem = vflash_dq_tc_smem_bytes<D>();
+    const cudaError_t e = opt_in_smem(vflash_bwd_dq_tc_kernel<T, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int q_tiles = (a.Tq + kTcBlk - 1) / kTcBlk;
+    if (q_tiles > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
+    const dim3 grid(a.H, q_tiles);
+    vflash_bwd_dq_tc_kernel<T, D><<<grid, kTcThreads, smem, s>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride,
+        (const T*)a.dout, a.lse_in, a.delta, a.seg_q, a.seg_k, a.bound, a.cu_k, a.seed,
+        (T*)a.dq, a.Tq, a.Tk, a.H, a.Hkv, a.n_seqs, a.scale, a.causal, a.dropout, a.thresh,
+        a.inv_keep);
+  }
   return (int)cudaGetLastError();
 }
 
-// The route is the dtype's: fp32 -> the CUDA-core kernel, bf16/fp16 -> the
-// tensor-core kernel. No fallback between them.
 template <typename T, int D>
-static int launch_vflash_fwd(const VFwdArgs& a, cudaStream_t s) {
-  if constexpr (std::is_same<T, float>::value)
-    return launch_vflash_fwd_cc<T, D>(a, s);
-  else
-    return launch_vflash_fwd_tc<T, D>(a, s);
+static int launch_vflash_bwd_dkv(const VArgs& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr size_t smem = vflash_dkv_smem_bytes<D>();
+    const cudaError_t e = opt_in_smem(vflash_bwd_dkv_kernel<T, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((a.Tk + kFaBK - 1) / kFaBK, a.Hkv);
+    vflash_bwd_dkv_kernel<T, D><<<grid, kFaThreads, smem, s>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride,
+        (const T*)a.dout, a.lse_in, a.delta, a.seg_q, a.seg_k, a.bound, a.cu_q, a.cu_k, a.seed,
+        (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv, a.n_seqs, a.scale, a.causal, a.dropout,
+        a.thresh, a.inv_keep);
+  } else {
+    constexpr size_t smem = vflash_dkv_tc_smem_bytes<D>();
+    const cudaError_t e = opt_in_smem(vflash_bwd_dkv_tc_kernel<T, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int k_tiles = (a.Tk + kTcBlk - 1) / kTcBlk;
+    if (k_tiles > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
+    const dim3 grid(a.Hkv, k_tiles);
+    vflash_bwd_dkv_tc_kernel<T, D><<<grid, kTcThreads, smem, s>>>(
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride,
+        (const T*)a.dout, a.lse_in, a.delta, a.seg_q, a.seg_k, a.bound, a.cu_q, a.cu_k, a.seed,
+        (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv, a.n_seqs, a.scale, a.causal, a.dropout,
+        a.thresh, a.inv_keep);
+  }
+  return (int)cudaGetLastError();
+}
+
+// What every launch takes: the inputs, the segment vectors and the
+// attention's parameters (the outputs are set by each entry point).
+static VArgs base_args(const void* q, const void* k, const void* v, long long q_stride,
+                       long long k_stride, long long v_stride, const int* seg_q,
+                       const int* seg_k, const int* bound, const int* cu_k, const int* seed,
+                       int Tq, int Tk, int H, int Hkv, int n_seqs, float scale, int causal,
+                       int dropout, unsigned int thresh, float inv_keep) {
+  VArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.q_stride = q_stride;
+  a.k_stride = k_stride;
+  a.v_stride = v_stride;
+  a.seg_q = seg_q;
+  a.seg_k = seg_k;
+  a.bound = bound;
+  a.cu_k = cu_k;
+  a.seed = seed;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.n_seqs = n_seqs;
+  a.scale = scale;
+  a.causal = causal;
+  a.dropout = dropout;
+  a.thresh = thresh;
+  a.inv_keep = inv_keep;
+  return a;
 }
 
 extern "C" int vflash_fwd(const void* q, const void* k, const void* v, long long q_stride,
@@ -927,22 +1571,21 @@ extern "C" int vflash_fwd(const void* q, const void* k, const void* v, long long
                           int n_seqs, float scale, int causal, int dropout, unsigned int thresh,
                           float inv_keep, int dtype, void* stream) {
   if (bad_shape(Tq, Tk, H, Hkv, n_seqs)) return (int)cudaErrorInvalidValue;
-  // the tensor-core kernel copies each token's head in 16-byte pieces
-  if (dtype != kF32 && (!aligned16({q, k, v, out}) || q_stride % 8 || k_stride % 8 ||
-                        v_stride % 8))
+  if (tc_unaligned(dtype, {q, k, v, out}, q_stride, k_stride, v_stride))
     return (int)cudaErrorMisalignedAddress;
-  const VFwdArgs a{q,   k,   v,  q_stride, k_stride, v_stride, seg_q,  seg_k,
-                   bound, cu_k, seed, out, lse,  Tq,  Tk, H, Hkv, n_seqs, scale,
-                   causal, dropout, thresh, inv_keep};
+  VArgs a = base_args(q, k, v, q_stride, k_stride, v_stride, seg_q, seg_k, bound, cu_k, seed, Tq,
+                      Tk, H, Hkv, n_seqs, scale, causal, dropout, thresh, inv_keep);
+  a.out = out;
+  a.lse = lse;
   cudaStream_t s = (cudaStream_t)stream;
   DISPATCH_DTYPE(dtype, T, {
-    if (D == 64) return launch_vflash_fwd<T, 64>(a, s);
-    if (D == 128) return launch_vflash_fwd<T, 128>(a, s);
-    return (int)cudaErrorInvalidValue;
+    return with_head_dim(D, [&](auto d) { return launch_vflash_fwd<T, decltype(d)::value>(a, s); });
   })
   return (int)cudaErrorInvalidValue;
 }
 
+// The backward takes the forward's lse and delta = rowsum(dO * O), both
+// fp32 [H, Tq], and dout [Tq, H, D].
 extern "C" int vflash_bwd_dq(const void* q, const void* k, const void* v, long long q_stride,
                              long long k_stride, long long v_stride, const void* dout,
                              const float* lse, const float* delta, const int* seg_q,
@@ -951,25 +1594,19 @@ extern "C" int vflash_bwd_dq(const void* q, const void* k, const void* v, long l
                              int n_seqs, float scale, int causal, int dropout,
                              unsigned int thresh, float inv_keep, int dtype, void* stream) {
   if (bad_shape(Tq, Tk, H, Hkv, n_seqs)) return (int)cudaErrorInvalidValue;
+  if (tc_unaligned(dtype, {q, k, v, dout, dq}, q_stride, k_stride, v_stride))
+    return (int)cudaErrorMisalignedAddress;
+  VArgs a = base_args(q, k, v, q_stride, k_stride, v_stride, seg_q, seg_k, bound, cu_k, seed, Tq,
+                      Tk, H, Hkv, n_seqs, scale, causal, dropout, thresh, inv_keep);
+  a.dout = dout;
+  a.lse_in = lse;
+  a.delta = delta;
+  a.dq = dq;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((Tq + kFaBQ - 1) / kFaBQ, H);
-#define VDQ(DIM)                                                                              \
-  {                                                                                           \
-    constexpr size_t smem = vflash_dq_smem_bytes<DIM>();                                      \
-    cudaError_t e = opt_in_smem(vflash_bwd_dq_kernel<T, DIM>, smem);                          \
-    if (e != cudaSuccess) return (int)e;                                                      \
-    vflash_bwd_dq_kernel<T, DIM><<<grid, kFaThreads, smem, s>>>(                              \
-        (const T*)q, (const T*)k, (const T*)v, q_stride, k_stride, v_stride, (const T*)dout,  \
-        lse, delta, seg_q, seg_k, bound, cu_k, seed, (T*)dq, Tq, Tk, H, Hkv, n_seqs, scale,   \
-        causal, dropout, thresh, inv_keep);                                                   \
-    return (int)cudaGetLastError();                                                           \
-  }
   DISPATCH_DTYPE(dtype, T, {
-    if (D == 64) VDQ(64)
-    if (D == 128) VDQ(128)
-    return (int)cudaErrorInvalidValue;
+    return with_head_dim(D,
+                         [&](auto d) { return launch_vflash_bwd_dq<T, decltype(d)::value>(a, s); });
   })
-#undef VDQ
   return (int)cudaErrorInvalidValue;
 }
 
@@ -982,24 +1619,20 @@ extern "C" int vflash_bwd_dkv(const void* q, const void* k, const void* v, long 
                               int dropout, unsigned int thresh, float inv_keep, int dtype,
                               void* stream) {
   if (bad_shape(Tq, Tk, H, Hkv, n_seqs)) return (int)cudaErrorInvalidValue;
+  if (tc_unaligned(dtype, {q, k, v, dout, dk, dv}, q_stride, k_stride, v_stride))
+    return (int)cudaErrorMisalignedAddress;
+  VArgs a = base_args(q, k, v, q_stride, k_stride, v_stride, seg_q, seg_k, bound, cu_k, seed, Tq,
+                      Tk, H, Hkv, n_seqs, scale, causal, dropout, thresh, inv_keep);
+  a.dout = dout;
+  a.lse_in = lse;
+  a.delta = delta;
+  a.cu_q = cu_q;
+  a.dk = dk;
+  a.dv = dv;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((Tk + kFaBK - 1) / kFaBK, Hkv);
-#define VDKV(DIM)                                                                             \
-  {                                                                                           \
-    constexpr size_t smem = vflash_dkv_smem_bytes<DIM>();                                     \
-    cudaError_t e = opt_in_smem(vflash_bwd_dkv_kernel<T, DIM>, smem);                         \
-    if (e != cudaSuccess) return (int)e;                                                      \
-    vflash_bwd_dkv_kernel<T, DIM><<<grid, kFaThreads, smem, s>>>(                             \
-        (const T*)q, (const T*)k, (const T*)v, q_stride, k_stride, v_stride, (const T*)dout,  \
-        lse, delta, seg_q, seg_k, bound, cu_q, cu_k, seed, (T*)dk, (T*)dv, Tq, Tk, H, Hkv,    \
-        n_seqs, scale, causal, dropout, thresh, inv_keep);                                    \
-    return (int)cudaGetLastError();                                                           \
-  }
   DISPATCH_DTYPE(dtype, T, {
-    if (D == 64) VDKV(64)
-    if (D == 128) VDKV(128)
-    return (int)cudaErrorInvalidValue;
+    return with_head_dim(
+        D, [&](auto d) { return launch_vflash_bwd_dkv<T, decltype(d)::value>(a, s); });
   })
-#undef VDKV
   return (int)cudaErrorInvalidValue;
 }

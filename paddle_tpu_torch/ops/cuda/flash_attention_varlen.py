@@ -17,7 +17,15 @@ here reads them back to the host.
 
 Routing: a CPU tensor takes :func:`_vflash_fwd_reference` /
 :func:`_vflash_bwd_reference`; a CUDA tensor launches the kernels or
-raises. There is no fallback between the two.
+raises. There is no fallback between the two. The kernels' route is the
+dtype's: fp32 on the CUDA cores, bf16 and fp16 on the tensor cores.
+
+Head dims: the kernels are compiled for every multiple of 32 from 32 to
+256 (``KERNEL_HEAD_DIMS``). Any other head dim up to 256 runs at the next
+one, with q, k, v (and out, dO) zero-padded and the results sliced back
+(:func:`_kernel_head_dim`); that is exact, because zero columns add
+nothing to Q K^T and give only output columns that are sliced off. A head
+dim above 256 raises ``ValueError``. The plain version takes any head dim.
 """
 from __future__ import annotations
 
@@ -27,10 +35,14 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import KERNEL_HEAD_DIMS, NEG_INF, _as_int64, _keep_mask
+from .flash_attention import NEG_INF, _as_int64, _keep_mask
 
 __all__ = ["flash_attn_varlen_thd", "flash_attn_varlen", "launches",
-           "dq_launches", "dkv_launches"]
+           "dq_launches", "dkv_launches", "KERNEL_HEAD_DIMS"]
+
+#: head dims the kernels are compiled for (csrc/flash_attention_varlen.cu
+#: ``with_head_dim``); other head dims up to 256 are padded to the next one
+KERNEL_HEAD_DIMS = tuple(range(32, 257, 32))
 
 #: forward kernel launches since the count was last reset
 launches = 0
@@ -205,7 +217,7 @@ def _packed(t):
     """``t`` itself where its heads and head dims are contiguous (a packed
     [T, H, D] tensor, or one of q, k, v unbound from a packed qkv), which
     the kernels read in place at its token stride; else a contiguous
-    copy. bf16 and fp16 go to the tensor-core forward, which copies each
+    copy. bf16 and fp16 go to the tensor-core kernels, which copy each
     token's head in 16-byte pieces: read in place, such a tensor must also
     start on a 16-byte boundary with a token stride that is a multiple of
     8 elements (a head's offset, h * D * 2 bytes, is then one too)."""
@@ -223,10 +235,6 @@ def _kernel_args(q, k, v, cu_q, cu_k, seed, dropout_rate):
     return what their launches share: token strides, the int32 segment
     vectors and cu_seqlens, the seed, dropout threshold and keep scale."""
     dev = q.device
-    d = q.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"varlen flash kernel: head dim {d} not in "
-                         f"{KERNEL_HEAD_DIMS}")
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"varlen flash kernel: unsupported dtype {q.dtype}")
     for name, t in (("k", k), ("v", v), ("cu_seqlens_q", cu_q),
@@ -267,7 +275,47 @@ def _tail_args(q, a, causal, scale, dropout_rate):
             _build.stream_ptr(q.device)]
 
 
+def _kernel_head_dim(d):
+    """The head dim a call with head dim ``d`` runs the kernels at: the
+    next multiple of 32 (``d`` itself if it is one), at most 256. Raises
+    ``ValueError`` above 256, the largest head dim the kernels are
+    compiled for."""
+    d = int(d)
+    if d < 1 or d > KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(
+            f"varlen flash kernel: head dim {d} is outside 1..."
+            f"{KERNEL_HEAD_DIMS[-1]}, the largest head dim the kernels are "
+            f"compiled for")
+    return -(-d // 32) * 32
+
+
+def _pad_head_dim(t, d):
+    """``t`` [T, H, D0] zero-padded on its last axis to ``d``, or ``t``
+    itself where D0 == d."""
+    if t.shape[-1] == d:
+        return t
+    return torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+
+
+def _cut_head_dim(t, d):
+    """The first ``d`` columns of ``t``'s last axis, contiguous."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def _vflash_fwd_kernel(q, k, v, cu_q, cu_k, seed, *, causal, scale,
+                       dropout_rate):
+    """The forward kernel at the kernels' head dim: q, k, v padded to
+    :func:`_kernel_head_dim` (``scale`` is the caller's, from the unpadded
+    D), out sliced back."""
+    d = q.shape[2]
+    d_run = _kernel_head_dim(d)
+    out, lse = _vflash_fwd_launch(
+        *(_pad_head_dim(t, d_run) for t in (q, k, v)), cu_q, cu_k, seed,
+        causal=causal, scale=scale, dropout_rate=dropout_rate)
+    return _cut_head_dim(out, d), lse
+
+
+def _vflash_fwd_launch(q, k, v, cu_q, cu_k, seed, *, causal, scale,
                        dropout_rate):
     global launches
     q, k, v = (_packed(t) for t in (q, k, v))
@@ -288,11 +336,10 @@ def _vflash_fwd_kernel(q, k, v, cu_q, cu_k, seed, *, causal, scale,
 
 def _vflash_bwd_kernel(q, k, v, cu_q, cu_k, out, lse, do, seed, *, causal,
                        scale, dropout_rate):
-    global dq_launches, dkv_launches
-    q, k, v = (_packed(t) for t in (q, k, v))
-    a = _kernel_args(q, k, v, cu_q, cu_k, seed, dropout_rate)
-    seg_q, seg_k, bound = a["seg"]
-    tq, h, _ = q.shape
+    """The dq and dk/dv kernels at the kernels' head dim: q, k, v, out and
+    do padded as in :func:`_vflash_fwd_kernel`, the gradients sliced
+    back."""
+    tq, h, d = q.shape
     for name, t in (("out", out), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"varlen flash bwd kernel: {name} must match q "
@@ -300,7 +347,23 @@ def _vflash_bwd_kernel(q, k, v, cu_q, cu_k, out, lse, do, seed, *, causal,
     if lse.shape != (h, tq):
         raise ValueError(f"varlen flash bwd kernel: lse must be [H, Tq], got "
                          f"{tuple(lse.shape)}")
+    d_run = _kernel_head_dim(d)
+    q, k, v, out, do = (_pad_head_dim(t, d_run) for t in (q, k, v, out, do))
+    grads = _vflash_bwd_launch(q, k, v, cu_q, cu_k, out, lse, do, seed,
+                               causal=causal, scale=scale,
+                               dropout_rate=dropout_rate)
+    return tuple(_cut_head_dim(g, d) for g in grads)
+
+
+def _vflash_bwd_launch(q, k, v, cu_q, cu_k, out, lse, do, seed, *, causal,
+                       scale, dropout_rate):
+    global dq_launches, dkv_launches
+    q, k, v = (_packed(t) for t in (q, k, v))
+    a = _kernel_args(q, k, v, cu_q, cu_k, seed, dropout_rate)
+    seg_q, seg_k, bound = a["seg"]
     do = do.contiguous()
+    if do.data_ptr() % 16:     # the tensor-core kernels copy 16-byte pieces
+        do = do.clone()
     lse = lse.to(torch.float32).contiguous()
     delta = (do.float() * out.float()).sum(dim=-1).t().contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
