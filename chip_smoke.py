@@ -36,13 +36,18 @@ own main path (``main_path``: serve, train, varlen or calibrate).
 
 The dense and varlen flash kernels take a route fixed by the dtype: fp32
 runs the CUDA-core kernels, bf16 and fp16 the tensor-core kernels
-(``FLASH_KERNELS``, ``VARLEN_KERNELS``). The kernel phases check both
-routes against the plain versions (the varlen kernels at every head dim
-they are compiled for, 32 to 256 by 32, and at two they pad to); the bf16
-forward, training and varlen phases read the profiler's per-kernel counts
-and fail unless only the tensor-core kernels ran. The tiled matmul has one
-route, the tensor cores, and the calibrate path fails if any other tiled
-kernel ran.
+(``FLASH_KERNELS``, ``VARLEN_KERNELS``); varlen head dims above 256 take
+the wide kernels in every dtype (``VARLEN_WIDE_KERNELS``). The kernel
+phases check every route against the plain versions (the varlen kernels
+at every head dim they are compiled for, 32 to 256 by 32, at two they pad
+to, and at 288, 320, 512 and 1024 on the wide route, which the profiler
+must show by name); the bf16 forward, training and varlen phases read the
+profiler's per-kernel counts and fail unless only the tensor-core kernels
+ran. RMSNorm takes one of three variants by shape and alignment (vector,
+chunked, scalar; ``RMS_CASES``), each checked in every dtype; the
+training step must run the vector variant's kernels (``RMS_TRAIN_KERNELS``).
+The tiled matmul has one route, the tensor cores, and the calibrate path
+fails if any other tiled kernel ran.
 
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}``.
@@ -206,20 +211,44 @@ def close_err(a, b, atol: float, rtol: float):
     return err, float(share.max())
 
 
-def ptxas_table(text: str):
-    """One line per kernel of a ``ptxas -v`` log: name<dtype, D>,
-    registers and spill bytes (stores / loads)."""
-    rows, name, spill = [], None, ""
+def _template_args(rest: str):
+    """The template arguments that open the rest of a mangled kernel name
+    (``I...E``): element types by name, integers as written; a repeated
+    type (``S0_``) is the one before it, as in every kernel here."""
     types = (("13__nv_bfloat16", "bf16"), ("6__half", "fp16"), ("f", "fp32"))
+    args, i = [], 1
+    if not rest.startswith("I"):
+        return args
+    while i < len(rest) and rest[i] != "E":
+        code = next((c for c in types if rest.startswith(c[0], i)), None)
+        if code:
+            args.append(code[1])
+            i += len(code[0])
+            continue
+        m = re.match(r"Li(\d+)E", rest[i:])
+        if m:
+            args.append(m.group(1))
+            i += m.end()
+            continue
+        m = re.match(r"S\d*_", rest[i:])     # a type named before: T again
+        if not (m and args):
+            break
+        args.append(args[-1])
+        i += m.end()
+    return args
+
+
+def ptxas_table(text: str):
+    """One line per kernel of a ``ptxas -v`` log: name<template args>
+    (element types, head dim or accesses per thread), registers and spill
+    bytes (stores / loads), each kernel once."""
+    rows, name, spill = [], None, ""
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
         if m:
             n = int(m.group(1))
-            base, rest = m.group(2)[:n], m.group(2)[n:]
-            dt = next((t for code, t in types if rest.startswith("I" + code)),
-                      "?")
-            dim = re.search(r"Li(\d+)E", rest)
-            name = f"{base}<{dt}, {dim.group(1) if dim else '?'}>"
+            args = _template_args(m.group(2)[n:])
+            name = m.group(2)[:n] + (f"<{', '.join(args)}>" if args else "")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -227,7 +256,9 @@ def ptxas_table(text: str):
             spill = f"spill {m.group(1)} / {m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            rows.append(f"{name}: {m.group(1)} registers, {spill}")
+            row = f"{name}: {m.group(1)} registers, {spill}"
+            if row not in rows:
+                rows.append(row)
             name = None
     return rows
 
@@ -271,86 +302,155 @@ def library_grad(torch, fn, inputs, grad):
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
+#: RMSNorm checks: (rows, hidden, x's offset in elements from an aligned
+#: start, the variant ``_launch_config`` must pick, forward and backward)
+RMS_CASES = ((8, 2048, 0, "vector"), (2048, 2048, 0, "vector"),
+             (8192, 2048, 0, "vector"), (300, 2047, 0, "scalar"),
+             (100, 2048, 1, "scalar"), (64, 65536, 0, "chunked"))
+#: (x, w) dtypes of the RMSNorm checks
+RMS_DTYPES = (("float32", "float32"), ("bfloat16", "bfloat16"),
+              ("float16", "float16"), ("bfloat16", "float32"))
+#: each variant's kernels (csrc/rms_norm.cu), forward and backward
+RMS_KERNELS = {
+    "vector": ("rms_norm_fwd_vec_kernel", "rms_norm_bwd_vec_kernel"),
+    "chunked": ("rms_norm_fwd_rows_kernel<T, W, 16 / sizeof(T)>",
+                "rms_norm_bwd_stats_kernel + rms_norm_bwd_cols_kernel"
+                "<T, W, 16 / sizeof(T)>"),
+    "scalar": ("rms_norm_fwd_rows_kernel<T, W, 1>",
+               "rms_norm_bwd_stats_kernel + rms_norm_bwd_cols_kernel"
+               "<T, W, 1>"),
+}
+
+
+#: the vector variant's launch choices timed beside the rule's at
+#: [8192, 2048] bf16: (accesses a lane, warps per row) x blocks per SM
+RMS_CHOICES = ((1, 8), (2, 4), (4, 2))
+RMS_CHOICE_BLOCKS_PER_SM = (1, 2, 4, 8)
+
+
+def rms_choices(torch, rn, x, w, gy, eps, sms):
+    """Device ms of the RMSNorm vector kernels, forward and backward, at
+    each launch choice of ``RMS_CHOICES`` x ``RMS_CHOICE_BLOCKS_PER_SM``
+    (``_launch_config`` replaced for the call): the evidence for the
+    rule's constants. Keyed "fwd|bwd nv/wpr/grid"."""
+    rows = x.shape[0]
+    rule = rn._launch_config
+    out = {}
+    try:
+        for backward, (nv, wpr), per_sm in itertools.product(
+                (False, True), RMS_CHOICES, RMS_CHOICE_BLOCKS_PER_SM):
+            grid = min(-(-rows // (8 // wpr)), per_sm * sms)
+            cfg = rn.LaunchConfig("vector", 8, nv, wpr, (grid, 1),
+                                  grid if backward else 0)
+            rn._launch_config = lambda *a, cfg=cfg, **k: cfg
+            fn = (lambda: rn.rms_norm_bwd(x, w, gy, eps=eps)) if backward \
+                else (lambda: rn.rms_norm_fwd(x, w, eps=eps))
+            out[f"{'bwd' if backward else 'fwd'} {nv}/{wpr}/{grid}"] = \
+                device_ms(fn)
+    finally:
+        rn._launch_config = rule
+    return out
+
+
 def phase_rms_norm(torch, dev, report):
     """RMSNorm forward and backward kernels vs ``rms_norm_reference`` /
-    ``rms_norm_bwd_reference``: forward at the decode (8 rows), prefill
-    (4 x 512) and training (4 x 2048) row counts, backward at the
-    training rows, hidden 2048. Both compute in fp32 and round once:
-    tolerance ``tolerance(dtype, 1e-5)`` for y and dx, i.e. 1e-5 (fp32)
-    plus two output ulps (bf16, fp16); dw, a sum over 8192 rows of values
-    up to ~300, ``tolerance(dtype, 1e-3)`` (the fp32 sum taken in block
-    partials instead of one pass)."""
-    from paddle_tpu_torch.ops.cuda import rms_norm as rn
+    ``rms_norm_bwd_reference`` in every variant (``RMS_CASES``): hidden
+    2048 at the decode (8 rows), serving-prefill (2048) and training
+    (8192) row counts takes the vector variant; hidden 2047, or x one
+    element off a 16-byte boundary, the scalar one; hidden 65536 the
+    chunked one (the backward at 65536 raised before the redesign); each
+    in fp32, bf16, fp16 and x bf16 with w fp32 (``RMS_DTYPES``). Two
+    backward calls on the same inputs must give the same bits. Both
+    compute in fp32 and round once: tolerance ``tolerance(dtype, 1e-5)``
+    for y and dx, i.e. 1e-5 (fp32) plus two output ulps (bf16, fp16); dw,
+    a sum over up to 8192 rows of values up to ~300,
+    ``tolerance(w dtype, 1e-3)`` (the fp32 sum taken in block partials
+    instead of one pass). Then the times at 8, 2048 and 8192 rows x 2048,
+    bf16, forward and backward, beside the plain version, ``F.rms_norm``
+    and its backward, and the byte bound."""
+    from paddle_tpu_torch.ops.cuda import _build, rms_norm as rn
 
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(1)
     eps = 1e-6
     main = {}
-    for rows in (8, 2048, 8192):
-        for dt in (torch.float32, torch.bfloat16, torch.float16):
-            x = torch.randn(rows, 2048, generator=g, device=dev).to(dt)
-            w = (1 + 0.1 * torch.randn(2048, generator=g, device=dev)).to(dt)
-            y = rn.rms_norm_fwd(x, w, eps=eps)
-            ref = rn.rms_norm_reference(x, w, eps=eps)
-            torch.cuda.synchronize()
-            atol, rtol = tolerance(dt, 1e-5)
-            err, share = close_err(y, ref, atol, rtol)
-            name = str(dt).replace("torch.", "")
-            log(f"  rms_norm rows={rows} {name}: max_abs_err={err:.3g}, "
-                f"{share:.3g} of the tolerance ({atol} + {rtol:.3g}|ref|)")
-            check(share <= 1.0, f"rms_norm rows={rows} {name} err {err}")
-            if rows < 8192:
-                if rows == 2048 and dt == torch.bfloat16:
-                    main["fwd_serve"] = (x, w, err)
-                continue
-            gy = torch.randn(rows, 2048, generator=g, device=dev).to(dt)
-            dx, dw = rn.rms_norm_bwd(x, w, gy, eps=eps)
-            rdx, rdw = rn.rms_norm_bwd_reference(x, w, gy, eps=eps)
-            torch.cuda.synchronize()
-            e_dx, s_dx = close_err(dx, rdx, atol, rtol)
-            atol_w, _ = tolerance(dt, 1e-3)
-            e_dw, s_dw = close_err(dw, rdw, atol_w, rtol)
-            log(f"  rms_norm_bwd rows={rows} {name}: dx err {e_dx:.3g} "
-                f"({s_dx:.3g} of its tolerance), dw err {e_dw:.3g} "
-                f"({s_dw:.3g} of {atol_w} + {rtol:.3g}|ref|, |dw| max "
-                f"{float(rdw.float().abs().max()):.3g})")
-            check(s_dx <= 1.0 and s_dw <= 1.0,
-                  f"rms_norm_bwd rows={rows} {name} dx {e_dx} dw {e_dw}")
-            if dt == torch.bfloat16:
-                main["fwd_train"] = (x, w, err)
-                main["bwd"] = (x, w, gy, max(e_dx, e_dw))
+    for (xn, wn), (rows, hidden, off, variant) in itertools.product(
+            RMS_DTYPES, RMS_CASES):
+        xdt, wdt = getattr(torch, xn), getattr(torch, wn)
+        x = torch.randn(rows * hidden + off, generator=g, device=dev).to(
+            xdt)[off:].view(rows, hidden)
+        w = (1 + 0.1 * torch.randn(hidden, generator=g, device=dev)).to(wdt)
+        gy = torch.randn(rows, hidden, generator=g, device=dev).to(xdt)
+        aligned = rn._aligned(x, w)
+        picked = {rn._launch_config(rows, hidden, xdt, backward=b,
+                                    aligned=aligned).variant
+                  for b in (False, True)}
+        check(picked == {variant}, f"rms_norm [{rows}, {hidden}] offset "
+                                   f"{off} {xn}: variant {picked}, want "
+                                   f"{variant}")
+        y = rn.rms_norm_fwd(x, w, eps=eps)
+        dx, dw = rn.rms_norm_bwd(x, w, gy, eps=eps)
+        dx2, dw2 = rn.rms_norm_bwd(x, w, gy, eps=eps)
+        ref = rn.rms_norm_reference(x, w, eps=eps)
+        rdx, rdw = rn.rms_norm_bwd_reference(x, w, gy, eps=eps)
+        torch.cuda.synchronize()
+        atol, rtol = tolerance(xdt, 1e-5)
+        atol_w, rtol_w = tolerance(wdt, 1e-3)
+        e_y, s_y = close_err(y, ref, atol, rtol)
+        e_dx, s_dx = close_err(dx, rdx, atol, rtol)
+        e_dw, s_dw = close_err(dw, rdw, atol_w, rtol_w)
+        same = bool(torch.equal(dx, dx2)) and bool(torch.equal(dw, dw2))
+        log(f"  rms_norm {variant} [{rows}, {hidden}] x {xn}"
+            f"{f' (offset {off})' if off else ''}, w {wn}: y err {e_y:.3g} "
+            f"({s_y:.3g} of the tolerance), dx err {e_dx:.3g} ({s_dx:.3g}), "
+            f"dw err {e_dw:.3g} ({s_dw:.3g} of {atol_w} + {rtol_w:.3g}|ref|, "
+            f"|dw| max {float(rdw.float().abs().max()):.3g}); two backward "
+            f"calls equal: {same}")
+        check(max(s_y, s_dx, s_dw) <= 1.0,
+              f"rms_norm {variant} [{rows}, {hidden}] {xn}/{wn}: y {e_y} "
+              f"dx {e_dx} dw {e_dw}")
+        check(same, f"rms_norm_bwd {variant} [{rows}, {hidden}] {xn}/{wn}: "
+                    f"two calls differ")
+        if hidden == 2048 and not off and xn == wn == "bfloat16":
+            main[rows] = (x, w, gy, e_y, max(e_dx, e_dw))
+        del x, w, gy, y, dx, dw, dx2, dw2, ref, rdx, rdw
 
-    def fwd_times(x, w):
-        n = x.numel()
-        return timings(lambda: rn.rms_norm_fwd(x, w, eps=eps),
-                       lambda: rn.rms_norm_reference(x, w, eps=eps),
-                       lambda: F.rms_norm(x, (x.shape[-1],), w, eps),
-                       nbytes(x, x, w), 4 * n, "float32")
-
-    x, w, err = main["fwd_serve"]
-    serve_t = fwd_times(x, w)
-    show("rms_norm [2048, 2048] bf16", serve_t)
-    x, w, err = main["fwd_train"]
-    t = fwd_times(x, w)
-    show("rms_norm [8192, 2048] bf16 (training shape)", t)
-    report["rms_norm"] = dict(
-        name="rms_norm_fwd", route="cuda",
-        source="paddle_tpu_torch/csrc/rms_norm.cu",
-        replaces="paddle_tpu/ops/pallas/rms_norm.py:53", max_abs_err=err,
-        **t, at_serving_shape=dict(max_abs_err=main["fwd_serve"][2],
-                                   **serve_t))
-    x, w, gy, err = main["bwd"]
-    t = timings(lambda: rn.rms_norm_bwd(x, w, gy, eps=eps),
-                lambda: rn.rms_norm_bwd_reference(x, w, gy, eps=eps),
-                library_grad(torch, lambda a, b: F.rms_norm(
-                    a, (a.shape[-1],), b, eps), (x, w), gy),
-                nbytes(x, w, gy, x, w), 10 * x.numel(), "float32")
-    show("rms_norm_bwd [8192, 2048] bf16", t)
-    report["rms_norm_bwd"] = dict(
-        name="rms_norm_bwd", route="cuda",
-        source="paddle_tpu_torch/csrc/rms_norm.cu",
-        replaces="paddle_tpu/ops/pallas/rms_norm.py:75", max_abs_err=err,
-        **t)
+    times = {}
+    for rows, (x, w, gy, e_fwd, e_bwd) in main.items():
+        fwd = timings(lambda: rn.rms_norm_fwd(x, w, eps=eps),
+                      lambda: rn.rms_norm_reference(x, w, eps=eps),
+                      lambda: F.rms_norm(x, (x.shape[-1],), w, eps),
+                      nbytes(x, x, w), 4 * x.numel(), "float32")
+        show(f"rms_norm [{rows}, 2048] bf16", fwd)
+        bwd = timings(lambda: rn.rms_norm_bwd(x, w, gy, eps=eps),
+                      lambda: rn.rms_norm_bwd_reference(x, w, gy, eps=eps),
+                      library_grad(torch, lambda a, b: F.rms_norm(
+                          a, (a.shape[-1],), b, eps), (x, w), gy),
+                      nbytes(x, w, gy, x, w), 10 * x.numel(), "float32")
+        show(f"rms_norm_bwd [{rows}, 2048] bf16", bwd)
+        times[rows] = (dict(max_abs_err=e_fwd, **fwd),
+                       dict(max_abs_err=e_bwd, **bwd))
+    x, w, gy = main[8192][:3]
+    choices = rms_choices(torch, rn, x, w, gy, eps, _build.sm_count(dev))
+    picked = [rn._launch_config(8192, 2048, torch.bfloat16, backward=b)
+              for b in (False, True)]
+    log(f"  rms_norm [8192, 2048] bf16 vector launch choices (nv/wpr/grid, "
+        f"ms; the rule picks fwd {picked[0].nv}/{picked[0].wpr}/"
+        f"{picked[0].grid[0]}, bwd {picked[1].nv}/{picked[1].wpr}/"
+        f"{picked[1].grid[0]}): " + "; ".join(
+            f"{k} {v:.4f}" for k, v in choices.items()))
+    for key, name, i, line in (
+            ("rms_norm", "rms_norm_fwd", 0, 53),
+            ("rms_norm_bwd", "rms_norm_bwd", 1, 75)):
+        report[key] = dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/rms_norm.cu",
+            replaces=f"paddle_tpu/ops/pallas/rms_norm.py:{line}",
+            kernels={v: pair[i] for v, pair in RMS_KERNELS.items()},
+            **times[8192][i], at_2048_rows=times[2048][i],
+            at_8_rows=times[8][i], launch_choices={
+                k[4:]: v for k, v in choices.items()
+                if k.startswith(("fwd", "bwd")[i])})
 
 
 def _pages_case(torch, dev, g, b, nh, kvh, dh, page, pps, num_pages, lens,
@@ -704,20 +804,22 @@ def phase_varlen(torch, dev, report):
     and not, rows past cu[-1], segments shorter than 16 rows inside one
     64-row tile, dropout 0.1 at a fixed seed (keep mask compared through
     one-hot values), and every head dim the kernels are compiled for (32
-    to 256 by 32) or pad to (80 -> 96, 200 -> 224), in fp32, bf16 and fp16
-    (fp32 takes the CUDA-core kernels, bf16 and fp16 the tensor-core
-    kernels); bf16 views that the kernel cannot read in place (token
-    stride not a multiple of 8, start off a 16-byte boundary) must give
-    the output of their contiguous copies exactly; head dim 288 must raise
-    ``ValueError``.
+    to 256 by 32) or pad to (80 -> 96, 200 -> 224), and head dims above
+    256 (288, 300 -> 320, 512, 1024), in fp32, bf16 and fp16 (up to D 256
+    fp32 takes the CUDA-core kernels, bf16 and fp16 the tensor-core
+    kernels; above it every dtype the wide kernels, which the profiler
+    must show by name); bf16 views that the kernel cannot read in place
+    (token stride not a multiple of 8, start off a 16-byte boundary) must
+    give the output of their contiguous copies exactly; head dim 1568
+    must raise ``ValueError``.
     Both accumulate in fp32 (the kernels tile by tile) and round once:
     tolerance ``tolerance(dtype, 1e-4)`` on out, dq, dk and dv, i.e. 1e-4
     (fp32, sums over up to 2048 keys) plus two output ulps (bf16, fp16);
     lse within 1e-4. Then one segment of 2048 against the dense forward
     kernel at [1, 16, 2048, 128], within the same tolerance. Then the
     timings: the full-width case, 4 x 2048 packed beside the dense
-    kernels, and the head-dim sweep (``VARLEN_SWEEP_DIMS``) against the
-    library."""
+    kernels, and the head-dim sweep (``VARLEN_SWEEP_DIMS``, then the wide
+    kernels' ``VARLEN_WIDE_DIMS``) against the library."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
 
@@ -756,6 +858,15 @@ def phase_varlen(torch, dev, report):
          [40, 9, 70, 5, 300], 8, 2, 256, dict(causal=True)),
         ("D 256 dropout 0.1 len_k != len_q noncausal", [100, 37, 250],
          [180, 20, 250], 4, 2, 256, dict(seed=seed, rate=0.1)),
+        ("D 288 (wide) GQA 8/2 segments inside tiles", [40, 9, 70, 5, 300],
+         [40, 9, 70, 5, 300], 8, 2, 288, dict(causal=True)),
+        ("D 300 (wide, padded to 320) dropout 0.1 GQA 8/2", [129, 64, 300],
+         [129, 64, 300], 8, 2, 300, dict(causal=True, seed=seed, rate=0.1)),
+        ("D 512 (wide) len_k != len_q, rows past cu[-1]", [100, 37, 250, 0],
+         [180, 20, 250, 9], 4, 2, 512, dict(causal=True, extra_q=13)),
+        ("D 1024 (wide) dropout 0.1 len_k != len_q noncausal",
+         [100, 37, 250], [180, 20, 250], 4, 2, 1024,
+         dict(seed=seed, rate=0.1)),
     ]
     main = None
     for label, lq, lk, h, hkv, d, kw in cases:
@@ -864,18 +975,40 @@ def phase_varlen(torch, dev, report):
         f"tolerance), lse err {e_lse:.3g}")
     check(share <= 1.0 and e_lse <= 1e-4, "vflash vs dense flash")
     del q, k, v, out, lse, dout, dlse
-    # above the largest head dim the kernels are compiled for, the entry
-    # point raises (and names the limit)
-    q = torch.zeros(16, 2, 288, device=dev, dtype=bf16)
+    # above 256 every dtype takes the wide kernels, once each per call and
+    # no other varlen kernel (by name); above their 1536 the entry point
+    # raises and names the limit
+    cu = _cu(torch, [40, 9, 70, 5, 300], dev)
+    wide = list(VARLEN_WIDE_KERNELS.values())
+    others = [n for pair in VARLEN_KERNELS.values() for n in pair]
+    for dt in (f32, bf16, torch.float16):
+        q, k, v, do = (rnd(424, 8, 288, dt=dt) for _ in range(4))
+        st = dict(causal=True, scale=288 ** -0.5, dropout_rate=0.0)
+        out, lse = fv._vflash_fwd_kernel(q, k, v, cu, cu, None, **st)
+
+        def fwd_bwd():
+            fv._vflash_fwd_kernel(q, k, v, cu, cu, None, **st)
+            fv._vflash_bwd_kernel(q, k, v, cu, cu, out, lse, do, None, **st)
+
+        fwd_bwd()
+        got = named_launches(kernel_counts(torch, fwd_bwd, 2), wide + others)
+        name = str(dt).replace("torch.", "")
+        log(f"  vflash D 288 {name}, forward + backward, kernels per call: "
+            f"{ {n: c for n, c in got.items() if c} }")
+        check(all(got[n] == 1 for n in wide)
+              and not any(got[n] for n in others),
+              f"vflash D 288 {name} ran {got}, want each wide kernel once")
+        del q, k, v, do, out, lse
+    q = torch.zeros(16, 2, 1568, device=dev, dtype=bf16)
     cu = _cu(torch, [7, 9], dev)
     try:
         fv.flash_attn_varlen_thd(q, q, q, cu, cu, causal=True)
         raised = "nothing"
     except ValueError as exc:
         raised = f"ValueError: {exc}"
-    log(f"  vflash at head dim 288 raised {raised}")
-    check(raised.startswith("ValueError") and "256" in raised,
-          f"vflash at head dim 288 raised {raised}")
+    log(f"  vflash at head dim 1568 raised {raised}")
+    check(raised.startswith("ValueError") and "1536" in raised,
+          f"vflash at head dim 1568 raised {raised}")
 
     q, k, v, cu, out, lse, do, e_fwd, e_bwd = main
     t_tok, h, d = q.shape
@@ -900,7 +1033,8 @@ def phase_varlen(torch, dev, report):
         name="flash_attn_varlen_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attention_varlen.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention_varlen.py:158",
-        kernels=dict(zip(("bf16/fp16", "fp32"), VARLEN_KERNELS["fwd"])),
+        kernels=dict(zip(("bf16/fp16", "fp32"), VARLEN_KERNELS["fwd"]),
+                     **{"D > 256": VARLEN_WIDE_KERNELS["fwd"]}),
         max_abs_err=e_fwd, library=lib_note, **t)
     t = timings(
         lambda: fv._vflash_bwd_kernel(*args, out, lse, do, None, **st),
@@ -914,7 +1048,9 @@ def phase_varlen(torch, dev, report):
         replaces="paddle_tpu/ops/pallas/flash_attention_varlen.py:328",
         kernels={"bf16/fp16": [VARLEN_KERNELS["dq"][0],
                                VARLEN_KERNELS["dkv"][0]],
-                 "fp32": [VARLEN_KERNELS["dq"][1], VARLEN_KERNELS["dkv"][1]]},
+                 "fp32": [VARLEN_KERNELS["dq"][1], VARLEN_KERNELS["dkv"][1]],
+                 "D > 256": [VARLEN_WIDE_KERNELS["dq"],
+                             VARLEN_WIDE_KERNELS["dkv"]]},
         max_abs_err=e_bwd, library=lib_note, **t)
     del main, q, k, v, out, lse, do, args, lib_fwd, lib_bwd
     # equal work: 4 segments of 2048 is the dense kernels' training shape
@@ -944,16 +1080,20 @@ def phase_varlen(torch, dev, report):
     varlen_sweep(torch, dev, report)
 
 
-#: head dims of the varlen timing sweep (the full-width packing, 16 heads)
+#: head dims of the varlen timing sweep (the full-width packing, 16 heads):
+#: the compiled kernels', then the wide kernels' (no library call takes
+#: them)
 VARLEN_SWEEP_DIMS = (32, 64, 96, 128, 256)
+VARLEN_WIDE_DIMS = (288, 512, 1024)
 
 
 def varlen_sweep(torch, dev, report):
     """The varlen forward and backward kernels at each head dim of
-    ``VARLEN_SWEEP_DIMS`` on the full-width packing (T 8192 from
-    ``VARLEN_LENS``, 16 heads, bf16, causal): held against the plain
-    version at ``tolerance(bfloat16, 1e-4)`` (lse within 1e-4), then timed
-    beside the library's varlen flash and the bound. Kept under
+    ``VARLEN_SWEEP_DIMS`` and ``VARLEN_WIDE_DIMS`` on the full-width
+    packing (T 8192 from ``VARLEN_LENS``, 16 heads, bf16, causal): held
+    against the plain version at ``tolerance(bfloat16, 1e-4)`` (lse
+    within 1e-4), then timed beside the library's varlen flash (none
+    above D 256) and the bound. Kept under
     ``report["vflash"]["d_sweep"]`` and ``report["vflash_bwd"]["d_sweep"]``
     by head dim."""
     from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
@@ -966,7 +1106,7 @@ def varlen_sweep(torch, dev, report):
     n_pairs = sum(n * (n + 1) // 2 for n in VARLEN_LENS)
     for key in ("vflash", "vflash_bwd"):
         report[key]["d_sweep"] = {}
-    for d in VARLEN_SWEEP_DIMS:
+    for d in VARLEN_SWEEP_DIMS + VARLEN_WIDE_DIMS:
         q, k, v, do = (torch.randn(t_tok, h, d, generator=g, device=dev)
                        .to(bf16) for _ in range(4))
         st = dict(causal=True, scale=d ** -0.5, dropout_rate=0.0)
@@ -1243,6 +1383,14 @@ VARLEN_KERNELS = {
     "dq": ("vflash_bwd_dq_tc_kernel", "vflash_bwd_dq_kernel"),
     "dkv": ("vflash_bwd_dkv_tc_kernel", "vflash_bwd_dkv_kernel"),
 }
+#: the varlen kernels of head dims above 256, every dtype
+VARLEN_WIDE_KERNELS = {"fwd": "vflash_fwd_wide_kernel",
+                       "dq": "vflash_bwd_dq_wide_kernel",
+                       "dkv": "vflash_bwd_dkv_wide_kernel"}
+#: the RMSNorm kernels of the training step (hidden 2048, bf16: the vector
+#: variant) with their launches per step: forward, backward, dw reduction
+RMS_TRAIN_KERNELS = ("rms_norm_fwd_vec_kernel", "rms_norm_bwd_vec_kernel",
+                     "rms_norm_dw_reduce_kernel")
 #: the tiled matmul's kernels: the tensor-core product, and the pass that
 #: adds the K ranges' fp32 partials where the shape splits K
 TILED_KERNELS = ("tiled_mm_tc_kernel", "tiled_mm_reduce_kernel")
@@ -1258,6 +1406,15 @@ KERNEL_KINDS = (
     ("paged decode (port)", ("paged_decode_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "sm90_xmma")),
 )
+
+
+def kernel_counts(torch, fn, n):
+    """Launches per call of each device kernel by name: ``fn`` run ``n``
+    times under the profiler."""
+    from torch.autograd import DeviceType
+
+    return {e.key: e.count // n for e in profiled(fn, n)
+            if e.device_type == DeviceType.CUDA}
 
 
 def profile_kernels(torch, fn, n, wall_ms, label):
@@ -1484,6 +1641,10 @@ def phase_train(torch, dev, report):
                                        "train step, kernels")
     check_flash_route(per_kernel, {"fwd": nl, "dq": nl, "dkv": nl},
                       "bf16 train step")
+    got = named_launches(per_kernel, RMS_TRAIN_KERNELS)
+    log(f"  bf16 train step: RMSNorm kernels {got}")
+    check(all(c == 2 * nl + 1 for c in got.values()),
+          f"bf16 train step: RMSNorm kernels {got}, want {2 * nl + 1} each")
     # the optimizer's share of the step: AdamW's update alone, device time
     loss, _ = model(ids, labels=labels)
     loss.backward()
@@ -1558,8 +1719,8 @@ def phase_varlen_path(torch, dev, report):
     the plain version on the same inputs. Then a forward + backward under
     the profiler must show each tensor-core kernel (``vflash_fwd_tc_kernel``,
     ``vflash_bwd_dq_tc_kernel``, ``vflash_bwd_dkv_tc_kernel``) once per
-    call and no CUDA-core varlen kernel; its kernel time is the path's
-    forward + backward ms."""
+    call and no CUDA-core or wide varlen kernel; its kernel time is the
+    path's forward + backward ms."""
     import paddle_tpu_torch.nn.functional as TF
     from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
 
@@ -1637,6 +1798,9 @@ def phase_varlen_path(torch, dev, report):
         check(got[tc] == 1 and got[cc] == 0,
               f"varlen path: {tc} launched {got[tc]} times per call, want 1; "
               f"the CUDA-core {cc} {got[cc]}, want 0")
+    wide = named_launches(per_kernel, list(VARLEN_WIDE_KERNELS.values()))
+    check(not any(wide.values()), f"varlen path at D {d} ran a wide kernel: "
+                                  f"{wide}")
     report["vflash"]["path_fwd_bwd_kernel_ms"] = busy_ms
     del qkv, do, leaves, out, pout, ref
     torch.cuda.empty_cache()
@@ -1733,10 +1897,12 @@ def main() -> int:
                            for line in lg.read_text().splitlines()
                            if "Used" in line and "registers" in line})
             log(f"  {lg.stem.split('-')[0]}: {' | '.join(regs)}")
-        # the varlen kernels by dtype and head dim
-        for row in ptxas_table(_build._target("flash_attention_varlen")
-                               .with_suffix(".log").read_text()):
-            log(f"    {row}")
+        # the RMSNorm kernels by dtypes and accesses per thread, the
+        # varlen kernels by dtype and head dim (the wide ones by dtype)
+        for lib in ("rms_norm", "flash_attention_varlen"):
+            for row in ptxas_table(_build._target(lib).with_suffix(".log")
+                                   .read_text()):
+                log(f"    {row}")
         log("[kernels]")
         phase_rms_norm(torch, dev, report)
         phase_paged(torch, dev, report)

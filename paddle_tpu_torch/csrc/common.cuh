@@ -12,6 +12,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 // dtype codes shared with paddle_tpu_torch/ops/cuda/_build.py (DTYPE_CODES)
 enum DTypeCode { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
@@ -36,6 +38,14 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Whether every pointer starts on a 16-byte boundary, as kernels that copy
+// in 16-byte pieces need (the wrappers check it or guarantee it).
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  return true;
 }
 
 // Runs `body` with `T` bound to the element type named by `code`; an unknown

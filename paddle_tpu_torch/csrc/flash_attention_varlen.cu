@@ -15,7 +15,7 @@
 // -inf, and gradients 0. Dropout applies the dense kernels' counter hash
 // (flash_common.cuh) on (q head, packed row, packed col) to P.V only.
 //
-// Routes, fixed by the dtype in the C entry points vflash_fwd,
+// Routes up to D 256, fixed by the dtype in the C entry points vflash_fwd,
 // vflash_bwd_dq and vflash_bwd_dkv: bf16 and fp16 take the tensor-core
 // kernels (vflash_fwd_tc_kernel, vflash_bwd_dq_tc_kernel,
 // vflash_bwd_dkv_tc_kernel; second part of this file); fp32 takes the
@@ -23,9 +23,12 @@
 // vflash_bwd_dkv_kernel), since TF32's 10-bit mantissa cannot hold the fp32
 // outputs to 1e-4. No kernel is instantiated for a dtype outside its route.
 //
-// Head dims: every kernel is instantiated for each multiple of 32 from 32
-// to 256 (with_head_dim); the wrapper zero-pads any other D up to 256 to
-// the next one and raises above 256.
+// Head dims: each kernel named above is instantiated for each multiple of 32
+// from 32 to 256 (with_head_dim). Above 256 every dtype takes the wide
+// kernels (vflash_fwd_wide_kernel, vflash_bwd_dq_wide_kernel,
+// vflash_bwd_dkv_wide_kernel; before the C entry points), which take D at
+// run time, any multiple of 32 up to kWideMaxD (1536). The wrapper
+// zero-pads any other D to the next multiple of 32 and raises above 1536.
 //
 // What bounds it on the H100: operations, 4 * D * H * sum_i len_q,i * len_k,i
 // FLOPs forward (about half of that causal) and 2.5 times that backward (five
@@ -1392,10 +1395,490 @@ vflash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ===========================================================================
+// Wide route (fp32, bf16, fp16; D > 256): vflash_fwd_wide_kernel,
+// vflash_bwd_dq_wide_kernel and vflash_bwd_dkv_wide_kernel compute what the
+// kernels above compute and are held to the same plain versions at the same
+// tolerance. D is a run-time argument, a multiple of 32 (the wrapper pads
+// as for the compiled head dims) up to kWideMaxD.
+//
+// What bounds them on the H100: the operations, as above. No model in either
+// package has heads this wide; the aim is a right result on the CUDA cores,
+// all math in fp32.
+//
+// Design: the CUDA-core kernels' tiles (32 q rows x 32 keys, 4 warps of 8
+// rows, the same key and row ranges from q_tile_keys / k_tile_rows, the same
+// masks, dropout hash, lse and GQA), with two changes that let D grow past
+// what registers hold. The fp32 row accumulator (O, dQ; dK or dV) lives in
+// shared memory, [32][D], each entry read and written by one thread only
+// (row r by warp r / 8, column c by lane c % 32), so it needs no barrier.
+// And the products over D are taken 32 columns at a time: Q K^T (and dO V^T)
+// from 32-column chunks of both operands staged in shared memory, and
+// P V, dS K, P^T dO, dS^T Q 32 output columns at a time, the second operand
+// read from global memory (its 32 columns are one coalesced row segment,
+// shared by the block's 4 warps through L1). The dk/dv kernel makes two
+// passes over its rows, dV then dK, so that one [32][D] accumulator is
+// enough. Shared memory: 128 D + 12.1 KB (forward), 128 D + 20.3 KB (dq),
+// 128 D + 20.8 KB (dk/dv): 212.8 KB at kWideMaxD, under the 227 KB a block
+// may use.
+constexpr int kWideMaxD = 1536;
+constexpr int kWideChunk = 32;  // columns of D per staged chunk
+
+static size_t vflash_fwd_wide_smem_bytes(int D) {  // O, Q chunk, K chunk, P
+  return sizeof(float) * ((size_t)kFaBQ * D + kFaBQ * kWideChunk + kFaBK * (kWideChunk + 1) +
+                          kFaBQ * kFaBK);
+}
+
+static size_t vflash_dq_wide_smem_bytes(int D) {  // dQ, Q / dO chunks, K / V chunks, dS
+  return sizeof(float) * ((size_t)kFaBQ * D + 2 * kFaBQ * kWideChunk +
+                          2 * kFaBK * (kWideChunk + 1) + kFaBQ * kFaBK);
+}
+
+static size_t vflash_dkv_wide_smem_bytes(int D) {  // dV / dK, K / V chunks, Q / dO chunks, P / dS, rows
+  return sizeof(float) * ((size_t)kFaBK * D + 2 * kFaBK * kWideChunk +
+                          2 * kFaBQ * (kWideChunk + 1) + kFaBK * kFaBQ + 2 * kFaBQ) +
+         sizeof(int) * 2 * kFaBQ;
+}
+
+// One block per (32-row q tile, q head): out [Tq, H, D] (contiguous), lse [H, Tq].
+template <typename T>
+__global__ void __launch_bounds__(kFaThreads)
+vflash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       long long q_stride, long long k_stride, long long v_stride,
+                       const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                       const int* __restrict__ bound, const int* __restrict__ cu_k,
+                       const int* __restrict__ seed_ptr, T* __restrict__ out,
+                       float* __restrict__ lse, int Tq, int Tk, int H, int Hkv, int D,
+                       int n_seqs, float scale, int causal, int dropout, uint32_t thresh,
+                       float inv_keep) {
+  constexpr int C = kWideChunk;
+  const int q0 = blockIdx.x * kFaBQ, h = blockIdx.y;
+  const int hk = h / (H / Hkv);
+  const long long q_off = (long long)h * D, kv_off = (long long)hk * D;
+
+  extern __shared__ __align__(16) float sm[];
+  float* o_s = sm;                  // [BQ][D] fp32 output accumulator
+  float* q_c = o_s + kFaBQ * D;     // [BQ][C]
+  float* k_c = q_c + kFaBQ * C;     // [BK][C + 1]
+  float* p_s = k_c + kFaBK * (C + 1);  // [BQ][BK]
+  __shared__ int2 keys_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (warp == 0) {
+    const QTileKeys r = q_tile_keys<kFaBQ>(seg_q, bound, cu_k, q0, Tq, Tk, n_seqs, causal, lane);
+    if (lane == 0) keys_s = make_int2(r.begin, r.end);
+  }
+  int seg_r[kFaRows], bound_r[kFaRows];
+#pragma unroll
+  for (int r = 0; r < kFaRows; ++r) {
+    const int row = q0 + warp * kFaRows + r;
+    seg_r[r] = row < Tq ? seg_q[row] : -1;  // -1 matches no key
+    bound_r[r] = row < Tq ? bound[row] : -1;
+    for (int c0 = 0; c0 < D; c0 += C) o_s[(warp * kFaRows + r) * D + c0 + lane] = 0.f;
+  }
+  const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
+  __syncthreads();
+  const int k_begin = keys_s.x, k_end = keys_s.y;
+
+  float m[kFaRows], l[kFaRows];
+#pragma unroll
+  for (int r = 0; r < kFaRows; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kFaBK) {
+    // scores: lane owns key col = k0 + lane for the warp's 8 rows
+    float s[kFaRows];
+#pragma unroll
+    for (int r = 0; r < kFaRows; ++r) s[r] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += C) {
+      __syncthreads();  // the previous chunk's reads are done
+      for (int i = tid; i < kFaBQ * C; i += kFaThreads) {
+        const int r = i / C, c = i - r * C;
+        const int row = q0 + r, key = k0 + r;
+        q_c[i] = row < Tq ? to_f32(q[(long long)row * q_stride + q_off + d0 + c]) : 0.f;
+        k_c[r * (C + 1) + c] =
+            key < k_end ? to_f32(k[(long long)key * k_stride + kv_off + d0 + c]) : 0.f;
+      }
+      __syncthreads();
+      float kr[C];
+#pragma unroll
+      for (int dd = 0; dd < C; ++dd) kr[dd] = k_c[lane * (C + 1) + dd];
+#pragma unroll
+      for (int r = 0; r < kFaRows; ++r) {
+        const float* qr = q_c + (warp * kFaRows + r) * C;
+        float a = s[r];
+#pragma unroll
+        for (int dd = 0; dd < C; ++dd) a += qr[dd] * kr[dd];
+        s[r] = a;
+      }
+    }
+
+    const int col = k0 + lane;
+    const int seg_c = col < k_end ? seg_k[col] : -2;  // -2 matches no row
+    float alpha[kFaRows];
+#pragma unroll
+    for (int r = 0; r < kFaRows; ++r) {
+      const int row = q0 + warp * kFaRows + r;
+      float x = s[r] * scale;
+      if (seg_r[r] != seg_c || (causal && col > bound_r[r])) x = -INFINITY;
+      const float m_new = fmaxf(m[r], warp_max(x));
+      const float m_eff = m_new == -INFINITY ? 0.f : m_new;  // a row may see no key
+      alpha[r] = expf(m[r] - m_eff);
+      const float p = expf(x - m_eff);
+      l[r] = l[r] * alpha[r] + p;  // lane-partial row sum, undropped
+      m[r] = m_new;
+      float pu = p;
+      if (dropout) {
+        pu = dropout_keep(seed, (uint32_t)h, (uint32_t)row, (uint32_t)col, thresh) ? p * inv_keep
+                                                                                 : 0.f;
+      }
+      p_s[(warp * kFaRows + r) * kFaBK + lane] = pu;
+    }
+    __syncwarp();
+
+    // o[r, c] = alpha[r] * o[r, c] + sum_t P[r, t] V[t, c], 32 columns at a time
+    const int n_t = min(kFaBK, k_end - k0);
+    for (int c0 = 0; c0 < D; c0 += C) {
+      float acc[kFaRows];
+#pragma unroll
+      for (int r = 0; r < kFaRows; ++r)
+        acc[r] = o_s[(warp * kFaRows + r) * D + c0 + lane] * alpha[r];
+      for (int t = 0; t < n_t; ++t) {
+        const float vv = to_f32(v[(long long)(k0 + t) * v_stride + kv_off + c0 + lane]);
+#pragma unroll
+        for (int r = 0; r < kFaRows; ++r) acc[r] += p_s[(warp * kFaRows + r) * kFaBK + t] * vv;
+      }
+#pragma unroll
+      for (int r = 0; r < kFaRows; ++r) o_s[(warp * kFaRows + r) * D + c0 + lane] = acc[r];
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kFaRows; ++r) {
+    const float lt = warp_sum(l[r]);
+    const int row = q0 + warp * kFaRows + r;
+    if (row < Tq) {
+      const float ls = lt == 0.f ? 1.f : lt;
+      T* orow = out + ((long long)row * H + h) * D;
+      for (int c0 = 0; c0 < D; c0 += C)
+        orow[c0 + lane] = from_f32<T>(o_s[(warp * kFaRows + r) * D + c0 + lane] / ls);
+      if (lane == 0) lse[(long long)h * Tq + row] = lt == 0.f ? -INFINITY : m[r] + logf(ls);
+    }
+  }
+}
+
+// One block per (32-row q tile, q head), over the same keys as the forward:
+// dq [Tq, H, D] (contiguous).
+template <typename T>
+__global__ void __launch_bounds__(kFaThreads)
+vflash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, long long q_stride, long long k_stride,
+                          long long v_stride, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                          const int* __restrict__ bound, const int* __restrict__ cu_k,
+                          const int* __restrict__ seed_ptr, T* __restrict__ dq, int Tq, int Tk,
+                          int H, int Hkv, int D, int n_seqs, float scale, int causal,
+                          int dropout, uint32_t thresh, float inv_keep) {
+  constexpr int C = kWideChunk;
+  const int q0 = blockIdx.x * kFaBQ, h = blockIdx.y;
+  const int hk = h / (H / Hkv);
+  const long long q_off = (long long)h * D, kv_off = (long long)hk * D;
+
+  extern __shared__ __align__(16) float sm[];
+  float* dq_s = sm;                     // [BQ][D] fp32 dQ accumulator
+  float* q_c = dq_s + kFaBQ * D;        // [BQ][C]
+  float* do_c = q_c + kFaBQ * C;        // [BQ][C]
+  float* k_c = do_c + kFaBQ * C;        // [BK][C + 1]
+  float* v_c = k_c + kFaBK * (C + 1);   // [BK][C + 1]
+  float* ds_s = v_c + kFaBK * (C + 1);  // [BQ][BK]
+  __shared__ int2 keys_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (warp == 0) {
+    const QTileKeys r = q_tile_keys<kFaBQ>(seg_q, bound, cu_k, q0, Tq, Tk, n_seqs, causal, lane);
+    if (lane == 0) keys_s = make_int2(r.begin, r.end);
+  }
+  int seg_r[kFaRows], bound_r[kFaRows];
+  float lse_r[kFaRows], delta_r[kFaRows];
+#pragma unroll
+  for (int r = 0; r < kFaRows; ++r) {
+    const int row = q0 + warp * kFaRows + r;
+    const bool ok = row < Tq;
+    seg_r[r] = ok ? seg_q[row] : -1;
+    bound_r[r] = ok ? bound[row] : -1;
+    const float l = ok ? lse[(long long)h * Tq + row] : 0.f;
+    lse_r[r] = l == -INFINITY ? 0.f : l;
+    delta_r[r] = ok ? delta[(long long)h * Tq + row] : 0.f;
+    for (int c0 = 0; c0 < D; c0 += C) dq_s[(warp * kFaRows + r) * D + c0 + lane] = 0.f;
+  }
+  const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
+  __syncthreads();
+  const int k_begin = keys_s.x, k_end = keys_s.y;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kFaBK) {
+    // s = Q K^T and dp = dO V^T: lane owns key col = k0 + lane
+    float s[kFaRows], dp[kFaRows];
+#pragma unroll
+    for (int r = 0; r < kFaRows; ++r) {
+      s[r] = 0.f;
+      dp[r] = 0.f;
+    }
+    for (int d0 = 0; d0 < D; d0 += C) {
+      __syncthreads();  // the previous chunk's reads are done
+      for (int i = tid; i < kFaBQ * C; i += kFaThreads) {
+        const int r = i / C, c = i - r * C;
+        const int row = q0 + r, key = k0 + r;
+        const bool ok = row < Tq, kok = key < k_end;
+        q_c[i] = ok ? to_f32(q[(long long)row * q_stride + q_off + d0 + c]) : 0.f;
+        do_c[i] = ok ? to_f32(dout[((long long)row * H + h) * D + d0 + c]) : 0.f;
+        k_c[r * (C + 1) + c] = kok ? to_f32(k[(long long)key * k_stride + kv_off + d0 + c]) : 0.f;
+        v_c[r * (C + 1) + c] = kok ? to_f32(v[(long long)key * v_stride + kv_off + d0 + c]) : 0.f;
+      }
+      __syncthreads();
+      float kr[C];
+#pragma unroll
+      for (int dd = 0; dd < C; ++dd) kr[dd] = k_c[lane * (C + 1) + dd];
+#pragma unroll
+      for (int r = 0; r < kFaRows; ++r) {
+        const float* qr = q_c + (warp * kFaRows + r) * C;
+        float a = s[r];
+#pragma unroll
+        for (int dd = 0; dd < C; ++dd) a += qr[dd] * kr[dd];
+        s[r] = a;
+      }
+#pragma unroll
+      for (int dd = 0; dd < C; ++dd) kr[dd] = v_c[lane * (C + 1) + dd];
+#pragma unroll
+      for (int r = 0; r < kFaRows; ++r) {
+        const float* dr = do_c + (warp * kFaRows + r) * C;
+        float a = dp[r];
+#pragma unroll
+        for (int dd = 0; dd < C; ++dd) a += dr[dd] * kr[dd];
+        dp[r] = a;
+      }
+    }
+
+    const int col = k0 + lane;
+    const int seg_c = col < k_end ? seg_k[col] : -2;
+#pragma unroll
+    for (int r = 0; r < kFaRows; ++r) {
+      const int row = q0 + warp * kFaRows + r;
+      const bool masked = seg_r[r] != seg_c || (causal && col > bound_r[r]);
+      const float p = masked ? 0.f : expf(s[r] * scale - lse_r[r]);
+      float d = dp[r];
+      if (dropout) {
+        d = dropout_keep(seed, (uint32_t)h, (uint32_t)row, (uint32_t)col, thresh) ? d * inv_keep
+                                                                                : 0.f;
+      }
+      ds_s[(warp * kFaRows + r) * kFaBK + lane] = p * (d - delta_r[r]) * scale;
+    }
+    __syncwarp();
+
+    // dq[r, c] += sum_t dS[r, t] K[t, c], 32 columns at a time
+    const int n_t = min(kFaBK, k_end - k0);
+    for (int c0 = 0; c0 < D; c0 += C) {
+      float acc[kFaRows];
+#pragma unroll
+      for (int r = 0; r < kFaRows; ++r) acc[r] = dq_s[(warp * kFaRows + r) * D + c0 + lane];
+      for (int t = 0; t < n_t; ++t) {
+        const float kv = to_f32(k[(long long)(k0 + t) * k_stride + kv_off + c0 + lane]);
+#pragma unroll
+        for (int r = 0; r < kFaRows; ++r) acc[r] += ds_s[(warp * kFaRows + r) * kFaBK + t] * kv;
+      }
+#pragma unroll
+      for (int r = 0; r < kFaRows; ++r) dq_s[(warp * kFaRows + r) * D + c0 + lane] = acc[r];
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kFaRows; ++r) {
+    const int row = q0 + warp * kFaRows + r;
+    if (row < Tq) {
+      T* orow = dq + ((long long)row * H + h) * D;
+      for (int c0 = 0; c0 < D; c0 += C)
+        orow[c0 + lane] = from_f32<T>(dq_s[(warp * kFaRows + r) * D + c0 + lane]);
+    }
+  }
+}
+
+// One block per (32-key tile, kv head), looping over the GQA group's q heads
+// and the q rows that can see the tile, twice: pass 0 sums dV, pass 1 dK.
+// dk, dv [Tk, Hkv, D] (contiguous).
+template <typename T>
+__global__ void __launch_bounds__(kFaThreads)
+vflash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, long long q_stride, long long k_stride,
+                           long long v_stride, const T* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                           const int* __restrict__ bound, const int* __restrict__ cu_q,
+                           const int* __restrict__ cu_k, const int* __restrict__ seed_ptr,
+                           T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
+                           int Hkv, int D, int n_seqs, float scale, int causal, int dropout,
+                           uint32_t thresh, float inv_keep) {
+  constexpr int C = kWideChunk;
+  const int k0 = blockIdx.x * kFaBK, hk = blockIdx.y;
+  const int G = H / Hkv;
+  const long long kv_off = (long long)hk * D;
+
+  extern __shared__ __align__(16) float sm[];
+  float* acc_s = sm;                      // [BK][D] fp32 dV (pass 0) or dK (pass 1)
+  float* k_c = acc_s + kFaBK * D;         // [BK][C]
+  float* v_c = k_c + kFaBK * C;           // [BK][C]
+  float* q_c = v_c + kFaBK * C;           // [BQ][C + 1]
+  float* do_c = q_c + kFaBQ * (C + 1);    // [BQ][C + 1]
+  float* pd_s = do_c + kFaBQ * (C + 1);   // [BK][BQ] dropped P^T (pass 0) or dS^T (pass 1)
+  float* lse_s = pd_s + kFaBK * kFaBQ;    // [BQ]
+  float* dl_s = lse_s + kFaBQ;            // [BQ]
+  int* segq_s = (int*)(dl_s + kFaBQ);     // [BQ]
+  int* bound_s = segq_s + kFaBQ;          // [BQ]
+  __shared__ int2 rows_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (warp == 0) {
+    const KTileRows r = k_tile_rows<kFaBK>(seg_k, cu_q, cu_k, k0, Tq, Tk, n_seqs, causal, lane);
+    if (lane == 0) rows_s = make_int2(r.begin, r.end);
+  }
+  int seg_r[kFaRows];
+#pragma unroll
+  for (int r = 0; r < kFaRows; ++r) {
+    const int key = k0 + warp * kFaRows + r;
+    seg_r[r] = key < Tk ? seg_k[key] : -2;  // -2 matches no row
+  }
+  const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
+  __syncthreads();
+  const int q_begin = rows_s.x, q_end = rows_s.y;
+
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int r = 0; r < kFaRows; ++r)
+      for (int c0 = 0; c0 < D; c0 += C) acc_s[(warp * kFaRows + r) * D + c0 + lane] = 0.f;
+
+    for (int hh = 0; hh < G; ++hh) {
+      const int h = hk * G + hh;
+      const long long q_off = (long long)h * D;
+      for (int q0 = q_begin; q0 < q_end; q0 += kFaBQ) {
+        __syncthreads();  // the previous tile's row vectors and P / dS reads are done
+        if (tid < kFaBQ) {
+          const int row = q0 + tid;
+          const bool ok = row < q_end;
+          const float l = ok ? lse[(long long)h * Tq + row] : 0.f;
+          lse_s[tid] = l == -INFINITY ? 0.f : l;
+          dl_s[tid] = ok ? delta[(long long)h * Tq + row] : 0.f;
+          segq_s[tid] = ok ? seg_q[row] : -1;
+          bound_s[tid] = ok ? bound[row] : -1;
+        }
+
+        // transposed tiles: warp row r is key k0 + 8 warp + r, lane is q row
+        // q0 + lane; s = K Q^T and (pass 1) dp = V dO^T
+        float s[kFaRows], dp[kFaRows];
+#pragma unroll
+        for (int r = 0; r < kFaRows; ++r) {
+          s[r] = 0.f;
+          dp[r] = 0.f;
+        }
+        for (int d0 = 0; d0 < D; d0 += C) {
+          __syncthreads();  // the previous chunk's reads are done
+          for (int i = tid; i < kFaBK * C; i += kFaThreads) {
+            const int r = i / C, c = i - r * C;
+            const int key = k0 + r, row = q0 + r;
+            const bool kok = key < Tk, ok = row < q_end;
+            k_c[i] = kok ? to_f32(k[(long long)key * k_stride + kv_off + d0 + c]) : 0.f;
+            q_c[r * (C + 1) + c] = ok ? to_f32(q[(long long)row * q_stride + q_off + d0 + c]) : 0.f;
+            if (pass == 1) {
+              v_c[i] = kok ? to_f32(v[(long long)key * v_stride + kv_off + d0 + c]) : 0.f;
+              do_c[r * (C + 1) + c] = ok ? to_f32(dout[((long long)row * H + h) * D + d0 + c]) : 0.f;
+            }
+          }
+          __syncthreads();
+          float qr[C];
+#pragma unroll
+          for (int dd = 0; dd < C; ++dd) qr[dd] = q_c[lane * (C + 1) + dd];
+#pragma unroll
+          for (int r = 0; r < kFaRows; ++r) {
+            const float* kr = k_c + (warp * kFaRows + r) * C;
+            float a = s[r];
+#pragma unroll
+            for (int dd = 0; dd < C; ++dd) a += kr[dd] * qr[dd];
+            s[r] = a;
+          }
+          if (pass == 1) {
+#pragma unroll
+            for (int dd = 0; dd < C; ++dd) qr[dd] = do_c[lane * (C + 1) + dd];
+#pragma unroll
+            for (int r = 0; r < kFaRows; ++r) {
+              const float* vr = v_c + (warp * kFaRows + r) * C;
+              float a = dp[r];
+#pragma unroll
+              for (int dd = 0; dd < C; ++dd) a += vr[dd] * qr[dd];
+              dp[r] = a;
+            }
+          }
+        }
+
+        const int row = q0 + lane;
+        const int seg_row = segq_s[lane], bd = bound_s[lane];
+        const float ls = lse_s[lane], dl = dl_s[lane];
+#pragma unroll
+        for (int r = 0; r < kFaRows; ++r) {
+          const int key = k0 + warp * kFaRows + r;
+          const bool masked = seg_row != seg_r[r] || (causal && key > bd);
+          const float p = masked ? 0.f : expf(s[r] * scale - ls);
+          float pd = p, d = dp[r];
+          if (dropout) {
+            const bool keep = dropout_keep(seed, (uint32_t)h, (uint32_t)row, (uint32_t)key, thresh);
+            pd = keep ? p * inv_keep : 0.f;
+            d = keep ? d * inv_keep : 0.f;
+          }
+          pd_s[(warp * kFaRows + r) * kFaBQ + lane] = pass == 0 ? pd : p * (d - dl) * scale;
+        }
+        __syncwarp();
+
+        // pass 0: dv[r, c] += sum_t P^T[r, t] dO[t, c]; pass 1: dk[r, c] +=
+        // sum_t dS^T[r, t] Q[t, c]; 32 columns at a time
+        const int n_t = min(kFaBQ, q_end - q0);
+        for (int c0 = 0; c0 < D; c0 += C) {
+          float acc[kFaRows];
+#pragma unroll
+          for (int r = 0; r < kFaRows; ++r) acc[r] = acc_s[(warp * kFaRows + r) * D + c0 + lane];
+          for (int t = 0; t < n_t; ++t) {
+            const float src =
+                pass == 0 ? to_f32(dout[((long long)(q0 + t) * H + h) * D + c0 + lane])
+                          : to_f32(q[(long long)(q0 + t) * q_stride + q_off + c0 + lane]);
+#pragma unroll
+            for (int r = 0; r < kFaRows; ++r)
+              acc[r] += pd_s[(warp * kFaRows + r) * kFaBQ + t] * src;
+          }
+#pragma unroll
+          for (int r = 0; r < kFaRows; ++r) acc_s[(warp * kFaRows + r) * D + c0 + lane] = acc[r];
+        }
+      }
+    }
+
+    T* dst = pass == 0 ? dv : dk;
+#pragma unroll
+    for (int r = 0; r < kFaRows; ++r) {
+      const int key = k0 + warp * kFaRows + r;
+      if (key < Tk) {
+        const long long o = ((long long)key * Hkv + hk) * D;
+        for (int c0 = 0; c0 < D; c0 += C)
+          dst[o + c0 + lane] = from_f32<T>(acc_s[(warp * kFaRows + r) * D + c0 + lane]);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // C entry points. q/k/v are read at a token stride in elements (a token's
 // heads and head dims contiguous); dout, out and the gradients are
 // contiguous. seg_q, seg_k, bound, cu_q, cu_k, seed: int32 on the device.
+// Routing: D <= 256 takes the kernels compiled for D (with_head_dim), fp32
+// on the CUDA cores and bf16/fp16 on the tensor cores; D > 256, a multiple
+// of 32 up to kWideMaxD, takes the wide kernels in every dtype. Any other D
+// returns cudaErrorInvalidValue.
 
 template <typename K>
 static cudaError_t opt_in_smem(K kernel, size_t bytes) {
@@ -1532,6 +2015,52 @@ static int launch_vflash_bwd_dkv(const VArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// The wide route: any dtype, D > 256 (a multiple of 32, at most kWideMaxD).
+static bool bad_wide_dim(int D) { return D <= 256 || D > kWideMaxD || D % kWideChunk; }
+
+template <typename T>
+static int launch_vflash_fwd_wide(const VArgs& a, int D, cudaStream_t s) {
+  if (bad_wide_dim(D)) return (int)cudaErrorInvalidValue;
+  const size_t smem = vflash_fwd_wide_smem_bytes(D);
+  const cudaError_t e = opt_in_smem(vflash_fwd_wide_kernel<T>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.Tq + kFaBQ - 1) / kFaBQ, a.H);
+  vflash_fwd_wide_kernel<T><<<grid, kFaThreads, smem, s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride, a.seg_q,
+      a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.out, a.lse, a.Tq, a.Tk, a.H, a.Hkv, D, a.n_seqs,
+      a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_vflash_bwd_dq_wide(const VArgs& a, int D, cudaStream_t s) {
+  if (bad_wide_dim(D)) return (int)cudaErrorInvalidValue;
+  const size_t smem = vflash_dq_wide_smem_bytes(D);
+  const cudaError_t e = opt_in_smem(vflash_bwd_dq_wide_kernel<T>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.Tq + kFaBQ - 1) / kFaBQ, a.H);
+  vflash_bwd_dq_wide_kernel<T><<<grid, kFaThreads, smem, s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride,
+      (const T*)a.dout, a.lse_in, a.delta, a.seg_q, a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.dq,
+      a.Tq, a.Tk, a.H, a.Hkv, D, a.n_seqs, a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_vflash_bwd_dkv_wide(const VArgs& a, int D, cudaStream_t s) {
+  if (bad_wide_dim(D)) return (int)cudaErrorInvalidValue;
+  const size_t smem = vflash_dkv_wide_smem_bytes(D);
+  const cudaError_t e = opt_in_smem(vflash_bwd_dkv_wide_kernel<T>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.Tk + kFaBK - 1) / kFaBK, a.Hkv);
+  vflash_bwd_dkv_wide_kernel<T><<<grid, kFaThreads, smem, s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride,
+      (const T*)a.dout, a.lse_in, a.delta, a.seg_q, a.seg_k, a.bound, a.cu_q, a.cu_k, a.seed,
+      (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv, D, a.n_seqs, a.scale, a.causal, a.dropout,
+      a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
 // What every launch takes: the inputs, the segment vectors and the
 // attention's parameters (the outputs are set by each entry point).
 static VArgs base_args(const void* q, const void* k, const void* v, long long q_stride,
@@ -1571,7 +2100,7 @@ extern "C" int vflash_fwd(const void* q, const void* k, const void* v, long long
                           int n_seqs, float scale, int causal, int dropout, unsigned int thresh,
                           float inv_keep, int dtype, void* stream) {
   if (bad_shape(Tq, Tk, H, Hkv, n_seqs)) return (int)cudaErrorInvalidValue;
-  if (tc_unaligned(dtype, {q, k, v, out}, q_stride, k_stride, v_stride))
+  if (D <= 256 && tc_unaligned(dtype, {q, k, v, out}, q_stride, k_stride, v_stride))
     return (int)cudaErrorMisalignedAddress;
   VArgs a = base_args(q, k, v, q_stride, k_stride, v_stride, seg_q, seg_k, bound, cu_k, seed, Tq,
                       Tk, H, Hkv, n_seqs, scale, causal, dropout, thresh, inv_keep);
@@ -1579,6 +2108,7 @@ extern "C" int vflash_fwd(const void* q, const void* k, const void* v, long long
   a.lse = lse;
   cudaStream_t s = (cudaStream_t)stream;
   DISPATCH_DTYPE(dtype, T, {
+    if (D > 256) return launch_vflash_fwd_wide<T>(a, D, s);
     return with_head_dim(D, [&](auto d) { return launch_vflash_fwd<T, decltype(d)::value>(a, s); });
   })
   return (int)cudaErrorInvalidValue;
@@ -1594,7 +2124,7 @@ extern "C" int vflash_bwd_dq(const void* q, const void* k, const void* v, long l
                              int n_seqs, float scale, int causal, int dropout,
                              unsigned int thresh, float inv_keep, int dtype, void* stream) {
   if (bad_shape(Tq, Tk, H, Hkv, n_seqs)) return (int)cudaErrorInvalidValue;
-  if (tc_unaligned(dtype, {q, k, v, dout, dq}, q_stride, k_stride, v_stride))
+  if (D <= 256 && tc_unaligned(dtype, {q, k, v, dout, dq}, q_stride, k_stride, v_stride))
     return (int)cudaErrorMisalignedAddress;
   VArgs a = base_args(q, k, v, q_stride, k_stride, v_stride, seg_q, seg_k, bound, cu_k, seed, Tq,
                       Tk, H, Hkv, n_seqs, scale, causal, dropout, thresh, inv_keep);
@@ -1604,6 +2134,7 @@ extern "C" int vflash_bwd_dq(const void* q, const void* k, const void* v, long l
   a.dq = dq;
   cudaStream_t s = (cudaStream_t)stream;
   DISPATCH_DTYPE(dtype, T, {
+    if (D > 256) return launch_vflash_bwd_dq_wide<T>(a, D, s);
     return with_head_dim(D,
                          [&](auto d) { return launch_vflash_bwd_dq<T, decltype(d)::value>(a, s); });
   })
@@ -1619,7 +2150,7 @@ extern "C" int vflash_bwd_dkv(const void* q, const void* k, const void* v, long 
                               int dropout, unsigned int thresh, float inv_keep, int dtype,
                               void* stream) {
   if (bad_shape(Tq, Tk, H, Hkv, n_seqs)) return (int)cudaErrorInvalidValue;
-  if (tc_unaligned(dtype, {q, k, v, dout, dk, dv}, q_stride, k_stride, v_stride))
+  if (D <= 256 && tc_unaligned(dtype, {q, k, v, dout, dk, dv}, q_stride, k_stride, v_stride))
     return (int)cudaErrorMisalignedAddress;
   VArgs a = base_args(q, k, v, q_stride, k_stride, v_stride, seg_q, seg_k, bound, cu_k, seed, Tq,
                       Tk, H, Hkv, n_seqs, scale, causal, dropout, thresh, inv_keep);
@@ -1631,6 +2162,7 @@ extern "C" int vflash_bwd_dkv(const void* q, const void* k, const void* v, long 
   a.dv = dv;
   cudaStream_t s = (cudaStream_t)stream;
   DISPATCH_DTYPE(dtype, T, {
+    if (D > 256) return launch_vflash_bwd_dkv_wide<T>(a, D, s);
     return with_head_dim(
         D, [&](auto d) { return launch_vflash_bwd_dkv<T, decltype(d)::value>(a, s); });
   })

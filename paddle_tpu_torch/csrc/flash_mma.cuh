@@ -13,7 +13,6 @@
 // tile goes from the accumulators into P.V without shared memory.
 #pragma once
 
-#include <initializer_list>
 
 #include "flash_common.cuh"
 
@@ -77,14 +76,6 @@ template <typename T, int ROWS, int D>
 __device__ __forceinline__ void load_tile(T* tile, const T* __restrict__ src, int row0,
                                           int n_rows, int tid) {
   load_rows<T, ROWS, D>(tile, src, D, row0, n_rows, tid);
-}
-
-// The tensor-core kernels copy rows in 16-byte chunks: every tensor must
-// start on a 16-byte boundary (the wrappers guarantee it).
-inline bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
-  return true;
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

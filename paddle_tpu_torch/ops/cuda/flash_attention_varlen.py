@@ -20,12 +20,17 @@ Routing: a CPU tensor takes :func:`_vflash_fwd_reference` /
 raises. There is no fallback between the two. The kernels' route is the
 dtype's: fp32 on the CUDA cores, bf16 and fp16 on the tensor cores.
 
-Head dims: the kernels are compiled for every multiple of 32 from 32 to
-256 (``KERNEL_HEAD_DIMS``). Any other head dim up to 256 runs at the next
-one, with q, k, v (and out, dO) zero-padded and the results sliced back
-(:func:`_kernel_head_dim`); that is exact, because zero columns add
+Head dims (:func:`_kernel_head_dim`): up to 256 the kernels compiled for
+every multiple of 32 from 32 to 256 (``KERNEL_HEAD_DIMS``) run, by the
+dtype's route; above 256 every dtype takes the wide kernels
+(``vflash_*_wide_kernel``, fp32 math on the CUDA cores), which take the
+head dim at run time, any multiple of 32 up to ``WIDE_MAX_HEAD_DIM``
+(1536). The C entry points route by the same rule. Any other head dim
+runs at the next multiple of 32, with q, k, v (and out, dO) zero-padded
+and the results sliced back; that is exact, because zero columns add
 nothing to Q K^T and give only output columns that are sliced off. A head
-dim above 256 raises ``ValueError``. The plain version takes any head dim.
+dim above 1536 raises ``ValueError``. The plain version takes any head
+dim.
 """
 from __future__ import annotations
 
@@ -38,11 +43,16 @@ from . import _build
 from .flash_attention import NEG_INF, _as_int64, _keep_mask
 
 __all__ = ["flash_attn_varlen_thd", "flash_attn_varlen", "launches",
-           "dq_launches", "dkv_launches", "KERNEL_HEAD_DIMS"]
+           "dq_launches", "dkv_launches", "KERNEL_HEAD_DIMS",
+           "WIDE_MAX_HEAD_DIM"]
 
 #: head dims the kernels are compiled for (csrc/flash_attention_varlen.cu
 #: ``with_head_dim``); other head dims up to 256 are padded to the next one
 KERNEL_HEAD_DIMS = tuple(range(32, 257, 32))
+#: the wide kernels' largest head dim (csrc/flash_attention_varlen.cu
+#: ``kWideMaxD``): their fp32 [32, D] accumulator and staging tiles,
+#: 128 D + 20.8 KB, fill the 227 KB of shared memory a block may use
+WIDE_MAX_HEAD_DIM = 1536
 
 #: forward kernel launches since the count was last reset
 launches = 0
@@ -276,17 +286,19 @@ def _tail_args(q, a, causal, scale, dropout_rate):
 
 
 def _kernel_head_dim(d):
-    """The head dim a call with head dim ``d`` runs the kernels at: the
-    next multiple of 32 (``d`` itself if it is one), at most 256. Raises
-    ``ValueError`` above 256, the largest head dim the kernels are
-    compiled for."""
+    """(head dim the kernels run at, route) for a call with head dim
+    ``d``: the next multiple of 32 (``d`` itself if it is one), and
+    "compiled" up to 256 (the kernels compiled for that head dim) or
+    "wide" above (the wide kernels, head dim at run time). Raises
+    ``ValueError`` for ``d`` < 1 or above ``WIDE_MAX_HEAD_DIM``."""
     d = int(d)
-    if d < 1 or d > KERNEL_HEAD_DIMS[-1]:
+    if d < 1 or d > WIDE_MAX_HEAD_DIM:
         raise ValueError(
             f"varlen flash kernel: head dim {d} is outside 1..."
-            f"{KERNEL_HEAD_DIMS[-1]}, the largest head dim the kernels are "
-            f"compiled for")
-    return -(-d // 32) * 32
+            f"{WIDE_MAX_HEAD_DIM}, the largest head dim the wide kernels "
+            f"take (their fp32 accumulator fills shared memory)")
+    d_run = -(-d // 32) * 32
+    return d_run, "compiled" if d_run <= KERNEL_HEAD_DIMS[-1] else "wide"
 
 
 def _pad_head_dim(t, d):
@@ -308,7 +320,7 @@ def _vflash_fwd_kernel(q, k, v, cu_q, cu_k, seed, *, causal, scale,
     :func:`_kernel_head_dim` (``scale`` is the caller's, from the unpadded
     D), out sliced back."""
     d = q.shape[2]
-    d_run = _kernel_head_dim(d)
+    d_run, _ = _kernel_head_dim(d)
     out, lse = _vflash_fwd_launch(
         *(_pad_head_dim(t, d_run) for t in (q, k, v)), cu_q, cu_k, seed,
         causal=causal, scale=scale, dropout_rate=dropout_rate)
@@ -347,7 +359,7 @@ def _vflash_bwd_kernel(q, k, v, cu_q, cu_k, out, lse, do, seed, *, causal,
     if lse.shape != (h, tq):
         raise ValueError(f"varlen flash bwd kernel: lse must be [H, Tq], got "
                          f"{tuple(lse.shape)}")
-    d_run = _kernel_head_dim(d)
+    d_run, _ = _kernel_head_dim(d)
     q, k, v, out, do = (_pad_head_dim(t, d_run) for t in (q, k, v, out, do))
     grads = _vflash_bwd_launch(q, k, v, cu_q, cu_k, out, lse, do, seed,
                                causal=causal, scale=scale,

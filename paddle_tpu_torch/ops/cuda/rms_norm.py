@@ -6,10 +6,17 @@ Counterpart of ``paddle_tpu/ops/pallas/rms_norm.py::_rms_fwd`` and
 
 Routing: a CPU tensor takes :func:`rms_norm_reference`; a CUDA tensor
 launches the kernel or raises. There is no fallback between the two.
+Which of the kernel's variants runs, and on what grid, is
+:func:`_launch_config`'s rule: "vector" where hidden is a multiple of the
+16-byte access and every pointer is aligned to one, up to what registers
+hold; "chunked" for wider rows; "scalar" for any other hidden or
+alignment. Every variant computes in fp32 and rounds once, and any
+hidden runs, forward and backward.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -21,14 +28,98 @@ __all__ = ["rms_norm_fwd", "rms_norm_reference", "rms_norm_bwd",
 #: kernel launches since the count was last reset (the main path's proof
 #: that it ran the kernel); bumped only where the kernel is launched
 launches = 0
-#: backward launches (the row kernel and its dw reduction) since the reset
+#: backward launches (one per call: its kernels and the dw reduction)
 bwd_launches = 0
 
-#: dw partial sums: about this many row blocks, each a run of whole rows
-_BWD_BLOCKS = 1056
+#: threads of every block (csrc/rms_norm.cu kRmsThreads): 8 warps
+_WARPS = 8
+#: the vector variant: 16-byte accesses a lane holds of each row (at most
+#: 4; 2 where the row allows), and warps per row (1, 2, 4 or 8)
+_MAX_NV = 4
+_TARGET_NV = 2
+_MAX_WPR = 8
+#: the chunked and scalar backward: accesses per thread in each row of its
+#: column chunk (csrc/rms_norm.cu kRmsColVecs)
+_COL_VECS = 2
+#: blocks per SM of each grid (the best measured on an H100 at [8192, 2048]
+#: and [2048, 2048] bf16; chip_smoke.py times the neighbouring choices)
+_BLOCKS_PER_SM = {"vector": 4, "vector_bwd": 2, "rows": 4, "cols": 2}
+#: variant codes of the C entry points (csrc/rms_norm.cu enum RmsVariant)
+VARIANTS = {"vector": 0, "chunked": 1, "scalar": 2}
+#: streaming multiprocessors of an H100 SXM: the default of _launch_config
+H100_SMS = 132
 
 _fn = None
 _bwd_fn = None
+
+
+class LaunchConfig(NamedTuple):
+    """One call's variant and grid (see :func:`_launch_config`)."""
+    variant: str            #: "vector", "chunked" or "scalar"
+    vec: int                #: elements per access: 16 bytes of x, or 1
+    nv: int                 #: accesses per thread in each row
+    wpr: int                #: warps per row (vector variant), else 0
+    grid: Tuple[int, int]   #: blocks (x, y)
+    partials: int           #: rows of the backward's dw workspace (0 fwd)
+
+
+def _pow2_at_least(n):
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _launch_config(rows, hidden, dtype, *, backward=False, aligned=True,
+                   sms=H100_SMS):
+    """The variant and grid of one call on ``rows`` x ``hidden`` in x's
+    ``dtype`` (``aligned``: every pointer on a 16-byte boundary).
+
+    - "vector": hidden a multiple of vec = 16 / itemsize and aligned. A
+      row takes wpr warps, the fewest (a power of two up to 8) whose
+      lanes hold at most 2 accesses of it each, or 8 warps holding up to
+      4; where the rows fill less than one block per SM, enough warps
+      (up to 8) to give each lane one access. nv is the accesses a lane
+      then holds, rounded up to a power of two. A block of
+      8 warps takes 8 / wpr rows at a time over a grid of at most 4
+      blocks per SM (forward) or 2 (backward: x, g, w and the dw partial
+      in registers), so each thread reuses its w across rows; the
+      backward's grid is also its number of dw partial rows.
+    - "chunked": aligned and hidden a multiple of vec but wider than
+      8 x 32 x 4 accesses; "scalar" (vec 1): anything else. The forward
+      takes a block per row over at most 4 blocks per SM; the backward a
+      grid of (column chunks of 256 x 2 accesses, row runs) with about 2
+      blocks per SM, one dw partial row per row run.
+    """
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    if aligned and hidden % vec == 0:
+        nvec = hidden // vec
+        wpr = min(_MAX_WPR, _pow2_at_least(-(-nvec // (32 * _TARGET_NV))))
+        if -(-rows // (_WARPS // wpr)) < sms:       # few rows: spread them
+            wpr = min(_MAX_WPR, _pow2_at_least(-(-nvec // 32)))
+        nv = _pow2_at_least(-(-nvec // (32 * wpr)))
+        if nv <= _MAX_NV:
+            per_sm = _BLOCKS_PER_SM["vector_bwd" if backward else "vector"]
+            blocks = min(-(-rows // (_WARPS // wpr)), per_sm * sms)
+            return LaunchConfig("vector", vec, nv, wpr, (blocks, 1),
+                                blocks if backward else 0)
+        variant = "chunked"
+    else:
+        variant, vec = "scalar", 1
+    if not backward:
+        return LaunchConfig(variant, vec, 1, 0,
+                            (min(rows, _BLOCKS_PER_SM["rows"] * sms), 1), 0)
+    chunks = -(-(hidden // vec) // (256 * _COL_VECS))
+    runs = min(rows, -(-_BLOCKS_PER_SM["cols"] * sms // chunks))
+    return LaunchConfig(variant, vec, _COL_VECS, 0, (chunks, runs), runs)
+
+
+def _workspace_floats(cfg, rows, hidden):
+    """fp32 elements of the backward's workspace: the dw partial rows, and
+    for the chunked and scalar variants each row's two statistics."""
+    extra = 0 if cfg.variant == "vector" else 2 * rows
+    return extra + cfg.partials * hidden
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _kernel():
@@ -37,7 +128,9 @@ def _kernel():
         fn = _build.load("rms_norm").rms_norm_fwd
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -48,8 +141,8 @@ def _bwd_kernel():
     if _bwd_fn is None:
         fn = _build.load("rms_norm").rms_norm_bwd
         fn.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float] + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
@@ -108,11 +201,14 @@ def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, *,
     y = torch.empty_like(x)
     if rows == 0:
         return y
+    cfg = _launch_config(rows, hidden, x.dtype, aligned=_aligned(x, w, y),
+                         sms=_build.sm_count(x.device))
     status = _kernel()(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows,
-                       hidden, float(eps), _build.DTYPE_CODES[x.dtype],
+                       hidden, float(eps), VARIANTS[cfg.variant], cfg.nv,
+                       cfg.wpr, cfg.grid[0], _build.DTYPE_CODES[x.dtype],
                        _build.DTYPE_CODES[w.dtype],
                        _build.stream_ptr(x.device))
-    _build.check_status(status, "rms_norm_fwd")
+    _build.check_status(status, f"rms_norm_fwd ({cfg.variant})")
     launches += 1
     return y
 
@@ -141,24 +237,23 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, *,
     if g.dtype != x.dtype:
         raise TypeError(f"rms_norm_bwd kernel: g is {g.dtype}, x {x.dtype}")
     hidden = x.shape[-1]
-    if 4 * hidden > _build.smem_limit(x.device):
-        raise ValueError(f"rms_norm_bwd kernel: hidden {hidden} does not fit "
-                         f"its fp32 dw partial in shared memory")
     rows = x.numel() // hidden if hidden else 0
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros_like(w)
-    rows_per_block = -(-rows // _BWD_BLOCKS)
-    blocks = -(-rows // rows_per_block)
     dw = torch.empty_like(w)
-    dw_part = torch.empty((blocks, hidden), dtype=torch.float32,
-                          device=x.device)
+    cfg = _launch_config(rows, hidden, x.dtype, backward=True,
+                         aligned=_aligned(x, w, g, dx),
+                         sms=_build.sm_count(x.device))
+    work = torch.empty(_workspace_floats(cfg, rows, hidden),
+                       dtype=torch.float32, device=x.device)
     status = _bwd_kernel()(x.data_ptr(), w.data_ptr(), g.data_ptr(),
-                           dx.data_ptr(), dw.data_ptr(), dw_part.data_ptr(),
-                           rows, hidden, rows_per_block, float(eps),
+                           dx.data_ptr(), dw.data_ptr(), work.data_ptr(),
+                           rows, hidden, float(eps), VARIANTS[cfg.variant],
+                           cfg.nv, cfg.wpr, cfg.grid[0], cfg.grid[1],
                            _build.DTYPE_CODES[x.dtype],
                            _build.DTYPE_CODES[w.dtype],
                            _build.stream_ptr(x.device))
-    _build.check_status(status, "rms_norm_bwd")
+    _build.check_status(status, f"rms_norm_bwd ({cfg.variant})")
     bwd_launches += 1
     return dx, dw
