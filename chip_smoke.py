@@ -14,8 +14,9 @@ Phases, each fatal on failure:
 4. forward — ``LlamaForCausalLM`` at the serving width (bf16), counting
              kernel launches, then fp32 logits of kernels vs plain;
 5. serve   — the continuous-batching ``ServeEngine`` under Poisson load
-             through the paged kernel, then fp32 greedy streams of the
-             kernel engine vs the reference engine;
+             through the paged kernel (``paged_decode_split_kernel``, by
+             name, once per layer in a profiled decode step), then fp32
+             greedy streams of the kernel engine vs the reference engine;
 6. train   — ``bench.py:bench_llama``'s training step (645M Llama, bf16,
              batch 4 x 2048, ``AdamW(multi_precision=True)``): launch
              counts per step, falling loss, tokens/s, MFU, peak memory and
@@ -34,14 +35,20 @@ Phases, each fatal on failure:
 Each kernel's ``launches`` in the ``kernels`` line is its count on its
 own main path (``main_path``: serve, train, varlen or calibrate).
 
+The paged kernel is held at the serving, GQA, decode-step and
+suffix-prefill shapes (``PAGED_SHAPES``) with the L2 cold and warm, and
+at the neighbouring split lengths (``PAGED_SPLITS``).
+
 The dense and varlen flash kernels take a route fixed by the dtype: fp32
 runs the CUDA-core kernels, bf16 and fp16 the tensor-core kernels
 (``FLASH_KERNELS``, ``VARLEN_KERNELS``); varlen head dims above 256 take
-the wide kernels in every dtype (``VARLEN_WIDE_KERNELS``). The kernel
+the wide kernels in every dtype (``VARLEN_WIDE_KERNELS``; above 1536 in
+column ranges, one block each). The kernel
 phases check every route against the plain versions (the varlen kernels
 at every head dim they are compiled for, 32 to 256 by 32, at two they pad
-to, and at 288, 320, 512 and 1024 on the wide route, which the profiler
-must show by name); the bf16 forward, training and varlen phases read the
+to, and at 288, 320, 512, 1024, 1568, 2048 and 3072 on the wide route,
+which the profiler must show by name); the bf16 forward, training and
+varlen phases read the
 profiler's per-kernel counts and fail unless only the tensor-core kernels
 ran. RMSNorm takes one of three variants by shape and alignment (vector,
 chunked, scalar; ``RMS_CASES``), each checked in every dtype; the
@@ -213,8 +220,9 @@ def close_err(a, b, atol: float, rtol: float):
 
 def _template_args(rest: str):
     """The template arguments that open the rest of a mangled kernel name
-    (``I...E``): element types by name, integers as written; a repeated
-    type (``S0_``) is the one before it, as in every kernel here."""
+    (``I...E``): element types by name, integers as written, booleans as
+    true / false; a repeated type (``S0_``) is the one before it, as in
+    every kernel here."""
     types = (("13__nv_bfloat16", "bf16"), ("6__half", "fp16"), ("f", "fp32"))
     args, i = [], 1
     if not rest.startswith("I"):
@@ -228,6 +236,11 @@ def _template_args(rest: str):
         m = re.match(r"Li(\d+)E", rest[i:])
         if m:
             args.append(m.group(1))
+            i += m.end()
+            continue
+        m = re.match(r"Lb([01])E", rest[i:])
+        if m:
+            args.append(("false", "true")[int(m.group(1))])
             i += m.end()
             continue
         m = re.match(r"S\d*_", rest[i:])     # a type named before: T again
@@ -453,69 +466,193 @@ def phase_rms_norm(torch, dev, report):
                 if k.startswith(("fwd", "bwd")[i])})
 
 
+def kernel_ms(torch, fn, pattern, iters: int = 20, flush=None) -> float:
+    """Device ms per call of the kernels whose profiler name contains
+    ``pattern``, over ``iters`` calls of ``fn`` (after 3 warm-up calls).
+    With ``flush``, a tensor larger than the 50 MB L2, it is zeroed
+    before every call, so each call finds the cache cold, as a decode step
+    finds a layer's pages after the other layers' weights and pages have
+    passed through it; the zeroing kernel is not counted."""
+    from torch.autograd import DeviceType
+
+    def call():
+        if flush is not None:
+            flush.zero_()
+        fn()
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    total = sum(_dev_us(e) for e in profiled(call, iters)
+                if e.device_type == DeviceType.CUDA and pattern in e.key)
+    check(total > 0, f"the profiler saw no {pattern} kernel")
+    return total / iters / 1e3
+
+
 def _pages_case(torch, dev, g, b, nh, kvh, dh, page, pps, num_pages, lens,
-                dtype):
+                dtype, one_table=False):
+    """Random q and pools, and a block table per row: distinct pages where
+    the pool has enough, or (``one_table``) one table for every row, as
+    the engine's suffix prefill passes it."""
     q = torch.randn(b, nh, dh, generator=g, device=dev).to(dtype)
     kp = torch.randn(kvh, num_pages, page, dh, generator=g, device=dev).to(dtype)
     vp = torch.randn(kvh, num_pages, page, dh, generator=g, device=dev).to(dtype)
     perm = torch.randperm(num_pages, generator=g, device=dev)
-    tables = perm[:b * pps].reshape(b, pps).to(torch.int32) \
-        if b * pps <= num_pages else \
-        torch.randint(0, num_pages, (b, pps), generator=g, device=dev,
-                      dtype=torch.int32)
+    if one_table:
+        tables = perm[:pps].to(torch.int32).repeat(b, 1)
+    elif b * pps <= num_pages:
+        tables = perm[:b * pps].reshape(b, pps).to(torch.int32)
+    else:
+        tables = torch.randint(0, num_pages, (b, pps), generator=g,
+                               device=dev, dtype=torch.int32)
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, kp, vp, lengths, tables
 
 
+def paged_bound(args, lens):
+    """(bound ms, by, unique K/V bytes) of one paged decode call: each K/V
+    row that some length covers read once (rows shared through one table
+    count once), q and lengths and tables read and out written once; the
+    operations are 4 * NH * DH per (row, key) pair."""
+    q, kp, _, lengths, tables = args
+    kvh, _, page, dh = kp.shape
+    covered = {(p, t % page) for row, n in zip(tables.tolist(), lens)
+               for t, p in ((t, row[t // page]) for t in range(n))}
+    kv_bytes = 2 * kvh * len(covered) * dh * kp.element_size()
+    n_bytes = (kv_bytes + 2 * q.numel() * q.element_size()
+               + 4 * (lengths.numel() + tables.numel()))
+    flops = 4 * q.shape[1] * sum(lens) * dh
+    return (*bound_ms(n_bytes, flops, "bfloat16"), kv_bytes)
+
+
+#: the paged decode kernel's timed shapes, bf16, D 128, page 128, 8 pages
+#: per row (max_seq_len 1024), a 96-page pool: name -> (rows, q heads, kv
+#: heads, lengths, one table for every row). (a) the kernel table's shape
+#: (ragged, 0 and page edges); (b) a decode step of run_load (8 streams
+#: 64-192 tokens into their generation); (c) the engine's suffix prefill
+#: (128 suffix rows over one table, lengths 1..128); (d) the llama3-8b GQA
+#: layout at (a)'s lengths; (e) one row of one token, the fixed cost of a
+#: call
+PAGED_TABLE_LENS = [0, 1, 127, 128, 129, 256, 700, 1024]
+PAGED_SHAPES = {
+    "a": (8, 16, 16, PAGED_TABLE_LENS, False),
+    "b": (8, 16, 16, [64, 96, 112, 128, 144, 160, 176, 192], False),
+    "c": (128, 16, 16, list(range(1, 129)), True),
+    "d": (8, 32, 8, PAGED_TABLE_LENS, False),
+    "e": (1, 16, 16, [1], False),
+}
+#: split lengths (tokens) timed beside the launch rule's at (a) and (b)
+PAGED_SPLITS = (64, 128, 256)
+
+
 def phase_paged(torch, dev, report):
-    """Paged decode kernel vs ``paged_attention_decode_reference`` at the
+    """Paged decode kernel vs ``paged_attention_decode_reference``: at the
     serving shape (8 slots, 16 heads, DH 128, page 128, 8 pages per
     sequence, a 96-page pool) with ragged lengths including 0 and exact
-    page edges, and at the llama3-8b GQA layout (32 q heads over 8 kv
-    heads). Both accumulate in fp32 (the kernel online, the reference in
-    one softmax) and round once: tolerance ``tolerance(dtype, 1e-5)``,
-    i.e. 1e-5 (fp32) plus two output ulps of |out| (bf16, fp16)."""
+    page edges, at the llama3-8b GQA layout (32 q heads over 8 kv heads),
+    at DH 64 and 256 in both layouts, and at ``PAGED_SHAPES`` (b) and (c),
+    in fp32, bf16 and fp16. Both accumulate in fp32 (the kernel online,
+    per split and then across splits, the reference in one softmax) and
+    round once: tolerance ``tolerance(dtype, 1e-5)``, i.e. 1e-5 (fp32)
+    plus two output ulps of |out| (bf16, fp16). A length-0 row must be
+    exactly 0, and a second call must give the same bits. Then the times
+    at ``PAGED_SHAPES`` with the L2 cold and warm, and at each split
+    length of ``PAGED_SPLITS`` at (a) and (b), each checked first."""
+    from paddle_tpu_torch.ops.cuda import _build
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
     g = torch.Generator(device=dev).manual_seed(2)
-    lens = [0, 1, 127, 128, 129, 256, 700, 1024]
-    main = None
-    for nh, kvh in ((16, 16), (32, 8)):
-        for dt in (torch.float32, torch.bfloat16, torch.float16):
-            args = _pages_case(torch, dev, g, 8, nh, kvh, 128, 128, 8, 96,
-                               lens, dt)
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = 0.0
+    cases = [(f"nh={nh} kvh={kvh} D {dh}", (8, nh, kvh, PAGED_TABLE_LENS,
+                                            False), dh)
+             for dh in (128, 64, 256) for nh, kvh in ((16, 16), (32, 8))]
+    cases += [(f"shape ({key}) D 128", PAGED_SHAPES[key], 128)
+              for key in ("b", "c")]
+    for label, (b, nh, kvh, lens, one), dh in cases:
+        for dt in (f32, bf16, torch.float16):
+            args = _pages_case(torch, dev, g, b, nh, kvh, dh, 128, 8, 96,
+                               lens, dt, one_table=one)
             out = pa.paged_attention_decode(*args, backend="kernel")
+            again = pa.paged_attention_decode(*args, backend="kernel")
             ref = pa.paged_attention_decode(*args, backend="reference")
             torch.cuda.synchronize()
             atol, rtol = tolerance(dt, 1e-5)
             err, share = close_err(out, ref, atol, rtol)
             name = str(dt).replace("torch.", "")
-            log(f"  paged_decode nh={nh} kvh={kvh} {name}: "
-                f"max_abs_err={err:.3g}, {share:.3g} of the tolerance "
-                f"({atol} + {rtol:.3g}|ref|)")
-            check(share <= 1.0, f"paged nh={nh} kvh={kvh} {name} {err}")
-            check(bool((out[0] == 0).all()), "paged: length-0 row is not 0")
-            if nh == 16 and dt == torch.bfloat16:
-                main = (args, err)
-    args, err = main
-    ms = device_ms(lambda: pa.paged_attention_decode(*args, backend="kernel"))
-    plain = device_ms(lambda: pa.paged_attention_decode(
-        *args, backend="reference"))
-    q, kp = args[0], args[1]
-    kvh, dh = kp.shape[0], kp.shape[3]
-    n_bytes = (2 * kvh * sum(lens) * dh * kp.element_size()
-               + 2 * q.numel() * q.element_size()
-               + args[3].numel() * 4 + args[4].numel() * 4)
-    flops = 4 * q.shape[1] * sum(lens) * dh
-    b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
-    log(f"  paged_decode serving shape bf16: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {b_ms:.4f} ms ({by})")
+            same = bool(torch.equal(out, again))
+            log(f"  paged_decode {label} {name}: max_abs_err={err:.3g}, "
+                f"{share:.3g} of the tolerance ({atol} + {rtol:.3g}|ref|), "
+                f"second call bit-equal: {same}")
+            check(share <= 1.0, f"paged {label} {name} {err}")
+            check(same, f"paged {label} {name}: two calls differ")
+            zero = [i for i, n in enumerate(lens) if n == 0]
+            check(all(bool((out[i] == 0).all()) for i in zero),
+                  "paged: a length-0 row is not 0")
+            if dt == bf16:
+                worst = max(worst, err)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    at = {}
+    for key, (b, nh, kvh, lens, one) in PAGED_SHAPES.items():
+        args = _pages_case(torch, dev, g, b, nh, kvh, 128, 128, 8, 96, lens,
+                           bf16, one_table=one)
+
+        def kernel():
+            return pa.paged_attention_decode(*args, backend="kernel")
+
+        b_ms, by, kv_bytes = paged_bound(args, lens)
+        t = dict(ms=kernel_ms(torch, kernel, "paged_decode", flush=flush),
+                 warm_ms=kernel_ms(torch, kernel, "paged_decode"),
+                 plain_ms=device_ms(lambda: pa.paged_attention_decode(
+                     *args, backend="reference"), iters=5),
+                 bound_ms=b_ms, bound_by=by, kv_bytes=kv_bytes)
+        at[key] = t
+        log(f"  paged_decode ({key}) {b} rows {nh}/{kvh} heads bf16: kernel "
+            f"{t['ms']:.4f} ms (L2 cold), {t['warm_ms']:.4f} ms (warm), "
+            f"plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}, "
+            f"{kv_bytes / 1e6:.2f} MB of K/V), {b_ms / t['ms']:.1%} of it")
+        if key in ("a", "b", "c"):
+            t["split_choices"] = paged_splits(torch, pa, args, flush, _build)
+    del flush
+    a = at["a"]
     report["paged"] = dict(
         name="paged_attention_decode", route="cuda",
         source="paddle_tpu_torch/csrc/paged_attention.cu",
         replaces="paddle_tpu/ops/pallas/paged_attention.py:163",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-        library_ms=None)
+        kernels=list(PAGED_KERNELS), max_abs_err=worst,
+        ms=a["ms"], warm_ms=a["warm_ms"], plain_ms=a["plain_ms"],
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
+        at={k: v for k, v in at.items() if k != "a"})
+    torch.cuda.empty_cache()
+
+
+def paged_splits(torch, pa, args, flush, _build):
+    """Kernel ms (L2 cold) at each split length of ``PAGED_SPLITS``, with
+    ``_split_plan`` told the length; each checked against the plain
+    version first. The launch rule's own choice is marked."""
+    real = pa._split_plan
+    q, kp = args[0], args[1]
+    rule = real(args[4].shape[1], kp.shape[2], q.shape[0], kp.shape[0],
+                q.shape[2], q.element_size(), _build.sm_count(q.device),
+                group=q.shape[1] // kp.shape[0])
+    ref = pa.paged_attention_decode(*args, backend="reference")
+    atol, rtol = tolerance(q.dtype, 1e-5)
+    got = {}
+    try:
+        for split in PAGED_SPLITS:
+            pa._split_plan = (lambda *a, _s=split, **kw:
+                              real(*a, **kw, split_tokens=_s))
+            out = pa.paged_attention_decode(*args, backend="kernel")
+            err, share = close_err(out, ref, atol, rtol)
+            check(share <= 1.0, f"paged split {split}: {err}")
+            got[split] = kernel_ms(torch, lambda: pa.paged_attention_decode(
+                *args, backend="kernel"), "paged_decode", flush=flush)
+    finally:
+        pa._split_plan = real
+    log(f"    split tokens (rule: {rule.split_tokens}, grid {rule.grid}, "
+        f"{rule.stage_rows}-row stages): "
+        + "; ".join(f"{s} {ms:.4f} ms" for s, ms in got.items()))
+    return got
 
 
 def phase_flash(torch, dev, report):
@@ -805,13 +942,14 @@ def phase_varlen(torch, dev, report):
     64-row tile, dropout 0.1 at a fixed seed (keep mask compared through
     one-hot values), and every head dim the kernels are compiled for (32
     to 256 by 32) or pad to (80 -> 96, 200 -> 224), and head dims above
-    256 (288, 300 -> 320, 512, 1024), in fp32, bf16 and fp16 (up to D 256
-    fp32 takes the CUDA-core kernels, bf16 and fp16 the tensor-core
-    kernels; above it every dtype the wide kernels, which the profiler
-    must show by name); bf16 views that the kernel cannot read in place
-    (token stride not a multiple of 8, start off a 16-byte boundary) must
-    give the output of their contiguous copies exactly; head dim 1568
-    must raise ``ValueError``.
+    256 (288, 300 -> 320, 512, 1024, and above 1536 in column ranges 1537
+    -> 1568, 2048, 3072), in fp32, bf16 and fp16 (up to D 256 fp32 takes
+    the CUDA-core kernels, bf16 and fp16 the tensor-core kernels; above it
+    every dtype the wide kernels, which the profiler must show by name,
+    once each per call at D 288 and at D 1568 in two column ranges); bf16
+    views that the kernel cannot read in place (token stride not a
+    multiple of 8, start off a 16-byte boundary) must give the output of
+    their contiguous copies exactly.
     Both accumulate in fp32 (the kernels tile by tile) and round once:
     tolerance ``tolerance(dtype, 1e-4)`` on out, dq, dk and dv, i.e. 1e-4
     (fp32, sums over up to 2048 keys) plus two output ulps (bf16, fp16);
@@ -819,7 +957,8 @@ def phase_varlen(torch, dev, report):
     kernel at [1, 16, 2048, 128], within the same tolerance. Then the
     timings: the full-width case, 4 x 2048 packed beside the dense
     kernels, and the head-dim sweep (``VARLEN_SWEEP_DIMS``, then the wide
-    kernels' ``VARLEN_WIDE_DIMS``) against the library."""
+    kernels' ``VARLEN_WIDE_DIMS``, then D 2048 on a quarter of the
+    packing) against the library."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
 
@@ -866,6 +1005,15 @@ def phase_varlen(torch, dev, report):
          [180, 20, 250, 9], 4, 2, 512, dict(causal=True, extra_q=13)),
         ("D 1024 (wide) dropout 0.1 len_k != len_q noncausal",
          [100, 37, 250], [180, 20, 250], 4, 2, 1024,
+         dict(seed=seed, rate=0.1)),
+        ("D 1537 (wide, padded to 1568: column ranges 800 + 768) GQA 8/2",
+         [40, 9, 70, 5, 300], [40, 9, 70, 5, 300], 8, 2, 1537,
+         dict(causal=True)),
+        ("D 2048 (wide, column ranges 2 x 1024) GQA 8/2 segments inside "
+         "tiles", [40, 9, 70, 5, 300], [40, 9, 70, 5, 300], 8, 2, 2048,
+         dict(causal=True)),
+        ("D 3072 (wide, column ranges 2 x 1536) dropout 0.1 len_k != len_q "
+         "noncausal", [100, 37, 250], [180, 20, 250], 4, 2, 3072,
          dict(seed=seed, rate=0.1)),
     ]
     main = None
@@ -976,14 +1124,14 @@ def phase_varlen(torch, dev, report):
     check(share <= 1.0 and e_lse <= 1e-4, "vflash vs dense flash")
     del q, k, v, out, lse, dout, dlse
     # above 256 every dtype takes the wide kernels, once each per call and
-    # no other varlen kernel (by name); above their 1536 the entry point
-    # raises and names the limit
+    # no other varlen kernel (by name): one launch with one block per
+    # column range above 1536 too
     cu = _cu(torch, [40, 9, 70, 5, 300], dev)
     wide = list(VARLEN_WIDE_KERNELS.values())
     others = [n for pair in VARLEN_KERNELS.values() for n in pair]
-    for dt in (f32, bf16, torch.float16):
-        q, k, v, do = (rnd(424, 8, 288, dt=dt) for _ in range(4))
-        st = dict(causal=True, scale=288 ** -0.5, dropout_rate=0.0)
+    for d, dt in itertools.product((288, 1568), (f32, bf16, torch.float16)):
+        q, k, v, do = (rnd(424, 8, d, dt=dt) for _ in range(4))
+        st = dict(causal=True, scale=d ** -0.5, dropout_rate=0.0)
         out, lse = fv._vflash_fwd_kernel(q, k, v, cu, cu, None, **st)
 
         def fwd_bwd():
@@ -993,22 +1141,13 @@ def phase_varlen(torch, dev, report):
         fwd_bwd()
         got = named_launches(kernel_counts(torch, fwd_bwd, 2), wide + others)
         name = str(dt).replace("torch.", "")
-        log(f"  vflash D 288 {name}, forward + backward, kernels per call: "
+        log(f"  vflash D {d} {name} ({fv._wide_column_ranges(d)[0]} column "
+            f"ranges), forward + backward, kernels per call: "
             f"{ {n: c for n, c in got.items() if c} }")
         check(all(got[n] == 1 for n in wide)
               and not any(got[n] for n in others),
-              f"vflash D 288 {name} ran {got}, want each wide kernel once")
+              f"vflash D {d} {name} ran {got}, want each wide kernel once")
         del q, k, v, do, out, lse
-    q = torch.zeros(16, 2, 1568, device=dev, dtype=bf16)
-    cu = _cu(torch, [7, 9], dev)
-    try:
-        fv.flash_attn_varlen_thd(q, q, q, cu, cu, causal=True)
-        raised = "nothing"
-    except ValueError as exc:
-        raised = f"ValueError: {exc}"
-    log(f"  vflash at head dim 1568 raised {raised}")
-    check(raised.startswith("ValueError") and "1536" in raised,
-          f"vflash at head dim 1568 raised {raised}")
 
     q, k, v, cu, out, lse, do, e_fwd, e_bwd = main
     t_tok, h, d = q.shape
@@ -1085,6 +1224,9 @@ def phase_varlen(torch, dev, report):
 #: them)
 VARLEN_SWEEP_DIMS = (32, 64, 96, 128, 256)
 VARLEN_WIDE_DIMS = (288, 512, 1024)
+#: a quarter of the full-width packing (each of ``VARLEN_LENS`` over 4,
+#: 2048 tokens), where the sweep times D 2048 (two column ranges)
+VARLEN_QUARTER_LENS = [450, 94, 512, 164, 253, 63, 384, 128]
 
 
 def varlen_sweep(torch, dev, report):
@@ -1095,18 +1237,22 @@ def varlen_sweep(torch, dev, report):
     within 1e-4), then timed beside the library's varlen flash (none
     above D 256) and the bound. Kept under
     ``report["vflash"]["d_sweep"]`` and ``report["vflash_bwd"]["d_sweep"]``
-    by head dim."""
+    by head dim; then D 2048 on ``VARLEN_QUARTER_LENS`` (5 calls each)
+    under ``d_sweep[2048]``."""
     from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
 
     g = torch.Generator(device=dev).manual_seed(13)
     bf16 = torch.bfloat16
     atol, rtol = tolerance(bf16, 1e-4)
-    t_tok, h = sum(VARLEN_LENS), VARLEN_HEADS
-    cu = _cu(torch, VARLEN_LENS, dev)
-    n_pairs = sum(n * (n + 1) // 2 for n in VARLEN_LENS)
+    h = VARLEN_HEADS
     for key in ("vflash", "vflash_bwd"):
         report[key]["d_sweep"] = {}
-    for d in VARLEN_SWEEP_DIMS + VARLEN_WIDE_DIMS:
+    for d, lens in [(d, VARLEN_LENS) for d in
+                    VARLEN_SWEEP_DIMS + VARLEN_WIDE_DIMS] + [
+                        (2048, VARLEN_QUARTER_LENS)]:
+        t_tok, cu = sum(lens), _cu(torch, lens, dev)
+        n_pairs = sum(n * (n + 1) // 2 for n in lens)
+        iters = 5 if d > 1536 else 20
         q, k, v, do = (torch.randn(t_tok, h, d, generator=g, device=dev)
                        .to(bf16) for _ in range(4))
         st = dict(causal=True, scale=d ** -0.5, dropout_rate=0.0)
@@ -1119,13 +1265,13 @@ def varlen_sweep(torch, dev, report):
         shares = [close_err(out, rout, atol, rtol)[1]] + [
             close_err(a, r, atol, rtol)[1] for a, r in zip(got, ref)]
         e_lse = max_err(lse, rlse)
-        log(f"  vflash sweep D {d}: out, dq, dk, dv "
+        log(f"  vflash sweep D {d} ({t_tok} tokens): out, dq, dk, dv "
             f"{', '.join(f'{x:.3g}' for x in shares)} of the tolerance, lse "
             f"err {e_lse:.3g}")
         check(max(shares) <= 1.0 and e_lse <= 1e-4, f"vflash sweep D {d}")
         del rout, rlse, ref, got
         lib_fwd, lib_bwd, _ = _varlen_library(
-            torch, q, k, v, cu, max(VARLEN_LENS), out, do)
+            torch, q, k, v, cu, max(lens), out, do)
         flops = 4 * d * h * n_pairs
         for key, kernel, lib, n_bytes, fl in (
                 ("vflash", lambda: fv._vflash_fwd_kernel(*args, None, **st),
@@ -1134,13 +1280,14 @@ def varlen_sweep(torch, dev, report):
                     *args, out, lse, do, None, **st), lib_bwd,
                  nbytes(q, k, v, out, do, lse, cu, q, k, v), 2.5 * flops)):
             b_ms, by = bound_ms(n_bytes, fl, "bfloat16")
-            t = dict(ms=device_ms(kernel),
+            t = dict(ms=device_ms(kernel, iters=iters),
                      library_ms=None if lib is None else device_ms(lib),
-                     bound_ms=b_ms, bound_by=by)
+                     bound_ms=b_ms, bound_by=by, tokens=t_tok)
             report[key]["d_sweep"][d] = t
             lib_s = "none" if lib is None else f"{t['library_ms']:.4f} ms"
-            log(f"  {key} sweep D {d}: kernel {t['ms']:.4f} ms, library "
-                f"{lib_s}, bound {b_ms:.4f} ms ({by})")
+            log(f"  {key} sweep D {d} ({t_tok} tokens): kernel "
+                f"{t['ms']:.4f} ms, library {lib_s}, bound {b_ms:.4f} ms "
+                f"({by})")
         del q, k, v, do, out, lse, args, lib_fwd, lib_bwd
         torch.cuda.empty_cache()
 
@@ -1326,7 +1473,8 @@ def profile_decode(torch, eng, vocab, steps=16):
     """Where a full-batch decode step's time goes: 8 streams past their
     prefill, ``steps`` decode steps timed on the host clock, then the
     same number under ``torch.profiler`` for the device kernel time by
-    name. Busy share = kernel time per step / unprofiled step time."""
+    name. Busy share = kernel time per step / unprofiled step time.
+    Returns the launches per step of each kernel by name."""
     g = torch.Generator().manual_seed(6)
     for _ in range(eng.max_slots):
         eng.submit(torch.randint(1, vocab, (64,), generator=g).tolist(),
@@ -1338,9 +1486,10 @@ def profile_decode(torch, eng, vocab, steps=16):
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    profile_kernels(torch, eng.step, steps, wall_ms,
-                    f"decode step ({eng.max_slots} streams)")
+    _, per_kernel = profile_kernels(torch, eng.step, steps, wall_ms,
+                                    f"decode step ({eng.max_slots} streams)")
     eng.run()
+    return per_kernel
 
 
 #: the dense flash kernels of each step, (tensor cores: bf16/fp16, CUDA
@@ -1396,6 +1545,11 @@ RMS_TRAIN_KERNELS = ("rms_norm_fwd_vec_kernel", "rms_norm_bwd_vec_kernel",
 TILED_KERNELS = ("tiled_mm_tc_kernel", "tiled_mm_reduce_kernel")
 
 
+#: the paged decode kernel (one launch per call, every dtype: the
+#: split-context kernel, which merges a row's splits itself)
+PAGED_KERNELS = ("paged_decode_split_kernel",)
+
+
 #: profiler kernel names by kind, for the per-kind sums of profile_kernels
 KERNEL_KINDS = (
     ("varlen flash (port)", ("vflash_",)),
@@ -1403,7 +1557,7 @@ KERNEL_KINDS = (
                       "flash_bwd_")),
     ("tiled matmul (port)", ("tiled_mm_",)),
     ("RMSNorm (port)", ("rms_norm_",)),
-    ("paged decode (port)", ("paged_decode_kernel",)),
+    ("paged decode (port)", PAGED_KERNELS),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "sm90_xmma")),
 )
 
@@ -1507,7 +1661,11 @@ def phase_serve(torch, dev, report):
           f"paged launches {counts['paged']} != layers x decode steps "
           f"{nl * res.engine_steps}")
     record_launches(report, "serve", counts)
-    profile_decode(torch, eng, config.vocab_size)
+    got = named_launches(profile_decode(torch, eng, config.vocab_size),
+                         PAGED_KERNELS)
+    log(f"  decode step: paged kernels {got}")
+    check(all(n == nl for n in got.values()),
+          f"decode step ran the paged kernels {got}, want {nl} each")
     del eng, model
     torch.cuda.empty_cache()
 
@@ -1898,8 +2056,10 @@ def main() -> int:
                            if "Used" in line and "registers" in line})
             log(f"  {lg.stem.split('-')[0]}: {' | '.join(regs)}")
         # the RMSNorm kernels by dtypes and accesses per thread, the
-        # varlen kernels by dtype and head dim (the wide ones by dtype)
-        for lib in ("rms_norm", "flash_attention_varlen"):
+        # varlen kernels by dtype and head dim (the wide ones by dtype and
+        # column ranges), the paged kernel by dtype, vectors a lane and q
+        # heads a block
+        for lib in ("rms_norm", "flash_attention_varlen", "paged_attention"):
             for row in ptxas_table(_build._target(lib).with_suffix(".log")
                                    .read_text()):
                 log(f"    {row}")

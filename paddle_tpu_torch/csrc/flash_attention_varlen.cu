@@ -27,8 +27,9 @@
 // from 32 to 256 (with_head_dim). Above 256 every dtype takes the wide
 // kernels (vflash_fwd_wide_kernel, vflash_bwd_dq_wide_kernel,
 // vflash_bwd_dkv_wide_kernel; before the C entry points), which take D at
-// run time, any multiple of 32 up to kWideMaxD (1536). The wrapper
-// zero-pads any other D to the next multiple of 32 and raises above 1536.
+// run time, any multiple of 32 (above kWideMaxD = 1536 in column ranges
+// across blocks). The wrapper zero-pads any other D to the next multiple
+// of 32.
 //
 // What bounds it on the H100: operations, 4 * D * H * sum_i len_q,i * len_k,i
 // FLOPs forward (about half of that causal) and 2.5 times that backward (five
@@ -1400,7 +1401,7 @@ vflash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // vflash_bwd_dq_wide_kernel and vflash_bwd_dkv_wide_kernel compute what the
 // kernels above compute and are held to the same plain versions at the same
 // tolerance. D is a run-time argument, a multiple of 32 (the wrapper pads
-// as for the compiled head dims) up to kWideMaxD.
+// as for the compiled head dims).
 //
 // What bounds them on the H100: the operations, as above. No model in either
 // package has heads this wide; the aim is a right result on the CUDA cores,
@@ -1418,47 +1419,71 @@ vflash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // read from global memory (its 32 columns are one coalesced row segment,
 // shared by the block's 4 warps through L1). The dk/dv kernel makes two
 // passes over its rows, dV then dK, so that one [32][D] accumulator is
-// enough. Shared memory: 128 D + 12.1 KB (forward), 128 D + 20.3 KB (dq),
-// 128 D + 20.8 KB (dk/dv): 212.8 KB at kWideMaxD, under the 227 KB a block
-// may use.
+// enough. Shared memory: 128 Dc + 12.1 KB (forward), 128 Dc + 20.3 KB (dq),
+// 128 Dc + 20.8 KB (dk/dv), where Dc <= kWideMaxD is the accumulator's
+// width: 212.8 KB at kWideMaxD, under the 227 KB a block may use.
+//
+// Above kWideMaxD the accumulator's columns are split across blocks: D is
+// cut into n = ceil(D / kWideMaxD) column ranges [c0, c0 + Dc), Dc =
+// ceil(D / n) rounded up to 32 (wide_range_cols; the last range may be
+// narrower), one per blockIdx.z. Every block still takes the products
+// over the full D, 32 columns at a time (S = Q K^T, and dP = dO V^T in the
+// backward), and accumulates only its own columns of O, dQ, dK or dV; the
+// range at c0 = 0 writes the lse, which every range computes alike, and
+// the dropout hash reads only the global row and column, so every range
+// draws the same bits. With one range (D <= kWideMaxD) the launch takes the
+// kernels' kRanges = false instances, whose column bounds are compile-time
+// 0 and D: the code, launches and bits of the kernels before the split.
 constexpr int kWideMaxD = 1536;
 constexpr int kWideChunk = 32;  // columns of D per staged chunk
 
-static size_t vflash_fwd_wide_smem_bytes(int D) {  // O, Q chunk, K chunk, P
-  return sizeof(float) * ((size_t)kFaBQ * D + kFaBQ * kWideChunk + kFaBK * (kWideChunk + 1) +
+// Columns of one range of the wide kernels' accumulator for head dim D.
+static int wide_range_cols(int D) {
+  const int n = (D + kWideMaxD - 1) / kWideMaxD;
+  return ((D + n - 1) / n + kWideChunk - 1) / kWideChunk * kWideChunk;
+}
+
+// Shared memory of the wide kernels for an accumulator of Dc columns.
+static size_t vflash_fwd_wide_smem_bytes(int Dc) {  // O, Q chunk, K chunk, P
+  return sizeof(float) * ((size_t)kFaBQ * Dc + kFaBQ * kWideChunk + kFaBK * (kWideChunk + 1) +
                           kFaBQ * kFaBK);
 }
 
-static size_t vflash_dq_wide_smem_bytes(int D) {  // dQ, Q / dO chunks, K / V chunks, dS
-  return sizeof(float) * ((size_t)kFaBQ * D + 2 * kFaBQ * kWideChunk +
+static size_t vflash_dq_wide_smem_bytes(int Dc) {  // dQ, Q / dO chunks, K / V chunks, dS
+  return sizeof(float) * ((size_t)kFaBQ * Dc + 2 * kFaBQ * kWideChunk +
                           2 * kFaBK * (kWideChunk + 1) + kFaBQ * kFaBK);
 }
 
-static size_t vflash_dkv_wide_smem_bytes(int D) {  // dV / dK, K / V chunks, Q / dO chunks, P / dS, rows
-  return sizeof(float) * ((size_t)kFaBK * D + 2 * kFaBK * kWideChunk +
+static size_t vflash_dkv_wide_smem_bytes(int Dc) {  // dV / dK, K / V chunks, Q / dO chunks, P / dS, rows
+  return sizeof(float) * ((size_t)kFaBK * Dc + 2 * kFaBK * kWideChunk +
                           2 * kFaBQ * (kWideChunk + 1) + kFaBK * kFaBQ + 2 * kFaBQ) +
          sizeof(int) * 2 * kFaBQ;
 }
 
-// One block per (32-row q tile, q head): out [Tq, H, D] (contiguous), lse [H, Tq].
-template <typename T>
+// One block per (32-row q tile, q head, column range): out [Tq, H, D]
+// (contiguous), lse [H, Tq].
+template <typename T, bool kRanges>
 __global__ void __launch_bounds__(kFaThreads)
 vflash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        long long q_stride, long long k_stride, long long v_stride,
                        const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                        const int* __restrict__ bound, const int* __restrict__ cu_k,
                        const int* __restrict__ seed_ptr, T* __restrict__ out,
-                       float* __restrict__ lse, int Tq, int Tk, int H, int Hkv, int D,
+                       float* __restrict__ lse, int Tq, int Tk, int H, int Hkv, int D, int Dc,
                        int n_seqs, float scale, int causal, int dropout, uint32_t thresh,
                        float inv_keep) {
   constexpr int C = kWideChunk;
   const int q0 = blockIdx.x * kFaBQ, h = blockIdx.y;
   const int hk = h / (H / Hkv);
   const long long q_off = (long long)h * D, kv_off = (long long)hk * D;
+  // this block's columns of O: [c_lo, c_lo + Dw), at column c of o_s and c_lo + c of v, out
+  // (one range, !kRanges: all of D, compiled as the kernel was before ranges)
+  const int Dc_ = kRanges ? Dc : D;
+  const int c_lo = kRanges ? blockIdx.z * Dc_ : 0, Dw = kRanges ? min(Dc_, D - c_lo) : D;
 
   extern __shared__ __align__(16) float sm[];
-  float* o_s = sm;                  // [BQ][D] fp32 output accumulator
-  float* q_c = o_s + kFaBQ * D;     // [BQ][C]
+  float* o_s = sm;                  // [BQ][Dc] fp32 output accumulator
+  float* q_c = o_s + kFaBQ * Dc_;    // [BQ][C]
   float* k_c = q_c + kFaBQ * C;     // [BK][C + 1]
   float* p_s = k_c + kFaBK * (C + 1);  // [BQ][BK]
   __shared__ int2 keys_s;
@@ -1474,11 +1499,12 @@ vflash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const int row = q0 + warp * kFaRows + r;
     seg_r[r] = row < Tq ? seg_q[row] : -1;  // -1 matches no key
     bound_r[r] = row < Tq ? bound[row] : -1;
-    for (int c0 = 0; c0 < D; c0 += C) o_s[(warp * kFaRows + r) * D + c0 + lane] = 0.f;
+    for (int c0 = 0; c0 < Dw; c0 += C) o_s[(warp * kFaRows + r) * Dc_ + c0 + lane] = 0.f;
   }
   const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
   __syncthreads();
   const int k_begin = keys_s.x, k_end = keys_s.y;
+  const T* v_cols = v + c_lo;
 
   float m[kFaRows], l[kFaRows];
 #pragma unroll
@@ -1540,18 +1566,18 @@ vflash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 
     // o[r, c] = alpha[r] * o[r, c] + sum_t P[r, t] V[t, c], 32 columns at a time
     const int n_t = min(kFaBK, k_end - k0);
-    for (int c0 = 0; c0 < D; c0 += C) {
+    for (int c0 = 0; c0 < Dw; c0 += C) {
       float acc[kFaRows];
 #pragma unroll
       for (int r = 0; r < kFaRows; ++r)
-        acc[r] = o_s[(warp * kFaRows + r) * D + c0 + lane] * alpha[r];
+        acc[r] = o_s[(warp * kFaRows + r) * Dc_ + c0 + lane] * alpha[r];
       for (int t = 0; t < n_t; ++t) {
-        const float vv = to_f32(v[(long long)(k0 + t) * v_stride + kv_off + c0 + lane]);
+        const float vv = to_f32(v_cols[(long long)(k0 + t) * v_stride + kv_off + c0 + lane]);
 #pragma unroll
         for (int r = 0; r < kFaRows; ++r) acc[r] += p_s[(warp * kFaRows + r) * kFaBK + t] * vv;
       }
 #pragma unroll
-      for (int r = 0; r < kFaRows; ++r) o_s[(warp * kFaRows + r) * D + c0 + lane] = acc[r];
+      for (int r = 0; r < kFaRows; ++r) o_s[(warp * kFaRows + r) * Dc_ + c0 + lane] = acc[r];
     }
   }
 
@@ -1561,17 +1587,18 @@ vflash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const int row = q0 + warp * kFaRows + r;
     if (row < Tq) {
       const float ls = lt == 0.f ? 1.f : lt;
-      T* orow = out + ((long long)row * H + h) * D;
-      for (int c0 = 0; c0 < D; c0 += C)
-        orow[c0 + lane] = from_f32<T>(o_s[(warp * kFaRows + r) * D + c0 + lane] / ls);
-      if (lane == 0) lse[(long long)h * Tq + row] = lt == 0.f ? -INFINITY : m[r] + logf(ls);
+      T* orow = out + ((long long)row * H + h) * D + c_lo;
+      for (int c0 = 0; c0 < Dw; c0 += C)
+        orow[c0 + lane] = from_f32<T>(o_s[(warp * kFaRows + r) * Dc_ + c0 + lane] / ls);
+      if (lane == 0 && c_lo == 0)
+        lse[(long long)h * Tq + row] = lt == 0.f ? -INFINITY : m[r] + logf(ls);
     }
   }
 }
 
-// One block per (32-row q tile, q head), over the same keys as the forward:
-// dq [Tq, H, D] (contiguous).
-template <typename T>
+// One block per (32-row q tile, q head, column range), over the same keys
+// as the forward: dq [Tq, H, D] (contiguous).
+template <typename T, bool kRanges>
 __global__ void __launch_bounds__(kFaThreads)
 vflash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, long long q_stride, long long k_stride,
@@ -1580,16 +1607,19 @@ vflash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                           const int* __restrict__ bound, const int* __restrict__ cu_k,
                           const int* __restrict__ seed_ptr, T* __restrict__ dq, int Tq, int Tk,
-                          int H, int Hkv, int D, int n_seqs, float scale, int causal,
+                          int H, int Hkv, int D, int Dc, int n_seqs, float scale, int causal,
                           int dropout, uint32_t thresh, float inv_keep) {
   constexpr int C = kWideChunk;
   const int q0 = blockIdx.x * kFaBQ, h = blockIdx.y;
   const int hk = h / (H / Hkv);
   const long long q_off = (long long)h * D, kv_off = (long long)hk * D;
+  // this block's columns of dQ: [c_lo, c_lo + Dw), at column c of dq_s and c_lo + c of k, dq
+  const int Dc_ = kRanges ? Dc : D;
+  const int c_lo = kRanges ? blockIdx.z * Dc_ : 0, Dw = kRanges ? min(Dc_, D - c_lo) : D;
 
   extern __shared__ __align__(16) float sm[];
-  float* dq_s = sm;                     // [BQ][D] fp32 dQ accumulator
-  float* q_c = dq_s + kFaBQ * D;        // [BQ][C]
+  float* dq_s = sm;                     // [BQ][Dc] fp32 dQ accumulator
+  float* q_c = dq_s + kFaBQ * Dc_;       // [BQ][C]
   float* do_c = q_c + kFaBQ * C;        // [BQ][C]
   float* k_c = do_c + kFaBQ * C;        // [BK][C + 1]
   float* v_c = k_c + kFaBK * (C + 1);   // [BK][C + 1]
@@ -1612,7 +1642,7 @@ vflash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = ok ? lse[(long long)h * Tq + row] : 0.f;
     lse_r[r] = l == -INFINITY ? 0.f : l;
     delta_r[r] = ok ? delta[(long long)h * Tq + row] : 0.f;
-    for (int c0 = 0; c0 < D; c0 += C) dq_s[(warp * kFaRows + r) * D + c0 + lane] = 0.f;
+    for (int c0 = 0; c0 < Dw; c0 += C) dq_s[(warp * kFaRows + r) * Dc_ + c0 + lane] = 0.f;
   }
   const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
   __syncthreads();
@@ -1679,17 +1709,18 @@ vflash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // dq[r, c] += sum_t dS[r, t] K[t, c], 32 columns at a time
     const int n_t = min(kFaBK, k_end - k0);
-    for (int c0 = 0; c0 < D; c0 += C) {
+    const T* k_cols = k + c_lo;
+    for (int c0 = 0; c0 < Dw; c0 += C) {
       float acc[kFaRows];
 #pragma unroll
-      for (int r = 0; r < kFaRows; ++r) acc[r] = dq_s[(warp * kFaRows + r) * D + c0 + lane];
+      for (int r = 0; r < kFaRows; ++r) acc[r] = dq_s[(warp * kFaRows + r) * Dc_ + c0 + lane];
       for (int t = 0; t < n_t; ++t) {
-        const float kv = to_f32(k[(long long)(k0 + t) * k_stride + kv_off + c0 + lane]);
+        const float kv = to_f32(k_cols[(long long)(k0 + t) * k_stride + kv_off + c0 + lane]);
 #pragma unroll
         for (int r = 0; r < kFaRows; ++r) acc[r] += ds_s[(warp * kFaRows + r) * kFaBK + t] * kv;
       }
 #pragma unroll
-      for (int r = 0; r < kFaRows; ++r) dq_s[(warp * kFaRows + r) * D + c0 + lane] = acc[r];
+      for (int r = 0; r < kFaRows; ++r) dq_s[(warp * kFaRows + r) * Dc_ + c0 + lane] = acc[r];
     }
   }
 
@@ -1697,17 +1728,17 @@ vflash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kFaRows; ++r) {
     const int row = q0 + warp * kFaRows + r;
     if (row < Tq) {
-      T* orow = dq + ((long long)row * H + h) * D;
-      for (int c0 = 0; c0 < D; c0 += C)
-        orow[c0 + lane] = from_f32<T>(dq_s[(warp * kFaRows + r) * D + c0 + lane]);
+      T* orow = dq + ((long long)row * H + h) * D + c_lo;
+      for (int c0 = 0; c0 < Dw; c0 += C)
+        orow[c0 + lane] = from_f32<T>(dq_s[(warp * kFaRows + r) * Dc_ + c0 + lane]);
     }
   }
 }
 
-// One block per (32-key tile, kv head), looping over the GQA group's q heads
-// and the q rows that can see the tile, twice: pass 0 sums dV, pass 1 dK.
-// dk, dv [Tk, Hkv, D] (contiguous).
-template <typename T>
+// One block per (32-key tile, kv head, column range), looping over the GQA
+// group's q heads and the q rows that can see the tile, twice: pass 0 sums
+// dV, pass 1 dK. dk, dv [Tk, Hkv, D] (contiguous).
+template <typename T, bool kRanges>
 __global__ void __launch_bounds__(kFaThreads)
 vflash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, long long q_stride, long long k_stride,
@@ -1717,16 +1748,20 @@ vflash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const int* __restrict__ bound, const int* __restrict__ cu_q,
                            const int* __restrict__ cu_k, const int* __restrict__ seed_ptr,
                            T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
-                           int Hkv, int D, int n_seqs, float scale, int causal, int dropout,
-                           uint32_t thresh, float inv_keep) {
+                           int Hkv, int D, int Dc, int n_seqs, float scale, int causal,
+                           int dropout, uint32_t thresh, float inv_keep) {
   constexpr int C = kWideChunk;
   const int k0 = blockIdx.x * kFaBK, hk = blockIdx.y;
   const int G = H / Hkv;
   const long long kv_off = (long long)hk * D;
+  // this block's columns of dK, dV: [c_lo, c_lo + Dw), at column c of acc_s and c_lo + c of
+  // dout, q, dk, dv
+  const int Dc_ = kRanges ? Dc : D;
+  const int c_lo = kRanges ? blockIdx.z * Dc_ : 0, Dw = kRanges ? min(Dc_, D - c_lo) : D;
 
   extern __shared__ __align__(16) float sm[];
-  float* acc_s = sm;                      // [BK][D] fp32 dV (pass 0) or dK (pass 1)
-  float* k_c = acc_s + kFaBK * D;         // [BK][C]
+  float* acc_s = sm;                      // [BK][Dc] fp32 dV (pass 0) or dK (pass 1)
+  float* k_c = acc_s + kFaBK * Dc_;        // [BK][C]
   float* v_c = k_c + kFaBK * C;           // [BK][C]
   float* q_c = v_c + kFaBK * C;           // [BQ][C + 1]
   float* do_c = q_c + kFaBQ * (C + 1);    // [BQ][C + 1]
@@ -1755,7 +1790,7 @@ vflash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
     for (int r = 0; r < kFaRows; ++r)
-      for (int c0 = 0; c0 < D; c0 += C) acc_s[(warp * kFaRows + r) * D + c0 + lane] = 0.f;
+      for (int c0 = 0; c0 < Dw; c0 += C) acc_s[(warp * kFaRows + r) * Dc_ + c0 + lane] = 0.f;
 
     for (int hh = 0; hh < G; ++hh) {
       const int h = hk * G + hh;
@@ -1840,20 +1875,22 @@ vflash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         // pass 0: dv[r, c] += sum_t P^T[r, t] dO[t, c]; pass 1: dk[r, c] +=
         // sum_t dS^T[r, t] Q[t, c]; 32 columns at a time
         const int n_t = min(kFaBQ, q_end - q0);
-        for (int c0 = 0; c0 < D; c0 += C) {
+        const T* do_cols = dout + c_lo;
+        const T* q_cols = q + c_lo;
+        for (int c0 = 0; c0 < Dw; c0 += C) {
           float acc[kFaRows];
 #pragma unroll
-          for (int r = 0; r < kFaRows; ++r) acc[r] = acc_s[(warp * kFaRows + r) * D + c0 + lane];
+          for (int r = 0; r < kFaRows; ++r) acc[r] = acc_s[(warp * kFaRows + r) * Dc_ + c0 + lane];
           for (int t = 0; t < n_t; ++t) {
             const float src =
-                pass == 0 ? to_f32(dout[((long long)(q0 + t) * H + h) * D + c0 + lane])
-                          : to_f32(q[(long long)(q0 + t) * q_stride + q_off + c0 + lane]);
+                pass == 0 ? to_f32(do_cols[((long long)(q0 + t) * H + h) * D + c0 + lane])
+                          : to_f32(q_cols[(long long)(q0 + t) * q_stride + q_off + c0 + lane]);
 #pragma unroll
             for (int r = 0; r < kFaRows; ++r)
               acc[r] += pd_s[(warp * kFaRows + r) * kFaBQ + t] * src;
           }
 #pragma unroll
-          for (int r = 0; r < kFaRows; ++r) acc_s[(warp * kFaRows + r) * D + c0 + lane] = acc[r];
+          for (int r = 0; r < kFaRows; ++r) acc_s[(warp * kFaRows + r) * Dc_ + c0 + lane] = acc[r];
         }
       }
     }
@@ -1863,9 +1900,9 @@ vflash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < kFaRows; ++r) {
       const int key = k0 + warp * kFaRows + r;
       if (key < Tk) {
-        const long long o = ((long long)key * Hkv + hk) * D;
-        for (int c0 = 0; c0 < D; c0 += C)
-          dst[o + c0 + lane] = from_f32<T>(acc_s[(warp * kFaRows + r) * D + c0 + lane]);
+        const long long o = ((long long)key * Hkv + hk) * D + c_lo;
+        for (int c0 = 0; c0 < Dw; c0 += C)
+          dst[o + c0 + lane] = from_f32<T>(acc_s[(warp * kFaRows + r) * Dc_ + c0 + lane]);
       }
     }
   }
@@ -1877,8 +1914,8 @@ vflash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // contiguous. seg_q, seg_k, bound, cu_q, cu_k, seed: int32 on the device.
 // Routing: D <= 256 takes the kernels compiled for D (with_head_dim), fp32
 // on the CUDA cores and bf16/fp16 on the tensor cores; D > 256, a multiple
-// of 32 up to kWideMaxD, takes the wide kernels in every dtype. Any other D
-// returns cudaErrorInvalidValue.
+// of 32, takes the wide kernels in every dtype (in column ranges above
+// kWideMaxD). Any other D returns cudaErrorInvalidValue.
 
 template <typename K>
 static cudaError_t opt_in_smem(K kernel, size_t bytes) {
@@ -2015,49 +2052,65 @@ static int launch_vflash_bwd_dkv(const VArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The wide route: any dtype, D > 256 (a multiple of 32, at most kWideMaxD).
-static bool bad_wide_dim(int D) { return D <= 256 || D > kWideMaxD || D % kWideChunk; }
+// The wide route: any dtype, D > 256 a multiple of 32; grid z over the
+// column ranges of wide_range_cols (one range up to kWideMaxD).
+static bool bad_wide_dim(int D) { return D <= 256 || D % kWideChunk; }
+
+static dim3 wide_grid(int tiles, int heads, int D) {
+  const int Dc = wide_range_cols(D);
+  return dim3(tiles, heads, (D + Dc - 1) / Dc);
+}
 
 template <typename T>
 static int launch_vflash_fwd_wide(const VArgs& a, int D, cudaStream_t s) {
   if (bad_wide_dim(D)) return (int)cudaErrorInvalidValue;
-  const size_t smem = vflash_fwd_wide_smem_bytes(D);
-  const cudaError_t e = opt_in_smem(vflash_fwd_wide_kernel<T>, smem);
+  const int Dc = wide_range_cols(D);
+  const size_t smem = vflash_fwd_wide_smem_bytes(Dc);
+  const dim3 grid = wide_grid((a.Tq + kFaBQ - 1) / kFaBQ, a.H, D);
+  const auto kernel = grid.z > 1 ? vflash_fwd_wide_kernel<T, true>
+                                 : vflash_fwd_wide_kernel<T, false>;
+  const cudaError_t e = opt_in_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.Tq + kFaBQ - 1) / kFaBQ, a.H);
-  vflash_fwd_wide_kernel<T><<<grid, kFaThreads, smem, s>>>(
+  kernel<<<grid, kFaThreads, smem, s>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride, a.seg_q,
-      a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.out, a.lse, a.Tq, a.Tk, a.H, a.Hkv, D, a.n_seqs,
-      a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
+      a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.out, a.lse, a.Tq, a.Tk, a.H, a.Hkv, D, Dc,
+      a.n_seqs, a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_vflash_bwd_dq_wide(const VArgs& a, int D, cudaStream_t s) {
   if (bad_wide_dim(D)) return (int)cudaErrorInvalidValue;
-  const size_t smem = vflash_dq_wide_smem_bytes(D);
-  const cudaError_t e = opt_in_smem(vflash_bwd_dq_wide_kernel<T>, smem);
+  const int Dc = wide_range_cols(D);
+  const size_t smem = vflash_dq_wide_smem_bytes(Dc);
+  const dim3 grid = wide_grid((a.Tq + kFaBQ - 1) / kFaBQ, a.H, D);
+  const auto kernel = grid.z > 1 ? vflash_bwd_dq_wide_kernel<T, true>
+                                 : vflash_bwd_dq_wide_kernel<T, false>;
+  const cudaError_t e = opt_in_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.Tq + kFaBQ - 1) / kFaBQ, a.H);
-  vflash_bwd_dq_wide_kernel<T><<<grid, kFaThreads, smem, s>>>(
+  kernel<<<grid, kFaThreads, smem, s>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride,
       (const T*)a.dout, a.lse_in, a.delta, a.seg_q, a.seg_k, a.bound, a.cu_k, a.seed, (T*)a.dq,
-      a.Tq, a.Tk, a.H, a.Hkv, D, a.n_seqs, a.scale, a.causal, a.dropout, a.thresh, a.inv_keep);
+      a.Tq, a.Tk, a.H, a.Hkv, D, Dc, a.n_seqs, a.scale, a.causal, a.dropout, a.thresh,
+      a.inv_keep);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_vflash_bwd_dkv_wide(const VArgs& a, int D, cudaStream_t s) {
   if (bad_wide_dim(D)) return (int)cudaErrorInvalidValue;
-  const size_t smem = vflash_dkv_wide_smem_bytes(D);
-  const cudaError_t e = opt_in_smem(vflash_bwd_dkv_wide_kernel<T>, smem);
+  const int Dc = wide_range_cols(D);
+  const size_t smem = vflash_dkv_wide_smem_bytes(Dc);
+  const dim3 grid = wide_grid((a.Tk + kFaBK - 1) / kFaBK, a.Hkv, D);
+  const auto kernel = grid.z > 1 ? vflash_bwd_dkv_wide_kernel<T, true>
+                                 : vflash_bwd_dkv_wide_kernel<T, false>;
+  const cudaError_t e = opt_in_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.Tk + kFaBK - 1) / kFaBK, a.Hkv);
-  vflash_bwd_dkv_wide_kernel<T><<<grid, kFaThreads, smem, s>>>(
+  kernel<<<grid, kFaThreads, smem, s>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, a.q_stride, a.k_stride, a.v_stride,
       (const T*)a.dout, a.lse_in, a.delta, a.seg_q, a.seg_k, a.bound, a.cu_q, a.cu_k, a.seed,
-      (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv, D, a.n_seqs, a.scale, a.causal, a.dropout,
-      a.thresh, a.inv_keep);
+      (T*)a.dk, (T*)a.dv, a.Tq, a.Tk, a.H, a.Hkv, D, Dc, a.n_seqs, a.scale, a.causal,
+      a.dropout, a.thresh, a.inv_keep);
   return (int)cudaGetLastError();
 }
 

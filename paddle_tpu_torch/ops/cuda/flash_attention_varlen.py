@@ -24,13 +24,14 @@ Head dims (:func:`_kernel_head_dim`): up to 256 the kernels compiled for
 every multiple of 32 from 32 to 256 (``KERNEL_HEAD_DIMS``) run, by the
 dtype's route; above 256 every dtype takes the wide kernels
 (``vflash_*_wide_kernel``, fp32 math on the CUDA cores), which take the
-head dim at run time, any multiple of 32 up to ``WIDE_MAX_HEAD_DIM``
-(1536). The C entry points route by the same rule. Any other head dim
-runs at the next multiple of 32, with q, k, v (and out, dO) zero-padded
-and the results sliced back; that is exact, because zero columns add
-nothing to Q K^T and give only output columns that are sliced off. A head
-dim above 1536 raises ``ValueError``. The plain version takes any head
-dim.
+head dim at run time, any multiple of 32. Their fp32 accumulator holds at
+most ``WIDE_RANGE_COLS`` (1536) columns, so above that the columns are cut
+into ranges, one block per range (:func:`_wide_column_ranges`). The C
+entry points route by the same rule. Any other head dim runs at the next
+multiple of 32, with q, k, v (and out, dO) zero-padded and the results
+sliced back; that is exact, because zero columns add nothing to Q K^T and
+give only output columns that are sliced off. Every head dim from 1 up
+runs on the card, as the plain version takes any.
 """
 from __future__ import annotations
 
@@ -44,15 +45,16 @@ from .flash_attention import NEG_INF, _as_int64, _keep_mask
 
 __all__ = ["flash_attn_varlen_thd", "flash_attn_varlen", "launches",
            "dq_launches", "dkv_launches", "KERNEL_HEAD_DIMS",
-           "WIDE_MAX_HEAD_DIM"]
+           "WIDE_RANGE_COLS"]
 
 #: head dims the kernels are compiled for (csrc/flash_attention_varlen.cu
 #: ``with_head_dim``); other head dims up to 256 are padded to the next one
 KERNEL_HEAD_DIMS = tuple(range(32, 257, 32))
-#: the wide kernels' largest head dim (csrc/flash_attention_varlen.cu
-#: ``kWideMaxD``): their fp32 [32, D] accumulator and staging tiles,
-#: 128 D + 20.8 KB, fill the 227 KB of shared memory a block may use
-WIDE_MAX_HEAD_DIM = 1536
+#: the widest column range of the wide kernels' fp32 accumulator
+#: (csrc/flash_attention_varlen.cu ``kWideMaxD``): [32, 1536] fp32 and the
+#: staging tiles, 128 x 1536 + 20.8 KB, fill the 227 KB of shared memory a
+#: block may use
+WIDE_RANGE_COLS = 1536
 
 #: forward kernel launches since the count was last reset
 launches = 0
@@ -290,15 +292,26 @@ def _kernel_head_dim(d):
     ``d``: the next multiple of 32 (``d`` itself if it is one), and
     "compiled" up to 256 (the kernels compiled for that head dim) or
     "wide" above (the wide kernels, head dim at run time). Raises
-    ``ValueError`` for ``d`` < 1 or above ``WIDE_MAX_HEAD_DIM``."""
+    ``ValueError`` for ``d`` < 1."""
     d = int(d)
-    if d < 1 or d > WIDE_MAX_HEAD_DIM:
-        raise ValueError(
-            f"varlen flash kernel: head dim {d} is outside 1..."
-            f"{WIDE_MAX_HEAD_DIM}, the largest head dim the wide kernels "
-            f"take (their fp32 accumulator fills shared memory)")
+    if d < 1:
+        raise ValueError(f"varlen flash kernel: head dim {d} < 1")
     d_run = -(-d // 32) * 32
     return d_run, "compiled" if d_run <= KERNEL_HEAD_DIMS[-1] else "wide"
+
+
+def _wide_column_ranges(d):
+    """(ranges, columns a range) of the wide kernels' accumulator for a
+    call with head dim ``d`` (csrc/flash_attention_varlen.cu
+    ``wide_range_cols``): the kernels' head dim cut into n =
+    ceil(D / ``WIDE_RANGE_COLS``) ranges of ceil(D / n) columns rounded up
+    to 32, the last one narrower where they do not divide D; one block
+    per range, each taking the products over the full D and accumulating
+    its own columns. One range up to 1536."""
+    d_run, _ = _kernel_head_dim(d)
+    n = -(-d_run // WIDE_RANGE_COLS)
+    cols = -(-(-(-d_run // n)) // 32) * 32
+    return -(-d_run // cols), cols
 
 
 def _pad_head_dim(t, d):

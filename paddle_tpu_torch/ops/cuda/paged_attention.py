@@ -13,10 +13,21 @@ kernel; ``"kernel"`` insists on the kernel (and raises for a CPU
 tensor); ``"reference"`` runs the plain version on any device (the
 serving engine's reference mode). The Pallas ``"interpret"`` backend has
 no counterpart.
+
+The kernel splits each row's context into splits of ``split_tokens``
+tokens; a work item is one split that holds rows, for one block of q
+heads of one kv head, and a row's splits merge in split order inside the
+same launch. The launch comes from the shapes alone (:func:`_split_plan`;
+the grid is as many blocks as fit the SMs, and the kernel reads the
+lengths itself), so a call never waits on the host. The fp32 partials
+of the splits and the per-(row, head block) arrival counters live in a
+workspace kept per device and stream (:func:`_workspace`): the counters
+are 0 between calls, and the addresses stay fixed while the shapes do.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,21 +43,111 @@ __all__ = [
 #: kernel launches since the count was last reset
 launches = 0
 
+#: bytes of K and V rows a block's ring of shared memory holds (its 4
+#: stages): 32 KB, 16-row stages at D 128 bf16
+RING_BYTES = 32 * 1024
+#: the kernel's ring stages and warps per block (csrc/paged_attention.cu
+#: ``kPdStages``, ``kPdWarps``)
+STAGES, WARPS = 4, 4
+#: fp32 values of q (and as many of acc) a lane may hold in registers
+LANE_VALUES = 64
+
 _fns = {}
 
 
 def _lib():
     if not _fns:
-        lib = _build.load("paged_attention")
-        fn = lib.paged_decode
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn = _build.load("paged_attention").paged_decode
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = lib.paged_decode_smem_bytes
-        smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        smem.restype = ctypes.c_longlong
-        _fns.update(run=fn, smem=smem)
-    return _fns
+        _fns["run"] = fn
+    return _fns["run"]
+
+
+class SplitPlan(NamedTuple):
+    """A paged decode launch: ``split_tokens`` per split, ``splits`` =
+    ceil(pps * page / split_tokens) per row, ``heads`` q heads per block,
+    ``grid`` = (splits, rows, kv heads x head blocks per kv head), one work
+    item each (the kernel runs them on as many blocks as fit the SMs);
+    ``stage_rows`` rows a ring stage, ``smem`` bytes of shared memory a
+    block; and how a row is read: ``lanes`` lanes a row, ``vectors``
+    16-byte vectors a lane (csrc/paged_attention.cu ``row_lanes`` /
+    ``row_vpl``)."""
+    split_tokens: int
+    splits: int
+    heads: int
+    grid: tuple
+    stage_rows: int
+    smem: int
+    lanes: int
+    vectors: int
+
+
+def _pow2_at_least(n):
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _split_plan(pps, page, b, kvh, dh, itemsize, sms, *, group=1,
+                split_tokens=None):
+    """The launch of one call, from shapes only (the lengths stay on the
+    device). A row of ``dh`` elements is read 16 bytes a lane by
+    ``lanes`` lanes (its vectors rounded up to a power of two, at most
+    32), ``vectors`` times each; a block takes ``heads`` q heads of one
+    kv head, the group rounded up to a power of two and cut so that a
+    lane holds at most ``LANE_VALUES`` fp32 values of q. The split is a
+    page, or half a page where a page would give fewer than 2 work items
+    per SM on ``sms`` SMs; ``split_tokens`` overrides the rule. A ring
+    stage holds the rows that fit ``RING_BYTES`` over ``STAGES`` stages.
+    Raises ``ValueError`` where a lane would need more than 8 vectors (DH
+    above 2048 in bf16/fp16, 1024 in fp32)."""
+    vec = 16 // itemsize
+    nv = dh // vec
+    lanes = min(32, _pow2_at_least(nv))
+    vectors = _pow2_at_least(-(-nv // lanes))
+    if vectors > 8:
+        raise ValueError(
+            f"paged_attention kernel: DH {dh} needs {vectors} 16-byte "
+            f"vectors a lane; the kernel takes at most 8 (DH <= "
+            f"{8 * 32 * vec} for this dtype)")
+    heads = min(_pow2_at_least(group),
+                max(1, min(8, LANE_VALUES // (vectors * vec))))
+    head_blocks = kvh * -(-group // heads)
+    if split_tokens is None:
+        split_tokens = page
+        if page > 1 and pps * b * head_blocks < 2 * sms:
+            split_tokens = -(-page // 2)
+    if split_tokens < 1:
+        raise ValueError(f"paged_attention kernel: split_tokens "
+                         f"{split_tokens} < 1")
+    splits = -(-pps * page // split_tokens)
+    stage_rows = max(1, RING_BYTES // (STAGES * 2 * dh * itemsize))
+    # the ring, or the warps' (m, l, acc) aliased over it; then page ids
+    # and each sequence's first split
+    region = max(STAGES * 2 * stage_rows * dh * itemsize,
+                 4 * WARPS * heads * (dh + 2))
+    smem = -(-region // 16) * 16 + 4 * (split_tokens // page + 2 + b + 1)
+    return SplitPlan(split_tokens, splits, heads, (splits, b, head_blocks),
+                     stage_rows, smem, lanes, vectors)
+
+
+_scratch = {}
+
+
+def _workspace(dev, n_partials, n_counters):
+    """(fp32 partials, int32 counters) of at least the given sizes for the
+    current stream on ``dev``, kept between calls. Counters start at 0 and
+    every launch leaves them 0; a larger shape replaces both buffers (the
+    old ones stay alive until the stream's earlier launches are done, as
+    the caching allocator orders frees on their stream)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    ws, cnt = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < n_partials:
+        ws = torch.empty(max(1, n_partials), dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = torch.zeros(max(1, n_counters), dtype=torch.int32, device=dev)
+    _scratch[key] = (ws, cnt)
+    return ws, cnt
 
 
 def _check_shapes(q, k_pages, v_pages, lengths, block_tables):
@@ -134,24 +235,30 @@ def paged_attention_decode_kernel(q, k_pages, v_pages, lengths,
         raise ValueError(
             f"paged_attention kernel: a K/V row must be a multiple of 16 "
             f"bytes (DH={dh}, {q.dtype})")
-    fns = _lib()
-    smem = fns["smem"](nh // kvh, dh, q.element_size())
+    pps, sms = block_tables.shape[1], _build.sm_count(dev)
+    plan = _split_plan(pps, page, b, kvh, dh, q.element_size(), sms,
+                       group=nh // kvh)
     limit = _build.smem_limit(dev)
-    if smem > limit:
+    if plan.smem > limit:
         raise ValueError(
-            f"paged_attention kernel: group {nh // kvh} x DH {dh} needs "
-            f"{smem} bytes of shared memory, the card allows {limit}")
+            f"paged_attention kernel: {b} rows of DH {dh} need {plan.smem} "
+            f"bytes of shared memory (the ring and a split count a row), "
+            f"the card allows {limit}")
     # the kernel reads int32 lengths / tables (jax's x64 ids were cast the
     # same way at paged_attention.py:173-174)
     lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
     block_tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     scale = dh ** -0.5 if sm_scale is None else sm_scale
     out = torch.empty_like(q)
-    status = fns["run"](q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                        lengths.data_ptr(), block_tables.data_ptr(),
-                        out.data_ptr(), b, nh, kvh, dh, num_pages, page,
-                        block_tables.shape[1], float(scale),
-                        _build.DTYPE_CODES[q.dtype], _build.stream_ptr(dev))
+    rows = b * plan.grid[2]        # (row, head block) pairs
+    ws, cnt = _workspace(dev, 0 if plan.splits == 1 else
+                         rows * plan.splits * plan.heads * (dh + 2), rows)
+    status = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    lengths.data_ptr(), block_tables.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, nh, kvh,
+                    dh, num_pages, page, pps, plan.split_tokens,
+                    plan.stage_rows, plan.heads, sms, float(scale),
+                    _build.DTYPE_CODES[q.dtype], _build.stream_ptr(dev))
     _build.check_status(status, "paged_decode")
     launches += 1
     return out
