@@ -17,6 +17,17 @@ Phases, each fatal on failure:
              through the paged kernel (``paged_decode_split_kernel``, by
              name, once per layer in a profiled decode step), then fp32
              greedy streams of the kernel engine vs the reference engine;
+5b. generate — ``LlamaForCausalLM.generate`` at the serving width (bf16,
+             8 left-padded prompts, 64 new tokens): dense, ``paged=True``
+             at blocks 64 and 128 (the paged kernel once per layer per
+             tick, the varlen forward once per prefill layer, both by
+             name in a profile; in bf16 every call of both kernels
+             of a further run at each block held against its plain
+             version), sampled (one seed twice, bit for bit),
+             beam search and ``generate_speculative``; tokens/s, prefill
+             and decode-tick times; then fp32 token streams at 2 layers:
+             dense = paged on the kernels = paged on the plain versions =
+             speculative, sampled dense = paged;
 6. train   — ``bench.py:bench_llama``'s training step (645M Llama, bf16,
              batch 4 x 2048, ``AdamW(multi_precision=True)``): launch
              counts per step, falling loss, tokens/s, MFU, peak memory and
@@ -33,7 +44,9 @@ Phases, each fatal on failure:
              matmul kernel, and the tiled kernel that ran by name.
 
 Each kernel's ``launches`` in the ``kernels`` line is its count on its
-own main path (``main_path``: serve, train, varlen or calibrate).
+own main path (``main_path``: serve, train, varlen or calibrate); the
+paged and varlen-forward entries also carry their counts on the
+``generate`` path under ``launches_by_path``.
 
 The paged kernel is held at the serving, GQA, decode-step and
 suffix-prefill shapes (``PAGED_SHAPES``) with the L2 cold and warm, and
@@ -65,6 +78,8 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
 import json
 import math
@@ -550,8 +565,9 @@ def phase_paged(torch, dev, report):
     serving shape (8 slots, 16 heads, DH 128, page 128, 8 pages per
     sequence, a 96-page pool) with ragged lengths including 0 and exact
     page edges, at the llama3-8b GQA layout (32 q heads over 8 kv heads),
-    at DH 64 and 256 in both layouts, and at ``PAGED_SHAPES`` (b) and (c),
-    in fp32, bf16 and fp16. Both accumulate in fp32 (the kernel online,
+    at DH 64 and 256 in both layouts, at ``PAGED_SHAPES`` (b) and (c),
+    and at ``generate``'s default page of 64 (16 pages per sequence, a
+    192-page pool) in both layouts, in fp32, bf16 and fp16. Both accumulate in fp32 (the kernel online,
     per split and then across splits, the reference in one softmax) and
     round once: tolerance ``tolerance(dtype, 1e-5)``, i.e. 1e-5 (fp32)
     plus two output ulps of |out| (bf16, fp16). A length-0 row must be
@@ -565,14 +581,19 @@ def phase_paged(torch, dev, report):
     f32, bf16 = torch.float32, torch.bfloat16
     worst = 0.0
     cases = [(f"nh={nh} kvh={kvh} D {dh}", (8, nh, kvh, PAGED_TABLE_LENS,
-                                            False), dh)
+                                            False), dh, 128)
              for dh in (128, 64, 256) for nh, kvh in ((16, 16), (32, 8))]
-    cases += [(f"shape ({key}) D 128", PAGED_SHAPES[key], 128)
+    cases += [(f"shape ({key}) D 128", PAGED_SHAPES[key], 128, 128)
               for key in ("b", "c")]
-    for label, (b, nh, kvh, lens, one), dh in cases:
+    # generate's default block size: pages of 64 over the same tokens
+    cases += [(f"page 64 nh={nh} kvh={kvh} D 128", (8, nh, kvh,
+                                                    PAGED_TABLE_LENS, False),
+               128, 64) for nh, kvh in ((16, 16), (32, 8))]
+    for label, (b, nh, kvh, lens, one), dh, page in cases:
         for dt in (f32, bf16, torch.float16):
-            args = _pages_case(torch, dev, g, b, nh, kvh, dh, 128, 8, 96,
-                               lens, dt, one_table=one)
+            args = _pages_case(torch, dev, g, b, nh, kvh, dh, page,
+                               1024 // page, 96 * 128 // page, lens, dt,
+                               one_table=one)
             out = pa.paged_attention_decode(*args, backend="kernel")
             again = pa.paged_attention_decode(*args, backend="kernel")
             ref = pa.paged_attention_decode(*args, backend="reference")
@@ -1712,6 +1733,347 @@ def phase_serve(torch, dev, report):
     torch.cuda.empty_cache()
 
 
+#: generate's prompts: 8 rows left-padded with pad id 0 to 128 tokens,
+#: real lengths across the 64- and 128-token block edges; new tokens a row
+GEN_PROMPT_LENS = [128, 97, 64, 33, 128, 80, 50, 111]
+GEN_NEW = 64
+#: new tokens of the profiled calls: 15 ticks (a 64-token call is about
+#: 33k kernels, and a profile that long lost launches: 625 of 630 paged)
+GEN_PROFILE_NEW = 16
+#: sampling knobs of the sampled runs, and speculative decoding's gamma
+GEN_SAMPLE = dict(do_sample=True, top_k=50, top_p=0.9, seed=3)
+GEN_GAMMA = 4
+
+
+def _gen_prompts(torch, config, lens, seed):
+    """Left-padded prompts [len(lens), max(lens)] (pad id 0, ids from
+    1..vocab-1 by a seeded CPU generator; ``generate`` moves them to the
+    model's device) and each row's pad count."""
+    g = torch.Generator().manual_seed(seed)
+    t0 = max(lens)
+    ids = torch.zeros(len(lens), t0, dtype=torch.long)
+    for r, n in enumerate(lens):
+        ids[r, t0 - n:] = torch.randint(1, config.vocab_size, (n,),
+                                        generator=g)
+    return ids, [t0 - n for n in lens]
+
+
+@contextlib.contextmanager
+def plain_paged_attention():
+    """``generate(paged=True)`` through the two kernels' plain versions:
+    the names ``inference_attention`` calls are swapped for the block."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        inference_attention as ia)
+    from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    saved = ia.paged_attention_decode, ia.flash_attn_varlen_thd
+    ia.paged_attention_decode = functools.partial(
+        pa.paged_attention_decode, backend="reference")
+    ia.flash_attn_varlen_thd = (
+        lambda q, k, v, cu_q, cu_k, causal: fv._vflash_fwd_reference(
+            q, k, v, cu_q, cu_k, causal=causal,
+            scale=1.0 / math.sqrt(q.shape[-1])))
+    try:
+        yield
+    finally:
+        ia.paged_attention_decode, ia.flash_attn_varlen_thd = saved
+
+
+@contextlib.contextmanager
+def checked_paged_attention(worst):
+    """``generate(paged=True)`` on the kernels, each call of the two held
+    against its plain version on the same inputs (the pools as the call
+    found them) at the tolerance of the kernel's own phase: paged
+    ``tolerance(dtype, 1e-5)``, varlen ``tolerance(dtype, 1e-4)``. The
+    calls return the kernels' outputs. ``worst`` collects, per counter
+    key, [calls, max abs err, worst share of the tolerance]."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        inference_attention as ia)
+    from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    saved = kernel_paged, kernel_varlen = (ia.paged_attention_decode,
+                                           ia.flash_attn_varlen_thd)
+
+    def note(key, out, ref, base):
+        err, share = close_err(out, ref, *tolerance(out.dtype, base))
+        w = worst.setdefault(key, [0, 0.0, 0.0])
+        w[:] = w[0] + 1, max(w[1], err), max(w[2], share)
+
+    def paged(q, kc, vc, lengths, tables):
+        out = kernel_paged(q, kc, vc, lengths, tables)
+        note("paged", out, pa.paged_attention_decode(
+            q, kc, vc, lengths, tables, backend="reference"), 1e-5)
+        return out
+
+    def varlen(q, k, v, cu_q, cu_k, causal):
+        out, lse = kernel_varlen(q, k, v, cu_q, cu_k, causal=causal)
+        note("vflash", out, fv._vflash_fwd_reference(
+            q, k, v, cu_q, cu_k, causal=causal,
+            scale=1.0 / math.sqrt(q.shape[-1]))[0], 1e-4)
+        return out, lse
+
+    ia.paged_attention_decode, ia.flash_attn_varlen_thd = paged, varlen
+    try:
+        yield
+    finally:
+        ia.paged_attention_decode, ia.flash_attn_varlen_thd = saved
+
+
+def first_diffs(torch, a, b, t0):
+    """Per row, the first new token where the streams ``a`` and ``b``
+    differ (None where the row is equal)."""
+    return [int((a[r] != b[r]).int().argmax()) - t0
+            if bool((a[r] != b[r]).any()) else None for r in range(a.shape[0])]
+
+
+def check_streams(torch, model, pads, a, b, label, sample=None):
+    """Fail unless the token streams ``a`` and ``b`` [B, t0 + n] are equal,
+    or each row that differs does so first where the two tokens it chose
+    score within ``tolerance(float32, 1e-4)`` of each other: the fp32
+    logits of the model's full-prefix forward on the row's common prefix
+    (for sampled streams filtered and perturbed by the same Gumbel draw,
+    replayed from ``sample``'s seed). Such a near-tie is printed."""
+    from paddle_tpu_torch.core.generator import make_generator
+    from paddle_tpu_torch.models import generation as gen
+
+    atol, _ = tolerance(torch.float32, 1e-4)
+    t0 = a.shape[1] - GEN_NEW
+    diff = a != b
+    for r in diff.any(dim=1).nonzero().flatten().tolist():
+        j = int(diff[r].int().argmax())
+        with torch.no_grad():
+            scores = model(a[r:r + 1, pads[r]:j])[0, -1].float()
+        if sample is not None:
+            g = make_generator(sample["seed"], a.device)
+            for _ in range(j - t0 + 1):       # one draw a token, as generate
+                noise = torch.empty(a.shape[0], scores.shape[0],
+                                    device=a.device).exponential_(generator=g)
+            scores = gen._filter_logits(
+                scores[None], 1.0, sample["top_k"], sample["top_p"])[0]
+            scores = scores - torch.log(noise[r])
+        gap = abs(float(scores[a[r, j]] - scores[b[r, j]]))
+        log(f"  {label}: row {r} differs first at new token {j - t0} "
+            f"({int(a[r, j])} vs {int(b[r, j])}), score gap {gap:.3g} "
+            f"(near-tie if <= {atol:g})")
+        check(gap <= atol, f"{label}: row {r} differs at new token "
+                           f"{j - t0}, not at a near-tie (gap {gap:.3g})")
+
+
+def device_table(torch, fn, n):
+    """Kernel name -> (launches, device ms) per call of ``fn``, over ``n``
+    profiled calls."""
+    from torch.autograd import DeviceType
+
+    return {e.key: (e.count // n, _dev_us(e) / n / 1e3)
+            for e in profiled(fn, n) if e.device_type == DeviceType.CUDA}
+
+
+def timed_call(torch, fn):
+    """(result, wall ms, the warm-up call's result) of ``fn``, timed after
+    one warm-up call."""
+    first = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, first
+
+
+def phase_generate(torch, dev, report):
+    """``LlamaForCausalLM.generate`` at ``default_serving_setup``'s width
+    (10 layers, hidden 2048, 16 heads of 128, vocab 32000, bf16), 8
+    left-padded prompts (``GEN_PROMPT_LENS``), 64 new tokens, each run
+    timed after one warm-up call: dense greedy; ``paged=True`` at block
+    64 and 128, which must launch ``paged_decode_split_kernel`` once per
+    layer per tick (L x 63) and the varlen forward once per layer (L), and
+    no other kernel of the port, the profiler showing both by name on the
+    tensor-core varlen route; at both blocks, every paged and varlen call
+    of a further run held against its plain version on the same inputs
+    (``checked_paged_attention``) and the tokens of a run on the plain
+    versions reported beside the dense run's; sampled (top-k 50, top-p
+    0.9), dense and paged, the two calls of one seed equal bit for bit; beam search with 4
+    beams; ``generate_speculative`` of the 128-token prompt with a 2-layer
+    draft of the same widths, gamma 4. Prints tokens/s, prefill and
+    decode-tick times (a tick: the 64-token call less the 1-token call,
+    over 63; its kernels from profiles of 16 and 1 new tokens) and where
+    a tick's kernel time goes. Then fp32 at 2
+    layers (TF32 off): greedy dense (plain), paged on the kernels and
+    paged on their plain versions give equal tokens, speculative decoding
+    equals the dense greedy stream, and sampled dense and paged streams
+    are equal (``check_streams`` admits a near-tie). The profiles take 16
+    new tokens (``GEN_PROFILE_NEW``)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.generation import generate_speculative
+    from paddle_tpu_torch.serve import default_serving_setup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config, _ = default_serving_setup(dev)
+    nl = config.num_hidden_layers
+    ids, pads = _gen_prompts(torch, config, GEN_PROMPT_LENS, 8)
+    b, t0 = ids.shape
+    ticks = GEN_NEW - 1
+    tc, cc = VARLEN_KERNELS["fwd"]
+
+    def gen(model, n=GEN_NEW, **kw):
+        return lambda: model.generate(ids, max_new_tokens=n, pad_token_id=0,
+                                      **kw)
+
+    def run(label, fn, rows=b):
+        """Time ``fn``; its output must be on the card, prompt + 64 ids
+        in range."""
+        out, ms, first = timed_call(torch, fn)
+        check(out.device == dev and out.shape[1] == t0 + GEN_NEW
+              and bool(((out >= 0) & (out < config.vocab_size)).all()),
+              f"{label}: output {tuple(out.shape)} on {out.device}")
+        log(f"  {label}: {ms:.1f} ms, {rows * GEN_NEW / ms * 1e3:.1f} "
+            f"tokens/s")
+        return out, first
+
+    model = LlamaForCausalLM(dataclasses.replace(config, dtype="bfloat16"),
+                             device=dev, seed=0).eval()
+    log(f"  bf16, {b} prompts of {GEN_PROMPT_LENS} tokens (left-padded to "
+        f"{t0}), {GEN_NEW} new tokens; {smi_line()}")
+    dense, _ = run("dense greedy", gen(model))
+    paged = {}
+    for block in (64, 128):
+        fn = gen(model, paged=True, block_size=block)
+        paged[block], _ = run(f"paged greedy, block {block}",
+                              lambda: (reset_counts(), fn())[1])
+        counts = read_counts()
+        log(f"    launches of the timed call: {counts}")
+        check(counts["paged"] == nl * ticks and counts["vflash"] == nl,
+              f"paged block {block}: paged launches {counts['paged']} (want "
+              f"{nl * ticks}), varlen forward {counts['vflash']} (want {nl})")
+        check(not any(n for k, n in counts.items()
+                      if k not in ("paged", "vflash")),
+              f"paged block {block}: other kernels launched: {counts}")
+        if block == 64:
+            record_launches(report, "generate", counts)
+    # the two kernels at the shapes of this path, bf16: every call of a
+    # checked run against its plain version (the run must give the timed
+    # run's tokens); then the stream of a run on the plain versions
+    worst = {}
+    for block in (64, 128):
+        fn = gen(model, paged=True, block_size=block)
+        with checked_paged_attention(worst):
+            again = fn()
+        check(torch.equal(again, paged[block]),
+              f"paged block {block}: the checked run's tokens differ from "
+              f"the timed run's")
+        with plain_paged_attention():
+            plain = fn()
+        log(f"  bf16 paged (block {block}), first differing new token per "
+            f"row (None: equal; reported, not required): vs dense "
+            f"{first_diffs(torch, paged[block], dense, t0)}, vs paged on "
+            f"the plain versions {first_diffs(torch, paged[block], plain, t0)}")
+    for key, want in (("paged", 2 * nl * ticks), ("vflash", 2 * nl)):
+        calls, err, share = worst[key]
+        log(f"  bf16 {report[key]['name']} at generate's shapes (blocks 64 "
+            f"and 128), {calls} calls vs the plain version: max_abs_err="
+            f"{err:.3g}, {share:.3g} of the tolerance")
+        check(calls == want and share <= 1.0,
+              f"generate's {key} calls: {calls} checked (want {want}), "
+              f"{share:.3g} of the tolerance")
+        report[key]["generate_max_abs_err"] = err
+    for label, kw in (("sampled dense", {}),
+                      ("sampled paged", dict(paged=True))):
+        out, first = run(label, gen(model, **GEN_SAMPLE, **kw))
+        check(torch.equal(out, first),
+              f"bf16 {label}: two calls with one seed differ")
+    log("  bf16 sampled, one seed twice: equal bit for bit (dense, paged)")
+    # the pad ids count as tokens here: beam search takes no ragged prompts
+    run("beam search, 4 beams (pads as tokens)", lambda: model.generate(
+        ids, max_new_tokens=GEN_NEW, num_beams=4))
+    draft = LlamaForCausalLM(dataclasses.replace(
+        config, dtype="bfloat16", num_hidden_layers=2), device=dev,
+        seed=1).eval()
+    run(f"generate_speculative, the {t0}-token prompt, gamma {GEN_GAMMA}, "
+        f"2-layer draft", lambda: generate_speculative(
+            model, draft, ids[:1], max_new_tokens=GEN_NEW, gamma=GEN_GAMMA),
+        rows=1)
+
+    # prefill and the decode tick: the wall of the 64-token call less the
+    # 1-token call, the kernels of the profiled 16-token call less the
+    # 1-token call (the paged run last: its profile is checked below)
+    for label, kw in (("dense", {}), ("paged", dict(paged=True))):
+        _, one_ms, _ = timed_call(torch, gen(model, 1, **kw))
+        _, all_ms, _ = timed_call(torch, gen(model, **kw))
+        tab = {n: device_table(torch, gen(model, n, **kw), 1)
+               for n in (1, GEN_PROFILE_NEW)}
+
+        def per_tick(pats, i):
+            """Launches (i=0) or device ms (i=1) of the kernels matching
+            ``pats`` (all with None) in a tick."""
+            return sum((1 if n > 1 else -1) * v[i]
+                       for n, t in tab.items() for k, v in t.items()
+                       if pats is None or any(p in k for p in pats)
+                       ) / (GEN_PROFILE_NEW - 1)
+
+        wall, busy = (all_ms - one_ms) / ticks, per_tick(None, 1)
+        kinds = {kind: per_tick(pats, 1) for kind, pats in KERNEL_KINDS}
+        kinds["other"] = busy - sum(kinds.values())
+        log(f"  {label} decode tick: {wall:.3f} ms wall, {busy:.3f} ms of "
+            f"kernels ({busy / wall:.1%} busy), {per_tick(None, 0):.0f} "
+            f"kernels; by kind "
+            + ", ".join(f"{k} {ms:.3f}" for k, ms in kinds.items()
+                        if abs(ms) >= 5e-4)
+            + f"; prefill (the 1-token call) {one_ms:.2f} ms wall, "
+            f"{sum(v[1] for v in tab[1].values()):.3f} ms of kernels")
+    paged_ms = kinds["paged decode (port)"]
+    got = named_launches({k: v[0] for k, v in tab[GEN_PROFILE_NEW].items()},
+                         PAGED_KERNELS + (tc, cc))
+    want = nl * (GEN_PROFILE_NEW - 1)
+    log(f"  paged tick: {PAGED_KERNELS[0]} {paged_ms:.4f} ms "
+        f"({paged_ms / busy:.1%} of the tick's kernels); launches of the "
+        f"profiled {GEN_PROFILE_NEW}-token call by name {got}")
+    check(got[PAGED_KERNELS[0]] == want and got[tc] == nl and got[cc] == 0,
+          f"profiled paged generate ran {got}, want {PAGED_KERNELS[0]} "
+          f"{want} times, {tc} {nl} times and {cc} never")
+    del model, draft
+    torch.cuda.empty_cache()
+
+    # fp32 at 2 layers, full width: the kernels against the plain versions
+    model = LlamaForCausalLM(dataclasses.replace(config, num_hidden_layers=2),
+                             device=dev, seed=0).eval()
+    draft = LlamaForCausalLM(dataclasses.replace(config, num_hidden_layers=2),
+                             device=dev, seed=1).eval()
+    dense = gen(model)()
+    reset_counts()
+    paged = gen(model, paged=True)()
+    counts = read_counts()
+    check(counts["paged"] == 2 * ticks and counts["vflash"] == 2,
+          f"fp32 paged generate launches {counts}")
+    with plain_paged_attention():
+        reset_counts()
+        plain = gen(model, paged=True)()
+        check(not any(read_counts().values()),
+              "the plain paged run launched a kernel")
+    check_streams(torch, model, pads, dense, paged,
+                  "fp32 greedy, dense vs paged (kernels)")
+    check_streams(torch, model, pads, paged, plain,
+                  "fp32 greedy, paged kernels vs plain")
+    one = ids[:1]                              # 128 real tokens
+    check_streams(torch, model, [0],
+                  generate_speculative(model, draft, one,
+                                       max_new_tokens=GEN_NEW,
+                                       gamma=GEN_GAMMA),
+                  model.generate(one, max_new_tokens=GEN_NEW),
+                  "fp32 speculative vs dense greedy")
+    sampled = [gen(model, **GEN_SAMPLE, **kw)() for kw in ({}, dict(paged=True))]
+    check_streams(torch, model, pads, *sampled,
+                  "fp32 sampled, dense vs paged (kernels)", sample=GEN_SAMPLE)
+    log("  fp32, 2 layers: greedy dense = paged (kernels) = paged (plain), "
+        "speculative = dense greedy, sampled dense = paged (a near-tie is "
+        "printed above if one was admitted)")
+    del model, draft
+    torch.cuda.empty_cache()
+
+
 #: bench.py:bench_llama's training configuration (bench.py:258-264)
 TRAIN_CONFIG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                     num_hidden_layers=10, num_attention_heads=16,
@@ -2074,6 +2436,8 @@ def main() -> int:
         phase_forward(torch, dev, report)
         log("[serve]")
         phase_serve(torch, dev, report)
+        log("[generate]")
+        phase_generate(torch, dev, report)
         log("[train]")
         phase_train(torch, dev, report)
         train = report.pop("train")

@@ -7,9 +7,12 @@ every kernel the reference wrote in Pallas becomes a hand-written CUDA
 kernel under ``csrc/`` with a plain PyTorch version beside it, which is
 what a CPU tensor runs.
 
-Three slices are ported. Serving: ``models.LlamaForCausalLM``,
+Four slices are ported. Serving: ``models.LlamaForCausalLM``,
 ``serve.ServeEngine`` and ``serve.run_load``, over the paged-decode,
-flash-forward and RMSNorm-forward kernels. Training: the model's
+flash-forward and RMSNorm-forward kernels. Decoding:
+``LlamaForCausalLM.generate`` (dense and paged KV caches, the paged one
+over the varlen-forward and paged-decode kernels; sampling, beam search)
+and ``models.generation.generate_speculative``. Training: the model's
 ``labels=`` loss, ``loss.backward()`` through the flash- and
 RMSNorm-backward kernels, and ``optimizer.AdamW``. Packed attention:
 ``nn.functional.flash_attention.flash_attn_unpadded`` and

@@ -3,7 +3,11 @@
 Counterpart of ``paddle_tpu/incubate/nn/functional/__init__.py``:
 ``_rope_tables``, ``fused_rotary_position_embedding`` and ``swiglu``.
 The reference leaves all three to XLA, so here they are plain PyTorch.
-``fused_linear_cross_entropy`` lives in ``fused_linear_ce.py``, as in the
+``fused_linear_cross_entropy`` lives in ``fused_linear_ce.py`` and the
+serving attention ops (``block_multihead_attention`` over the paged and
+varlen kernels, ``masked_multihead_attention``, ``blha_get_max_len``,
+``variable_length_memory_efficient_attention``,
+``fused_dot_product_attention``) in ``inference_attention.py``, as in the
 reference.
 """
 from __future__ import annotations
@@ -12,9 +16,17 @@ import torch
 
 from ._rope_common import rotate_half
 from .fused_linear_ce import fused_linear_cross_entropy
+from .inference_attention import (blha_get_max_len,
+                                  block_multihead_attention,
+                                  fused_dot_product_attention,
+                                  masked_multihead_attention,
+                                  variable_length_memory_efficient_attention)
 
 __all__ = ["fused_rotary_position_embedding", "swiglu", "rotate_half",
-           "fused_linear_cross_entropy"]
+           "fused_linear_cross_entropy", "masked_multihead_attention",
+           "blha_get_max_len", "block_multihead_attention",
+           "variable_length_memory_efficient_attention",
+           "fused_dot_product_attention"]
 
 
 def _rope_tables(s, d, base, use_neox, dtype, device=None):

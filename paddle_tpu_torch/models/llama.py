@@ -12,6 +12,7 @@ Attention goes through ``nn.functional.scaled_dot_product_attention``
 returns the loss: through the chunked fused lm-head cross-entropy when
 ``config.fused_lm_head_ce`` is set, through ``cross_entropy`` on full
 logits otherwise. ``recompute=True`` checkpoints each decoder layer.
+``generate`` decodes with a KV cache (``models/generation.py``).
 Context parallelism waits for the distributed slice and raises
 ``NotImplementedError``.
 """
@@ -241,3 +242,32 @@ class LlamaForCausalLM(nn.Module):
 
     def num_parameters(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0,
+                 eos_token_id=None, seed: int = 0, pad_token_id=None,
+                 paged: bool = False, block_size: int = 64,
+                 num_blocks=None,
+                 num_beams: int = 1, length_penalty: float = 0.0,
+                 repetition_penalty: float = 1.0, min_length: int = 0):
+        """KV-cache incremental decoding on the model's device
+        (``models/generation.py``). Greedy by default; sampling via
+        do_sample + temperature/top_k/top_p from a generator seeded with
+        ``seed``; ``pad_token_id`` enables left-padded ragged prompts;
+        ``paged=True`` decodes over a paged KV pool through the varlen and
+        paged decode kernels (``num_blocks`` caps the pool and fails
+        loudly on exhaustion); ``num_beams > 1`` is beam search. Returns
+        [B, prompt + max_new_tokens] int64, the prompt included."""
+        from .generation import generate as _generate
+
+        return _generate(self, input_ids, max_new_tokens=max_new_tokens,
+                         do_sample=do_sample, temperature=temperature,
+                         top_k=top_k, top_p=top_p,
+                         eos_token_id=eos_token_id, seed=seed,
+                         pad_token_id=pad_token_id, paged=paged,
+                         block_size=block_size, num_blocks=num_blocks,
+                         num_beams=num_beams,
+                         length_penalty=length_penalty,
+                         repetition_penalty=repetition_penalty,
+                         min_length=min_length)
