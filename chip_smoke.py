@@ -32,7 +32,17 @@ Phases, each fatal on failure:
              batch 4 x 2048, ``AdamW(multi_precision=True)``): launch
              counts per step, falling loss, tokens/s, MFU, peak memory and
              the device-busy share; then fp32 loss and gradients of the
-             kernels vs the plain compositions at 2 layers;
+             kernels vs the plain compositions at 2 layers; the
+             multi-tensor AdamW update's device ms and kernels;
+6b. train-recipe — the same step with the usual LLM recipe
+             (``AdamW`` over ``LinearWarmup(CosineAnnealingDecay)``,
+             ``ClipGradByGlobalNorm(1.0)``, no decay on the RMSNorm
+             weights): the same launches and routes, falling loss, the
+             schedule's rates, the clip's and the update's device ms and
+             kernels; then fp32 parameters under fp16 O1 ``auto_cast``
+             with a ``GradScaler`` (the fp16 tensor-core flash route,
+             fp32 RMSNorm inputs, the scale each step); then the card's
+             update against the same update on the CPU at 2 layers;
 7. varlen  — packed-sequence attention through ``flash_attn_unpadded``
              and ``flash_attn_varlen_qkvpacked`` (8 documents packed into
              8192 tokens, 16 heads of 128, bf16, causal), forward and
@@ -69,8 +79,9 @@ training step must run the vector variant's kernels (``RMS_TRAIN_KERNELS``).
 The tiled matmul has one route, the tensor cores, and the calibrate path
 fails if any other tiled kernel ran.
 
-The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name/power
-line, and ``{"ok": true, "device": {...}}``.
+The last lines are the ``train`` and ``train_recipe`` JSON, the
+``kernels`` JSON, the ``nvidia-smi`` name/power line, and
+``{"ok": true, "device": {...}}``.
 
 Run: ``python3 chip_smoke.py`` from the repository root on a machine with
 one CUDA card. Without a card, or without the package beside it, it
@@ -793,17 +804,25 @@ def phase_flash(torch, dev, report):
 
     serve_t = fwd_times(*main)
     show("flash causal [4,16,512,128] bf16", serve_t)
-    q, k, v = (rnd(4, 16, 2048, 128, dt=bf16) for _ in range(3))
-    out, _ = fa._flash_fwd_kernel(q, k, v, None, None, causal=True,
-                                  scale=128 ** -0.5, dropout_rate=0.0)
-    rout, _ = fa._flash_fwd_reference(q, k, v, causal=True,
-                                      scale=128 ** -0.5)
-    torch.cuda.synchronize()
-    atol, rtol = tolerance(bf16, 1e-4)
-    err, share = close_err(out, rout, atol, rtol)
-    log(f"  flash causal [4,16,2048,128] bfloat16 (training shape): out err "
-        f"{err:.3g}, {share:.3g} of the tolerance")
-    check(share <= 1.0, "flash at the training shape")
+    # the training shape in both half dtypes: bf16 (the bf16 step) and
+    # fp16 (the fp16 O1 step), out and lse
+    train_errs = {}
+    for dt in (torch.float16, bf16):
+        q, k, v = (rnd(4, 16, 2048, 128, dt=dt) for _ in range(3))
+        (out, lse), (rout, rlse) = run(q, k, v, causal=True)
+        name = str(dt).replace("torch.", "")
+        atol, rtol = tolerance(dt, 1e-4)
+        e_out, share = close_err(out, rout, atol, rtol)
+        e_lse = max_err(lse, rlse)
+        log(f"  flash causal [4,16,2048,128] {name} (training shape): out "
+            f"err {e_out:.3g}, {share:.3g} of the tolerance, lse err "
+            f"{e_lse:.3g} (tol 1e-4)")
+        check(share <= 1.0 and e_lse <= 1e-4,
+              f"flash at the training shape ({name})")
+        train_errs[name] = dict(max_abs_err=e_out, share=share,
+                                lse_err=e_lse)
+        del out, lse, rout, rlse
+    err = e_out                          # bf16's, the dtype timed below
     t = fwd_times(q, k, v)
     show("flash causal [4,16,2048,128] bf16 (training shape)", t)
     report["flash"] = dict(
@@ -812,7 +831,8 @@ def phase_flash(torch, dev, report):
         replaces="paddle_tpu/ops/pallas/flash_attention.py:190",
         kernels=dict(zip(("bf16/fp16", "fp32"), FLASH_KERNELS["fwd"])),
         max_abs_err=err, **t,
-        at_serving_shape=dict(max_abs_err=main_err, **serve_t))
+        at_serving_shape=dict(max_abs_err=main_err, **serve_t),
+        at_training_shape=train_errs)
 
 
 def phase_flash_bwd(torch, dev, report):
@@ -1540,7 +1560,7 @@ def check_flash_route(per_kernel, want, label):
     log(f"  {label}: dense flash kernels {got}")
     for step, (tc, cc) in FLASH_KERNELS.items():
         check(got[cc] == 0, f"{label}: the CUDA-core {cc} ran ({got[cc]} "
-                            f"launches) on the bf16 path")
+                            f"launches) on a half-precision path")
         check(got[tc] == want.get(step, 0),
               f"{label}: {tc} launched {got[tc]} times, want "
               f"{want.get(step, 0)}")
@@ -2081,6 +2101,34 @@ TRAIN_CONFIG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
 
 
+def train_launches(nl):
+    """Each counter's launches per training step of ``nl`` layers: flash
+    forward and backward once a layer, RMSNorm forward and backward twice
+    a layer and once for the final norm, no other kernel."""
+    return {"flash": nl, "flash_bwd": nl, "rms_norm": 2 * nl + 1,
+            "rms_norm_bwd": 2 * nl + 1, "paged": 0, "vflash": 0,
+            "vflash_bwd": 0, "vflash_bwd_dkv": 0, "tiled_mm": 0}
+
+
+def step_rates(dt, n_params, nl, hid):
+    """(step ms, tokens/s, MFU) of ``TRAIN_STEPS`` steps in ``dt`` s; MFU
+    is bench.py's formula (bench.py:310-312) against the bf16 peak."""
+    tok_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
+    attn_flops = 12 * nl * hid * TRAIN_SEQ
+    mfu = tok_s * (6 * n_params + attn_flops) / PEAK_FLOPS["bfloat16"]
+    return dt / TRAIN_STEPS * 1e3, tok_s, mfu
+
+
+def check_train_kernels(per_kernel, nl, label):
+    """A profiled bf16 step ran the tensor-core flash kernels and the
+    vector RMSNorm kernels, each the step's count, by name."""
+    check_flash_route(per_kernel, {"fwd": nl, "dq": nl, "dkv": nl}, label)
+    got = named_launches(per_kernel, RMS_TRAIN_KERNELS)
+    log(f"  {label}: RMSNorm kernels {got}")
+    check(all(c == 2 * nl + 1 for c in got.values()),
+          f"{label}: RMSNorm kernels {got}, want {2 * nl + 1} each")
+
+
 def phase_train(torch, dev, report):
     """``bench.py:bench_llama``'s step at its full width and depth (645M
     parameters, bf16, batch 4 x 2048, labels = ids rolled by one,
@@ -2114,10 +2162,7 @@ def phase_train(torch, dev, report):
     n_params = model.num_parameters()
     opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
                 multi_precision=True)
-    g = torch.Generator(device=dev).manual_seed(9)
-    ids = torch.randint(0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
-                        generator=g, device=dev)
-    labels = torch.roll(ids, -1, dims=1)
+    ids, labels = train_batch(torch, config, dev)
 
     def step():
         loss, _ = model(ids, labels=labels)
@@ -2139,38 +2184,29 @@ def phase_train(torch, dev, report):
     counts = read_counts()
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated(dev)
-    per_step = {"flash": nl, "flash_bwd": nl, "rms_norm": 2 * nl + 1,
-                "rms_norm_bwd": 2 * nl + 1, "paged": 0, "vflash": 0,
-                "vflash_bwd": 0, "vflash_bwd_dkv": 0, "tiled_mm": 0}
     log(f"  {TRAIN_STEPS} steps: launches {counts}, losses "
         f"{[round(x, 4) for x in losses]}")
-    for key, n in per_step.items():
+    for key, n in train_launches(nl).items():
         check(counts[key] == n * TRAIN_STEPS,
               f"{key} launches {counts[key]} != {n} x {TRAIN_STEPS} steps")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     record_launches(report, "train", counts)
-    step_ms = dt / TRAIN_STEPS * 1e3
-    tok_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
-    attn_flops = 12 * nl * hid * TRAIN_SEQ
-    mfu = tok_s * (6 * n_params + attn_flops) / PEAK_FLOPS["bfloat16"]
+    step_ms, tok_s, mfu = step_rates(dt, n_params, nl, hid)
     log(f"  train step: {step_ms:.2f} ms mean, {tok_s:.1f} tokens/s, MFU "
         f"{mfu:.4f} (bench.py's formula, 989 TFLOP/s bf16 peak), peak "
         f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     busy, per_kernel = profile_kernels(torch, step, 1, step_ms,
                                        "train step, kernels")
-    check_flash_route(per_kernel, {"fwd": nl, "dq": nl, "dkv": nl},
-                      "bf16 train step")
-    got = named_launches(per_kernel, RMS_TRAIN_KERNELS)
-    log(f"  bf16 train step: RMSNorm kernels {got}")
-    check(all(c == 2 * nl + 1 for c in got.values()),
-          f"bf16 train step: RMSNorm kernels {got}, want {2 * nl + 1} each")
+    check_train_kernels(per_kernel, nl, "bf16 train step")
     # the optimizer's share of the step: AdamW's update alone, device time
     loss, _ = model(ids, labels=labels)
     loss.backward()
     opt_ms = device_ms(opt.step, iters=3, warmup=1)
+    opt_launches = sum(kernel_counts(torch, opt.step, 1).values())
     opt.clear_grad()
-    log(f"  AdamW step alone: {opt_ms:.2f} ms of device time per update")
+    log(f"  AdamW step alone (multi-tensor update): {opt_ms:.2f} ms of "
+        f"device time and {opt_launches} kernels per update")
     # the same step on the plain compositions (flags off), for comparison
     with flags_scope(use_cuda_flash_attention=False, use_cuda_rms_norm=False):
         step()
@@ -2185,7 +2221,9 @@ def phase_train(torch, dev, report):
     report["train"] = dict(step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu,
                            peak_bytes=peak, losses=losses,
                            busy_share=None if busy is None else busy / step_ms,
-                           optimizer_ms=opt_ms, plain_step_ms=plain_ms)
+                           optimizer_ms=opt_ms,
+                           optimizer_launches=opt_launches,
+                           plain_step_ms=plain_ms)
     del model, opt
     torch.cuda.empty_cache()
 
@@ -2225,6 +2263,384 @@ def phase_train(torch, dev, report):
     check(worst[0] <= 1e-4, f"fp32 gradient {worst[1]} differs")
     del model, k_grads, p_grads
     torch.cuda.empty_cache()
+
+
+RECIPE_WARMUP, RECIPE_PEAK_LR, RECIPE_CLIP = 2, 3e-4, 1.0
+RECIPE_FP16_STEPS = 3
+
+
+def recipe_optimizer(named_params):
+    """``bench_llama``'s AdamW with the usual LLM recipe: a linear warm-up
+    from 0 over ``RECIPE_WARMUP`` steps into a cosine decay over
+    ``TRAIN_STEPS``, a clip of the global gradient norm at
+    ``RECIPE_CLIP``, and no decay on the RMSNorm weights, named through
+    ``named_parameters()`` pairs. Returns (optimizer, scheduler); the
+    caller steps the scheduler."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    sched = lr.LinearWarmup(
+        lr.CosineAnnealingDecay(RECIPE_PEAK_LR, T_max=TRAIN_STEPS),
+        warmup_steps=RECIPE_WARMUP, start_lr=0.0, end_lr=RECIPE_PEAK_LR)
+    opt = AdamW(learning_rate=sched, parameters=named_params,
+                multi_precision=True,
+                grad_clip=ClipGradByGlobalNorm(RECIPE_CLIP),
+                apply_decay_param_fun=lambda n: not n.endswith("norm.weight"))
+    return opt, sched
+
+
+def train_batch(torch, config, dev):
+    """``phase_train``'s batch: ids from a seeded generator, labels = ids
+    rolled by one."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    ids = torch.randint(0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g, device=dev)
+    return ids, torch.roll(ids, -1, dims=1)
+
+
+def phase_train_recipe(torch, dev, report):
+    """The training step with the full recipe (``recipe_optimizer``) at
+    ``phase_train``'s width, depth and batch (bf16, fp32 masters): one
+    warm-up step, then ``TRAIN_STEPS`` timed steps, the scheduler stepped
+    after each. Every step must launch rows 2-5 as ``[train]`` does
+    (tensor-core flash, the vector RMSNorm kernels), the losses must be
+    finite and fall, and the rate each step must be the scheduler's
+    sequence. Measured: step ms, tokens/s, MFU, peak memory, busy share;
+    the clip alone and the multi-tensor update alone (device ms and
+    kernels). Then the fp16 O1 run: the same model in fp32 under
+    ``amp.auto_cast(level="O1", dtype="float16")`` with
+    ``GradScaler(init_loss_scaling=2**15)`` and ``[train]``'s
+    ``AdamW(3e-4)``, ``RECIPE_FP16_STEPS`` steps:
+    the fp16 tensor-core flash route, fp32 RMSNorm inputs, finite
+    losses, the scale each step. Then the update on the card against the
+    same update on the CPU (``update_card_vs_cpu``)."""
+    import dataclasses
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    config = LlamaConfig(**TRAIN_CONFIG, dtype="bfloat16")
+    nl, hid = config.num_hidden_layers, config.hidden_size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = LlamaForCausalLM(config, device=dev, seed=0)
+    n_params = model.num_parameters()
+    opt, sched = recipe_optimizer(model.named_parameters())
+    ids, labels = train_batch(torch, config, dev)
+    rates = []
+
+    def step():
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        rates.append(opt.get_lr())
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss.detach()
+
+    t0 = time.perf_counter()
+    warm = float(step())
+    log(f"  bf16 recipe: warm-up step {time.perf_counter() - t0:.2f} s, "
+        f"loss {warm:.4f}")
+    torch.cuda.synchronize()
+    reset_counts()
+    alloc0 = torch.cuda.memory_stats(dev)
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated(dev)
+    alloc = {k: torch.cuda.memory_stats(dev)[k] - alloc0[k]
+             for k in ("num_alloc_retries", "num_device_alloc",
+                       "num_device_free")}
+    want_rates = []
+    ref = lr.LinearWarmup(
+        lr.CosineAnnealingDecay(RECIPE_PEAK_LR, T_max=TRAIN_STEPS),
+        warmup_steps=RECIPE_WARMUP, start_lr=0.0, end_lr=RECIPE_PEAK_LR)
+    for _ in range(TRAIN_STEPS + 1):
+        want_rates.append(ref())
+        ref.step()
+    log(f"  {TRAIN_STEPS} steps: launches {counts}, losses "
+        f"{[round(x, 4) for x in losses]}, rates {rates}")
+    check(rates == want_rates, f"rates {rates} != the schedule {want_rates}")
+    for key, n in train_launches(nl).items():
+        check(counts[key] == n * TRAIN_STEPS,
+              f"recipe: {key} launches {counts[key]} != {n} x {TRAIN_STEPS}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    record_launches(report, "train-recipe", counts)
+    step_ms, tok_s, mfu = step_rates(dt, n_params, nl, hid)
+    log(f"  recipe step: {step_ms:.2f} ms mean, {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} (bench.py's formula), peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated); the caching "
+        f"allocator over the timed steps: {alloc}")
+    busy, per_kernel = profile_kernels(torch, step, 1, step_ms,
+                                       "recipe step, kernels")
+    check_train_kernels(per_kernel, nl, "bf16 recipe step")
+    # the clip's scale on the card: each product in fp32, rounded once
+    from paddle_tpu_torch.core.foreach import scale_in_fp32_
+
+    g = torch.randn(1 << 20, generator=torch.Generator(device=dev)
+                    .manual_seed(3), device=dev).bfloat16()
+    factor = torch.tensor(0.123456789, device=dev)
+    want = (g.float() * factor).bfloat16()
+    got, naive = [g.clone()], [g.clone()]
+    scale_in_fp32_(got, factor)
+    torch._foreach_mul_(naive, factor)
+    off = int((naive[0] != want).sum())
+    log(f"  bf16 x fp32 scale: scale_in_fp32_ equal to the fp32 product "
+        f"rounded once: {torch.equal(got[0], want)}; _foreach_mul_ by the "
+        f"same 0-dim tensor differs at {off} of {g.numel()}")
+    check(torch.equal(got[0], want), "scale_in_fp32_ is not the fp32 product")
+    # the clip alone and the update alone, on one step's gradients
+    loss, _ = model(ids, labels=labels)
+    loss.backward()
+    pairs = [(p, p.grad) for p in opt._parameter_list]
+    grads = [g for _, g in pairs]
+    norm = float(torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(grads, 2, dtype=torch.float32))))
+    clip = opt._grad_clip
+    clip_ms = device_ms(lambda: clip(pairs), iters=3, warmup=1)
+    clip_launches = sum(kernel_counts(torch, lambda: clip(pairs), 1).values())
+    opt._grad_clip = None
+    update_ms = device_ms(opt.step, iters=3, warmup=1)
+    update_launches = sum(kernel_counts(torch, opt.step, 1).values())
+    opt._grad_clip = clip
+    opt.clear_grad()
+    log(f"  global gradient norm {norm:.4g} (clip {RECIPE_CLIP}); clip alone "
+        f"{clip_ms:.3f} ms of device time in {clip_launches} kernels; "
+        f"update alone {update_ms:.2f} ms in {update_launches} kernels")
+    report["train_recipe"] = dict(
+        step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu, peak_bytes=peak,
+        losses=losses, rates=rates[:TRAIN_STEPS + 1],   # the profiled
+        # steps above appended more
+        busy_share=None if busy is None else busy / step_ms,
+        clip_ms=clip_ms, clip_launches=clip_launches, update_ms=update_ms,
+        update_launches=update_launches, grad_norm=norm)
+    del model, opt, pairs, grads
+    torch.cuda.empty_cache()
+
+    # fp16 O1: fp32 parameters, autocast to fp16, dynamic loss scaling
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = LlamaForCausalLM(dataclasses.replace(config, dtype="float32"),
+                             device=dev, seed=0)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    norm_inputs = set()
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: norm_inputs.add(a[0].dtype))
+        for n, m in model.named_modules() if n.endswith("norm")]
+
+    def o1_step():
+        with amp.auto_cast(level="O1", dtype="float16"):
+            loss, _ = model(ids, labels=labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return loss.detach()
+
+    o1 = [(float(o1_step()), scaler._scale)]          # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(RECIPE_FP16_STEPS):
+        o1.append((float(o1_step()), scaler._scale))
+    torch.cuda.synchronize()
+    o1_ms = (time.perf_counter() - t0) / RECIPE_FP16_STEPS * 1e3
+    counts = read_counts()
+    log(f"  fp16 O1, a warm-up and {RECIPE_FP16_STEPS} timed steps: "
+        f"{o1_ms:.2f} ms mean, (loss, scale) {o1}, launches "
+        f"{counts}, RMSNorm inputs {sorted(map(str, norm_inputs))}, peak "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    for key, n in train_launches(nl).items():
+        check(counts[key] == n * RECIPE_FP16_STEPS,
+              f"fp16 O1: {key} launches {counts[key]} != {n} x "
+              f"{RECIPE_FP16_STEPS}")
+    check(all(math.isfinite(x) for x, _ in o1), f"fp16 O1 losses {o1}")
+    check(norm_inputs == {torch.float32},
+          f"fp16 O1: RMSNorm received {norm_inputs}, not the fp32 stream")
+    o1_busy, per_kernel = profile_kernels(torch, o1_step, 1, o1_ms,
+                                          "fp16 O1 step, kernels")
+    check_flash_route(per_kernel, {"fwd": nl, "dq": nl, "dkv": nl},
+                      "fp16 O1 step")
+    for h in hooks:
+        h.remove()
+    # an inf, then a NaN, in one gradient: the scaler skips the update
+    # and halves the scale
+    for bad in (math.inf, math.nan):
+        for p in model.parameters():
+            p.grad = torch.zeros_like(p)
+        params = list(model.parameters())
+        params[3].grad.view(-1)[5] = bad
+        before, scale = params[3].detach()[:4].clone(), scaler._scale
+        scaler.step(opt)
+        opt.clear_grad()
+        check(scaler._found_inf and scaler._scale == scale / 2
+              and torch.equal(params[3].detach()[:4], before),
+              f"GradScaler did not skip a step with a gradient of {bad}")
+    log(f"  GradScaler skipped the steps with an inf and a NaN gradient; "
+        f"scale {scaler._scale}")
+    report["train_recipe"].update(
+        fp16_o1_step_ms=o1_ms, fp16_o1_losses=[x for x, _ in o1],
+        fp16_o1_scales=[s for _, s in o1],
+        fp16_o1_busy_share=None if o1_busy is None else o1_busy / o1_ms)
+    del model, opt
+    torch.cuda.empty_cache()
+    report["train_recipe"]["card_vs_cpu"] = {
+        dtype: update_card_vs_cpu(torch, dev, dataclasses.replace(
+            config, num_hidden_layers=2, dtype=dtype), ids, labels)
+        for dtype in ("float32", "bfloat16")}
+
+
+def update_card_vs_cpu(torch, dev, config, ids, labels):
+    """One recipe step of a 2-layer model at full width on the card, then
+    the next step's update twice from the same state: on the card, and
+    on the CPU from copies of the parameters, gradients and optimizer
+    state (``state_dict``: masters, moments and the scheduler). This
+    holds the card's multi-tensor update, clip included, against the CPU
+    path the CPU tests hold against the reference.
+
+    fp32 parameters: each clip takes its own global norm, and every
+    parameter and moment must agree within 1e-6. bf16 parameters with
+    fp32 masters (the main path's configuration): the card's global
+    norm (fp32) and the CPU's (fp64, rounded) may differ in their last
+    bits (an fp64 norm is printed beside them), which moves some clipped
+    bf16 gradients to neighbouring values, so both clips take the
+    card's scale. Then
+    masters and moments must agree within 1e-6, each bf16 parameter
+    must be its master rounded once on both devices (as
+    test_torch_optimizer.py holds them), and card and CPU parameters
+    must agree within one bf16 ulp (2 ** -7 relative) plus the masters'
+    1e-6: near zero, masters an fp32 rounding apart are many bf16 ulps
+    of the value apart. A third update, on the CPU with its own scale,
+    is reported and not checked. Returns the readings."""
+    import copy
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    model = LlamaForCausalLM(config, device=dev, seed=0)
+    opt, sched = recipe_optimizer(model.named_parameters())
+    ids, labels = ids[:2, :512], labels[:2, :512]
+    model(ids, labels=labels)[0].backward()
+    opt.step()
+    opt.clear_grad()
+    sched.step()
+    model(ids, labels=labels)[0].backward()         # the compared step's
+    named = dict(model.named_parameters())
+    low = next(iter(named.values())).dtype != torch.float32
+    state = {k: v.detach().cpu().clone() if torch.is_tensor(v)
+             else copy.deepcopy(v) for k, v in opt.state_dict().items()}
+    before = {n: (p.detach().cpu().clone(), p.grad.detach().cpu().clone())
+              for n, p in named.items()}
+    clip = opt._grad_clip
+    card_scale = clip._scale([p.grad for p in named.values()])
+
+    def cpu_update(scale):
+        cpu = {}
+        for n, (value, grad) in before.items():
+            cpu[n] = torch.nn.Parameter(value.clone())
+            cpu[n].grad = grad.clone()
+        cpu_opt = recipe_optimizer(list(cpu.items()))[0]
+        cpu_opt.set_state_dict(state)
+        own = cpu_opt._grad_clip._scale([p.grad for p in cpu.values()])
+        if scale is not None:
+            cpu_opt._grad_clip._scale = lambda grads: scale
+        cpu_opt.step()
+        return cpu, cpu_opt, own
+
+    def compare(cpu, cpu_opt):
+        """The readings of one CPU update against the card's: the worst
+        |card - cpu| over fp32 state and fp32 parameters (and where); for
+        bf16 parameters, whether each equals its master rounded once on
+        both devices, the worst |card - cpu| over one bf16 ulp plus the
+        masters' 1e-6 (``bound``), the entries apart, the worst share of
+        one ulp alone and the largest |value| more than one ulp apart."""
+        r = dict(worst=0.0, where=None)
+        cpu_state = cpu_opt.state_dict()
+        for key, t in opt.state_dict().items():
+            if torch.is_tensor(t):
+                err = max_err(t.cpu(), cpu_state[key])
+                if err > r["worst"]:
+                    r.update(worst=err, where=key)
+        if low:
+            r.update(rounded=True, bound=0.0, off=0, ulps=0.0, beyond=0.0)
+        for n, p in named.items():
+            a, b = p.detach().cpu().float(), cpu[n].detach().float()
+            if not low:
+                err = max_err(a, b)
+                if err > r["worst"]:
+                    r.update(worst=err, where=n)
+                continue
+            r["rounded"] &= bool(
+                torch.equal(p, opt._master_weights[id(p)].bfloat16())
+                and torch.equal(cpu[n], cpu_opt._master_weights[
+                    id(cpu[n])].bfloat16()))
+            diff = (a - b).abs()
+            apart = diff > 0
+            if not apart.any():
+                continue
+            ulp = 2 ** -7 * torch.maximum(a.abs(), b.abs())[apart]
+            d = diff[apart]
+            r["off"] += int(apart.sum())
+            r["bound"] = max(r["bound"], float((d / (ulp + 1e-6)).max()))
+            r["ulps"] = max(r["ulps"], float((d / ulp).max()))
+            far = d > ulp
+            if far.any():
+                r["beyond"] = max(r["beyond"], float(
+                    (ulp[far] * 2 ** 7).max()))
+        return r
+
+    def bf16_line(r):
+        return (f"bf16 parameters each its master rounded once "
+                f"{r['rounded']}; {r['off']} entries apart, worst "
+                f"{r['bound']:.3g} of one bf16 ulp + 1e-6 (tol 1), "
+                f"{r['ulps']:.3g} of one ulp alone (entries beyond one ulp "
+                f"lie at |value| <= {r['beyond']:.3g})")
+
+    if low:
+        clip._scale = lambda grads: card_scale
+    opt.step()
+    torch.cuda.synchronize()
+    if low:
+        del clip._scale                 # the class's own method again
+    cpu, cpu_opt, cpu_scale = cpu_update(card_scale.cpu() if low else None)
+    r = compare(cpu, cpu_opt)
+    kind = "bf16 + fp32 masters" if low else "fp32"
+    n_params = sum(p.numel() for p in named.values())
+    n_state = sum(torch.is_tensor(t) for t in state.values())
+    norm64 = torch.linalg.vector_norm(torch.stack(
+        [g.double().norm() for _, g in before.values()]))
+    scale64 = RECIPE_CLIP / max(float(norm64), RECIPE_CLIP)
+    scales = (f"clip scale card {float(card_scale)!r}, CPU "
+              f"{float(cpu_scale)!r}, fp64 {scale64!r}"
+              + (", both use the card's" if low else ""))
+    log(f"  update card vs CPU, 2 layers {kind}, {n_params / 1e6:.1f}M "
+        f"parameters ({n_state} state tensors; {scales}): worst "
+        f"{r['worst']:.3g} at {r['where']} (tol 1e-6)"
+        + (f"; {bf16_line(r)}" if low else ""))
+    check(r["worst"] <= 1e-6, f"card vs CPU update ({kind}): {r['where']} "
+                              f"off by {r['worst']}")
+    if low:
+        check(r["rounded"], "card vs CPU update: a bf16 parameter is not "
+                            "its master rounded once")
+        check(r["bound"] <= 1.0, f"card vs CPU update ({kind}): bf16 "
+                                 f"parameters {r['bound']} of one ulp + 1e-6 "
+                                 f"apart")
+    out = dict(card_scale=float(card_scale), cpu_scale=float(cpu_scale),
+               fp64_scale=scale64, **r)
+    if low:
+        del cpu, cpu_opt
+        cpu, cpu_opt, _ = cpu_update(None)
+        r = compare(cpu, cpu_opt)
+        log(f"    (not checked) the CPU with its own clip scale: worst "
+            f"{r['worst']:.3g} at {r['where']}; {bf16_line(r)}")
+        out["own_scale"] = r
+    del model, opt, named, before, cpu, cpu_opt
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_varlen_path(torch, dev, report):
@@ -2441,6 +2857,9 @@ def main() -> int:
         log("[train]")
         phase_train(torch, dev, report)
         train = report.pop("train")
+        log("[train-recipe]")
+        phase_train_recipe(torch, dev, report)
+        recipe = report.pop("train_recipe")
         log("[varlen]")
         phase_varlen_path(torch, dev, report)
         log("[calibrate]")
@@ -2461,6 +2880,7 @@ def main() -> int:
         return 1
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"train": train}))
+    log(json.dumps({"train_recipe": recipe}))
     log(json.dumps({"kernels": list(report.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

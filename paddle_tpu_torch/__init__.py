@@ -14,13 +14,19 @@ flash-forward and RMSNorm-forward kernels. Decoding:
 over the varlen-forward and paged-decode kernels; sampling, beam search)
 and ``models.generation.generate_speculative``. Training: the model's
 ``labels=`` loss, ``loss.backward()`` through the flash- and
-RMSNorm-backward kernels, and ``optimizer.AdamW``. Packed attention:
+RMSNorm-backward kernels, and the rest of the training surface:
+``optimizer`` (every optimizer of the reference but LBFGS, Adam and
+AdamW updating all parameters in multi-tensor ops; the schedulers of
+``optimizer.lr``), ``regularizer`` (``L1Decay``, ``L2Decay``),
+``nn.ClipGradBy*`` and ``nn.utils.clip_grad_norm_``, the whole loss
+module (``nn.functional``) and ``amp`` (``auto_cast``, ``decorate``,
+``GradScaler``). Packed attention:
 ``nn.functional.flash_attention.flash_attn_unpadded`` and
 ``nn.functional.flash_attn_varlen_qkvpacked``, forward and backward over
 the varlen kernels; and ``tools.conv_calibration`` over the tiled matmul
 kernel.
 """
-from . import convert, models, nn, optimizer, serve
+from . import amp, convert, models, nn, optimizer, regularizer, serve
 from .convert import load_paddle_tpu_state
 from .core.place import resolve_device
 from .models import LlamaConfig, LlamaForCausalLM
@@ -28,4 +34,5 @@ from .serve import ServeEngine, default_serving_setup, run_load, warm_engine
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "ServeEngine", "run_load",
            "warm_engine", "default_serving_setup", "load_paddle_tpu_state",
-           "resolve_device", "convert", "models", "nn", "optimizer", "serve"]
+           "resolve_device", "amp", "convert", "models", "nn", "optimizer",
+           "regularizer", "serve"]

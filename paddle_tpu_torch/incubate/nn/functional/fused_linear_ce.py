@@ -14,7 +14,9 @@ product returns fp32 directly, so in bf16 the two differ by that one
 rounding of the logits; in fp32 they compute the same thing.
 
 The weight is the port's lm-head layout ``[V, H]`` (torch's Linear),
-where the reference's is ``[H, V]``.
+where the reference's is ``[H, V]``. Under autocast it runs in its
+inputs' dtypes, autocast off: the reference's op is not on amp's white
+list, so an fp32 model's lm head stays fp32 under O1 in both packages.
 """
 from __future__ import annotations
 
@@ -49,7 +51,13 @@ def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
     if labels.shape != (t,):
         raise ValueError(f"fused_linear_cross_entropy: labels must be [{t}], "
                          f"got {tuple(labels.shape)}")
-    chunk = int(chunk_size)
+    with torch.autocast(hidden.device.type, enabled=False):
+        return _chunked_loss(hidden, weight, labels, ignore_index,
+                             int(chunk_size))
+
+
+def _chunked_loss(hidden, weight, labels, ignore_index, chunk):
+    t = hidden.shape[0]
     n_chunks = max(1, -(-t // chunk))
     pad = n_chunks * chunk - t
     labels = labels.long()

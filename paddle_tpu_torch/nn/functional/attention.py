@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from ...core.autocast import white_list_inputs
 from ...core.flags import get_flag, set_flags
 from ...core.generator import use_generator
 from ...ops.cuda.flash_attention import (KERNEL_HEAD_DIMS,
@@ -101,8 +102,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """``paddle.nn.functional.scaled_dot_product_attention`` in layout
     [B, S, H, D]. Dropout applies to the attention weights; with
     ``dropout_p > 0`` (and ``training``) a ``generator`` is required —
-    the kernel draws its counter-hash seed from it."""
-    q, k, v = query, key, value
+    the kernel draws its counter-hash seed from it. Under autocast fp32
+    q, k, v run in the autocast dtype (the reference's amp white list)."""
+    q, k, v = white_list_inputs(query, key, value)
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = float(dropout_p) if training else 0.0
     if attn_mask is not None:

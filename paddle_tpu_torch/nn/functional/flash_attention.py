@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.autocast import white_list_inputs
 from ...core.generator import draw_seed
 from ...ops.cuda.flash_attention_varlen import flash_attn_varlen
 from .attention import (  # noqa: F401
@@ -42,8 +43,10 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     kernel: ``fixed_seed_offset`` pins its int32 seed, else one seed is
     drawn from ``generator`` (a ``torch.Generator`` on the tensors'
     device), the port's explicit stand-in for the reference's named
-    stream ``rng_name``; the backward regenerates the same bits."""
-    q, k, v = query, key, value
+    stream ``rng_name``; the backward regenerates the same bits. Under
+    autocast fp32 q, k, v run in the autocast dtype (the reference's amp
+    white list)."""
+    q, k, v = white_list_inputs(query, key, value)
     p = float(dropout) if training else 0.0
     if p >= 1.0:
         raise ValueError("flash_attn_unpadded: dropout must be < 1.0, "

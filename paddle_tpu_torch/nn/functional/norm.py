@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.autocast import autocast_off
 from ...core.flags import get_flag
 from ...ops.cuda import rms_norm as _kernel
 
@@ -32,9 +33,12 @@ def _use_kernel(x, w) -> bool:
 
 class _RmsNorm(torch.autograd.Function):
     """Forward and backward through the kernels; saves x and w (r is
-    recomputed from x in the backward, as the reference does)."""
+    recomputed from x in the backward, as the reference does). Under
+    autocast it runs in the dtypes it is given: RMSNorm is on the
+    reference amp's black list."""
 
     @staticmethod
+    @autocast_off
     def forward(ctx, x, w, eps):
         x, w = x.contiguous(), w.contiguous()
         ctx.save_for_backward(x, w)
@@ -42,6 +46,7 @@ class _RmsNorm(torch.autograd.Function):
         return _kernel.rms_norm_fwd(x, w, eps=eps)
 
     @staticmethod
+    @autocast_off
     def backward(ctx, grad):
         x, w = ctx.saved_tensors
         dx, dw = _kernel.rms_norm_bwd(x, w, grad.contiguous(), eps=ctx.eps)

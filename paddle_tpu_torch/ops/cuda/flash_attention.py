@@ -26,6 +26,7 @@ import math
 import torch
 
 from . import _build
+from ...core.autocast import autocast_off
 from ...core.generator import draw_seed
 
 __all__ = ["flash_attention_bshd", "flash_attention_fused",
@@ -372,9 +373,11 @@ class _FlashAttention(torch.autograd.Function):
     """Flash attention in paddle's [B, S, H, D] layout through the forward
     and backward kernels. Saves q, k, v, out and lse in [B, H, S, D] and
     the seed the forward drew: the backward regenerates the same dropout
-    bits from it and never draws a new one."""
+    bits from it and never draws a new one. Autocast is off inside: the
+    caller casts (``core/autocast.py``)."""
 
     @staticmethod
+    @autocast_off
     def forward(ctx, q, k, v, key_bias, seed, causal, scale, dropout_rate):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         out, lse = _flash_fwd_bhsd(qt, kt, vt, seed, key_bias,
@@ -386,6 +389,7 @@ class _FlashAttention(torch.autograd.Function):
         return out.transpose(1, 2)
 
     @staticmethod
+    @autocast_off
     def backward(ctx, grad_out):
         qt, kt, vt, out, lse, key_bias, seed = ctx.saved_tensors
         do = grad_out.contiguous().transpose(1, 2).contiguous()

@@ -41,6 +41,7 @@ import math
 import torch
 
 from . import _build
+from ...core.autocast import autocast_off
 from .flash_attention import NEG_INF, _as_int64, _keep_mask
 
 __all__ = ["flash_attn_varlen_thd", "flash_attn_varlen", "launches",
@@ -460,9 +461,11 @@ def flash_attn_varlen_thd(q, k, v, cu_q, cu_k, seed=None, *, causal=False,
 class _FlashAttnVarlen(torch.autograd.Function):
     """Varlen flash attention through the forward and backward kernels.
     Saves q, k, v, the cu_seqlens, out, lse and the seed the caller drew:
-    the backward regenerates the same dropout bits from it."""
+    the backward regenerates the same dropout bits from it. Autocast is
+    off inside: the caller casts (``core/autocast.py``)."""
 
     @staticmethod
+    @autocast_off
     def forward(ctx, q, k, v, cu_q, cu_k, seed, causal, scale, dropout_rate):
         out, lse = _vflash_fwd(q, k, v, cu_q, cu_k, seed, causal=causal,
                                scale=scale, dropout_rate=dropout_rate)
@@ -472,6 +475,7 @@ class _FlashAttnVarlen(torch.autograd.Function):
         return out
 
     @staticmethod
+    @autocast_off
     def backward(ctx, grad_out):
         q, k, v, cu_q, cu_k, out, lse, seed = ctx.saved_tensors
         dq, dk, dv = _vflash_bwd(q, k, v, cu_q, cu_k, out, lse, grad_out,

@@ -1,0 +1,387 @@
+"""Learning-rate schedulers.
+
+Counterpart of ``paddle_tpu/optimizer/lr.py`` (``LRScheduler`` and its
+16 schedules), kept as its own copy: the schedules are pure Python
+floats, so the port's sequences equal the reference's bit for bit. An
+optimizer given a scheduler reads ``scheduler()`` each step; the caller
+steps the scheduler, the optimizer never does.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+
+class LRScheduler:
+    def __init__(self, learning_rate: float = 0.1, last_epoch: int = -1,
+                 verbose: bool = False):
+        self.base_lr = float(learning_rate)
+        self.last_epoch = last_epoch
+        self.verbose = verbose
+        self.last_lr = self.base_lr
+        self.step()
+
+    def __call__(self) -> float:
+        return self.last_lr
+
+    def step(self, epoch: Optional[int] = None):
+        if epoch is None:
+            self.last_epoch += 1
+        else:
+            self.last_epoch = epoch
+        self.last_lr = self.get_lr()
+
+    def get_lr(self) -> float:
+        raise NotImplementedError
+
+    def state_dict(self):
+        return {
+            k: v
+            for k, v in self.__dict__.items()
+            if not k.startswith("_") and isinstance(v, (int, float, bool, str, list))
+        }
+
+    def set_state_dict(self, state):
+        self.__dict__.update(state)
+
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1,
+                 verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return (
+            self.base_lr
+            * self.d_model ** -0.5
+            * min(step**-0.5, step * self.warmup_steps**-1.5)
+        )
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries: List[int], values: List[float], last_epoch=-1,
+                 verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / float(self.decay_steps)) or 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, self.decay_steps)
+        return (self.base_lr - self.end_lr) * (
+            (1 - float(step) / float(decay_steps)) ** self.power
+        ) + self.end_lr
+
+
+class LinearWarmup(LRScheduler):
+    def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
+                 last_epoch=-1, verbose=False):
+        self.lr_after = learning_rate  # float or LRScheduler
+        self.warmup_steps = warmup_steps
+        self.start_lr = start_lr
+        self.end_lr = end_lr
+        base = learning_rate if isinstance(learning_rate, float) else learning_rate.base_lr
+        super().__init__(base, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch < self.warmup_steps:
+            return (self.end_lr - self.start_lr) * (
+                self.last_epoch / float(self.warmup_steps)
+            ) + self.start_lr
+        if isinstance(self.lr_after, LRScheduler):
+            self.lr_after.step(self.last_epoch - self.warmup_steps)
+            return self.lr_after()
+        return float(self.lr_after)
+
+    def state_dict(self):
+        sd = super().state_dict()
+        if isinstance(self.lr_after, LRScheduler):
+            sd["lr_after"] = self.lr_after.state_dict()
+        return sd
+
+    def set_state_dict(self, state):
+        nested = state.pop("lr_after", None)
+        super().set_state_dict(state)
+        if nested is not None and isinstance(self.lr_after, LRScheduler):
+            self.lr_after.set_state_dict(nested)
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * (self.gamma**self.last_epoch)
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * (self.gamma**n)
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * (self.gamma ** (self.last_epoch // self.step_size))
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self._lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self._lr_lambda(self.last_epoch)
+
+    def state_dict(self):
+        return {"last_epoch": self.last_epoch, "last_lr": self.last_lr}
+
+
+class CosineAnnealingDecay(LRScheduler):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_max = T_max
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return (
+            self.eta_min
+            + (self.base_lr - self.eta_min)
+            * (1 + math.cos(math.pi * self.last_epoch / self.T_max))
+            / 2
+        )
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        t_i = self.T_0
+        while t >= t_i:
+            t -= t_i
+            t_i *= self.T_mult
+        return (
+            self.eta_min
+            + (self.base_lr - self.eta_min) * (1 + math.cos(math.pi * t / t_i)) / 2
+        )
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3, anneal_strategy="cos",
+                 three_phase=False, last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _anneal(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1)
+        return (end - start) * pct + start
+
+    def get_lr(self):
+        up_steps = int(self.phase_pct * self.total_steps)
+        step = min(self.last_epoch, self.total_steps)
+        if step <= up_steps:
+            return self._anneal(self.initial_lr, self.max_lr, step / max(up_steps, 1))
+        pct = (step - up_steps) / max(self.total_steps - up_steps, 1)
+        return self._anneal(self.max_lr, self.end_lr, pct)
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_up = step_size_up
+        self.step_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        cycle_len = self.step_up + self.step_down
+        cycle = self.last_epoch // cycle_len
+        pos = self.last_epoch - cycle * cycle_len
+        if pos < self.step_up:
+            pct = pos / self.step_up
+        else:
+            pct = 1 - (pos - self.step_up) / self.step_down
+        amp = (self.max_lr - self.base_lr) * pct
+        if self.mode == "triangular2":
+            amp = amp / (2.0**cycle)
+        elif self.mode == "exp_range":
+            amp = amp * (self.exp_gamma**self.last_epoch)
+        return self.base_lr + amp
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.best = None
+        self.num_bad = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        cur = float(metrics)      # a Python number or a one-element tensor
+        self.last_epoch += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad = 0
+            return
+        better = False
+        if self.best is None:
+            better = True
+        elif self.mode == "min":
+            thr = (
+                self.best * (1 - self.threshold)
+                if self.threshold_mode == "rel"
+                else self.best - self.threshold
+            )
+            better = cur < thr
+        else:
+            thr = (
+                self.best * (1 + self.threshold)
+                if self.threshold_mode == "rel"
+                else self.best + self.threshold
+            )
+            better = cur > thr
+        if better:
+            self.best = cur
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+            if self.num_bad > self.patience:
+                new_lr = max(self.last_lr * self.factor, self.min_lr)
+                self.last_lr = new_lr
+                self.cooldown_counter = self.cooldown
+                self.num_bad = 0
+
+
+class MultiplicativeDecay(LRScheduler):
+    """lr_t = lr_{t-1} * lr_lambda(t) (reference: optimizer/lr.py
+    MultiplicativeDecay — note the reference applies the product of
+    lambdas to the BASE lr each step)."""
+
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        if not callable(lr_lambda):
+            raise TypeError("lr_lambda must be callable")
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        factor = 1.0
+        for e in range(1, self.last_epoch + 1):
+            factor *= self.lr_lambda(e)
+        return self.base_lr * factor
+
+
+class LinearLR(LRScheduler):
+    """Linear ramp of the lr factor from start_factor to end_factor over
+    total_steps (reference: optimizer/lr.py LinearLR)."""
+
+    def __init__(self, learning_rate, total_steps, start_factor=1.0 / 3,
+                 end_factor=1.0, last_epoch=-1, verbose=False):
+        if total_steps <= 0:
+            raise ValueError("total_steps must be positive")
+        self.total_steps = total_steps
+        self.start_factor = start_factor
+        self.end_factor = end_factor
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = min(max(self.last_epoch, 0), self.total_steps)
+        frac = t / self.total_steps
+        factor = self.start_factor + (self.end_factor - self.start_factor) \
+            * frac
+        return self.base_lr * factor
+
+
+

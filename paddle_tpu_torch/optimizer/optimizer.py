@@ -1,33 +1,65 @@
 """Optimizer base.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py``: the paddle API
-(``parameters=`` as a list or as groups, a float ``learning_rate``,
-``weight_decay``, ``multi_precision``, ``step()``, ``clear_grad()``,
-``state_dict()`` / ``set_state_dict()``). Accumulators are fp32; with
-``multi_precision`` a bf16 or fp16 parameter keeps an fp32 master copy,
-the update runs on the master and the parameter receives its cast. The
-reference's update is plain ``jnp`` with no kernel, so here it is plain
-torch ops under ``no_grad``, updating the master, the accumulators and
-the parameter in place (JAX rebuilds them; in place saves memory).
+(``parameters=`` as a list or as groups, a float or an ``LRScheduler`` as
+``learning_rate``, ``weight_decay`` as a number (L2) or a regularizer,
+``grad_clip``, ``multi_precision``, ``step()`` / ``minimize()``,
+``clear_grad()``, ``set_lr`` / ``set_lr_scheduler``, ``state_dict()`` /
+``set_state_dict()``).
 
-Not ported yet, and refused rather than ignored: learning-rate
-schedulers (``optimizer/lr.py``), ``grad_clip``, and keys of a parameter
-group other than ``params``; they come with the slice that ports
-``optimizer/lr.py`` and ``nn/clip.py`` (``ROADMAP.md`` queue A).
+A step: the ``(param, grad)`` pairs of the parameters that require a
+gradient go through ``grad_clip``; each gradient then gets its
+regularizer (the parameter's own ``regularizer`` when it carries one,
+else the optimizer's ``weight_decay``); each parameter's rate is
+``get_lr()`` times ``p.optimize_attr["learning_rate"]`` where the
+parameter carries that dict; then the subclass updates every parameter
+that has a gradient (``_update``; per parameter by default, Adam and
+AdamW in multi-tensor ops). Accumulators are fp32; with
+``multi_precision`` a bf16/fp16 parameter keeps an fp32 master copy, the
+update runs on it and the parameter receives its cast. The reference's
+update is plain ``jnp``, so here it is plain torch under ``no_grad``, in
+place on the masters, accumulators and parameters (JAX rebuilds them).
+
+Names. ``parameters`` may hold ``(name, param)`` pairs, as
+``model.named_parameters()`` yields them: torch's ``Tensor.name`` is
+read-only, so a torch parameter cannot carry a name the way a reference
+``Parameter`` does. A parameter's name is the one it came with, else its
+``name`` attribute when set, else ``param_<i>`` by position (the
+reference's ``p.name or f"param_{i}"``). ``state_dict`` keys and AdamW's
+``apply_decay_param_fun`` see that one name.
+
+Groups. As in the reference, a group's keys other than ``params`` are
+stored in ``_param_groups`` and never read: they change nothing.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
+import numpy as np
 import torch
+
+from ..regularizer import L2Decay
+from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the slice that ports "
-        f"optimizer/lr.py and nn/clip.py (ROADMAP.md queue A)")
+def _named(items) -> list:
+    """``(name or None, param)`` for params or ``(name, param)`` pairs."""
+    return [item if isinstance(item, tuple) and len(item) == 2
+            and isinstance(item[0], str) else (None, item) for item in items]
+
+
+def _one_minus(beta) -> float:
+    """``1 - beta`` in fp32, as the reference computes it from its fp32
+    hyperparameters."""
+    return float(np.float32(1) - np.float32(beta))
+
+
+def _bias_correction(beta, t) -> float:
+    """``1 - beta ** t`` in fp32, as the reference computes it from its
+    fp32 step count."""
+    return float(np.float32(1) - np.float32(beta) ** np.float32(t))
 
 
 class Optimizer:
@@ -40,26 +72,28 @@ class Optimizer:
         if parameters is None:
             raise ValueError(
                 "parameters must be provided (dygraph-style optimizer)")
-        if isinstance(learning_rate, bool) or not isinstance(
-                learning_rate, (int, float)):
-            raise _later("a learning-rate scheduler")
-        if grad_clip is not None:
-            raise _later("grad_clip")
-        params: List[torch.Tensor] = []
-        for item in parameters:
-            if isinstance(item, dict):
-                extra = sorted(set(item) - {"params"})
-                if extra:
-                    raise _later(f"parameter-group options {extra}")
-                params.extend(item["params"])
-            else:
-                params.append(item)
-        self._parameter_list = params
-        self._learning_rate = float(learning_rate)
-        # a float weight_decay is L2 decay added to the gradient
-        # (the reference's L2Decay)
-        self._l2_coeff = (None if weight_decay is None
-                          else float(weight_decay))
+        items = list(parameters)
+        named: list = []
+        self._param_groups: List[Dict[str, Any]] = []
+        if items and isinstance(items[0], dict):
+            for group in items:
+                entries = _named(group["params"])
+                named.extend(entries)
+                self._param_groups.append(
+                    {**group, "params": [p for _, p in entries]})
+        else:
+            named = _named(items)
+            self._param_groups.append({"params": [p for _, p in named]})
+        self._parameter_list = [p for _, p in named]
+        self._param_names = [
+            n or getattr(p, "name", None) or f"param_{i}"
+            for i, (n, p) in enumerate(named)]
+        self._learning_rate = learning_rate
+        self._grad_clip = grad_clip
+        if isinstance(weight_decay, (int, float)):
+            self.regularization = L2Decay(float(weight_decay))
+        else:
+            self.regularization = weight_decay
         self._multi_precision = bool(multi_precision)
         self._accumulators: Dict[str, Dict[int, torch.Tensor]] = {
             n: {} for n in self._accum_names}
@@ -68,12 +102,20 @@ class Optimizer:
 
     # ------------------------------------------------------------------
     def get_lr(self) -> float:
-        return self._learning_rate
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
+        return float(self._learning_rate)
 
-    def _accum(self, name: str, p: torch.Tensor) -> torch.Tensor:
+    def set_lr(self, value: float):
+        self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
+
+    def _accum(self, name: str, p: torch.Tensor, fill: float = 0.0):
         store = self._accumulators[name]
         if id(p) not in store:
-            store[id(p)] = torch.zeros_like(p, dtype=torch.float32)
+            store[id(p)] = torch.full_like(p, fill, dtype=torch.float32)
         return store[id(p)]
 
     def _master(self, p: torch.Tensor):
@@ -88,29 +130,57 @@ class Optimizer:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def step(self):
-        lr = self.get_lr()
-        for p in self._parameter_list:
-            if not p.requires_grad or p.grad is None:
-                continue
-            g = p.grad
-            if self._l2_coeff is not None:
-                g = g + self._l2_coeff * p.to(g.dtype)
-            self._update_param(p, g, lr)
+        params_grads = [(p, p.grad) for p in self._parameter_list
+                        if p.requires_grad]
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        params_grads = [(p, g) for p, g in params_grads if g is not None]
+        if params_grads:
+            lr = self.get_lr()
+            params = [p for p, _ in params_grads]
+            lrs = [lr * getattr(p, "optimize_attr", {}).get(
+                "learning_rate", 1.0) for p in params]
+            self._update(params, self._regularized(params_grads), lrs)
         self._step_count += 1
+
+    minimize_step = step
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        self.step()
+        return None, None
+
+    def _regularized(self, params_grads):
+        """The gradients with their regularizers added, one multi-tensor
+        op per regularizer."""
+        grads = [g for _, g in params_grads]
+        by_reg: Dict[int, tuple] = {}
+        for i, (p, _) in enumerate(params_grads):
+            reg = getattr(p, "regularizer", None) or self.regularization
+            if reg is not None:
+                by_reg.setdefault(id(reg), (reg, []))[1].append(i)
+        for reg, idx in by_reg.values():
+            new = reg._apply([params_grads[i][0] for i in idx],
+                             [grads[i] for i in idx])
+            for i, g in zip(idx, new):
+                grads[i] = g
+        return grads
+
+    def _update(self, params, grads, lrs):
+        for p, g, lr in zip(params, grads, lrs):
+            self._update_param(p, g, lr)
 
     def _update_param(self, p: torch.Tensor, grad: torch.Tensor, lr: float):
         raise NotImplementedError
 
-    @staticmethod
-    def _fp32(p: torch.Tensor, master):
-        """The fp32 tensor an update works on in place: the master, p
-        itself when it is fp32, else an fp32 copy of p."""
-        if master is not None:
-            return master
-        return p if p.dtype == torch.float32 else p.float()
+    def _fp32(self, p: torch.Tensor):
+        """The fp32 tensor a per-parameter update works on in place: the
+        master, p itself when it is fp32, else an fp32 copy of p."""
+        master = self._master(p)
+        return master if master is not None else p.float()
 
     @staticmethod
-    def _write_back(p: torch.Tensor, p32: torch.Tensor, master):
+    def _write_back(p: torch.Tensor, p32: torch.Tensor):
         """After an in-place update of ``p32`` (from :meth:`_fp32`), give
         p its value, cast to p's dtype."""
         if p32 is not p:
@@ -125,13 +195,18 @@ class Optimizer:
             else:
                 p.grad = None
 
+    clear_gradients = clear_grad
+
     # ------------------------------------------------------------------
     def _names(self) -> Dict[int, str]:
-        return {id(p): f"param_{i}" for i, p in enumerate(self._parameter_list)}
+        return {id(p): n for p, n in zip(self._parameter_list,
+                                         self._param_names)}
 
     def state_dict(self) -> Dict[str, Any]:
-        """Accumulators and master weights keyed ``param_<i>__<name>`` (i
-        the parameter's position), and ``__step__``."""
+        """Accumulators and master weights keyed ``<name>__<accumulator>``
+        (the parameter's name, see the module docstring), the scheduler's
+        state under ``LR_Scheduler`` and the step count under
+        ``__step__``."""
         names = self._names()
         sd: Dict[str, Any] = {}
         for accum, store in self._accumulators.items():
@@ -139,6 +214,8 @@ class Optimizer:
                 sd[f"{names[pid]}__{accum}"] = t
         for pid, t in self._master_weights.items():
             sd[f"{names[pid]}__master"] = t
+        if isinstance(self._learning_rate, LRScheduler):
+            sd["LR_Scheduler"] = self._learning_rate.state_dict()
         sd["__step__"] = self._step_count
         return sd
 
@@ -146,6 +223,10 @@ class Optimizer:
         by_name = {n: pid for pid, n in self._names().items()}
         params = {id(p): p for p in self._parameter_list}
         for key, value in state_dict.items():
+            if key == "LR_Scheduler":
+                if isinstance(self._learning_rate, LRScheduler):
+                    self._learning_rate.set_state_dict(value)
+                continue
             if key == "__step__":
                 self._step_count = int(value)
                 continue
@@ -161,3 +242,5 @@ class Optimizer:
                 self._accumulators[accum][pid] = t
             else:
                 raise KeyError(f"set_state_dict: unknown entry {key!r}")
+
+    load_state_dict = set_state_dict

@@ -130,16 +130,14 @@ def test_state_dict_round_trip_continues_identically():
 
 
 def test_unported_options_raise():
-    p = [torch.nn.Parameter(torch.zeros(3))]
-    with pytest.raises(NotImplementedError, match="grad_clip"):
-        topt.AdamW(parameters=p, grad_clip=object())
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        topt.AdamW(learning_rate=jopt.lr.StepDecay(0.1, 2), parameters=p)
-    with pytest.raises(NotImplementedError, match="apply_decay_param_fun"):
-        topt.AdamW(parameters=p, apply_decay_param_fun=lambda n: True)
-    with pytest.raises(NotImplementedError, match="lr_ratio"):
-        topt.AdamW(parameters=p, lr_ratio=lambda q: 1.0)
-    with pytest.raises(NotImplementedError, match="learning_rate"):
-        topt.SGD(parameters=[{"params": p, "learning_rate": 0.1}])
+    # what the port still refuses; grad_clip, schedulers, lr_ratio,
+    # apply_decay_param_fun and group options are held against the
+    # reference in test_torch_optimizer_surface.py
+    from paddle_tpu_torch import amp
+
     with pytest.raises(ValueError, match="parameters"):
         topt.Adam()
+    for kw in (dict(custom_white_list=["matmul"]),
+               dict(custom_black_list={"softmax_p"})):
+        with pytest.raises(NotImplementedError, match="custom_white_list"):
+            amp.auto_cast(**kw)
