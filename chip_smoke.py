@@ -15,8 +15,13 @@ Phases, each fatal on failure:
              kernel launches, then fp32 logits of kernels vs plain;
 5. serve   — the continuous-batching ``ServeEngine`` under Poisson load
              through the paged kernel (``paged_decode_split_kernel``, by
-             name, once per layer in a profiled decode step), then fp32
-             greedy streams of the kernel engine vs the reference engine;
+             name, once per layer in a profiled decode step), its decode
+             tick a replayed CUDA graph (one capture, launches counted
+             through the replays), the decode step eager and captured,
+             serving's peak memory; bf16 sampled streams and fp32 greedy
+             streams (cold, and prefix + 4-tick bursts: one graph per
+             burst length) equal with captured and eager ticks, and on
+             the reference attention;
 5b. generate — ``LlamaForCausalLM.generate`` at the serving width (bf16,
              8 left-padded prompts, 64 new tokens): dense, ``paged=True``
              at blocks 64 and 128 (the paged kernel once per layer per
@@ -24,8 +29,10 @@ Phases, each fatal on failure:
              name in a profile; in bf16 every call of both kernels
              of a further run at each block held against its plain
              version), sampled (one seed twice, bit for bit),
-             beam search and ``generate_speculative``; tokens/s, prefill
-             and decode-tick times; then fp32 token streams at 2 layers:
+             beam search and ``generate_speculative``; greedy and
+             sampled streams of captured ticks equal to eager ticks';
+             tokens/s, prefill and decode-tick times eager and captured,
+             the capture's cost a call; then fp32 token streams at 2 layers:
              dense = paged on the kernels = paged on the plain versions =
              speculative, sampled dense = paged;
 6. train   — ``bench.py:bench_llama``'s training step (645M Llama, bf16,
@@ -33,13 +40,17 @@ Phases, each fatal on failure:
              counts per step, falling loss, tokens/s, MFU, peak memory and
              the device-busy share; then fp32 loss and gradients of the
              kernels vs the plain compositions at 2 layers; the
-             multi-tensor AdamW update's device ms and kernels;
+             multi-tensor AdamW update's device ms and kernels; the step
+             under ``jit.to_static(full_graph=True)`` (a CUDA graph), each
+             captured step against an eager step from the same state,
+             timed eager and captured, peak memory;
 6b. train-recipe — the same step with the usual LLM recipe
              (``AdamW`` over ``LinearWarmup(CosineAnnealingDecay)``,
              ``ClipGradByGlobalNorm(1.0)``, no decay on the RMSNorm
              weights): the same launches and routes, falling loss, the
              schedule's rates, the clip's and the update's device ms and
-             kernels; then fp32 parameters under fp16 O1 ``auto_cast``
+             kernels; the recipe step under ``to_static`` as in
+             ``[train]``; then fp32 parameters under fp16 O1 ``auto_cast``
              with a ``GradScaler`` (the fp16 tensor-core flash route,
              fp32 RMSNorm inputs, the scale each step); then the card's
              update against the same update on the CPU at 2 layers;
@@ -1510,12 +1521,13 @@ def phase_forward(torch, dev, report):
     torch.cuda.empty_cache()
 
 
-def profile_decode(torch, eng, vocab, steps=16):
+def profile_decode(torch, eng, vocab, label, steps=16):
     """Where a full-batch decode step's time goes: 8 streams past their
     prefill, ``steps`` decode steps timed on the host clock, then the
     same number under ``torch.profiler`` for the device kernel time by
     name. Busy share = kernel time per step / unprofiled step time.
-    Returns the launches per step of each kernel by name."""
+    Returns (wall ms, kernel ms, launches per step of each kernel by
+    name)."""
     g = torch.Generator().manual_seed(6)
     for _ in range(eng.max_slots):
         eng.submit(torch.randint(1, vocab, (64,), generator=g).tolist(),
@@ -1527,10 +1539,24 @@ def profile_decode(torch, eng, vocab, steps=16):
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    _, per_kernel = profile_kernels(torch, eng.step, steps, wall_ms,
-                                    f"decode step ({eng.max_slots} streams)")
+    busy, per_kernel = profile_kernels(
+        torch, eng.step, steps, wall_ms,
+        f"decode step ({eng.max_slots} streams, {label})")
     eng.run()
-    return per_kernel
+    return wall_ms, busy, per_kernel
+
+
+@contextlib.contextmanager
+def eager_ticks():
+    """Every captured path of the port (the serving tick, ``generate``'s
+    ticks, ``to_static``) runs eagerly inside the block."""
+    from paddle_tpu_torch import jit
+
+    jit.enable_capture(False)
+    try:
+        yield
+    finally:
+        jit.enable_capture(True)
 
 
 #: the dense flash kernels of each step, (tensor cores: bf16/fp16, CUDA
@@ -1650,11 +1676,16 @@ def profile_kernels(torch, fn, n, wall_ms, label):
 def phase_serve(torch, dev, report):
     """The ``default_serving_setup`` engine (8 slots, 96 x 128-token
     blocks, max_seq_len 1024) in bf16 under Poisson load: every request
-    finishes and every decode tick ran the paged kernel once per layer.
-    Then fp32 greedy streams of the engine on the kernel vs on the
-    reference attention must be equal token for token, cold and with the
-    prefix cache and 4-tick decode bursts on (the suffix prefill runs the
-    paged kernel over many rows)."""
+    finishes, ``warm_engine`` captured the decode tick once
+    (``decode_traces`` 1) and every decode step replayed it, the paged
+    kernel launching once per layer per step through the replays; the
+    decode step profiled with eager and captured ticks; serving's peak
+    memory. bf16 sampled streams (temperature 0.8, one seed) equal with
+    captured and eager ticks. Then fp32 greedy streams with captured
+    kernel ticks, eager kernel ticks and captured reference-attention
+    ticks must be equal token for token, cold and with the prefix cache
+    and 4-tick decode bursts on (the suffix prefill runs the paged kernel
+    over many rows; one graph per burst length used)."""
     import dataclasses
 
     from paddle_tpu_torch import observability as obs
@@ -1671,48 +1702,107 @@ def phase_serve(torch, dev, report):
             num_blocks=prm["num_blocks"], max_seq_len=prm["max_seq_len"],
             name=name, attention_backend=backend, device=dev, **kw)
 
+    torch.cuda.reset_peak_memory_stats(dev)
     model = LlamaForCausalLM(dataclasses.replace(config, dtype="bfloat16"),
                              device=dev, seed=0).eval()
     eng = engine(model, "smoke")
     log(f"  KV pool: {2 * nl * eng._caches[0][0].numel() * 2 / 2**30:.2f} "
-        f"GiB bf16")
+        f"GiB bf16 (the sink block included)")
     t0 = time.perf_counter()
     warm_engine(eng, max_prompt_len=prm["prompt_len"][1])
-    log(f"  warm_engine: {time.perf_counter() - t0:.2f} s")
+    log(f"  warm_engine: {time.perf_counter() - t0:.2f} s (the tick "
+        f"captured in {(eng._graphs[1].capture_seconds or 0) * 1e3:.1f} ms)")
+    check(eng.decode_traces == 1 and eng._graphs[1].captured,
+          f"warm_engine: decode_traces {eng.decode_traces}, want 1 captured")
     n_req = 24
     reset_counts()
+    replays = eng._graphs[1].replays
     res = run_load(eng, rate=prm["rate"], n_requests=n_req,
                    prompt_len=prm["prompt_len"], max_new=prm["max_new"],
                    seed=0)
     torch.cuda.synchronize()
     counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
     done = sum(r.state == "FINISHED" for r in res.requests)
     dstep = obs.registry.get("serve.decode_step_seconds").stats(
         engine="smoke")
+    replays = eng._graphs[1].replays - replays
     log(f"  run_load: {done}/{n_req} finished, {res.total_tokens} tokens in "
         f"{res.wall_seconds:.3f} s = {res.tokens_per_sec:.1f} tokens/s, "
         f"TTFT p50 {res.ttft_p50 * 1e3:.2f} ms p99 {res.ttft_p99 * 1e3:.2f} "
-        f"ms, {res.engine_steps} decode steps, decode step mean "
-        f"{dstep['avg'] * 1e3:.3f} ms (min {dstep['min'] * 1e3:.3f}), "
-        f"preemptions {res.preemptions}, launches {counts}")
+        f"ms, {res.engine_steps} decode steps ({replays} graph replays), "
+        f"decode step mean {dstep['avg'] * 1e3:.3f} ms (min "
+        f"{dstep['min'] * 1e3:.3f}), preemptions {res.preemptions}, "
+        f"decode_traces {eng.decode_traces}, launches {counts}")
+    log(f"  serving peak device memory: {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated: the model, the KV pool, the graph's pool)")
     check(done == n_req and res.rejected == 0,
           f"only {done} of {n_req} requests finished")
+    check(eng.decode_traces == 1 and obs.registry.get(
+        "serve.decode_traces").value(engine="smoke") == 1,
+          f"decode_traces {eng.decode_traces} after run_load, want 1")
+    check(replays == res.engine_steps,
+          f"{replays} graph replays for {res.engine_steps} decode steps")
+    # the paged kernel's workspace on the capture stream: the graph holds
+    # it, and every replayed launch left its arrival counters 0
+    from paddle_tpu_torch.jit import _capture
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    ws = pa._workspace_of(dev, _capture._capture_stream(dev))
+    check(ws is not None and eng._graphs[1]._keep is ws
+          and int(ws[1].abs().sum()) == 0,
+          "the capture stream's paged workspace is not the graph's, or its "
+          "counters are not 0 after the replays")
+    log(f"  paged workspace of the capture stream: {ws[0].numel()} fp32 "
+        f"partials, {ws[1].numel()} counters, all 0 after {replays} replays")
     check(counts["paged"] > 0, "the paged kernel never launched")
     check(counts["paged"] == nl * res.engine_steps,
           f"paged launches {counts['paged']} != layers x decode steps "
           f"{nl * res.engine_steps}")
     record_launches(report, "serve", counts)
-    got = named_launches(profile_decode(torch, eng, config.vocab_size),
-                         PAGED_KERNELS)
-    log(f"  decode step: paged kernels {got}")
-    check(all(n == nl for n in got.values()),
-          f"decode step ran the paged kernels {got}, want {nl} each")
-    del eng, model
+    decode = {}
+    for label in ("eager", "captured"):
+        with (eager_ticks() if label == "eager" else contextlib.nullcontext()):
+            reset_counts()
+            wall, busy, per_kernel = profile_decode(
+                torch, eng, config.vocab_size, label)
+        got = named_launches(per_kernel, PAGED_KERNELS)
+        decode[label] = dict(wall_ms=wall, kernel_ms=busy,
+                             launches=sum(per_kernel.values()))
+        log(f"  decode step, {label}: {wall:.3f} ms wall, {busy} ms of "
+            f"kernels, {decode[label]['launches']} kernels; paged kernels "
+            f"{got}")
+        check(all(n == nl for n in got.values()),
+              f"{label} decode step ran the paged kernels {got}, want {nl} "
+              f"each")
+    report["paged"]["serve_decode_step"] = decode
+    report["paged"]["serve_peak_bytes"] = peak
+    del eng
+
+    # bf16 sampled streams from one seed: captured = eager, token for token
+    rng = torch.Generator().manual_seed(4)
+    lo, hi = prm["prompt_len"]
+    sampled = [torch.randint(1, config.vocab_size, (int(n),),
+                             generator=rng).tolist()
+               for n in torch.randint(lo, hi + 1, (8,), generator=rng)]
+    streams = {}
+    for label in ("captured", "eager"):
+        with (eager_ticks() if label == "eager" else contextlib.nullcontext()):
+            eng = engine(model, f"smoke_sampled_{label}", seed=7)
+            reqs = [eng.submit(p, max_new_tokens=24, temperature=0.8)
+                    for p in sampled]
+            eng.run()
+            streams[label] = [r.output_ids for r in reqs]
+            del eng
+    same = sum(a == b for a, b in zip(streams["captured"], streams["eager"]))
+    log(f"  bf16 sampled streams (temperature 0.8, seed 7), captured vs "
+        f"eager ticks: {same}/{len(sampled)} identical")
+    check(same == len(sampled), "bf16 sampled streams: captured != eager")
+    del model
     torch.cuda.empty_cache()
 
     model = LlamaForCausalLM(config, device=dev, seed=0).eval()
     rng = torch.Generator().manual_seed(5)
-    lo, hi = prm["prompt_len"]
 
     def rand_ids(n):
         return torch.randint(1, config.vocab_size, (n,), generator=rng).tolist()
@@ -1727,25 +1817,42 @@ def phase_serve(torch, dev, report):
     for mode, kw in (("cold", {}),
                      ("prefix+burst4", dict(prefix_cache=True,
                                             decode_burst=4))):
-        for backend in ("kernel", "reference"):
-            name = f"smoke_{mode}_{backend}"
-            eng = engine(model, name, backend, **kw)
-            reqs = [eng.submit(p, max_new_tokens=k) for p, k in plans]
-            eng.run()
-            streams[mode, backend] = [r.output_ids for r in reqs]
+        for backend, ticks in (("kernel", "captured"), ("kernel", "eager"),
+                               ("reference", "captured")):
+            name = f"smoke_{mode}_{backend}_{ticks}"
+            with (eager_ticks() if ticks == "eager"
+                  else contextlib.nullcontext()):
+                eng = engine(model, name, backend, **kw)
+                reqs = [eng.submit(p, max_new_tokens=k) for p, k in plans]
+                eng.run()
+            streams[mode, backend, ticks] = [r.output_ids for r in reqs]
             hits = obs.registry.get("serve.prefix_hits").value(engine=name)
+            want = len(eng.burst_lens_used) if kw else 1
+            check(eng.decode_traces == want,
+                  f"{name}: decode_traces {eng.decode_traces}, want {want} "
+                  f"(burst lengths {sorted(eng.burst_lens_used)})")
+            if ticks == "captured":
+                check(all(g.captured for g in eng._graphs.values()),
+                      f"{name}: a tick graph was not captured")
+            lens = sorted(eng.burst_lens_used)
             del eng
-        same = sum(a == b for a, b in zip(streams[mode, "kernel"],
-                                          streams[mode, "reference"]))
-        label = f"{mode}, {hits} prefix hits" if kw else mode
-        log(f"  fp32 greedy streams ({label}), kernel vs reference "
-            f"attention: {same}/{len(plans)} identical")
-        check(same == len(plans), f"fp32 {mode} kernel and reference "
-                                  f"streams differ")
+        ref = streams[mode, "kernel", "captured"]
+        same = {k: sum(a == b for a, b in zip(ref, streams[mode, *k]))
+                for k in (("kernel", "eager"), ("reference", "captured"))}
+        label = (f"{mode}, {hits} prefix hits, burst lengths {lens}" if kw
+                 else mode)
+        log(f"  fp32 greedy streams ({label}), captured kernel ticks vs "
+            f"eager kernel ticks: {same['kernel', 'eager']}/{len(plans)}, vs "
+            f"captured reference attention: {same['reference', 'captured']}/"
+            f"{len(plans)} identical")
+        check(all(n == len(plans) for n in same.values()),
+              f"fp32 {mode}: the captured, eager and reference streams "
+              f"differ")
         if kw:
             check(hits > 0, "the prefix-cache run never hit the cache")
-    same = sum(a == b for a, b in zip(streams["cold", "kernel"],
-                                      streams["prefix+burst4", "kernel"]))
+    same = sum(a == b for a, b in zip(streams["cold", "kernel", "captured"],
+                                      streams["prefix+burst4", "kernel",
+                                              "captured"]))
     log(f"  fp32 greedy streams, cold vs prefix+burst4 (kernel): {same}/"
         f"{len(plans)} identical (not required: a shared prefix changes the "
         f"order of the sums)")
@@ -1923,7 +2030,11 @@ def phase_generate(torch, dev, report):
     paged on their plain versions give equal tokens, speculative decoding
     equals the dense greedy stream, and sampled dense and paged streams
     are equal (``check_streams`` admits a near-tie). The profiles take 16
-    new tokens (``GEN_PROFILE_NEW``)."""
+    new tokens (``GEN_PROFILE_NEW``). Every call captures its tick once
+    (the first tick eager, the rest replays); the bf16 greedy and sampled
+    streams must equal those of eager ticks (``eager_ticks``), the checked
+    run's ticks are eager, and the tick is timed both ways, with the
+    capture's own cost a call (``jit.graph_capture_seconds``)."""
     import dataclasses
 
     from paddle_tpu_torch.models import LlamaForCausalLM
@@ -1959,6 +2070,12 @@ def phase_generate(torch, dev, report):
     log(f"  bf16, {b} prompts of {GEN_PROMPT_LENS} tokens (left-padded to "
         f"{t0}), {GEN_NEW} new tokens; {smi_line()}")
     dense, _ = run("dense greedy", gen(model))
+    with eager_ticks():
+        eager = gen(model)()
+    check(torch.equal(eager, dense), "bf16 dense greedy: the captured "
+          f"ticks' tokens differ from the eager ticks' (first differing new "
+          f"token per row {first_diffs(torch, dense, eager, t0)})")
+    log("  bf16 dense greedy: captured ticks = eager ticks, token for token")
     paged = {}
     for block in (64, 128):
         fn = gen(model, paged=True, block_size=block)
@@ -1980,11 +2097,13 @@ def phase_generate(torch, dev, report):
     worst = {}
     for block in (64, 128):
         fn = gen(model, paged=True, block_size=block)
-        with checked_paged_attention(worst):
+        # the checks read the host, so this run's ticks are eager: its
+        # tokens are the eager ticks', and must be the captured run's
+        with checked_paged_attention(worst), eager_ticks():
             again = fn()
         check(torch.equal(again, paged[block]),
-              f"paged block {block}: the checked run's tokens differ from "
-              f"the timed run's")
+              f"paged block {block}: the checked run's (eager ticks) tokens "
+              f"differ from the timed run's (captured ticks)")
         with plain_paged_attention():
             plain = fn()
         log(f"  bf16 paged (block {block}), first differing new token per "
@@ -2005,7 +2124,13 @@ def phase_generate(torch, dev, report):
         out, first = run(label, gen(model, **GEN_SAMPLE, **kw))
         check(torch.equal(out, first),
               f"bf16 {label}: two calls with one seed differ")
-    log("  bf16 sampled, one seed twice: equal bit for bit (dense, paged)")
+        with eager_ticks():
+            eager = gen(model, **GEN_SAMPLE, **kw)()
+        check(torch.equal(out, eager),
+              f"bf16 {label}: captured ticks differ from eager ticks "
+              f"{first_diffs(torch, out, eager, t0)}")
+    log("  bf16 sampled, one seed twice: equal bit for bit, and equal to the "
+        "eager ticks' streams (dense, paged)")
     # the pad ids count as tokens here: beam search takes no ragged prompts
     run("beam search, 4 beams (pads as tokens)", lambda: model.generate(
         ids, max_new_tokens=GEN_NEW, num_beams=4))
@@ -2019,41 +2144,64 @@ def phase_generate(torch, dev, report):
 
     # prefill and the decode tick: the wall of the 64-token call less the
     # 1-token call, the kernels of the profiled 16-token call less the
-    # 1-token call (the paged run last: its profile is checked below)
-    for label, kw in (("dense", {}), ("paged", dict(paged=True))):
-        _, one_ms, _ = timed_call(torch, gen(model, 1, **kw))
-        _, all_ms, _ = timed_call(torch, gen(model, **kw))
-        tab = {n: device_table(torch, gen(model, n, **kw), 1)
-               for n in (1, GEN_PROFILE_NEW)}
+    # 1-token call (the paged run last: its profile is checked below),
+    # with eager ticks and with captured ticks (a call captures its tick
+    # once: the first tick runs eagerly, the others are replays)
+    from paddle_tpu_torch import observability as obs
 
-        def per_tick(pats, i):
-            """Launches (i=0) or device ms (i=1) of the kernels matching
-            ``pats`` (all with None) in a tick."""
-            return sum((1 if n > 1 else -1) * v[i]
-                       for n, t in tab.items() for k, v in t.items()
-                       if pats is None or any(p in k for p in pats)
-                       ) / (GEN_PROFILE_NEW - 1)
+    tick_ms = {}
+    for mode in ("eager", "captured"):
+        for label, kw in (("dense", {}), ("paged", dict(paged=True))):
+            with (eager_ticks() if mode == "eager"
+                  else contextlib.nullcontext()):
+                _, one_ms, _ = timed_call(torch, gen(model, 1, **kw))
+                _, all_ms, _ = timed_call(torch, gen(model, **kw))
+                tab = {n: device_table(torch, gen(model, n, **kw), 1)
+                       for n in (1, GEN_PROFILE_NEW)}
 
-        wall, busy = (all_ms - one_ms) / ticks, per_tick(None, 1)
-        kinds = {kind: per_tick(pats, 1) for kind, pats in KERNEL_KINDS}
-        kinds["other"] = busy - sum(kinds.values())
-        log(f"  {label} decode tick: {wall:.3f} ms wall, {busy:.3f} ms of "
-            f"kernels ({busy / wall:.1%} busy), {per_tick(None, 0):.0f} "
-            f"kernels; by kind "
-            + ", ".join(f"{k} {ms:.3f}" for k, ms in kinds.items()
-                        if abs(ms) >= 5e-4)
-            + f"; prefill (the 1-token call) {one_ms:.2f} ms wall, "
-            f"{sum(v[1] for v in tab[1].values()):.3f} ms of kernels")
-    paged_ms = kinds["paged decode (port)"]
-    got = named_launches({k: v[0] for k, v in tab[GEN_PROFILE_NEW].items()},
-                         PAGED_KERNELS + (tc, cc))
-    want = nl * (GEN_PROFILE_NEW - 1)
-    log(f"  paged tick: {PAGED_KERNELS[0]} {paged_ms:.4f} ms "
-        f"({paged_ms / busy:.1%} of the tick's kernels); launches of the "
-        f"profiled {GEN_PROFILE_NEW}-token call by name {got}")
-    check(got[PAGED_KERNELS[0]] == want and got[tc] == nl and got[cc] == 0,
-          f"profiled paged generate ran {got}, want {PAGED_KERNELS[0]} "
-          f"{want} times, {tc} {nl} times and {cc} never")
+            def per_tick(pats, i):
+                """Launches (i=0) or device ms (i=1) of the kernels
+                matching ``pats`` (all with None) in a tick."""
+                return sum((1 if n > 1 else -1) * v[i]
+                           for n, t in tab.items() for k, v in t.items()
+                           if pats is None or any(p in k for p in pats)
+                           ) / (GEN_PROFILE_NEW - 1)
+
+            wall, busy = (all_ms - one_ms) / (GEN_NEW - 1), per_tick(None, 1)
+            kinds = {kind: per_tick(pats, 1) for kind, pats in KERNEL_KINDS}
+            kinds["other"] = busy - sum(kinds.values())
+            tick_ms[mode, label] = dict(wall_ms=wall, kernel_ms=busy,
+                                      launches=per_tick(None, 0))
+            log(f"  {label} decode tick, {mode}: {wall:.3f} ms wall, "
+                f"{busy:.3f} ms of kernels ({busy / wall:.1%} busy), "
+                f"{per_tick(None, 0):.0f} kernels; by kind "
+                + ", ".join(f"{k} {ms:.3f}" for k, ms in kinds.items()
+                            if abs(ms) >= 5e-4)
+                + f"; prefill (the 1-token call) {one_ms:.2f} ms wall, "
+                f"{sum(v[1] for v in tab[1].values()):.3f} ms of kernels")
+        paged_ms = kinds["paged decode (port)"]
+        got = named_launches(
+            {k: v[0] for k, v in tab[GEN_PROFILE_NEW].items()},
+            PAGED_KERNELS + (tc, cc))
+        want = nl * (GEN_PROFILE_NEW - 1)
+        log(f"  paged tick, {mode}: {PAGED_KERNELS[0]} {paged_ms:.4f} ms "
+            f"({paged_ms / busy:.1%} of the tick's kernels); launches of the "
+            f"profiled {GEN_PROFILE_NEW}-token call by name {got}")
+        check(got[PAGED_KERNELS[0]] == want and got[tc] == nl
+              and got[cc] == 0,
+              f"profiled paged generate ({mode} ticks) ran {got}, want "
+              f"{PAGED_KERNELS[0]} {want} times, {tc} {nl} times and {cc} "
+              f"never")
+    cap = {label: obs.registry.get("jit.graph_capture_seconds").stats(
+        site=f"generate.{label}") for label in ("dense", "paged")}
+    log("  the capture's own cost per call (first tick + capture, host wall, "
+        "mean over this phase's calls): " + ", ".join(
+            f"{k} {v['avg'] * 1e3:.2f} ms over {v['count']} calls"
+            for k, v in cap.items()))
+    report["paged"]["generate_ticks"] = {
+        f"{label}_{mode}": v for (mode, label), v in tick_ms.items()}
+    report["paged"]["generate_capture_ms"] = {
+        k: v["avg"] * 1e3 for k, v in cap.items()}
     del model, draft
     torch.cuda.empty_cache()
 
@@ -2147,7 +2295,9 @@ def phase_train(torch, dev, report):
     order); each gradient within 1e-4 of its own max |g| (the kernels
     and the plain einsums sum in another order; the CPU tests measure
     about 1e-6 between two fp32 implementations). The full-width step is
-    also timed on the plain compositions (flags off) for comparison."""
+    also timed on the plain compositions (flags off) for comparison.
+    Then the step under ``jit.to_static(full_graph=True)``
+    (``static_vs_eager``)."""
     import dataclasses
 
     from paddle_tpu_torch.core.flags import flags_scope
@@ -2226,6 +2376,10 @@ def phase_train(torch, dev, report):
                            plain_step_ms=plain_ms)
     del model, opt
     torch.cuda.empty_cache()
+    report["train"]["to_static"] = static_vs_eager(
+        torch, dev, config, ids, labels,
+        lambda m: (AdamW(learning_rate=3e-4, parameters=m.parameters(),
+                         multi_precision=True), None), "bf16 train", nl)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2263,6 +2417,183 @@ def phase_train(torch, dev, report):
     check(worst[0] <= 1e-4, f"fp32 gradient {worst[1]} differs")
     del model, k_grads, p_grads
     torch.cuda.empty_cache()
+
+
+#: a captured training step against an eager step from the same state:
+#: each fp32 master weight within this many fp32 units in the last place
+#: of its operands (the master before the step and the eager update).
+#: The captured update computes the rate, step size and bias corrections
+#: in fp32 on the card and divides the denominator by the step size
+#: (``optimizers.py::_adam_foreach_device``: eight roundings on the way
+#: to the update), where the eager one rounds host doubles once into an
+#: ``addcdiv`` (seven): at most 7.5 ulps of the update apart, plus the
+#: decay factor's and the sum's roundings, one ulp of the master each
+#: side. Each bf16 parameter must be its master rounded once (so the two
+#: lie at most one bf16 ulp apart where the masters straddle a rounding
+#: edge); the moments and the loss must be equal.
+STATIC_MASTER_ULPS = 10
+
+
+def _master_share(new_c, new_e, old):
+    """Worst ``|new_c - new_e|`` over ``STATIC_MASTER_ULPS`` fp32 ulps of
+    the larger operand of the eager update (``|old|`` or ``|new_e -
+    old|``): must be <= 1."""
+    import torch
+
+    scale = torch.maximum(old.abs(), (new_e - old).abs())
+    ulp = STATIC_MASTER_ULPS * torch.finfo(torch.float32).eps * scale
+    return float(((new_c - new_e).abs() / ulp.clamp(min=1e-38)).max())
+
+
+def static_vs_eager(torch, dev, config, ids, labels, make_opt, label, nl):
+    """The train step under ``jit.to_static(full_graph=True)`` against the
+    same step run eagerly. ``make_opt(model)`` -> (optimizer, scheduler or
+    None; the caller steps the scheduler after each call).
+
+    First the captured run alone, from a model made from seed 0:
+    ``TRAIN_STEPS`` calls (the first one the warm-up and the capture),
+    then ``TRAIN_STEPS`` timed calls, whose launch counts through the
+    graph's replays must be the eager step's, one profiled call (the
+    tensor-core flash and vector RMSNorm kernels by name), the peak and
+    reserved memory. Then ``TRAIN_STEPS`` more captured calls, each
+    against one eager step of a second model and optimizer given the
+    captured run's state just before it (parameters, masters, moments,
+    step count, the scheduler's state): the same loss, the moments
+    equal, the masters within ``STATIC_MASTER_ULPS`` of their operands
+    (``_master_share``), each parameter its master rounded once. Two
+    free-running trajectories are not compared element by element:
+    Adam's step is about ``lr * sign(g)``, so a one-ulp difference in one
+    step moves entries near zero by up to ``2 lr`` in the next. Then the eager model's step timed and profiled the same
+    way. ``jit.fallbacks`` must stay 0. Returns the numbers."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    def trainer(mode):
+        model = LlamaForCausalLM(config, device=dev, seed=0)
+        opt, sched = make_opt(model)
+
+        def step(x, y):
+            loss, _ = model(x, labels=y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+
+        fn = jit.to_static(step, full_graph=True) if mode == "captured" \
+            else step
+
+        def call():
+            out = fn(ids, labels)
+            if sched is not None:
+                sched.step()
+            return out
+        return model, opt, sched, fn, call
+
+    def timed(mode, call):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            call()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        counts = read_counts()
+        for key, n in train_launches(nl).items():
+            check(counts[key] == n * TRAIN_STEPS,
+                  f"{label} ({mode}): {key} launches {counts[key]} != {n} x "
+                  f"{TRAIN_STEPS}")
+        busy, per_kernel = profile_kernels(torch, call, 1, step_ms,
+                                           f"{label} step, {mode}")
+        check_train_kernels(per_kernel, nl, f"{label} step, {mode}")
+        return dict(step_ms=step_ms, busy_share=None if busy is None
+                    else busy / step_ms, launches=counts)
+
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cm, co, csched, cfn, ccall = trainer("captured")
+    t0 = time.perf_counter()
+    first = [float(ccall()) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    entries = list(cfn._cache.values())
+    check(len(entries) == 1 and entries[0].graphed.captured,
+          f"{label}: to_static made {len(entries)} entries, or did not "
+          f"capture")
+    out["captured"] = timed("captured", ccall)
+    out["captured"].update(
+        losses=first, first_steps_s=first_s,
+        capture_s=entries[0].graphed.capture_seconds,
+        peak_bytes=torch.cuda.max_memory_allocated(dev),
+        reserved_bytes=torch.cuda.max_memory_reserved(dev))
+    log(f"  {label}, captured: losses {[round(x, 5) for x in first]} "
+        f"({first_s:.2f} s for the first {TRAIN_STEPS}, the warm-up step "
+        f"and capture {entries[0].graphed.capture_seconds or 0:.2f} s of "
+        f"them), "
+        f"then {out['captured']['step_ms']:.2f} ms a step; peak memory "
+        f"{out['captured']['peak_bytes'] / 2**30:.2f} GiB allocated, "
+        f"{out['captured']['reserved_bytes'] / 2**30:.2f} GiB reserved")
+
+    em, eo, es, _, ecall = trainer("eager")
+    eo._ensure_accumulators()
+    cps, eps_ = list(cm.parameters()), list(em.parameters())
+    worst = dict(loss=0.0, master_share=0.0, param_abs=0.0, params_apart=0,
+                 rounded_once=True, moments_equal=True)
+    with torch.no_grad():
+        for _ in range(TRAIN_STEPS):
+            for pc, pe in zip(cps, eps_):
+                pe.copy_(pc)
+                eo._master_weights[id(pe)].copy_(co._master_weights[id(pc)])
+                for name in ("moment1", "moment2"):
+                    eo._accumulators[name][id(pe)].copy_(
+                        co._accumulators[name][id(pc)])
+            eo._step_count = co._step_count
+            if es is not None:
+                es.set_state_dict(csched.state_dict())
+            old = [co._master_weights[id(pc)].clone() for pc in cps]
+            with torch.enable_grad():
+                le, lc = float(ecall()), float(ccall())
+            worst["loss"] = max(worst["loss"], abs(le - lc))
+            for pc, pe, mo in zip(cps, eps_, old):
+                mc, me = co._master_weights[id(pc)], eo._master_weights[id(pe)]
+                worst["master_share"] = max(worst["master_share"],
+                                            _master_share(mc, me, mo))
+                worst["rounded_once"] &= bool(
+                    torch.equal(pc, mc.to(pc.dtype))
+                    and torch.equal(pe, me.to(pe.dtype)))
+                worst["param_abs"] = max(worst["param_abs"], float(
+                    (pc.float() - pe.float()).abs().max()))
+                worst["params_apart"] += int((pc != pe).sum())
+                worst["moments_equal"] &= all(
+                    torch.equal(co._accumulators[n][id(pc)],
+                                eo._accumulators[n][id(pe)])
+                    for n in ("moment1", "moment2"))
+            del old
+    fallbacks = obs.registry.get("jit.fallbacks").total()
+    n_params = sum(p.numel() for p in cps)
+    log(f"  {label}: {TRAIN_STEPS} captured steps each against an eager "
+        f"step from the same state: loss diff {worst['loss']:.3g} (want 0), "
+        f"moments equal {worst['moments_equal']}, masters at "
+        f"{worst['master_share']:.3g} of {STATIC_MASTER_ULPS} fp32 ulps of "
+        f"their operands (tol 1), each bf16 parameter its master rounded "
+        f"once {worst['rounded_once']}; {worst['params_apart']} of "
+        f"{TRAIN_STEPS} x {n_params} bf16 entries apart, at most "
+        f"{worst['param_abs']:.3g}; jit.fallbacks {fallbacks}")
+    check(worst["loss"] == 0.0 and worst["moments_equal"],
+          f"{label}: captured and eager steps from one state differ: {worst}")
+    check(worst["master_share"] <= 1.0 and worst["rounded_once"],
+          f"{label}: captured update off the eager one: {worst}")
+    check(fallbacks == 0, f"{label}: jit.fallbacks {fallbacks}")
+    del cm, co, csched, cfn, ccall, cps, eps_
+    torch.cuda.empty_cache()
+    out["eager"] = timed("eager", ecall)
+    log(f"  {label}: step {out['eager']['step_ms']:.2f} ms eager, "
+        f"{out['captured']['step_ms']:.2f} ms captured")
+    del em, eo, es, ecall
+    torch.cuda.empty_cache()
+    out["same_state"] = worst
+    return out
 
 
 RECIPE_WARMUP, RECIPE_PEAK_LR, RECIPE_CLIP = 2, 3e-4, 1.0
@@ -2313,7 +2644,9 @@ def phase_train_recipe(torch, dev, report):
     ``AdamW(3e-4)``, ``RECIPE_FP16_STEPS`` steps:
     the fp16 tensor-core flash route, fp32 RMSNorm inputs, finite
     losses, the scale each step. Then the update on the card against the
-    same update on the CPU (``update_card_vs_cpu``)."""
+    same update on the CPU (``update_card_vs_cpu``). The recipe step
+    under ``jit.to_static(full_graph=True)`` runs after the bf16 part
+    (``static_vs_eager``; the scheduler stepped outside the function)."""
     import dataclasses
 
     from paddle_tpu_torch import amp
@@ -2422,6 +2755,9 @@ def phase_train_recipe(torch, dev, report):
         update_launches=update_launches, grad_norm=norm)
     del model, opt, pairs, grads
     torch.cuda.empty_cache()
+    report["train_recipe"]["to_static"] = static_vs_eager(
+        torch, dev, config, ids, labels,
+        lambda m: recipe_optimizer(m.named_parameters()), "bf16 recipe", nl)
 
     # fp16 O1: fp32 parameters, autocast to fp16, dynamic loss scaling
     torch.cuda.reset_peak_memory_stats(dev)

@@ -7,7 +7,7 @@ every kernel the reference wrote in Pallas becomes a hand-written CUDA
 kernel under ``csrc/`` with a plain PyTorch version beside it, which is
 what a CPU tensor runs.
 
-Four slices are ported. Serving: ``models.LlamaForCausalLM``,
+Five slices are ported. Serving: ``models.LlamaForCausalLM``,
 ``serve.ServeEngine`` and ``serve.run_load``, over the paged-decode,
 flash-forward and RMSNorm-forward kernels. Decoding:
 ``LlamaForCausalLM.generate`` (dense and paged KV caches, the paged one
@@ -24,9 +24,12 @@ module (``nn.functional``) and ``amp`` (``auto_cast``, ``decorate``,
 ``nn.functional.flash_attention.flash_attn_unpadded`` and
 ``nn.functional.flash_attn_varlen_qkvpacked``, forward and backward over
 the varlen kernels; and ``tools.conv_calibration`` over the tiled matmul
-kernel.
+kernel. Compiled execution: ``jit.to_static`` (a function or a whole
+train step captured into a CUDA graph per input signature), and the
+serving engine's decode tick and bursts and ``generate``'s decode ticks
+run as replayed CUDA graphs (``jit/_capture.py``).
 """
-from . import amp, convert, models, nn, optimizer, regularizer, serve
+from . import amp, convert, jit, models, nn, optimizer, regularizer, serve
 from .convert import load_paddle_tpu_state
 from .core.place import resolve_device
 from .models import LlamaConfig, LlamaForCausalLM
@@ -34,5 +37,5 @@ from .serve import ServeEngine, default_serving_setup, run_load, warm_engine
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "ServeEngine", "run_load",
            "warm_engine", "default_serving_setup", "load_paddle_tpu_state",
-           "resolve_device", "amp", "convert", "models", "nn", "optimizer",
-           "regularizer", "serve"]
+           "resolve_device", "amp", "convert", "jit", "models", "nn",
+           "optimizer", "regularizer", "serve"]

@@ -23,7 +23,9 @@ have: they raise.
 ``scaler.step(o); scaler.update()`` counts a step twice in both
 packages). The unscale and the finiteness check are multi-tensor ops
 and the skip decision reads one flag back to the host a step (the
-reference reads one per parameter).
+reference reads one per parameter). That read is why ``step()`` cannot
+run inside ``jit.to_static``: it raises ``jit.CaptureError`` there, the
+counterpart of the reference's failed trace.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ import contextlib
 import math
 
 import torch
+
+from ..jit._capture import no_host_read
 
 __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler",
            "is_bfloat16_supported", "is_float16_supported"]
@@ -123,7 +127,10 @@ class GradScaler:
             return
         if self._scale != 1.0:
             torch._foreach_mul_(grads, 1.0 / self._scale)
-        # a gradient's max |g| is finite exactly when all its entries are
+        # a gradient's max |g| is finite exactly when all its entries are;
+        # reading that on the host is what a captured step cannot do (the
+        # reference's trace fails here the same way)
+        no_host_read("GradScaler's found_inf check")
         max_abs = torch.stack(torch._foreach_norm(grads, math.inf))
         self._found_inf = not bool(torch.isfinite(max_abs).all())
 

@@ -17,6 +17,12 @@ generator's state at its first draw, and a replay starts each one from
 that state and gives the generator back its own state afterwards. The
 reference does the same with its key streams (``recompute`` snapshots
 ``generator._snapshot_keys()``).
+
+A captured CUDA graph (``jit/_capture.py``) must register every explicit
+generator it draws from before the capture starts, so that each replay
+advances the generator's offset as the eager call did. The capture's
+warm-up run notes them: :func:`recording` collects every generator
+announced through :func:`use_generator` inside its block.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import threading
 
 import torch
 
-__all__ = ["make_generator", "draw_seed", "use_generator", "GeneratorTape"]
+__all__ = ["make_generator", "draw_seed", "use_generator", "GeneratorTape",
+           "recording"]
 
 _active = threading.local()
 
@@ -78,8 +85,24 @@ class GeneratorTape:
 
 
 def use_generator(generator: torch.Generator) -> torch.Generator:
-    """Announce a draw from ``generator`` to the recompute regions that
-    are running (a no-op outside them); returns the generator."""
+    """Announce a draw from ``generator`` to the recompute regions and
+    the :func:`recording` blocks that are running (a no-op outside them);
+    returns the generator."""
     for tape, live in getattr(_active, "tapes", ()):
         tape._see(generator, live)
+    for seen in getattr(_active, "recorders", ()):
+        seen.setdefault(id(generator), generator)
     return generator
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the generators drawn from inside the block: yields a dict
+    ``id -> generator`` that fills as :func:`use_generator` is called."""
+    seen = {}
+    stack = getattr(_active, "recorders", [])
+    _active.recorders = stack + [seen]
+    try:
+        yield seen
+    finally:
+        _active.recorders = stack

@@ -12,10 +12,20 @@ parameter views, norm, FFN, head and sampler (``_llama_decode_params``,
 
 What differs from the reference, and why:
 
-- PyTorch runs eagerly: each decode loop is a Python loop over ticks
-  where the reference has one jitted ``lax.scan`` / ``lax.while_loop``,
-  and the reference's per-model jit cache (``_generation_jit_cache``) has
-  no counterpart, because nothing is compiled.
+- The reference jits each decode loop as one ``lax.scan``. Here the
+  greedy/sampling tick of the dense and the paged path is one CUDA graph
+  per call (``jit/_capture.py``): the prefill and the first tick run
+  eagerly, the first tick is then captured, and every later tick is one
+  replay. The tick keeps its state on the device (the carried token,
+  the eos latch, the position and the tick count, the token matrix) and
+  advances it itself, so a replay needs no input from the host; the
+  position in the cache and rope and ``min_length``'s eos mask are read
+  from the device counters. The sampler's generator is registered with
+  the graph, so a captured sampled stream equals the eager one. On the
+  CPU the same tick runs eagerly. Beam search and speculative decoding
+  stay eager Python loops (``ROADMAP.md`` queue A). The reference's
+  per-model jit cache (``_generation_jit_cache``) has no counterpart: a
+  graph lives for one call.
 - ``generate`` runs on the model's own device (the ids are moved there)
   under ``torch.no_grad()``. The KV caches are written in place:
   ``[B, S_max, kvh, dh]`` per layer on the dense path, the paged
@@ -49,7 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.generator import make_generator
+from ..core.generator import make_generator, use_generator
 from ..core.place import device_of
 from ..incubate.nn.functional import _rope_tables
 from ..incubate.nn.functional.inference_attention import (_packed_tokens,
@@ -57,6 +67,7 @@ from ..incubate.nn.functional.inference_attention import (_packed_tokens,
                                                           _paged_prefill,
                                                           _pool_slots,
                                                           _rope_qk)
+from ..jit._capture import Graphed
 from ..ops.cuda.rms_norm import rms_norm_reference
 
 __all__ = ["generate", "generate_speculative"]
@@ -153,12 +164,13 @@ def _cached_forward(p, tokens, caches, pos, s_max, pads=None,
                     return_all=False):
     """Forward ``tokens`` [B, T] through the stack at absolute positions
     ``pos..pos+T-1``, writing their k/v into the per-layer caches
-    ``[(k, v)]`` of ``[B, S_max, kvh, dh]`` in place. Returns the
-    last position's hidden [B, H], or every position's [B, T, H] with
-    ``return_all`` (the speculative verify pass). Causal within the new
-    tokens; full attention to everything cached before ``pos``. ``pads``
-    [B] (left-pad counts) offsets each row's rope positions and blanks its
-    pad slots out of the visibility mask."""
+    ``[(k, v)]`` of ``[B, S_max, kvh, dh]`` in place. ``pos`` is an int,
+    or a one-element int64 device tensor (a captured tick's counter).
+    Returns the last position's hidden [B, H], or every position's [B, T,
+    H] with ``return_all`` (the speculative verify pass). Causal within
+    the new tokens; full attention to everything cached before ``pos``.
+    ``pads`` [B] (left-pad counts) offsets each row's rope positions and
+    blanks its pad slots out of the visibility mask."""
     b, t = tokens.shape
     dev = tokens.device
     cos_full, sin_full = _rope_full(p, s_max, dev)
@@ -179,22 +191,22 @@ def _cached_forward(p, tokens, caches, pos, s_max, pads=None,
     n_rep = p["nh"] // p["nkv"]
     out = _llama_stack(
         p, p["embed"][tokens], cos, sin,
-        lambda li, q, k, v: _cached_attention(q, k, v, caches[li], pos,
-                                              visible, n_rep))
+        lambda li, q, k, v: _cached_attention(q, k, v, caches[li],
+                                              positions, visible, n_rep))
     return out if return_all else out[:, -1, :]
 
 
-def _cached_attention(q, k, v, cache, pos, visible, n_rep):
-    """Writes k/v [B, T, kvh, dh] at slots ``pos..pos+T-1`` of ``cache``
-    in place and returns the masked-softmax context [B, T, nh, dh]: fp32
-    logits from the ``q.dtype`` operands, ``-1e30`` where not
+def _cached_attention(q, k, v, cache, positions, visible, n_rep):
+    """Writes k/v [B, T, kvh, dh] at slots ``positions`` [T] (device) of
+    ``cache`` in place and returns the masked-softmax context [B, T, nh,
+    dh]: fp32 logits from the ``q.dtype`` operands, ``-1e30`` where not
     ``visible`` ([1 or B, T, S_max]), the fp32 softmax cast to q's dtype
     before the product with V; q head ``h`` reads kv head ``h //
     n_rep``."""
     b, t, nh, dh = q.shape
     ck, cv = cache
-    ck[:, pos:pos + t] = k
-    cv[:, pos:pos + t] = v
+    ck.index_copy_(1, positions, k)
+    cv.index_copy_(1, positions, v)
     qg = q.view(b, t, nh // n_rep, n_rep, dh)
     # bf16 products are exact in fp32, so this is the fp32 accumulation of
     # the dtype operands
@@ -232,7 +244,8 @@ def _gumbel_argmax(logits, generator):
     """One categorical draw per row of fp32 ``logits`` [B, V]: the
     Gumbel-max rule, ``argmax(logits - log E)`` with ``E ~ Exp(1)`` drawn
     from ``generator`` for every entry. int64 ids [B]."""
-    noise = torch.empty_like(logits).exponential_(generator=generator)
+    noise = torch.empty_like(logits).exponential_(
+        generator=use_generator(generator))
     return torch.argmax(logits - torch.log(noise), dim=-1)
 
 
@@ -418,35 +431,51 @@ def generate(model, input_ids, max_new_tokens: int = 32,
                                device=dev).scatter_(1, seen, True)[:, :vocab]
 
     def pick(hidden, i):
-        """The CTRL penalty over seen tokens, the min-length eos mask,
-        then the token."""
+        """The CTRL penalty over seen tokens, the min-length eos mask (at
+        the new-token index ``i``, a device scalar), then the token."""
         logits = _head_logits(p, hidden).float()
         if presence is not None:
             scaled = torch.where(logits > 0, logits / rep, logits * rep)
             logits = torch.where(presence, scaled, logits)
-        if min_new > 0 and eos >= 0 and i < min_new:
-            logits[:, eos] = -torch.inf
+        if min_new > 0 and eos >= 0:
+            logits[:, eos] = torch.where(i < min_new, -torch.inf,
+                                         logits[:, eos])
         return _sample_token(logits, gen, do_sample=do_sample,
                              temperature=temperature, top_k=top_k,
                              top_p=top_p)
 
     caches = _new_caches(p, b, s_max, dev)
-    tok = pick(_cached_forward(p, ids, caches, 0, s_max, pads=pads), 0)
+    step = torch.zeros(1, dtype=torch.long, device=dev)    # new-token index
+    tok = pick(_cached_forward(p, ids, caches, 0, s_max, pads=pads), step)
     done = tok == eos
-    toks = [tok]
-    for i in range(1, max_new_tokens):
+    toks = torch.empty(b, max_new_tokens, dtype=torch.long, device=dev)
+    toks[:, 0] = tok
+
+    def tick():
+        """One decode tick on the device state: the carried token is the
+        sequence element at absolute position ``t0 + step - 1``, its
+        cache slot and its rope position (one slot later leaves the
+        all-zeros slot t0 visible and shifts every rope angle)."""
+        step.add_(1)
         if presence is not None:
             presence[rows, tok] = True
-        # the carried token is the sequence element at absolute position
-        # t0 + i - 1: that is its cache slot and its RoPE position (one
-        # slot later leaves the all-zeros slot t0 visible and shifts every
-        # rope angle)
-        hidden = _cached_forward(p, tok[:, None], caches, t0 + i - 1, s_max,
-                                 pads=pads)
-        tok = torch.where(done, eos, pick(hidden, i))
-        done = done | (tok == eos)
-        toks.append(tok)
-    return torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
+        hidden = _cached_forward(p, tok[:, None], caches, step + (t0 - 1),
+                                 s_max, pads=pads)
+        tok.copy_(torch.where(done, eos, pick(hidden, step)))
+        done.logical_or_(tok == eos)
+        toks.index_copy_(1, step, tok[:, None])
+
+    _decode_ticks(tick, max_new_tokens - 1, dev, gen, "generate.dense")
+    return torch.cat([ids, toks], dim=1)
+
+
+def _decode_ticks(tick, n, device, generator, name):
+    """Run ``tick`` ``n`` times: one tick eagerly, more as one captured
+    graph (the first tick eager, then replays; eagerly on the CPU)."""
+    graph = (Graphed(tick, device, name=name, generators=[generator])
+             if n > 1 else tick)
+    for _ in range(n):
+        graph()
 
 
 def _topk(x, k):
@@ -689,19 +718,25 @@ def _generate_paged(model, ids, pads_np, *, max_new_tokens, do_sample,
     last_t = cu[1:].long() - 1
     tok = pick(hidden[last_t])
     done = tok == eos
-    toks = [tok]
+    toks = torch.empty(b, max_new_tokens, dtype=torch.long, device=dev)
+    toks[:, 0] = tok
     rows = torch.arange(b, device=dev)
-    enc_t = torch.as_tensor(enc, device=dev)
-    for i in range(1, max_new_tokens):
-        # the carried token is each row's element at logical position
-        # enc + i - 1: its append slot and its rope angle
-        pos_t = enc_t + (i - 1)
+    # the carried token is each row's element at logical position enc +
+    # step - 1: its append slot and its rope angle
+    pos_t = torch.as_tensor(enc, device=dev) - 1
+    step = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def tick():
+        step.add_(1)
+        pos_t.add_(1)
         slot = _pool_slots(tables, rows, pos_t, block_size)
         lengths = (pos_t + 1).to(torch.int32)
         hidden = forward(tok, pos_t,
                          lambda li, q, k, v: _paged_decode(
                              q, k, v, *caches[li], slot, lengths, tables))
-        tok = torch.where(done, eos, pick(hidden))
-        done = done | (tok == eos)
-        toks.append(tok)
-    return torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
+        tok.copy_(torch.where(done, eos, pick(hidden)))
+        done.logical_or_(tok == eos)
+        toks.index_copy_(1, step, tok[:, None])
+
+    _decode_ticks(tick, max_new_tokens - 1, dev, gen, "generate.paged")
+    return torch.cat([ids, toks], dim=1)

@@ -13,10 +13,12 @@ fp32 on the card, fp64 on the CPU, rounded to fp32), the global norm
 and the scale ``clip / max(norm, clip)`` as device tensors, then a
 multi-tensor scale (``core/foreach.py::scaled_in_fp32``) that multiplies
 in fp32 and rounds back to each gradient's dtype, as the reference does.
-Nothing is read back to the host. Like the other two classes it returns
-clipped copies and leaves ``p.grad`` alone, as the reference does; the
-functions clip ``p.grad`` in place, as the reference's do. As in the
-reference, only ``ClipGradByValue`` honours a parameter's
+Nothing is read back to the host, so it runs in a captured step
+(``jit.to_static``); ``error_if_nonfinite=True`` reads the norm on the
+host and raises ``jit.CaptureError`` there. Like the other two classes
+it returns clipped copies and leaves ``p.grad`` alone, as the reference
+does; the functions clip ``p.grad`` in place, as the reference's do. As
+in the reference, only ``ClipGradByValue`` honours a parameter's
 ``need_clip = False``.
 """
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from ..core.foreach import (global_norm_fp32, norm_fp32, scale_in_fp32_,
                             scaled_in_fp32)
+from ..jit._capture import no_host_read
 
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_grad_value_"]
@@ -113,6 +116,8 @@ def _clip_grad_norm(parameters, max_norm, norm_type, error_if_nonfinite):
         total = torch.stack(torch._foreach_norm(grads, math.inf)).max()
     else:
         total = global_norm_fp32(grads, norm_type)
+    if error_if_nonfinite:
+        no_host_read("clip_grad_norm_(error_if_nonfinite=True)")
     if error_if_nonfinite and not bool(torch.isfinite(total)):
         raise RuntimeError(
             f"the total norm of gradients is non-finite ({total})")

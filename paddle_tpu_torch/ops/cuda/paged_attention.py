@@ -23,6 +23,10 @@ lengths itself), so a call never waits on the host. The fp32 partials
 of the splits and the per-(row, head block) arrival counters live in a
 workspace kept per device and stream (:func:`_workspace`): the counters
 are 0 between calls, and the addresses stay fixed while the shapes do.
+A graph captured on a stream (``jit/_capture.py``) warms up on that
+stream first, so its workspace exists before the capture, and keeps a
+reference to it (:func:`_workspace_of`); every replay leaves the
+counters 0 as a launch does.
 """
 from __future__ import annotations
 
@@ -148,6 +152,14 @@ def _workspace(dev, n_partials, n_counters):
         cnt = torch.zeros(max(1, n_counters), dtype=torch.int32, device=dev)
     _scratch[key] = (ws, cnt)
     return ws, cnt
+
+
+def _workspace_of(dev, stream):
+    """The buffers :func:`_workspace` keeps for ``stream`` on ``dev``, or
+    None. A CUDA graph captured on that stream holds them: its launches
+    write them on every replay, so a larger shape that replaces them in
+    the cache must not free them (``jit/_capture.py``)."""
+    return _scratch.get((dev.index, stream.cuda_stream))
 
 
 def _check_shapes(q, k_pages, v_pages, lengths, block_tables):

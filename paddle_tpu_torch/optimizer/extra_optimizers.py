@@ -9,7 +9,10 @@ NAdam's ``mu_product`` starts at ones. RAdam's and NAdam's schedule
 scalars are computed in fp32, as the reference computes them from its
 fp32 step count: RAdam's rectification at beta2 0.999 subtracts two
 numbers near 2000, so an fp64 evaluation would move the step by more
-than fp32 rounding.
+than fp32 rounding. In a captured step (``optimizer.py``'s docstring)
+those scalars and ASGD's window slot come from the device step count, in
+fp32 on the device, and RAdam picks its branch per step with a
+``torch.where``.
 """
 from __future__ import annotations
 
@@ -38,16 +41,34 @@ class ASGD(Optimizer):
             raise ValueError("batch_num must be positive")
         self._n = int(batch_num)
 
-    def _update_param(self, p, grad, lr):
-        g32 = grad.float()
-        d = self._accum("d", p)
+    def _window(self, p):
         windows = self._accumulators["grad_window"]
         if id(p) not in windows:
             windows[id(p)] = torch.zeros((self._n, *p.shape),
                                          dtype=torch.float32, device=p.device)
-        y = windows[id(p)][self._step_count % self._n]
-        d.sub_(y).add_(g32)
-        y.copy_(g32)
+        return windows[id(p)]
+
+    def _ensure_accumulators(self):
+        for p in self._parameter_list:
+            if p.requires_grad:
+                self._master(p)
+                self._accum("d", p)
+                self._window(p)
+
+    def _update_param(self, p, grad, lr):
+        g32 = grad.float()
+        d = self._accum("d", p)
+        window = self._window(p)
+        t = self._t()
+        if isinstance(t, torch.Tensor):
+            # the slot of a captured step comes from the device step count
+            slot = ((t.long() - 1) % self._n).reshape(1)
+            d.sub_(window.index_select(0, slot)[0]).add_(g32)
+            window.index_copy_(0, slot, g32[None])
+        else:
+            y = window[(t - 1) % self._n]
+            d.sub_(y).add_(g32)
+            y.copy_(g32)
         p32 = self._fp32(p)
         p32.sub_(lr * d / self._n)
         self._write_back(p, p32)
@@ -75,7 +96,13 @@ class RAdam(Optimizer):
         v = self._accum("moment2", p)
         m.mul_(b1).add_(g32, alpha=1.0 - b1)
         v.mul_(b2).addcmul_(g32, g32, value=1.0 - b2)
-        one, t = _f32(1.0), _f32(self._step_count + 1)
+        if isinstance(self._t(), torch.Tensor):
+            step = self._device_step(m, v)
+            p32 = self._fp32(p)
+            p32.sub_(lr * step)
+            self._write_back(p, p32)
+            return
+        one, t = _f32(1.0), _f32(self._t())
         b1t, b2t = _f32(b1) ** t, _f32(b2) ** t
         step = m / float(one - b1t)
         rho_inf = _f32(2.0 / (1.0 - b2) - 1.0)
@@ -90,6 +117,24 @@ class RAdam(Optimizer):
         p32 = self._fp32(p)
         p32.sub_(lr * step)
         self._write_back(p, p32)
+
+
+    def _device_step(self, m, v):
+        """The step of a captured update: the host branch's fp32
+        arithmetic on the device step count, both branches computed and
+        the rectified one taken where ``rho_t > 5``."""
+        b1, b2, t = self._beta1, self._beta2, self._t()
+        b1t = torch.pow(float(_f32(b1)), t)
+        b2t = torch.pow(float(_f32(b2)), t)
+        step = m / (1.0 - b1t)
+        rho_inf = float(_f32(2.0 / (1.0 - b2) - 1.0))
+        rho_t = rho_inf - 2.0 * t * b2t / (1.0 - b2t)
+        r = torch.sqrt(torch.clamp(
+            (rho_t - 4.0) * (rho_t - 2.0) * rho_inf
+            / torch.clamp((rho_inf - 4.0) * (rho_inf - 2.0) * rho_t,
+                          min=1e-12), min=0.0))
+        adaptive = r * step / ((v / (1.0 - b2t)).sqrt_() + self._eps)
+        return torch.where(rho_t > 5.0, adaptive, step)
 
 
 class Rprop(Optimizer):
@@ -127,6 +172,7 @@ class NAdam(Optimizer):
     """Adam with Nesterov momentum and the ``mu_product`` schedule."""
 
     _accum_names = ("moment1", "moment2", "mu_product")
+    _accum_fills = {"mu_product": 1.0}
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, momentum_decay=0.004, parameters=None,
@@ -139,10 +185,9 @@ class NAdam(Optimizer):
         self._psi = float(momentum_decay)
 
     def _update_param(self, p, grad, lr):
-        b1, b2, t = self._beta1, self._beta2, self._step_count + 1
+        b1, b2, t = self._beta1, self._beta2, self._t()
         g32 = grad.float()
-        mu_t, mu_t1 = (float(_f32(b1) * (_f32(1) - _f32(0.5) * _f32(0.96) ** (
-            _f32(s) * _f32(self._psi)))) for s in (t, t + 1))
+        mu_t, mu_t1 = (_nadam_mu(b1, s, self._psi) for s in (t, t + 1))
         mu_prod = self._accum("mu_product", p, fill=1.0).mul_(mu_t)
         m = self._accum("moment1", p)
         v = self._accum("moment2", p)
@@ -154,3 +199,13 @@ class NAdam(Optimizer):
         p32.sub_(lr * m_hat / ((v / _bias_correction(b2, t)).sqrt_()
                                + self._eps))
         self._write_back(p, p32)
+
+
+def _nadam_mu(b1, s, psi):
+    """NAdam's ``mu`` at step ``s`` in fp32: a float for a host step, a
+    device scalar for a captured step's."""
+    if isinstance(s, torch.Tensor):
+        return float(_f32(b1)) * (1.0 - 0.5 * torch.pow(
+            float(_f32(0.96)), s * float(_f32(psi))))
+    return float(_f32(b1) * (_f32(1) - _f32(0.5) * _f32(0.96) ** (
+        _f32(s) * _f32(psi))))

@@ -30,6 +30,21 @@ reference's ``p.name or f"param_{i}"``). ``state_dict`` keys and AdamW's
 
 Groups. As in the reference, a group's keys other than ``params`` are
 stored in ``_param_groups`` and never read: they change nothing.
+
+Capture (``jit.to_static``), the counterpart of the reference's
+``_lr_override``, ``_step_override`` and ``_ensure_accumulators``: a
+captured step may not read its rate or step count on the host, where a
+replay would find the values of the capture. So ``to_static`` sets
+``_lr_override`` and ``_step_override`` to 0-dim fp32 device tensors
+that it fills before every replay (the rate, and the 1-based step count
+``_step_count + 1``), and the update reads them through :meth:`_lr_now`
+and :meth:`_t`. With them, scalars that hang on the rate or the step
+(the bias corrections, RAdam's rectification, NAdam's schedule, ASGD's
+window slot) are fp32 device tensors, computed on the device as the
+reference's traced step computes them; without them (eager) they are the
+host numbers they were. ``to_static`` makes every accumulator and master
+exist before it captures (:meth:`_ensure_accumulators`), and replays the
+``_step_count`` increments of the captured step on the host.
 """
 from __future__ import annotations
 
@@ -56,15 +71,20 @@ def _one_minus(beta) -> float:
     return float(np.float32(1) - np.float32(beta))
 
 
-def _bias_correction(beta, t) -> float:
+def _bias_correction(beta, t):
     """``1 - beta ** t`` in fp32, as the reference computes it from its
-    fp32 step count."""
+    fp32 step count: a float for a host ``t``, an fp32 device tensor for
+    a device ``t`` (a captured step)."""
+    if isinstance(t, torch.Tensor):
+        return 1.0 - torch.pow(float(np.float32(beta)), t)
     return float(np.float32(1) - np.float32(beta) ** np.float32(t))
 
 
 class Optimizer:
     #: accumulator names of the subclass, each an fp32 tensor per parameter
     _accum_names: tuple = ()
+    #: an accumulator's first value where it is not 0
+    _accum_fills: dict = {}
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -99,12 +119,27 @@ class Optimizer:
             n: {} for n in self._accum_names}
         self._master_weights: Dict[int, torch.Tensor] = {}
         self._step_count = 0
+        # device scalars of a captured step (see the module docstring)
+        self._lr_override = None
+        self._step_override = None
 
     # ------------------------------------------------------------------
     def get_lr(self) -> float:
         if isinstance(self._learning_rate, LRScheduler):
             return float(self._learning_rate())
         return float(self._learning_rate)
+
+    def _lr_now(self):
+        """The rate of this step: ``get_lr()``, or the device scalar a
+        captured step reads."""
+        return self.get_lr() if self._lr_override is None else \
+            self._lr_override
+
+    def _t(self):
+        """The 1-based step count of this step (a device scalar in a
+        captured step)."""
+        return self._step_count + 1 if self._step_override is None else \
+            self._step_override
 
     def set_lr(self, value: float):
         self._learning_rate = float(value)
@@ -117,6 +152,18 @@ class Optimizer:
         if id(p) not in store:
             store[id(p)] = torch.full_like(p, fill, dtype=torch.float32)
         return store[id(p)]
+
+    def _accum_fill(self, name: str) -> float:
+        return self._accum_fills.get(name, 0.0)
+
+    def _ensure_accumulators(self):
+        """Make every accumulator and master weight a step would make, for
+        every parameter that takes gradients (a capture must find them)."""
+        for p in self._parameter_list:
+            if p.requires_grad:
+                self._master(p)
+                for name in self._accum_names:
+                    self._accum(name, p, self._accum_fill(name))
 
     def _master(self, p: torch.Tensor):
         """The fp32 master copy of a low-precision parameter (None for an
@@ -136,10 +183,12 @@ class Optimizer:
             params_grads = self._grad_clip(params_grads)
         params_grads = [(p, g) for p, g in params_grads if g is not None]
         if params_grads:
-            lr = self.get_lr()
+            lr = self._lr_now()
             params = [p for p, _ in params_grads]
-            lrs = [lr * getattr(p, "optimize_attr", {}).get(
+            ratios = [getattr(p, "optimize_attr", {}).get(
                 "learning_rate", 1.0) for p in params]
+            lrs = [lr if r == 1.0 and isinstance(lr, torch.Tensor)
+                   else lr * r for r in ratios]
             self._update(params, self._regularized(params_grads), lrs)
         self._step_count += 1
 

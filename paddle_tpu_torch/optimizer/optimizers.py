@@ -9,6 +9,10 @@ every parameter at once in ``torch._foreach_*`` ops (``_adam_foreach``),
 grouped by (device, parameter dtype, has a master), with each
 parameter's rate and decay in scalar lists. That is their one path, on
 the CPU too. The other optimizers update per parameter in plain torch.
+In a captured step (``optimizer.py``'s docstring) the rate and the bias
+corrections are fp32 device scalars: Adam then applies each one in one
+multi-tensor op over the parameters that share it
+(:func:`_adam_foreach_device`).
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ class SGD(Optimizer):
             p.copy_(master)
         else:
             # the reference casts lr to the parameter's dtype here
-            lr = torch.tensor(lr, dtype=p.dtype).item()
+            lr = (lr.to(p.dtype) if isinstance(lr, torch.Tensor)
+                  else torch.tensor(lr, dtype=p.dtype).item())
             p.sub_(lr * grad.to(p.dtype))
 
 
@@ -72,6 +77,10 @@ def _adam_foreach(ps, p32, g32, m, v, lrs, wds, b1, b2, eps, t):
     ``p -= (lr / bc1) * m / (sqrt(v) / sqrt(bc2) + eps)``. Then ``ps``
     receive ``p32`` cast, where they are not ``p32`` themselves."""
     bc1, bc2 = _bias_correction(b1, t), _bias_correction(b2, t)
+    if isinstance(bc1, torch.Tensor):
+        _adam_foreach_device(ps, p32, g32, m, v, lrs, wds, b1, b2, eps, bc1,
+                             bc2)
+        return
     if wds is not None and any(wds):
         torch._foreach_mul_(p32, [1.0 - lr * wd for lr, wd in zip(lrs, wds)])
     torch._foreach_lerp_(m, g32, _one_minus(b1))
@@ -81,6 +90,51 @@ def _adam_foreach(ps, p32, g32, m, v, lrs, wds, b1, b2, eps, t):
     torch._foreach_div_(denom, math.sqrt(bc2))
     torch._foreach_add_(denom, eps)
     torch._foreach_addcdiv_(p32, m, denom, [-lr / bc1 for lr in lrs])
+    if p32 is not ps:
+        torch._foreach_copy_(ps, p32)
+
+
+def _mul_by(tensors, scalars):
+    """``tensors[i] *= scalars[i]`` in place, one multi-tensor op per
+    distinct scalar (device scalars by identity)."""
+    groups: dict = {}
+    for t, c in zip(tensors, scalars):
+        groups.setdefault(id(c), (c, []))[1].append(t)
+    for c, ts in groups.values():
+        torch._foreach_mul_(ts, c)
+
+
+def _adam_foreach_device(ps, p32, g32, m, v, lrs, wds, b1, b2, eps, bc1,
+                         bc2):
+    """:func:`_adam_foreach` in a captured step: the rates (``lrs``) and
+    the bias corrections are fp32 device scalars, so the decay factor and
+    the step size ``s = -lr / bc1`` are fp32 device scalars too, one per
+    distinct rate. ``addcdiv`` takes no device scalar, so the denominator
+    is divided by ``s``: ``p += m / ((sqrt(v) / sqrt(bc2) + eps) / s)``,
+    one pass more than the eager update, its value within a few
+    roundings. (``_foreach_add_`` of a device scalar reads it on the host,
+    which a capture cannot; multiplying and dividing by one does not.)
+    Parameters without decay are not multiplied by 1."""
+    memo: dict = {}
+
+    def per_rate(lr, key, fn):
+        if (id(lr), key) not in memo:
+            memo[id(lr), key] = fn(lr)
+        return memo[id(lr), key]
+
+    if wds is not None and any(wds):
+        idx = [i for i, wd in enumerate(wds) if wd]
+        _mul_by([p32[i] for i in idx],
+                [per_rate(lrs[i], wds[i], lambda x, wd=wds[i]: 1.0 - x * wd)
+                 for i in idx])
+    torch._foreach_lerp_(m, g32, _one_minus(b1))
+    torch._foreach_mul_(v, b2)
+    torch._foreach_addcmul_(v, g32, g32, value=_one_minus(b2))
+    denom = torch._foreach_sqrt(v)
+    torch._foreach_div_(denom, torch.sqrt(bc2))
+    torch._foreach_add_(denom, eps)
+    _mul_by(denom, [per_rate(lr, "step", lambda x: -bc1 / x) for lr in lrs])
+    torch._foreach_addcdiv_(p32, m, denom)
     if p32 is not ps:
         torch._foreach_copy_(ps, p32)
 
@@ -105,7 +159,7 @@ class Adam(Optimizer):
         for i, p in enumerate(params):
             key = (p.device, p.dtype, self._master(p) is not None)
             groups.setdefault(key, []).append(i)
-        t = self._step_count + 1
+        t = self._t()
         for (_, dtype, has_master), idx in groups.items():
             ps = [params[i] for i in idx]
             gs = [grads[i] for i in idx]
@@ -192,6 +246,9 @@ class Adagrad(Optimizer):
         self._epsilon = float(epsilon)
         self._init_acc = float(initial_accumulator_value)
 
+    def _accum_fill(self, name):
+        return self._init_acc if name == "moment" else 0.0
+
     def _update_param(self, p, grad, lr):
         g32 = grad.float()
         m = self._accum("moment", p, fill=self._init_acc)
@@ -237,14 +294,18 @@ class Adamax(Optimizer):
         self._epsilon = float(epsilon)
 
     def _update_param(self, p, grad, lr):
-        b1, t = self._beta1, self._step_count + 1
+        b1, t = self._beta1, self._t()
         g32 = grad.float()
         m = self._accum("moment", p)
         inf = self._accum("inf_norm", p)
         m.mul_(b1).add_(g32, alpha=_one_minus(b1))
         torch.maximum(inf.mul_(self._beta2), g32.abs(), out=inf)
         p32 = self._fp32(p)
-        step = float(np.float32(lr) / np.float32(_bias_correction(b1, t)))
+        bc = _bias_correction(b1, t)
+        if isinstance(bc, torch.Tensor) or isinstance(lr, torch.Tensor):
+            step = lr / bc
+        else:
+            step = float(np.float32(lr) / np.float32(bc))
         p32.sub_(step * m / (inf + self._epsilon))
         self._write_back(p, p32)
 
@@ -267,7 +328,7 @@ class Lamb(Optimizer):
         self._exclude_fn = exclude_from_weight_decay_fn
 
     def _update_param(self, p, grad, lr):
-        b1, b2, t = self._beta1, self._beta2, self._step_count + 1
+        b1, b2, t = self._beta1, self._beta2, self._t()
         g32 = grad.float()
         m = self._accum("moment1", p)
         v = self._accum("moment2", p)

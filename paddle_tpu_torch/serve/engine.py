@@ -22,18 +22,35 @@ contract:
   scheduler pass, eos latched per row inside the burst, tokens copied
   to the host once per burst.
 
+- **One captured decode step.** Slot state (tokens, lengths, block
+  tables, active mask, temperatures, eos ids) enters the decode tick as
+  data at fixed ``[max_slots, ...]`` shapes, packed into one int32
+  tensor (one host-to-device copy a pass), so admission, finish and
+  preemption churn never capture again: ``serve.decode_traces`` (and
+  ``decode_traces``) stays at 1 for the life of the engine, or at
+  ``len(burst_lens_used)`` in burst mode, one graph per power-of-two
+  burst length.
+
 What differs from the reference, and why:
 
-- PyTorch runs eagerly: there is no compiled step, so the reference's
-  ``serve.decode_traces`` / ``serve.prefill_traces`` counters have no
-  counterpart, and a prefill runs on the prompt's own length (no
-  power-of-two padding buckets).
+- The reference's compiled step is a jitted function; here it is a
+  CUDA graph (``jit/_capture.py``): the first call of the tick (and of
+  each burst length) runs eagerly and is then captured, every later
+  pass replays it. Slot churn is data, so the graph never changes. On
+  the CPU the same tick runs eagerly. ``warm_burst`` captures a length
+  before traffic arrives and leaves the sampler's generator as it found
+  it, so sampled streams do not depend on warm-up.
+- Prefill runs eagerly, on the prompt's own length (no power-of-two
+  padding buckets), so ``prefill_traces`` stays 0; capturing bucketed
+  prefills is queued in ``ROADMAP.md``.
 - The KV pool is updated IN PLACE (``index_put_`` on a flat view of
   each layer's ``[KVH, blocks, block_size, DH]`` tensors), where the
   reference donated the pool buffers to each jitted call. Torch indexing
-  has no ``mode="drop"``: the rows that the reference fenced off with an
-  out-of-range slot id (idle slots, rows latched at eos in a burst) are
-  left out of the write, or write back the pool's own values.
+  has no ``mode="drop"``, so the pool holds one block more than
+  ``BlockPool`` hands out, the sink block: every slot writes each tick,
+  and the rows the reference fenced off with an out-of-range slot id
+  (idle slots, rows latched at eos in a burst) write into the sink,
+  which no block table holds and no attention reads.
 - Sampling draws from a ``torch.Generator`` on the engine's device
   (seeded from ``seed``), so sampled streams are reproducible within the
   port but differ from the reference's ``jax.random`` streams; greedy
@@ -51,6 +68,7 @@ from __future__ import annotations
 
 import collections
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Deque, List, Optional
 
@@ -63,6 +81,8 @@ from ..core.generator import make_generator
 from ..core.place import device_of, resolve_device
 from ..incubate.nn.functional import _rope_tables
 from ..incubate.nn.functional._rope_common import rotate_half
+from ..incubate.nn.functional.inference_attention import _write_kv
+from ..jit._capture import Graphed
 from ..models import generation as _gen
 from ..ops.cuda.paged_attention import paged_attention_decode
 from .pool import BlockPool, PoolExhaustedError
@@ -97,6 +117,9 @@ _M_TOKENS = obs.counter(
     "serve.tokens_generated", "tokens emitted across all streams")
 _M_DECODE_STEPS = obs.counter(
     "serve.decode_steps", "batched decode steps executed")
+_M_DECODE_TRACES = obs.counter(
+    "serve.decode_traces", "times the persistent decode step was "
+    "traced — slot churn must keep this at 1 per engine")
 _M_TTFT = obs.histogram(
     "serve.ttft_seconds", "submit -> first generated token wall time "
     "(queue wait included)")
@@ -239,7 +262,11 @@ class ServeEngine:
         self._nh, self._nkv = self._p["nh"], self._p["nkv"]
         self._dh, self._L = self._p["dh"], len(self._p["layers"])
         self._dtype = self._p["embed"].dtype
-        shape = (self._nkv, self.pool.num_blocks, self.block_size, self._dh)
+        # one block past those the pool hands out: the sink (module
+        # docstring)
+        self._sink = self.pool.num_blocks
+        shape = (self._nkv, self.pool.num_blocks + 1, self.block_size,
+                 self._dh)
         self._caches = [
             (torch.zeros(shape, dtype=self._dtype, device=self.device),
              torch.zeros(shape, dtype=self._dtype, device=self.device))
@@ -265,8 +292,14 @@ class ServeEngine:
             raise ValueError(
                 f"decode_burst must be >= 1, got {decode_burst}")
         self.decode_burst = int(decode_burst)
-        # power-of-two burst lengths actually run
+        # power-of-two burst lengths actually run; each is one captured
+        # graph, so decode_traces == len(burst_lens_used) in burst mode
         self.burst_lens_used: set = set()
+        # captured ticks by burst length (1 = the single tick), and the
+        # counts of the reference's compiled-step counters
+        self._graphs: dict = {}
+        self.decode_traces = 0
+        self.prefill_traces = 0
 
         self.queue: Deque[Request] = collections.deque()
         self.finished: List[Request] = []
@@ -682,96 +715,97 @@ class ServeEngine:
         _M_BURST_TOKENS.inc(n_emitted, engine=self.name)
 
     def warm_burst(self, n: int):
-        """Run ``n`` decode ticks over idle slot state (every row
-        inactive: no KV write lands, outputs are discarded, the sampler
-        draws from a throwaway generator) so kernel builds and library
-        start-up happen before serving traffic."""
-        self._run_ticks(int(n), np.zeros(self.max_slots, bool),
-                        generator=make_generator(0, self.device))
+        """Capture the ``n``-tick burst (``n`` = 1: the tick) and replay it
+        once over idle slot state (every row inactive: the KV writes land
+        in the sink block, the outputs are discarded), so kernel builds,
+        the capture and the graph's first launch happen before serving
+        traffic. The sampler's generator is given back its state, so the
+        streams that follow do not depend on warm-up."""
+        state = self._gen.get_state()
+        idle = np.zeros(self.max_slots, bool)
+        for _ in range(2):
+            self._run_ticks(int(n), idle)
+        self._gen.set_state(state)
 
     # -- device work -------------------------------------------------------
-    def _t(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(a, device=self.device)
+    def _packed_state(self, active_np: np.ndarray) -> torch.Tensor:
+        """The host slot state as ONE int32 tensor (the pass's one
+        host-to-device copy): tokens, lengths, temperatures (fp32 bits),
+        eos ids and the active mask, ``max_slots`` each, then the block
+        tables."""
+        return torch.from_numpy(np.concatenate([
+            self._tokens, self._lens, self._temps.view(np.int32), self._eos,
+            active_np.astype(np.int32), self._tables.reshape(-1)]))
 
     @torch.no_grad()
-    def _run_ticks(self, n: int, active_np: np.ndarray, generator=None):
-        """``n`` decode ticks over every slot from the host slot state.
-        Each tick runs :meth:`_decode_core`, then latches eos per row: a
-        finished row keeps ticking but freezes (its length stops, its KV
-        write is suppressed, its later tokens are never read). Returns
-        (tokens [n, B], emitted per slot [B]) as numpy — the one
-        device-to-host copy of the pass."""
-        gen = self._gen if generator is None else generator
-        tokens, lens = self._t(self._tokens), self._t(self._lens)
-        tables, temps = self._t(self._tables), self._t(self._temps)
-        eos = self._t(self._eos)
-        live = self._t(active_np)
-        # the rows that may write K/V: slots active when the pass began
-        rows = torch.tensor(np.flatnonzero(active_np), dtype=torch.long,
-                            device=self.device)
-        emitted = torch.zeros(self.max_slots, dtype=torch.int32,
-                              device=self.device)
+    def _run_ticks(self, n: int, active_np: np.ndarray):
+        """``n`` decode ticks over every slot from the host slot state,
+        through the captured graph of length ``n`` (made on first use:
+        ``decode_traces``). Returns (tokens [n, B], emitted per slot [B])
+        as numpy — the one device-to-host copy of the pass."""
+        graph = self._graphs.get(n)
+        if graph is None:
+            # a weak reference: the engine holds the graph, and a cycle
+            # would keep the pool and the graph's memory alive after the
+            # engine is dropped, until the garbage collector ran
+            engine = weakref.ref(self)
+            graph = self._graphs[n] = Graphed(
+                lambda packed: engine()._ticks(n, packed), self.device,
+                name=f"serve.decode[{n}]", generators=[self._gen],
+                fresh_outputs=False)
+            self.decode_traces += 1
+            _M_DECODE_TRACES.inc(engine=self.name)
+        out = graph(self._packed_state(active_np)).cpu().numpy()
+        return out[:n], out[n]
+
+    def _ticks(self, n, packed):
+        """The captured function: ``n`` ticks of :meth:`_decode_core` at
+        fixed shapes, each latching eos per row: a finished row keeps
+        ticking but freezes (its length stops, its KV write goes to the
+        sink, its later tokens are never read). Returns int32 ``[n + 1,
+        B]``: each tick's tokens, then the tokens each slot emitted."""
+        b = self.max_slots
+        tokens, lens, temps, eos, live = packed[:5 * b].view(5, b)
+        temps = temps.view(torch.float32)
+        tables = packed[5 * b:].view(b, self.max_blocks_per_seq)
+        live = live.bool()
+        emitted = torch.zeros_like(tokens)
         ys = []
-        for tick in range(n):
-            # rows can only be latched after the first tick
-            keep = None if tick == 0 else live[rows]
-            nxt = self._decode_core(tokens, lens, live, tables, temps, rows,
-                                    keep, gen)
+        for _ in range(n):
+            nxt = self._decode_core(tokens, lens, live, tables, temps)
             hit = live & (eos >= 0) & (nxt == eos)
             tokens = torch.where(live, nxt, tokens)
             lens = torch.where(live, lens + 1, lens)
             emitted = emitted + live.to(torch.int32)
             live = live & ~hit
             ys.append(nxt)
-        return torch.stack(ys).cpu().numpy(), emitted.cpu().numpy()
+        return torch.stack(ys + [emitted])
 
-    def _decode_core(self, tokens, lens, active, tables, temps, rows, keep,
-                     gen):
-        """ONE batched decode tick over every slot: write each active
-        stream's pending token into its KV block (``rows`` write;
-        ``keep`` masks rows latched at eos, None = all live), attend
-        through the block tables (paged decode attention), project,
-        sample."""
+    def _decode_core(self, tokens, lens, live, tables, temps):
+        """ONE batched decode tick over every slot: each slot writes its
+        pending token's K/V (live rows into their block, the others into
+        the sink), attends through the block tables (paged decode
+        attention; rows that are not live have length 0), projects and
+        samples."""
         b = self.max_slots
         nh, dh, bs = self._nh, self._dh, self.block_size
         p = self._p
         x = p["embed"][tokens.long()]                      # [B, H]
         pos = lens.long()
         rope = self._rope_rows(pos)
-        lengths = torch.where(active, pos + 1, 0).to(torch.int32)
+        lengths = torch.where(live, pos + 1, 0).to(torch.int32)
         bi = torch.clamp(pos // bs, 0, self.max_blocks_per_seq - 1)
         phys = tables.long().gather(1, bi[:, None])[:, 0]
-        slot = phys * bs + pos % bs
+        slot = torch.where(live, phys, self._sink) * bs + pos % bs
 
         def attn(q, _k, _v, kc, vc):
             return paged_attention_decode(
                 q, kc, vc, lengths, tables,
                 backend=self._backend).reshape(b, nh * dh)
 
-        out = self._stack_layers(x, rope, slot, rows, keep, attn)
+        out = self._stack_layers(x, rope, slot, attn)
         logits = _gen._head_logits(p, out).float()          # [B, V]
-        return _gen._sample_slot_tokens(logits, temps, gen)
-
-    def _scatter_kv(self, kc, vc, k_new, v_new, slot, rows, live):
-        """Write per-row K/V ([rows, kvh, dh]) into the pool IN PLACE at
-        flat slot ids. Only the rows in ``rows`` write (None = all): the
-        reference fenced idle slots off with an out-of-range id under
-        ``mode="drop"``; torch has no drop mode, and clamping would
-        overwrite the last block, so those rows are left out. ``live``
-        (per written row) keeps the pool's own values for rows latched
-        at eos inside a burst."""
-        nb, bs = self.pool.num_blocks, self.block_size
-        kc_f = kc.view(self._nkv, nb * bs, self._dh)
-        vc_f = vc.view(self._nkv, nb * bs, self._dh)
-        if rows is not None:
-            slot, k_new, v_new = slot[rows], k_new[rows], v_new[rows]
-        k_new, v_new = k_new.transpose(0, 1), v_new.transpose(0, 1)
-        if live is not None:
-            keep = live[None, :, None]
-            k_new = torch.where(keep, k_new, kc_f[:, slot])
-            v_new = torch.where(keep, v_new, vc_f[:, slot])
-        kc_f[:, slot] = k_new
-        vc_f[:, slot] = v_new
+        return _gen._sample_slot_tokens(logits, temps, self._gen)
 
     def _rope_rows(self, pos):
         """fp32 cos/sin rows at per-row positions ``pos``: [rows, 1, dh]."""
@@ -784,7 +818,7 @@ class ServeEngine:
         k = k32 * cos + rotate_half(k32, True) * sin
         return q.to(self._dtype), k.to(self._dtype)
 
-    def _stack_layers(self, x, rope, slot, rows, live, attn):
+    def _stack_layers(self, x, rope, slot, attn):
         """ONE transformer stack for decode and both prefills: norm,
         projections, rope, K/V scatter into the pool, attention via the
         given closure, residual + FFN, final norm. ``x`` is [rows, H];
@@ -800,7 +834,7 @@ class ServeEngine:
             k = F.linear(h, lp["wk"]).reshape(n, kvh, dh)
             v = F.linear(h, lp["wv"]).reshape(n, kvh, dh)
             q, k = self._rope(q, k, *rope)
-            self._scatter_kv(kc, vc, k, v, slot, rows, live)
+            _write_kv(kc, vc, k, v, slot)
             ctx = attn(q, k, v, kc, vc)
             x = x + F.linear(ctx.to(dtype), lp["wo"])
             x = x + _gen._llama_ffn(_gen._rms(x, lp["ln2"], eps, dtype), lp,
@@ -835,7 +869,7 @@ class ServeEngine:
             return torch.einsum("hqk,khd->qhd", probs,
                                 v_rep.float()).reshape(n, nh * dh)
 
-        out = self._stack_layers(x, rope, slot, None, None, attn)
+        out = self._stack_layers(x, rope, slot, attn)
         return _gen._head_logits(self._p, out[n - 1:n])[0].float()
 
     def _suffix_prefill_impl(self, ids, start, table_row):
@@ -860,7 +894,7 @@ class ServeEngine:
                 q, kc, vc, lengths, tables_rep,
                 backend=self._backend).reshape(n, nh * dh)
 
-        out = self._stack_layers(x, rope, slot, None, None, attn)
+        out = self._stack_layers(x, rope, slot, attn)
         return _gen._head_logits(self._p, out[n - 1:n])[0].float()
 
     @torch.no_grad()

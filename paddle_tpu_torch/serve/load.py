@@ -59,11 +59,13 @@ def default_serving_setup(device=None):
 
 
 def warm_engine(engine: ServeEngine, max_prompt_len=None):
-    """Run the decode step and prefills of every power-of-two length up
-    to the longest admissible prompt outside the measured window, so the
-    kernels' first-use build, the BLAS library's start-up and the
-    allocator's growth are not billed to a served request's TTFT (the
-    reference warmed the same lengths to compile its jit buckets)."""
+    """Run the prefills of every power-of-two length up to the longest
+    admissible prompt, and capture the decode tick and every power-of-two
+    burst length up to ``decode_burst`` (``ServeEngine.warm_burst``),
+    outside the measured window, so the kernels' first-use build, the
+    BLAS library's start-up, the allocator's growth and the graph
+    captures are not billed to a served request's TTFT (the reference
+    warmed the same lengths to compile its jit buckets)."""
     vocab = int(engine._p["embed"].shape[0])
     # the longest ADMISSIBLE prompt: max_new >= 1 bounds it at
     # max_seq_len - 1, and its n-token working set must fit the pool
@@ -102,8 +104,10 @@ def warm_engine(engine: ServeEngine, max_prompt_len=None):
         # drop the warm-up registrations so the measured run's
         # prefix_hits/blocks_shared reflect the WORKLOAD, not warm-up
         engine._prefix.reset(engine.pool)
-    if engine.decode_burst > 1:
-        engine.warm_burst(engine.decode_burst)
+    n = 1
+    while n <= engine.decode_burst:
+        engine.warm_burst(n)
+        n *= 2
 
 
 @dataclass
