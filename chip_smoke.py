@@ -21,14 +21,18 @@ Phases, each fatal on failure:
              serving's peak memory; bf16 sampled streams and fp32 greedy
              streams (cold, and prefix + 4-tick bursts: one graph per
              burst length) equal with captured and eager ticks, and on
-             the reference attention;
+             the reference attention; every paged call of a bf16 run
+             with the prefix cache (decode, bursts, suffix prefills) held
+             against its plain version;
 5b. generate — ``LlamaForCausalLM.generate`` at the serving width (bf16,
              8 left-padded prompts, 64 new tokens): dense, ``paged=True``
              at blocks 64 and 128 (the paged kernel once per layer per
              tick, the varlen forward once per prefill layer, both by
              name in a profile; in bf16 every call of both kernels
              of a further run at each block held against its plain
-             version), sampled (one seed twice, bit for bit),
+             version, and the score gap at each first token where the
+             streams differ from the dense run's and from a run on the
+             plain versions printed), sampled (one seed twice, bit for bit),
              beam search and ``generate_speculative``; greedy and
              sampled streams of captured ticks equal to eager ticks';
              tokens/s, prefill and decode-tick times eager and captured,
@@ -62,12 +66,27 @@ Phases, each fatal on failure:
              ran by name (profiler);
 8. calibrate — ``tools/conv_calibration.measure_shape`` of the port at
              ResNet-50 shapes 2 and 17 (batch 64) through the tiled
-             matmul kernel, and the tiled kernel that ran by name.
+             matmul kernel, and the tiled kernel that ran by name;
+9. gpt     — ``GPTForCausalLM`` at ``GPTConfig.gpt2_medium()``'s full
+             width and depth (24 layers, 16 heads of 64, vocab 50304,
+             tied head) in bf16: the dense flash kernels at its training
+             shape [8, 16, 1024, 64] with dropout 0.1 (keep mask equal
+             to the plain version's, forward and backward within the
+             tolerance, timed beside ``F.scaled_dot_product_attention``);
+             the training step (batch 8 x 1024, dropout 0.1, AdamW with
+             masters: the tensor-core flash kernels once a layer, no
+             RMSNorm kernel, falling loss, tokens/s, MFU, peak memory,
+             busy share) and its fp32 2-layer check against the kernels'
+             plain versions; then ``generate`` and ``ServeEngine`` through
+             the phases of 5 and 5b with every check they make
+             (``phase_generate`` and ``phase_serve`` take the family:
+             ``llama_family``, ``gpt_family``).
 
 Each kernel's ``launches`` in the ``kernels`` line is its count on its
 own main path (``main_path``: serve, train, varlen or calibrate); the
 paged and varlen-forward entries also carry their counts on the
-``generate`` path under ``launches_by_path``.
+``generate`` path under ``launches_by_path``, and every entry its counts
+on GPT's paths (``gpt_train``, ``gpt_generate``: one call, ``gpt_serve``).
 
 The paged kernel is held at the serving, GQA, decode-step and
 suffix-prefill shapes (``PAGED_SHAPES``) with the L2 cold and warm, and
@@ -90,7 +109,7 @@ training step must run the vector variant's kernels (``RMS_TRAIN_KERNELS``).
 The tiled matmul has one route, the tensor cores, and the calibrate path
 fails if any other tiled kernel ran.
 
-The last lines are the ``train`` and ``train_recipe`` JSON, the
+The last lines are the ``train``, ``train_recipe`` and ``gpt`` JSON, the
 ``kernels`` JSON, the ``nvidia-smi`` name/power line, and
 ``{"ok": true, "device": {...}}``.
 
@@ -1521,7 +1540,7 @@ def phase_forward(torch, dev, report):
     torch.cuda.empty_cache()
 
 
-def profile_decode(torch, eng, vocab, label, steps=16):
+def profile_decode(torch, eng, vocab, label, steps):
     """Where a full-batch decode step's time goes: 8 streams past their
     prefill, ``steps`` decode steps timed on the host clock, then the
     same number under ``torch.profiler`` for the device kernel time by
@@ -1673,28 +1692,79 @@ def profile_kernels(torch, fn, n, wall_ms, label):
     return busy_ms, per_kernel
 
 
-def phase_serve(torch, dev, report):
-    """The ``default_serving_setup`` engine (8 slots, 96 x 128-token
-    blocks, max_seq_len 1024) in bf16 under Poisson load: every request
-    finishes, ``warm_engine`` captured the decode tick once
-    (``decode_traces`` 1) and every decode step replayed it, the paged
-    kernel launching once per layer per step through the replays; the
-    decode step profiled with eager and captured ticks; serving's peak
-    memory. bf16 sampled streams (temperature 0.8, one seed) equal with
-    captured and eager ticks. Then fp32 greedy streams with captured
-    kernel ticks, eager kernel ticks and captured reference-attention
-    ticks must be equal token for token, cold and with the prefix cache
-    and 4-tick decode bursts on (the suffix prefill runs the paged kernel
-    over many rows; one graph per burst length used)."""
+class Family:
+    """A decoder family on the main path of ``phase_serve`` and
+    ``phase_generate``: ``tag`` prefixes its engines' names and its launch
+    paths ("" for Llama, so its paths stay ``serve`` and ``generate``),
+    ``label`` its log lines, ``prm`` is ``default_serving_setup``'s engine
+    and load settings, and ``model(bf16=True, layers=None, seed=0)``
+    builds it at full width on the card in eval mode (fp32 where ``bf16``
+    is False, ``layers`` cutting the depth)."""
+
+    def __init__(self, tag, label, model, prm):
+        self.tag, self.label, self.model, self.prm = tag, label, model, prm
+
+
+def llama_family(torch, dev):
+    """``default_serving_setup``'s Llama: 10 layers, hidden 2048, 16 heads
+    of 128, vocab 32000."""
     import dataclasses
 
-    from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.serve import (ServeEngine, default_serving_setup,
-                                        run_load, warm_engine)
+    from paddle_tpu_torch.serve import default_serving_setup
 
     config, prm = default_serving_setup(dev)
+
+    def model(bf16=True, layers=None, seed=0):
+        cfg = dataclasses.replace(
+            config, num_hidden_layers=layers or config.num_hidden_layers,
+            **({"dtype": "bfloat16"} if bf16 else {}))
+        return LlamaForCausalLM(cfg, device=dev, seed=seed).eval()
+
+    return Family("", "Llama", model, prm)
+
+
+def gpt_family(torch, dev):
+    """``GPTConfig.gpt2_medium()`` (``gpt_model``): 24 layers, hidden 1024,
+    16 heads of 64, vocab 50304, tied head; served with
+    ``default_serving_setup``'s engine and load (max_seq_len 1024: the
+    whole position table)."""
+    from paddle_tpu_torch.serve import default_serving_setup
+
+    def model(bf16=True, layers=None, seed=0):
+        kw = {"num_hidden_layers": layers} if layers else {}
+        return gpt_model(torch, dev, seed=seed, bf16=bf16, **kw).eval()
+
+    return Family("gpt_", "GPT", model, default_serving_setup(dev)[1])
+
+
+def phase_serve(torch, dev, report, fam):
+    """The ``default_serving_setup`` engine (8 slots, 96 x 128-token
+    blocks, max_seq_len 1024) over the family ``fam`` in bf16 under
+    Poisson load: every request finishes, ``warm_engine`` captured the
+    decode tick once (``decode_traces`` 1) and every decode step replayed
+    it, the paged kernel launching once per layer per step through the
+    replays; the decode step profiled with eager and captured ticks;
+    serving's peak memory. bf16 sampled streams (temperature 0.8, one
+    seed) equal with captured and eager ticks. A bf16 run with the prefix
+    cache and 4-tick bursts on eager ticks holds every paged call (decode
+    ticks, bursts and suffix prefills) against its plain version on the
+    same inputs (``checked_paged_attention``). Then fp32 greedy streams
+    with captured kernel ticks, eager kernel ticks and captured
+    reference-attention ticks must be equal token for token, cold and
+    with the prefix cache and 4-tick decode bursts on (the suffix prefill
+    runs the paged kernel over many rows; one graph per burst length
+    used). Returns the serving numbers."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serve import ServeEngine, run_load, warm_engine
+
+    prm = fam.prm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = fam.model()
+    config = model.config
     nl = config.num_hidden_layers
+    smoke = f"{fam.tag}smoke"
 
     def engine(model, name, backend="auto", **kw):
         return ServeEngine(
@@ -1702,18 +1772,17 @@ def phase_serve(torch, dev, report):
             num_blocks=prm["num_blocks"], max_seq_len=prm["max_seq_len"],
             name=name, attention_backend=backend, device=dev, **kw)
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    model = LlamaForCausalLM(dataclasses.replace(config, dtype="bfloat16"),
-                             device=dev, seed=0).eval()
-    eng = engine(model, "smoke")
-    log(f"  KV pool: {2 * nl * eng._caches[0][0].numel() * 2 / 2**30:.2f} "
-        f"GiB bf16 (the sink block included)")
+    eng = engine(model, smoke)
+    log(f"  {fam.label}: {model.num_parameters() / 1e6:.1f}M parameters, "
+        f"bf16; KV pool {2 * nl * eng._caches[0][0].numel() * 2 / 2**30:.2f}"
+        f" GiB bf16 (the sink block included)")
     t0 = time.perf_counter()
     warm_engine(eng, max_prompt_len=prm["prompt_len"][1])
     log(f"  warm_engine: {time.perf_counter() - t0:.2f} s (the tick "
         f"captured in {(eng._graphs[1].capture_seconds or 0) * 1e3:.1f} ms)")
     check(eng.decode_traces == 1 and eng._graphs[1].captured,
-          f"warm_engine: decode_traces {eng.decode_traces}, want 1 captured")
+          f"{fam.label} warm_engine: decode_traces {eng.decode_traces}, "
+          f"want 1 captured")
     n_req = 24
     reset_counts()
     replays = eng._graphs[1].replays
@@ -1724,22 +1793,23 @@ def phase_serve(torch, dev, report):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     done = sum(r.state == "FINISHED" for r in res.requests)
-    dstep = obs.registry.get("serve.decode_step_seconds").stats(
-        engine="smoke")
+    dstep = obs.registry.get("serve.decode_step_seconds").stats(engine=smoke)
     replays = eng._graphs[1].replays - replays
-    log(f"  run_load: {done}/{n_req} finished, {res.total_tokens} tokens in "
-        f"{res.wall_seconds:.3f} s = {res.tokens_per_sec:.1f} tokens/s, "
-        f"TTFT p50 {res.ttft_p50 * 1e3:.2f} ms p99 {res.ttft_p99 * 1e3:.2f} "
-        f"ms, {res.engine_steps} decode steps ({replays} graph replays), "
-        f"decode step mean {dstep['avg'] * 1e3:.3f} ms (min "
+    log(f"  {fam.label} run_load: {done}/{n_req} finished, "
+        f"{res.total_tokens} tokens in {res.wall_seconds:.3f} s = "
+        f"{res.tokens_per_sec:.1f} tokens/s, TTFT p50 "
+        f"{res.ttft_p50 * 1e3:.2f} ms p99 {res.ttft_p99 * 1e3:.2f} ms, "
+        f"{res.engine_steps} decode steps ({replays} graph replays), decode "
+        f"step mean {dstep['avg'] * 1e3:.3f} ms (min "
         f"{dstep['min'] * 1e3:.3f}), preemptions {res.preemptions}, "
-        f"decode_traces {eng.decode_traces}, launches {counts}")
+        f"decode_traces {eng.decode_traces}, launches {counts}; "
+        f"{smi_line()}")
     log(f"  serving peak device memory: {peak / 2**30:.2f} GiB "
         f"(max_memory_allocated: the model, the KV pool, the graph's pool)")
     check(done == n_req and res.rejected == 0,
-          f"only {done} of {n_req} requests finished")
+          f"{fam.label}: only {done} of {n_req} requests finished")
     check(eng.decode_traces == 1 and obs.registry.get(
-        "serve.decode_traces").value(engine="smoke") == 1,
+        "serve.decode_traces").value(engine=smoke) == 1,
           f"decode_traces {eng.decode_traces} after run_load, want 1")
     check(replays == res.engine_steps,
           f"{replays} graph replays for {res.engine_steps} decode steps")
@@ -1759,13 +1829,14 @@ def phase_serve(torch, dev, report):
     check(counts["paged"] == nl * res.engine_steps,
           f"paged launches {counts['paged']} != layers x decode steps "
           f"{nl * res.engine_steps}")
-    record_launches(report, "serve", counts)
+    record_launches(report, f"{fam.tag}serve", counts)
     decode = {}
     for label in ("eager", "captured"):
         with (eager_ticks() if label == "eager" else contextlib.nullcontext()):
             reset_counts()
             wall, busy, per_kernel = profile_decode(
-                torch, eng, config.vocab_size, label)
+                torch, eng, config.vocab_size, f"{fam.label}, {label}",
+                steps=GEN_PROFILE_LAYER_TICKS // nl)
         got = named_launches(per_kernel, PAGED_KERNELS)
         decode[label] = dict(wall_ms=wall, kernel_ms=busy,
                              launches=sum(per_kernel.values()))
@@ -1773,10 +1844,12 @@ def phase_serve(torch, dev, report):
             f"kernels, {decode[label]['launches']} kernels; paged kernels "
             f"{got}")
         check(all(n == nl for n in got.values()),
-              f"{label} decode step ran the paged kernels {got}, want {nl} "
-              f"each")
-    report["paged"]["serve_decode_step"] = decode
-    report["paged"]["serve_peak_bytes"] = peak
+              f"{fam.label} {label} decode step ran the paged kernels {got}, "
+              f"want {nl} each")
+    out = dict(tokens_per_s=res.tokens_per_sec,
+               ttft_p50_ms=res.ttft_p50 * 1e3, ttft_p99_ms=res.ttft_p99 * 1e3,
+               decode_steps=res.engine_steps, paged_launches=counts["paged"],
+               peak_bytes=peak, decode_step=decode)
     del eng
 
     # bf16 sampled streams from one seed: captured = eager, token for token
@@ -1788,7 +1861,7 @@ def phase_serve(torch, dev, report):
     streams = {}
     for label in ("captured", "eager"):
         with (eager_ticks() if label == "eager" else contextlib.nullcontext()):
-            eng = engine(model, f"smoke_sampled_{label}", seed=7)
+            eng = engine(model, f"{smoke}_sampled_{label}", seed=7)
             reqs = [eng.submit(p, max_new_tokens=24, temperature=0.8)
                     for p in sampled]
             eng.run()
@@ -1798,28 +1871,52 @@ def phase_serve(torch, dev, report):
     log(f"  bf16 sampled streams (temperature 0.8, seed 7), captured vs "
         f"eager ticks: {same}/{len(sampled)} identical")
     check(same == len(sampled), "bf16 sampled streams: captured != eager")
-    del model
-    torch.cuda.empty_cache()
 
-    model = LlamaForCausalLM(config, device=dev, seed=0).eval()
     rng = torch.Generator().manual_seed(5)
 
     def rand_ids(n):
         return torch.randint(1, config.vocab_size, (n,), generator=rng).tolist()
 
-    # half the prompts share a two-block prefix, so the prefix-cache run
-    # prefills their suffixes through the paged kernel
+    # half the prompts share a two-block prefix, so the prefix-cache runs
+    # prefill their suffixes through the paged kernel
     shared = rand_ids(2 * prm["block_size"])
     plans = [((shared if i % 2 else []) + rand_ids(
         int(torch.randint(lo, hi + 1, (1,), generator=rng))), 16)
         for i in range(12)]
+    prefix = dict(prefix_cache=True, decode_burst=4)
+
+    # bf16, the paged kernel at this path's shapes: every call of a run
+    # with the prefix cache and bursts (decode, bursts, suffix prefills)
+    # against its plain version; the checks read the host, so the ticks
+    # are eager
+    worst = {}
+    name = f"{smoke}_checked"
+    with checked_paged_attention(worst), eager_ticks():
+        reset_counts()
+        eng = engine(model, name, **prefix)
+        for p, k in plans:
+            eng.submit(p, max_new_tokens=k)
+        eng.run()
+        launched = read_counts()["paged"]
+        del eng
+    calls, err, share = worst.get("paged", (0, 0.0, 0.0))
+    hits = obs.registry.get("serve.prefix_hits").value(engine=name)
+    log(f"  bf16 {report['paged']['name']} at serving's shapes (prefix "
+        f"cache, {hits} hits, bursts of 4), {calls} calls vs the plain "
+        f"version: max_abs_err={err:.3g}, {share:.3g} of the tolerance")
+    check(calls == launched and calls > 0 and hits > 0 and share <= 1.0,
+          f"{fam.label} serving's paged calls: {calls} checked of {launched} "
+          f"launched, {hits} prefix hits, {share:.3g} of the tolerance")
+    out["paged_max_abs_err"] = err
+    del model
+    torch.cuda.empty_cache()
+
+    model = fam.model(bf16=False)
     streams = {}
-    for mode, kw in (("cold", {}),
-                     ("prefix+burst4", dict(prefix_cache=True,
-                                            decode_burst=4))):
+    for mode, kw in (("cold", {}), ("prefix+burst4", prefix)):
         for backend, ticks in (("kernel", "captured"), ("kernel", "eager"),
                                ("reference", "captured")):
-            name = f"smoke_{mode}_{backend}_{ticks}"
+            name = f"{smoke}_{mode}_{backend}_{ticks}"
             with (eager_ticks() if ticks == "eager"
                   else contextlib.nullcontext()):
                 eng = engine(model, name, backend, **kw)
@@ -1841,13 +1938,13 @@ def phase_serve(torch, dev, report):
                 for k in (("kernel", "eager"), ("reference", "captured"))}
         label = (f"{mode}, {hits} prefix hits, burst lengths {lens}" if kw
                  else mode)
-        log(f"  fp32 greedy streams ({label}), captured kernel ticks vs "
-            f"eager kernel ticks: {same['kernel', 'eager']}/{len(plans)}, vs "
-            f"captured reference attention: {same['reference', 'captured']}/"
-            f"{len(plans)} identical")
+        log(f"  fp32 {fam.label} greedy streams ({label}), captured kernel "
+            f"ticks vs eager kernel ticks: {same['kernel', 'eager']}/"
+            f"{len(plans)}, vs captured reference attention: "
+            f"{same['reference', 'captured']}/{len(plans)} identical")
         check(all(n == len(plans) for n in same.values()),
-              f"fp32 {mode}: the captured, eager and reference streams "
-              f"differ")
+              f"fp32 {fam.label} {mode}: the captured, eager and reference "
+              f"streams differ")
         if kw:
             check(hits > 0, "the prefix-cache run never hit the cache")
     same = sum(a == b for a, b in zip(streams["cold", "kernel", "captured"],
@@ -1858,15 +1955,20 @@ def phase_serve(torch, dev, report):
         f"order of the sums)")
     del model
     torch.cuda.empty_cache()
+    return out
 
 
 #: generate's prompts: 8 rows left-padded with pad id 0 to 128 tokens,
 #: real lengths across the 64- and 128-token block edges; new tokens a row
 GEN_PROMPT_LENS = [128, 97, 64, 33, 128, 80, 50, 111]
 GEN_NEW = 64
-#: new tokens of the profiled calls: 15 ticks (a 64-token call is about
-#: 33k kernels, and a profile that long lost launches: 625 of 630 paged)
-GEN_PROFILE_NEW = 16
+#: decode layers a profile may record (layers x ticks): a profile of too
+#: many kernels loses launches (a 64-token Llama call, about 33k kernels,
+#: lost 5 of 630 paged; GPT's eager 16-token call, about 10.3k, 1 of
+#: 360), so a profiled ``generate`` call decodes, and a profiled window
+#: of serving decode steps holds, 150 // layers ticks: Llama's 15 (about
+#: 8.6k kernels eager), GPT's 6
+GEN_PROFILE_LAYER_TICKS = 150
 #: sampling knobs of the sampled runs, and speculative decoding's gamma
 GEN_SAMPLE = dict(do_sample=True, top_k=50, top_p=0.9, seed=3)
 GEN_GAMMA = 4
@@ -1909,27 +2011,30 @@ def plain_paged_attention():
 
 @contextlib.contextmanager
 def checked_paged_attention(worst):
-    """``generate(paged=True)`` on the kernels, each call of the two held
-    against its plain version on the same inputs (the pools as the call
-    found them) at the tolerance of the kernel's own phase: paged
-    ``tolerance(dtype, 1e-5)``, varlen ``tolerance(dtype, 1e-4)``. The
-    calls return the kernels' outputs. ``worst`` collects, per counter
-    key, [calls, max abs err, worst share of the tolerance]."""
+    """``generate(paged=True)`` and ``ServeEngine`` on the kernels, each
+    call of the two held against its plain version on the same inputs
+    (the pools as the call found them) at the tolerance of the kernel's
+    own phase: paged ``tolerance(dtype, 1e-5)``, varlen
+    ``tolerance(dtype, 1e-4)``. The calls return the kernels' outputs.
+    ``worst`` collects, per counter key, [calls, max abs err, worst share
+    of the tolerance]."""
     from paddle_tpu_torch.incubate.nn.functional import (
         inference_attention as ia)
     from paddle_tpu_torch.ops.cuda import flash_attention_varlen as fv
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
+    from paddle_tpu_torch.serve import engine as se
 
     saved = kernel_paged, kernel_varlen = (ia.paged_attention_decode,
                                            ia.flash_attn_varlen_thd)
+    saved_engine = se.paged_attention_decode
 
     def note(key, out, ref, base):
         err, share = close_err(out, ref, *tolerance(out.dtype, base))
         w = worst.setdefault(key, [0, 0.0, 0.0])
         w[:] = w[0] + 1, max(w[1], err), max(w[2], share)
 
-    def paged(q, kc, vc, lengths, tables):
-        out = kernel_paged(q, kc, vc, lengths, tables)
+    def paged(q, kc, vc, lengths, tables, **kw):
+        out = kernel_paged(q, kc, vc, lengths, tables, **kw)
         note("paged", out, pa.paged_attention_decode(
             q, kc, vc, lengths, tables, backend="reference"), 1e-5)
         return out
@@ -1942,10 +2047,12 @@ def checked_paged_attention(worst):
         return out, lse
 
     ia.paged_attention_decode, ia.flash_attn_varlen_thd = paged, varlen
+    se.paged_attention_decode = paged
     try:
         yield
     finally:
         ia.paged_attention_decode, ia.flash_attn_varlen_thd = saved
+        se.paged_attention_decode = saved_engine
 
 
 def first_diffs(torch, a, b, t0):
@@ -1955,23 +2062,30 @@ def first_diffs(torch, a, b, t0):
             if bool((a[r] != b[r]).any()) else None for r in range(a.shape[0])]
 
 
-def check_streams(torch, model, pads, a, b, label, sample=None):
+def check_streams(torch, model, pads, a, b, label, sample=None,
+                  required=True):
     """Fail unless the token streams ``a`` and ``b`` [B, t0 + n] are equal,
     or each row that differs does so first where the two tokens it chose
-    score within ``tolerance(float32, 1e-4)`` of each other: the fp32
-    logits of the model's full-prefix forward on the row's common prefix
-    (for sampled streams filtered and perturbed by the same Gumbel draw,
-    replayed from ``sample``'s seed). Such a near-tie is printed."""
+    score within ``tolerance(float32, 1e-4)`` of each other: the logits
+    of the model's full-prefix forward on the row's common prefix, in
+    fp32 (for sampled streams filtered and perturbed by the same Gumbel
+    draw, replayed from ``sample``'s seed). Each first difference is
+    printed with that score gap, the gap in units in the last place of
+    the model's logits dtype at the larger score, and the rank of ``b``'s
+    token among the scores. With ``required`` False nothing is checked
+    (a bf16 model: its logits round to 8 bits). Returns the gaps."""
     from paddle_tpu_torch.core.generator import make_generator
     from paddle_tpu_torch.models import generation as gen
 
     atol, _ = tolerance(torch.float32, 1e-4)
     t0 = a.shape[1] - GEN_NEW
     diff = a != b
+    gaps = []
     for r in diff.any(dim=1).nonzero().flatten().tolist():
         j = int(diff[r].int().argmax())
         with torch.no_grad():
-            scores = model(a[r:r + 1, pads[r]:j])[0, -1].float()
+            logits = model(a[r:r + 1, pads[r]:j])[0, -1]
+        scores = logits.float()
         if sample is not None:
             g = make_generator(sample["seed"], a.device)
             for _ in range(j - t0 + 1):       # one draw a token, as generate
@@ -1980,12 +2094,24 @@ def check_streams(torch, model, pads, a, b, label, sample=None):
             scores = gen._filter_logits(
                 scores[None], 1.0, sample["top_k"], sample["top_p"])[0]
             scores = scores - torch.log(noise[r])
-        gap = abs(float(scores[a[r, j]] - scores[b[r, j]]))
+        sa, sb = float(scores[a[r, j]]), float(scores[b[r, j]])
+        gap = abs(sa - sb)
+        top = max(abs(sa), abs(sb))
+        ulp = torch.finfo(logits.dtype).eps * 2.0 ** math.floor(
+            math.log2(top)) if top > 0 else 0.0
+        rank = int((scores > sb).sum())
+        gaps.append(dict(row=r, new_token=j - t0, gap=gap,
+                         ulps=gap / ulp if ulp else None, rank_b=rank))
         log(f"  {label}: row {r} differs first at new token {j - t0} "
-            f"({int(a[r, j])} vs {int(b[r, j])}), score gap {gap:.3g} "
-            f"(near-tie if <= {atol:g})")
-        check(gap <= atol, f"{label}: row {r} differs at new token "
-                           f"{j - t0}, not at a near-tie (gap {gap:.3g})")
+            f"({int(a[r, j])} vs {int(b[r, j])}), score gap {gap:.3g} = "
+            f"{gap / ulp if ulp else math.inf:.3g} {logits.dtype} ulps at "
+            f"|score| {top:.3g}, the second token ranked {rank} "
+            + (f"(near-tie if <= {atol:g})" if required
+               else "(reported, not required)"))
+        if required:
+            check(gap <= atol, f"{label}: row {r} differs at new token "
+                               f"{j - t0}, not at a near-tie (gap {gap:.3g})")
+    return gaps
 
 
 def device_table(torch, fn, n):
@@ -2008,47 +2134,53 @@ def timed_call(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3, first
 
 
-def phase_generate(torch, dev, report):
-    """``LlamaForCausalLM.generate`` at ``default_serving_setup``'s width
-    (10 layers, hidden 2048, 16 heads of 128, vocab 32000, bf16), 8
-    left-padded prompts (``GEN_PROMPT_LENS``), 64 new tokens, each run
-    timed after one warm-up call: dense greedy; ``paged=True`` at block
-    64 and 128, which must launch ``paged_decode_split_kernel`` once per
-    layer per tick (L x 63) and the varlen forward once per layer (L), and
-    no other kernel of the port, the profiler showing both by name on the
-    tensor-core varlen route; at both blocks, every paged and varlen call
-    of a further run held against its plain version on the same inputs
+def phase_generate(torch, dev, report, fam):
+    """``generate`` of the family ``fam`` at full width in bf16 (Llama:
+    ``default_serving_setup``'s 10 layers, hidden 2048, 16 heads of 128;
+    GPT: gpt2_medium's 24 layers, 16 heads of 64), 8 left-padded prompts
+    (``GEN_PROMPT_LENS``), 64 new tokens, each run timed after one warm-up
+    call: dense greedy; ``paged=True`` at block 64 and 128, which must
+    launch ``paged_decode_split_kernel`` once per layer per tick (L x 63)
+    and the varlen forward once per layer (L), and no other kernel of the
+    port, the profiler showing both by name on the tensor-core varlen
+    route; at both blocks, every paged and varlen call of a further run
+    held against its plain version on the same inputs
     (``checked_paged_attention``) and the tokens of a run on the plain
-    versions reported beside the dense run's; sampled (top-k 50, top-p
-    0.9), dense and paged, the two calls of one seed equal bit for bit; beam search with 4
+    versions reported beside the dense run's, with the score gap at each
+    row's first differing token (``check_streams``, reported, not
+    required in bf16); sampled (top-k 50, top-p 0.9), dense and paged,
+    the two calls of one seed equal bit for bit; beam search with 4
     beams; ``generate_speculative`` of the 128-token prompt with a 2-layer
-    draft of the same widths, gamma 4. Prints tokens/s, prefill and
-    decode-tick times (a tick: the 64-token call less the 1-token call,
-    over 63; its kernels from profiles of 16 and 1 new tokens) and where
-    a tick's kernel time goes. Then fp32 at 2
-    layers (TF32 off): greedy dense (plain), paged on the kernels and
-    paged on their plain versions give equal tokens, speculative decoding
-    equals the dense greedy stream, and sampled dense and paged streams
-    are equal (``check_streams`` admits a near-tie). The profiles take 16
-    new tokens (``GEN_PROFILE_NEW``). Every call captures its tick once
-    (the first tick eager, the rest replays); the bf16 greedy and sampled
-    streams must equal those of eager ticks (``eager_ticks``), the checked
-    run's ticks are eager, and the tick is timed both ways, with the
-    capture's own cost a call (``jit.graph_capture_seconds``)."""
-    import dataclasses
-
-    from paddle_tpu_torch.models import LlamaForCausalLM
+    draft of the same family and widths, gamma 4. Prints tokens/s,
+    prefill and decode-tick times (a tick: the 64-token call less the
+    1-token call, over 63; its kernels from profiles of a longer call
+    and the 1-token call: 16 new tokens for Llama, 7 for GPT,
+    ``GEN_PROFILE_LAYER_TICKS``) and where a tick's kernel time goes.
+    Then fp32 at 2 layers (TF32 off): greedy dense (plain), paged on the
+    kernels and paged on their plain versions give equal tokens,
+    speculative decoding equals the dense greedy stream, and sampled
+    dense and paged streams are equal (``check_streams`` admits a
+    near-tie). Every call captures its tick once (the
+    first tick eager, the rest replays); the bf16 greedy and sampled
+    streams must equal those of eager ticks (``eager_ticks``), the
+    checked run's ticks are eager, and the tick is timed both ways, with
+    the capture's own cost a call (``jit.graph_capture_seconds``).
+    Returns the numbers."""
+    from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.models.generation import generate_speculative
-    from paddle_tpu_torch.serve import default_serving_setup
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    config, _ = default_serving_setup(dev)
+    torch.cuda.empty_cache()
+    model = fam.model()
+    config = model.config
     nl = config.num_hidden_layers
     ids, pads = _gen_prompts(torch, config, GEN_PROMPT_LENS, 8)
     b, t0 = ids.shape
     ticks = GEN_NEW - 1
+    prof_new = 1 + GEN_PROFILE_LAYER_TICKS // nl
     tc, cc = VARLEN_KERNELS["fwd"]
+    res = {"tokens_per_s": {}}
 
     def gen(model, n=GEN_NEW, **kw):
         return lambda: model.generate(ids, max_new_tokens=n, pad_token_id=0,
@@ -2060,21 +2192,22 @@ def phase_generate(torch, dev, report):
         out, ms, first = timed_call(torch, fn)
         check(out.device == dev and out.shape[1] == t0 + GEN_NEW
               and bool(((out >= 0) & (out < config.vocab_size)).all()),
-              f"{label}: output {tuple(out.shape)} on {out.device}")
-        log(f"  {label}: {ms:.1f} ms, {rows * GEN_NEW / ms * 1e3:.1f} "
-            f"tokens/s")
+              f"{fam.label} {label}: output {tuple(out.shape)} on "
+              f"{out.device}")
+        log(f"  {fam.label} {label}: {ms:.1f} ms, "
+            f"{rows * GEN_NEW / ms * 1e3:.1f} tokens/s")
+        res["tokens_per_s"][label] = rows * GEN_NEW / ms * 1e3
         return out, first
 
-    model = LlamaForCausalLM(dataclasses.replace(config, dtype="bfloat16"),
-                             device=dev, seed=0).eval()
-    log(f"  bf16, {b} prompts of {GEN_PROMPT_LENS} tokens (left-padded to "
+    log(f"  {fam.label}, {model.num_parameters() / 1e6:.1f}M parameters, "
+        f"bf16, {b} prompts of {GEN_PROMPT_LENS} tokens (left-padded to "
         f"{t0}), {GEN_NEW} new tokens; {smi_line()}")
     dense, _ = run("dense greedy", gen(model))
     with eager_ticks():
         eager = gen(model)()
-    check(torch.equal(eager, dense), "bf16 dense greedy: the captured "
-          f"ticks' tokens differ from the eager ticks' (first differing new "
-          f"token per row {first_diffs(torch, dense, eager, t0)})")
+    check(torch.equal(eager, dense), f"bf16 {fam.label} dense greedy: the "
+          f"captured ticks' tokens differ from the eager ticks' (first "
+          f"differing new token per row {first_diffs(torch, dense, eager, t0)})")
     log("  bf16 dense greedy: captured ticks = eager ticks, token for token")
     paged = {}
     for block in (64, 128):
@@ -2084,17 +2217,20 @@ def phase_generate(torch, dev, report):
         counts = read_counts()
         log(f"    launches of the timed call: {counts}")
         check(counts["paged"] == nl * ticks and counts["vflash"] == nl,
-              f"paged block {block}: paged launches {counts['paged']} (want "
-              f"{nl * ticks}), varlen forward {counts['vflash']} (want {nl})")
+              f"{fam.label} paged block {block}: paged launches "
+              f"{counts['paged']} (want {nl * ticks}), varlen forward "
+              f"{counts['vflash']} (want {nl})")
         check(not any(n for k, n in counts.items()
                       if k not in ("paged", "vflash")),
-              f"paged block {block}: other kernels launched: {counts}")
+              f"{fam.label} paged block {block}: other kernels launched: "
+              f"{counts}")
         if block == 64:
-            record_launches(report, "generate", counts)
+            record_launches(report, f"{fam.tag}generate", counts)
     # the two kernels at the shapes of this path, bf16: every call of a
     # checked run against its plain version (the run must give the timed
     # run's tokens); then the stream of a run on the plain versions
     worst = {}
+    res["bf16_gaps"] = {}
     for block in (64, 128):
         fn = gen(model, paged=True, block_size=block)
         # the checks read the host, so this run's ticks are eager: its
@@ -2102,41 +2238,43 @@ def phase_generate(torch, dev, report):
         with checked_paged_attention(worst), eager_ticks():
             again = fn()
         check(torch.equal(again, paged[block]),
-              f"paged block {block}: the checked run's (eager ticks) tokens "
-              f"differ from the timed run's (captured ticks)")
+              f"{fam.label} paged block {block}: the checked run's (eager "
+              f"ticks) tokens differ from the timed run's (captured ticks)")
         with plain_paged_attention():
             plain = fn()
         log(f"  bf16 paged (block {block}), first differing new token per "
             f"row (None: equal; reported, not required): vs dense "
             f"{first_diffs(torch, paged[block], dense, t0)}, vs paged on "
             f"the plain versions {first_diffs(torch, paged[block], plain, t0)}")
+        for other, against in (("dense", dense), ("plain", plain)):
+            res["bf16_gaps"][f"block{block}_vs_{other}"] = check_streams(
+                torch, model, pads, paged[block], against,
+                f"bf16 paged block {block} vs {other}", required=False)
     for key, want in (("paged", 2 * nl * ticks), ("vflash", 2 * nl)):
         calls, err, share = worst[key]
         log(f"  bf16 {report[key]['name']} at generate's shapes (blocks 64 "
             f"and 128), {calls} calls vs the plain version: max_abs_err="
             f"{err:.3g}, {share:.3g} of the tolerance")
         check(calls == want and share <= 1.0,
-              f"generate's {key} calls: {calls} checked (want {want}), "
-              f"{share:.3g} of the tolerance")
-        report[key]["generate_max_abs_err"] = err
+              f"{fam.label} generate's {key} calls: {calls} checked (want "
+              f"{want}), {share:.3g} of the tolerance")
+        res[f"{key}_max_abs_err"] = err
     for label, kw in (("sampled dense", {}),
                       ("sampled paged", dict(paged=True))):
         out, first = run(label, gen(model, **GEN_SAMPLE, **kw))
         check(torch.equal(out, first),
-              f"bf16 {label}: two calls with one seed differ")
+              f"bf16 {fam.label} {label}: two calls with one seed differ")
         with eager_ticks():
             eager = gen(model, **GEN_SAMPLE, **kw)()
         check(torch.equal(out, eager),
-              f"bf16 {label}: captured ticks differ from eager ticks "
-              f"{first_diffs(torch, out, eager, t0)}")
+              f"bf16 {fam.label} {label}: captured ticks differ from eager "
+              f"ticks {first_diffs(torch, out, eager, t0)}")
     log("  bf16 sampled, one seed twice: equal bit for bit, and equal to the "
         "eager ticks' streams (dense, paged)")
     # the pad ids count as tokens here: beam search takes no ragged prompts
     run("beam search, 4 beams (pads as tokens)", lambda: model.generate(
         ids, max_new_tokens=GEN_NEW, num_beams=4))
-    draft = LlamaForCausalLM(dataclasses.replace(
-        config, dtype="bfloat16", num_hidden_layers=2), device=dev,
-        seed=1).eval()
+    draft = fam.model(layers=2, seed=1)
     run(f"generate_speculative, the {t0}-token prompt, gamma {GEN_GAMMA}, "
         f"2-layer draft", lambda: generate_speculative(
             model, draft, ids[:1], max_new_tokens=GEN_NEW, gamma=GEN_GAMMA),
@@ -2147,8 +2285,9 @@ def phase_generate(torch, dev, report):
     # 1-token call (the paged run last: its profile is checked below),
     # with eager ticks and with captured ticks (a call captures its tick
     # once: the first tick runs eagerly, the others are replays)
-    from paddle_tpu_torch import observability as obs
-
+    capture = obs.registry.get("jit.graph_capture_seconds")
+    cap0 = {label: capture.stats(site=f"generate.{label}")
+            for label in ("dense", "paged")}
     tick_ms = {}
     for mode in ("eager", "captured"):
         for label, kw in (("dense", {}), ("paged", dict(paged=True))):
@@ -2157,7 +2296,7 @@ def phase_generate(torch, dev, report):
                 _, one_ms, _ = timed_call(torch, gen(model, 1, **kw))
                 _, all_ms, _ = timed_call(torch, gen(model, **kw))
                 tab = {n: device_table(torch, gen(model, n, **kw), 1)
-                       for n in (1, GEN_PROFILE_NEW)}
+                       for n in (1, prof_new)}
 
             def per_tick(pats, i):
                 """Launches (i=0) or device ms (i=1) of the kernels
@@ -2165,15 +2304,16 @@ def phase_generate(torch, dev, report):
                 return sum((1 if n > 1 else -1) * v[i]
                            for n, t in tab.items() for k, v in t.items()
                            if pats is None or any(p in k for p in pats)
-                           ) / (GEN_PROFILE_NEW - 1)
+                           ) / (prof_new - 1)
 
             wall, busy = (all_ms - one_ms) / (GEN_NEW - 1), per_tick(None, 1)
             kinds = {kind: per_tick(pats, 1) for kind, pats in KERNEL_KINDS}
             kinds["other"] = busy - sum(kinds.values())
             tick_ms[mode, label] = dict(wall_ms=wall, kernel_ms=busy,
-                                      launches=per_tick(None, 0))
-            log(f"  {label} decode tick, {mode}: {wall:.3f} ms wall, "
-                f"{busy:.3f} ms of kernels ({busy / wall:.1%} busy), "
+                                        launches=per_tick(None, 0),
+                                        prefill_ms=one_ms)
+            log(f"  {fam.label} {label} decode tick, {mode}: {wall:.3f} ms "
+                f"wall, {busy:.3f} ms of kernels ({busy / wall:.1%} busy), "
                 f"{per_tick(None, 0):.0f} kernels; by kind "
                 + ", ".join(f"{k} {ms:.3f}" for k, ms in kinds.items()
                             if abs(ms) >= 5e-4)
@@ -2181,65 +2321,67 @@ def phase_generate(torch, dev, report):
                 f"{sum(v[1] for v in tab[1].values()):.3f} ms of kernels")
         paged_ms = kinds["paged decode (port)"]
         got = named_launches(
-            {k: v[0] for k, v in tab[GEN_PROFILE_NEW].items()},
+            {k: v[0] for k, v in tab[prof_new].items()},
             PAGED_KERNELS + (tc, cc))
-        want = nl * (GEN_PROFILE_NEW - 1)
+        want = nl * (prof_new - 1)
         log(f"  paged tick, {mode}: {PAGED_KERNELS[0]} {paged_ms:.4f} ms "
             f"({paged_ms / busy:.1%} of the tick's kernels); launches of the "
-            f"profiled {GEN_PROFILE_NEW}-token call by name {got}")
+            f"profiled {prof_new}-token call by name {got}")
         check(got[PAGED_KERNELS[0]] == want and got[tc] == nl
               and got[cc] == 0,
-              f"profiled paged generate ({mode} ticks) ran {got}, want "
-              f"{PAGED_KERNELS[0]} {want} times, {tc} {nl} times and {cc} "
-              f"never")
-    cap = {label: obs.registry.get("jit.graph_capture_seconds").stats(
-        site=f"generate.{label}") for label in ("dense", "paged")}
-    log("  the capture's own cost per call (first tick + capture, host wall, "
-        "mean over this phase's calls): " + ", ".join(
-            f"{k} {v['avg'] * 1e3:.2f} ms over {v['count']} calls"
-            for k, v in cap.items()))
-    report["paged"]["generate_ticks"] = {
-        f"{label}_{mode}": v for (mode, label), v in tick_ms.items()}
-    report["paged"]["generate_capture_ms"] = {
-        k: v["avg"] * 1e3 for k, v in cap.items()}
+              f"profiled {fam.label} paged generate ({mode} ticks) ran "
+              f"{got}, want {PAGED_KERNELS[0]} {want} times, {tc} {nl} times "
+              f"and {cc} never")
+    cap = {}
+    for label, s0 in cap0.items():
+        s = capture.stats(site=f"generate.{label}")
+        n = s["count"] - s0["count"]
+        cap[label] = (s["sum"] - s0["sum"]) / n * 1e3 if n else None
+        log(f"  the capture's own cost per {label} call (first tick + "
+            f"capture, host wall, mean over this phase's {n} calls): "
+            + ("not measured" if cap[label] is None
+               else f"{cap[label]:.2f} ms"))
+    res["ticks"] = {f"{label}_{mode}": v for (mode, label), v in
+                    tick_ms.items()}
+    res["capture_ms"] = cap
     del model, draft
     torch.cuda.empty_cache()
 
     # fp32 at 2 layers, full width: the kernels against the plain versions
-    model = LlamaForCausalLM(dataclasses.replace(config, num_hidden_layers=2),
-                             device=dev, seed=0).eval()
-    draft = LlamaForCausalLM(dataclasses.replace(config, num_hidden_layers=2),
-                             device=dev, seed=1).eval()
+    model = fam.model(bf16=False, layers=2)
+    draft = fam.model(bf16=False, layers=2, seed=1)
     dense = gen(model)()
     reset_counts()
     paged = gen(model, paged=True)()
     counts = read_counts()
     check(counts["paged"] == 2 * ticks and counts["vflash"] == 2,
-          f"fp32 paged generate launches {counts}")
+          f"fp32 {fam.label} paged generate launches {counts}")
     with plain_paged_attention():
         reset_counts()
         plain = gen(model, paged=True)()
         check(not any(read_counts().values()),
               "the plain paged run launched a kernel")
     check_streams(torch, model, pads, dense, paged,
-                  "fp32 greedy, dense vs paged (kernels)")
+                  f"fp32 {fam.label} greedy, dense vs paged (kernels)")
     check_streams(torch, model, pads, paged, plain,
-                  "fp32 greedy, paged kernels vs plain")
+                  f"fp32 {fam.label} greedy, paged kernels vs plain")
     one = ids[:1]                              # 128 real tokens
     check_streams(torch, model, [0],
                   generate_speculative(model, draft, one,
                                        max_new_tokens=GEN_NEW,
                                        gamma=GEN_GAMMA),
                   model.generate(one, max_new_tokens=GEN_NEW),
-                  "fp32 speculative vs dense greedy")
+                  f"fp32 {fam.label} speculative vs dense greedy")
     sampled = [gen(model, **GEN_SAMPLE, **kw)() for kw in ({}, dict(paged=True))]
     check_streams(torch, model, pads, *sampled,
-                  "fp32 sampled, dense vs paged (kernels)", sample=GEN_SAMPLE)
-    log("  fp32, 2 layers: greedy dense = paged (kernels) = paged (plain), "
-        "speculative = dense greedy, sampled dense = paged (a near-tie is "
-        "printed above if one was admitted)")
+                  f"fp32 {fam.label} sampled, dense vs paged (kernels)",
+                  sample=GEN_SAMPLE)
+    log(f"  fp32 {fam.label}, 2 layers: greedy dense = paged (kernels) = "
+        f"paged (plain), speculative = dense greedy, sampled dense = paged "
+        f"(a near-tie is printed above if one was admitted)")
     del model, draft
     torch.cuda.empty_cache()
+    return res
 
 
 #: bench.py:bench_llama's training configuration (bench.py:258-264)
@@ -2258,13 +2400,15 @@ def train_launches(nl):
             "vflash_bwd": 0, "vflash_bwd_dkv": 0, "tiled_mm": 0}
 
 
-def step_rates(dt, n_params, nl, hid):
-    """(step ms, tokens/s, MFU) of ``TRAIN_STEPS`` steps in ``dt`` s; MFU
-    is bench.py's formula (bench.py:310-312) against the bf16 peak."""
-    tok_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
-    attn_flops = 12 * nl * hid * TRAIN_SEQ
+def step_rates(dt, n_params, nl, hid, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               steps=TRAIN_STEPS):
+    """(step ms, tokens/s, MFU) of ``steps`` steps of ``batch`` x ``seq``
+    tokens in ``dt`` s; MFU is bench.py's formula (bench.py:310-312)
+    against the bf16 peak."""
+    tok_s = batch * seq * steps / dt
+    attn_flops = 12 * nl * hid * seq
     mfu = tok_s * (6 * n_params + attn_flops) / PEAK_FLOPS["bfloat16"]
-    return dt / TRAIN_STEPS * 1e3, tok_s, mfu
+    return dt / steps * 1e3, tok_s, mfu
 
 
 def check_train_kernels(per_kernel, nl, label):
@@ -3135,6 +3279,265 @@ def phase_calibrate(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# [gpt]: the GPT-2 family at GPTConfig.gpt2_medium's full width and depth
+# ---------------------------------------------------------------------------
+#: the [gpt] training batch and steps; the attention shape they give rows 2
+#: and 4 is [GPT_BATCH, 16 heads, GPT_SEQ, 64]
+GPT_BATCH, GPT_SEQ, GPT_STEPS = 8, 1024, 5
+#: GPT-2's dropout rates (attention and hidden), the train phase's
+GPT_DROPOUT = 0.1
+
+
+def gpt_model(torch, dev, seed=0, bf16=True, **kw):
+    """``GPTConfig.gpt2_medium()`` (``kw`` replaces fields) on the card,
+    cast to bf16 unless ``bf16`` is False (the reference has no dtype
+    field)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    config = dataclasses.replace(GPTConfig.gpt2_medium(), **kw)
+    model = GPTForCausalLM(config, device=dev, seed=seed)
+    return model.to(torch.bfloat16) if bf16 else model
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """The dense flash entry points on their plain versions (the same
+    counter-hash dropout mask) for the block: the kernels' names in
+    ``ops/cuda/flash_attention`` are swapped."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    saved = fa._flash_fwd_kernel, fa._flash_bwd_kernel
+    fa._flash_fwd_kernel, fa._flash_bwd_kernel = (fa._flash_fwd_reference,
+                                                  fa._flash_bwd_reference)
+    try:
+        yield
+    finally:
+        fa._flash_fwd_kernel, fa._flash_bwd_kernel = saved
+
+
+def phase_gpt_kernels(torch, dev, report):
+    """Rows 2 and 4 at GPT-2 medium's training shape, [8, 16, 1024, 64]
+    bf16, causal, dropout 0.1 at a fixed seed. The forward's keep mask,
+    read back through one-hot values (q = 0 gives every visible key
+    p = 1 / (i + 1), so with v one-hot on the 64 keys of block c,
+    out[i, d] > 0 exactly where key 64c + d is kept; one call a block),
+    must equal the plain version's; out within ``tolerance(bf16, 1e-4)``
+    and lse within 1e-4 on random inputs, and dq, dk, dv within
+    ``tolerance(bf16, 1e-4)``. Then each kernel timed beside its plain
+    version, ``F.scaled_dot_product_attention`` at the same dropout rate
+    (its backward on a kept graph) and its bound."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, h, s, d = GPT_BATCH, 16, GPT_SEQ, 64
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(12)
+    seed = torch.tensor([2024], dtype=torch.int32, device=dev)
+    st = dict(causal=True, scale=d ** -0.5, dropout_rate=GPT_DROPOUT)
+
+    def rnd():
+        return torch.randn(b, h, s, d, generator=g, device=dev).to(bf16)
+
+    q0, k = torch.zeros(b, h, s, d, device=dev, dtype=bf16), rnd()
+    eye = torch.eye(d, device=dev, dtype=bf16)
+    same, n_kept = True, 0
+    for c in range(s // d):
+        v = torch.zeros(b, h, s, d, device=dev, dtype=bf16)
+        v[:, :, c * d:(c + 1) * d] = eye
+        kept = fa._flash_fwd_kernel(q0, k, v, seed, None, **st)[0] > 0
+        rkept = fa._flash_fwd_reference(q0, k, v, seed, None, **st)[0] > 0
+        same = same and torch.equal(kept, rkept)
+        n_kept += int(kept.sum())
+    visible = b * h * s * (s + 1) // 2
+    log(f"  flash dropout keep mask at [8,16,1024,64] bf16, rate "
+        f"{GPT_DROPOUT}: kernel keeps {n_kept} of {visible} visible "
+        f"(q, k) pairs ({n_kept / visible:.4f}), identical to the plain "
+        f"version's: {same}")
+    check(same, "flash keep mask at GPT's shape differs from the plain "
+                "version's")
+    del q0, k, v, kept, rkept
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    out, lse = fa._flash_fwd_kernel(q, k, v, seed, None, **st)
+    rout, rlse = fa._flash_fwd_reference(q, k, v, seed, None, **st)
+    tol = tolerance(bf16, 1e-4)
+    e_out, share = close_err(out, rout, *tol)
+    e_lse = max_err(lse, rlse)
+    got = fa._flash_bwd_kernel(q, k, v, out, lse, do, seed, None, **st)
+    ref = fa._flash_bwd_reference(q, k, v, out, lse, do, seed, None, **st)
+    torch.cuda.synchronize()
+    res = [close_err(a, r, *tol) for a, r in zip(got, ref)]
+    log(f"  flash at [8,16,1024,64] bf16, dropout {GPT_DROPOUT}: out err "
+        f"{e_out:.3g} ({share:.3g} of the tolerance), lse err {e_lse:.3g}; "
+        + ", ".join(f"{n} err {e:.3g} ({sh:.3g} of the tolerance)"
+                    for n, (e, sh) in zip(("dq", "dk", "dv"), res)))
+    check(share <= 1.0 and e_lse <= 1e-4, "flash forward at GPT's shape")
+    check(all(sh <= 1.0 for _, sh in res), "flash backward at GPT's shape")
+    del rout, rlse, got, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = timings(
+        lambda: fa._flash_fwd_kernel(q, k, v, seed, None, **st),
+        lambda: fa._flash_fwd_reference(q, k, v, seed, None, **st),
+        lambda: sdpa(q, k, v, is_causal=True, dropout_p=GPT_DROPOUT),
+        nbytes(q, k, v, q) + b * h * s * 4, 4 * b * h * s * s * d / 2,
+        "bfloat16", plain_iters=5)
+    show("flash causal [8,16,1024,64] bf16, dropout 0.1", fwd)
+    bwd = timings(
+        lambda: fa._flash_bwd_kernel(q, k, v, out, lse, do, seed, None, **st),
+        lambda: fa._flash_bwd_reference(q, k, v, out, lse, do, seed, None,
+                                        **st),
+        library_grad(torch, lambda a, b_, c: sdpa(
+            a, b_, c, is_causal=True, dropout_p=GPT_DROPOUT), (q, k, v), do),
+        nbytes(q, k, v, out, do, q, k, v) + lse.numel() * 4,
+        5 * 2 * b * h * s * s * d / 2, "bfloat16", plain_iters=5)
+    show("flash_bwd causal [8,16,1024,64] bf16, dropout 0.1", bwd)
+    shape = dict(shape=[b, h, s, d], dtype="bfloat16", dropout=GPT_DROPOUT)
+    report["flash"]["at_gpt_shape"] = dict(
+        max_abs_err=e_out, share=share, lse_err=e_lse, keep_mask_equal=same,
+        keep_rate=n_kept / visible, **shape, **fwd)
+    report["flash_bwd"]["at_gpt_shape"] = dict(
+        max_abs_err=max(e for e, _ in res), **shape, **bwd)
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+
+
+def phase_gpt_train(torch, dev, report):
+    """GPT-2 medium's training step at full width and depth (24 layers,
+    hidden 1024, 16 heads of 64, vocab 50304, tied head, about 355M
+    parameters) in bf16, batch 8 x 1024, dropout 0.1 in attention (inside
+    the flash kernels) and hidden states, ``AdamW(3e-4,
+    multi_precision=True)`` with weight decay 0.01: one warm-up step and
+    ``GPT_STEPS`` timed steps on one batch. Every step must launch the
+    flash forward and backward once a layer and no other kernel of the
+    port; the profiled step must show the tensor-core flash forward, dq
+    and dk/dv once a layer, no CUDA-core flash kernel and no RMSNorm
+    kernel; the loss must fall. Then 2 layers in fp32 (TF32 off), dropout
+    0.1, batch 2 x 512, one seed: the loss and every gradient through the
+    kernels against the same step on their plain versions (the same
+    counter-hash mask, the same hidden masks from the restored
+    generator), to the ``[train]`` phase's tolerances: loss 1e-4, each
+    gradient 1e-4 of its own max |g|."""
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = gpt_model(torch, dev).train()
+    cfg = model.config
+    nl, hid = cfg.num_hidden_layers, cfg.hidden_size
+    n_params = model.num_parameters()
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                multi_precision=True, weight_decay=0.01)
+    g = torch.Generator(device=dev).manual_seed(9)
+    ids = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ), generator=g,
+                        device=dev)
+    labels = torch.roll(ids, -1, dims=1)
+
+    def step():
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    t0 = time.perf_counter()
+    warm = float(step())
+    log(f"  gpt2_medium: {n_params / 1e6:.1f}M parameters, bf16, dropout "
+        f"{cfg.attention_probs_dropout_prob} / {cfg.hidden_dropout_prob}; "
+        f"warm-up step {time.perf_counter() - t0:.2f} s, loss {warm:.4f}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(GPT_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  {GPT_STEPS} steps: launches {counts}, losses "
+        f"{[round(x, 4) for x in losses]}")
+    want = {key: 0 for key in counts}
+    want.update(flash=nl * GPT_STEPS, flash_bwd=nl * GPT_STEPS)
+    check(counts == want, f"GPT train launches {counts}, want {want}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"GPT loss did not fall: {losses}")
+    record_launches(report, "gpt_train", counts)
+    step_ms, tok_s, mfu = step_rates(dt, n_params, nl, hid, GPT_BATCH,
+                                     GPT_SEQ, GPT_STEPS)
+    log(f"  GPT train step: {step_ms:.2f} ms mean, {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} (bench.py's formula, 989 TFLOP/s bf16 peak), peak "
+        f"memory {peak / 2**30:.2f} GiB (max_memory_allocated); {smi_line()}")
+    busy, per_kernel = profile_kernels(torch, step, 1, step_ms,
+                                       "GPT train step, kernels")
+    check_flash_route(per_kernel, {"fwd": nl, "dq": nl, "dkv": nl},
+                      "bf16 GPT train step")
+    rms = {k: c for k, c in per_kernel.items() if "rms_norm" in k}
+    check(not rms, f"the GPT step ran RMSNorm kernels {rms}")
+    report["gpt"]["train"] = dict(
+        step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu, peak_bytes=peak,
+        losses=losses, n_params=n_params,
+        busy_share=None if busy is None else busy / step_ms)
+    del model, opt
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = gpt_model(torch, dev, bf16=False, num_hidden_layers=2).train()
+    ids2 = ids[:2, :512]
+    labels2 = labels[:2, :512].clone()
+    labels2[:, -1] = -100
+    state = model.dropout_generator.get_state()
+
+    def loss_and_grads():
+        model.dropout_generator.set_state(state)
+        loss, _ = model(ids2, labels=labels2)
+        loss.backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    reset_counts()
+    k_loss, k_grads = loss_and_grads()
+    k_counts = read_counts()
+    with plain_flash():
+        p_loss, p_grads = loss_and_grads()
+    torch.cuda.synchronize()
+    check(read_counts() == k_counts, "the plain GPT run launched a kernel")
+    check(k_counts["flash"] == 2 and k_counts["flash_bwd"] == 2,
+          f"the fp32 GPT kernel run's launches {k_counts}")
+    worst = max(((float((k_grads[n] - gp).abs().max())
+                  / float(gp.abs().max()), n) for n, gp in p_grads.items()))
+    log(f"  fp32 GPT 2 layers [2, 512], dropout {GPT_DROPOUT}, kernels vs "
+        f"plain versions: loss {k_loss:.6f} vs {p_loss:.6f} (diff "
+        f"{abs(k_loss - p_loss):.3g}, tol 1e-4); worst gradient {worst[1]} "
+        f"off by {worst[0]:.3g} of its max |g| (tol 1e-4) over "
+        f"{len(p_grads)} gradients")
+    check(abs(k_loss - p_loss) <= 1e-4, "fp32 GPT training loss differs")
+    check(worst[0] <= 1e-4, f"fp32 GPT gradient {worst[1]} differs")
+    report["gpt"]["train_fp32_check"] = dict(
+        loss_diff=abs(k_loss - p_loss), worst_grad_share=worst[0])
+    del model, k_grads, p_grads
+    torch.cuda.empty_cache()
+
+
+def phase_gpt(torch, dev, report):
+    """The ``[gpt]`` phase: rows 2 and 4 at GPT's shape, the training step
+    (``phase_gpt_*``), then ``generate`` and ``ServeEngine`` through
+    ``phase_generate`` and ``phase_serve`` over ``gpt_family``."""
+    report["gpt"] = {}
+    fam = gpt_family(torch, dev)
+    for name, part in (
+            ("kernels", phase_gpt_kernels), ("train", phase_gpt_train),
+            ("generate", functools.partial(phase_generate, fam=fam)),
+            ("serve", functools.partial(phase_serve, fam=fam))):
+        t0 = time.perf_counter()
+        out = part(torch, dev, report)
+        if out is not None:
+            report["gpt"][name] = out
+        log(f"  ({fam.label} {name}: {time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -3186,10 +3589,17 @@ def main() -> int:
         phase_tiled_mm(torch, dev, report)
         log("[forward]")
         phase_forward(torch, dev, report)
+        llama = llama_family(torch, dev)
         log("[serve]")
-        phase_serve(torch, dev, report)
+        out = phase_serve(torch, dev, report, llama)
+        report["paged"].update(serve_decode_step=out["decode_step"],
+                               serve_peak_bytes=out["peak_bytes"])
         log("[generate]")
-        phase_generate(torch, dev, report)
+        out = phase_generate(torch, dev, report, llama)
+        report["paged"].update(generate_ticks=out["ticks"],
+                               generate_capture_ms=out["capture_ms"])
+        for key in ("paged", "vflash"):
+            report[key]["generate_max_abs_err"] = out[f"{key}_max_abs_err"]
         log("[train]")
         phase_train(torch, dev, report)
         train = report.pop("train")
@@ -3200,6 +3610,9 @@ def main() -> int:
         phase_varlen_path(torch, dev, report)
         log("[calibrate]")
         phase_calibrate(torch, dev, report)
+        log("[gpt]")
+        phase_gpt(torch, dev, report)
+        gpt = report.pop("gpt")
         # launches: each kernel's count on its own main path
         for key, r in report.items():
             r["main_path"] = MAIN_PATH[key]
@@ -3217,6 +3630,7 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"train": train}))
     log(json.dumps({"train_recipe": recipe}))
+    log(json.dumps({"gpt": gpt}))
     log(json.dumps({"kernels": list(report.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ every kernel the reference wrote in Pallas becomes a hand-written CUDA
 kernel under ``csrc/`` with a plain PyTorch version beside it, which is
 what a CPU tensor runs.
 
-Five slices are ported. Serving: ``models.LlamaForCausalLM``,
+Six slices are ported. Serving: ``models.LlamaForCausalLM``,
 ``serve.ServeEngine`` and ``serve.run_load``, over the paged-decode,
 flash-forward and RMSNorm-forward kernels. Decoding:
 ``LlamaForCausalLM.generate`` (dense and paged KV caches, the paged one
@@ -27,15 +27,20 @@ the varlen kernels; and ``tools.conv_calibration`` over the tiled matmul
 kernel. Compiled execution: ``jit.to_static`` (a function or a whole
 train step captured into a CUDA graph per input signature), and the
 serving engine's decode tick and bursts and ``generate``'s decode ticks
-run as replayed CUDA graphs (``jit/_capture.py``).
+run as replayed CUDA graphs (``jit/_capture.py``). GPT:
+``models.GPTForCausalLM`` (GPT-2 family: forward, training loss,
+``generate`` in every mode, and ``ServeEngine``) with the functional ops
+it calls (``nn.functional``'s activations, ``linear``, ``dropout``,
+``embedding`` and ``layer_norm``).
 """
 from . import amp, convert, jit, models, nn, optimizer, regularizer, serve
 from .convert import load_paddle_tpu_state
 from .core.place import resolve_device
-from .models import LlamaConfig, LlamaForCausalLM
+from .models import GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM
 from .serve import ServeEngine, default_serving_setup, run_load, warm_engine
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "ServeEngine", "run_load",
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "GPTConfig", "GPTForCausalLM",
+           "ServeEngine", "run_load",
            "warm_engine", "default_serving_setup", "load_paddle_tpu_state",
            "resolve_device", "amp", "convert", "jit", "models", "nn",
            "optimizer", "regularizer", "serve"]

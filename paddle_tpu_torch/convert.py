@@ -5,9 +5,12 @@ reference's parameter names (``llama.layers.0.self_attn.q_proj.weight``,
 ...) — for example ``{k: np.asarray(v._value) for k, v in
 jax_model.state_dict().items()}`` — and copies them into a port model of
 the same configuration. paddle keeps Linear weights as ``[in, out]``
-(``x @ w``); torch keeps ``[out, in]``, so those are transposed. Every
-name and shape is checked: a missing or extra key, or a shape that does
-not fit, raises before anything is copied.
+(``x @ w``); torch keeps ``[out, in]``, so those are transposed (GPT's
+fused ``qkv_proj`` ``[h, 3h]`` becomes ``[3h, h]``, its q|k|v order
+kept). Everything else (embeddings, LayerNorm and RMSNorm weights,
+biases) is copied as it is. A tied model has no ``lm_head`` key, as in
+the reference. Every name and shape is checked: a missing or extra key,
+or a shape that does not fit, raises before anything is copied.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Incremental decoding (KV-cache generation) for the Llama family.
+"""Incremental decoding (KV-cache generation) for the Llama and GPT
+families.
 
 Counterpart of ``paddle_tpu/models/generation.py``: ``generate`` (greedy,
 temperature / top-k / top-p sampling, ``repetition_penalty``,
@@ -7,8 +8,13 @@ search with GNMT ``length_penalty``, and a paged KV cache with
 ``paged=True``) and ``generate_speculative`` (draft-and-verify greedy
 decoding), with the reference's names, arguments, checks and return
 shape ``[B, prompt_len + max_new_tokens]``. The serving engine shares the
-parameter views, norm, FFN, head and sampler (``_llama_decode_params``,
-``_rms``, ``_llama_ffn``, ``_head_logits``, ``_sample_slot_tokens``).
+parameter views, the decoder stacks, the head and the sampler
+(``_decode_family``, ``_decoder_stack``, ``_head_logits``,
+``_sample_slot_tokens``). Each family is a dict of parameter views
+(``_llama_decode_params``: rope, RMSNorm, SwiGLU; ``_gpt_decode_params``:
+learned positions added by each token's logical position, LayerNorm in
+fp32, the fused qkv, exact GELU in fp32, biases, a tied or untied head)
+and one stack that the dense, paged and serving paths all run.
 
 What differs from the reference, and why:
 
@@ -37,9 +43,9 @@ What differs from the reference, and why:
   same stream for one seed; they are not ``jax.random``'s.
 - Ids are accepted as a tensor, numpy array or nested list and come back
   as an int64 tensor (the reference's are int32).
-- The Llama family only. Other models raise ``TypeError`` (GPT and
-  ERNIE-MoE come with those models), so the reference's checks that only
-  an MoE model reaches have no counterpart yet.
+- The Llama and GPT families. Other models raise ``TypeError`` (the
+  ERNIE-MoE family comes with that model), so the reference's checks that
+  only an MoE model reaches have no counterpart yet.
 
 ``paged=True`` runs the two branches of
 ``incubate/nn/functional/inference_attention``: the prefill through the
@@ -68,14 +74,15 @@ from ..incubate.nn.functional.inference_attention import (_packed_tokens,
                                                           _pool_slots,
                                                           _rope_qk)
 from ..jit._capture import Graphed
+from ..nn.functional.norm import layer_norm
 from ..ops.cuda.rms_norm import rms_norm_reference
 
 __all__ = ["generate", "generate_speculative"]
 
 
 def _llama_decode_params(model):
-    """Detached views of the model's parameter tensors plus its shape
-    statics."""
+    """Detached views of the Llama model's parameter tensors plus its
+    shape statics."""
     cfg = model.config
     layers = []
     for layer in model.llama.layers:
@@ -92,11 +99,46 @@ def _llama_decode_params(model):
         embed=model.llama.embed_tokens.weight.detach(),
         norm=model.llama.norm.weight.detach(),
         head=model.lm_head.weight.detach(),
-        layers=layers,
+        layers=layers, family="llama",
         nh=cfg.num_attention_heads, nkv=cfg.num_key_value_heads,
         dh=cfg.hidden_size // cfg.num_attention_heads,
         eps=cfg.rms_norm_eps, theta=cfg.rope_theta,
     )
+
+
+def _gpt_decode_params(model):
+    """GPT-family views: learned positions, pre-LN, fused qkv, GELU, and
+    the tied head (``tied_head``: logits are ``hidden @ embed.T``) or the
+    untied one (``head``)."""
+    cfg = model.config
+    layers = []
+    for layer in model.gpt.layers:
+        a = layer.attn
+        layers.append(dict(
+            ln1_w=layer.norm1.weight.detach(),
+            ln1_b=layer.norm1.bias.detach(),
+            wqkv=a.qkv_proj.weight.detach(), bqkv=a.qkv_proj.bias.detach(),
+            wo=a.out_proj.weight.detach(), bo=a.out_proj.bias.detach(),
+            ln2_w=layer.norm2.weight.detach(),
+            ln2_b=layer.norm2.bias.detach(),
+            w1=layer.linear1.weight.detach(), b1=layer.linear1.bias.detach(),
+            w2=layer.linear2.weight.detach(), b2=layer.linear2.bias.detach(),
+        ))
+    out = dict(
+        embed=model.gpt.wte.weight.detach(),
+        wpe=model.gpt.wpe.weight.detach(),
+        normf_w=model.gpt.norm_f.weight.detach(),
+        normf_b=model.gpt.norm_f.bias.detach(),
+        layers=layers, family="gpt",
+        nh=cfg.num_attention_heads, nkv=cfg.num_attention_heads,
+        dh=cfg.hidden_size // cfg.num_attention_heads,
+        eps=cfg.layer_norm_eps,
+        tied_head=bool(cfg.tie_word_embeddings),
+        max_positions=int(cfg.max_position_embeddings),
+    )
+    if not cfg.tie_word_embeddings:
+        out["head"] = model.lm_head.weight.detach()
+    return out
 
 
 def _rms(h, g, eps, dtype):
@@ -106,26 +148,37 @@ def _rms(h, g, eps, dtype):
     return rms_norm_reference(h, g, eps=eps).to(dtype)
 
 
+def _ln(h, g, bb, eps, dtype):
+    """LayerNorm in fp32 (statistics and affine), output in ``dtype``."""
+    return layer_norm(h, h.shape[-1], g, bb, eps).to(dtype)
+
+
 def _llama_ffn(h, lp, dtype):
     """SwiGLU MLP: silu in fp32, products in ``dtype``."""
     gate = F.silu(F.linear(h, lp["wg"]).float()).to(dtype)
     return F.linear(gate * F.linear(h, lp["wu"]), lp["wd"])
 
 
+def _gpt_ffn(h, lp, dtype):
+    """GELU MLP with biases: exact GELU in fp32, products in ``dtype``."""
+    act = F.gelu(F.linear(h, lp["w1"], lp["b1"]).float()).to(dtype)
+    return F.linear(act, lp["w2"], lp["b2"])
+
+
 def _decode_family(model):
-    """Decode parameters for a supported causal-LM family (Llama only in
-    the port)."""
+    """Decode parameters for a supported causal-LM family (Llama, GPT)."""
     if hasattr(model, "llama"):
         return _llama_decode_params(model)
+    if hasattr(model, "gpt"):
+        return _gpt_decode_params(model)
     raise TypeError(
-        f"the port's decode path supports the Llama family; got "
+        f"generate() supports the Llama and GPT families in the port; got "
         f"{type(model).__name__}")
 
 
 def _head_logits(p, hidden):
-    """LM-head logits. The reference's tied-head branch serves only the
-    GPT family, which waits for a later slice."""
-    return F.linear(hidden, p["head"])
+    """LM-head logits; a tied head reuses the embedding."""
+    return F.linear(hidden, p["embed"] if p.get("tied_head") else p["head"])
 
 
 def _rope_full(p, s_max, device):
@@ -139,12 +192,13 @@ def _rope_full(p, s_max, device):
 
 
 def _llama_stack(p, x, cos, sin, attn):
-    """The decoder stack over hidden states ``x`` (``[B, T, H]`` on the
-    dense path, ``[N, H]`` on the paged one): per layer the norm, the q/k/v
-    projections, rope in fp32 by ``cos``/``sin`` (broadcast against
-    ``[..., heads, dh]``), ``attn(layer, q, k, v)`` (the only thing the
-    two paths differ in), the residual and the FFN; then the final norm.
-    One stack for both paths, so their math cannot drift."""
+    """The Llama decoder stack over hidden states ``x`` (``[B, T, H]`` on
+    the dense path, ``[N, H]`` on the paged one and in the engine): per
+    layer the norm, the q/k/v projections, rope in fp32 by ``cos``/``sin``
+    (broadcast against ``[..., heads, dh]``), ``attn(layer, q, k, v)``
+    (the only thing the paths differ in), the residual and the FFN; then
+    the final norm. One stack for every path, so their math cannot
+    drift."""
     nh, nkv, dh, eps = p["nh"], p["nkv"], p["dh"], p["eps"]
     dtype = x.dtype
     lead = x.shape[:-1]
@@ -160,6 +214,43 @@ def _llama_stack(p, x, cos, sin, attn):
     return _rms(x, p["norm"], eps, dtype)
 
 
+def _gpt_stack(p, x, attn):
+    """The GPT decoder stack over hidden states ``x`` (positions already
+    added), with :func:`_llama_stack`'s contract: per layer the fp32
+    LayerNorm, the fused q|k|v projection, ``attn(layer, q, k, v)``, the
+    output projection and the GELU MLP with their biases; then the final
+    LayerNorm."""
+    nh, dh, eps = p["nh"], p["dh"], p["eps"]
+    dtype = x.dtype
+    lead = x.shape[:-1]
+    for li, lp in enumerate(p["layers"]):
+        h = _ln(x, lp["ln1_w"], lp["ln1_b"], eps, dtype)
+        q, k, v = F.linear(h, lp["wqkv"], lp["bqkv"]).view(
+            *lead, 3, nh, dh).unbind(-3)
+        # q contiguous: the paged kernel reads it as [rows, heads, dh];
+        # k and v are written and read through their strides
+        ctx = attn(li, q.contiguous(), k, v)
+        x = x + F.linear(ctx.reshape(*lead, nh * dh).to(dtype), lp["wo"],
+                         lp["bo"])
+        x = x + _gpt_ffn(_ln(x, lp["ln2_w"], lp["ln2_b"], eps, dtype), lp,
+                         dtype)
+    return _ln(x, p["normf_w"], p["normf_b"], eps, dtype)
+
+
+def _decoder_stack(p, tokens, pos, attn, s_max):
+    """Embed ``tokens`` at the logical positions ``pos`` (an index tensor
+    that broadcasts against ``tokens``; below ``s_max``) and run the
+    family's stack: GPT adds its learned position rows to the embeddings,
+    Llama rotates q and k by the rope rows (fp32 tables of ``s_max``
+    positions, made once per ``p``)."""
+    x = p["embed"][tokens]
+    if p["family"] == "gpt":
+        return _gpt_stack(p, x + p["wpe"][pos], attn)
+    cos_full, sin_full = _rope_full(p, s_max, x.device)
+    return _llama_stack(p, x, cos_full[pos][..., None, :],
+                        sin_full[pos][..., None, :], attn)
+
+
 def _cached_forward(p, tokens, caches, pos, s_max, pads=None,
                     return_all=False):
     """Forward ``tokens`` [B, T] through the stack at absolute positions
@@ -169,30 +260,28 @@ def _cached_forward(p, tokens, caches, pos, s_max, pads=None,
     Returns the last position's hidden [B, H], or every position's [B, T,
     H] with ``return_all`` (the speculative verify pass). Causal within
     the new tokens; full attention to everything cached before ``pos``.
-    ``pads`` [B] (left-pad counts) offsets each row's rope positions and
-    blanks its pad slots out of the visibility mask."""
+    ``pads`` [B] (left-pad counts) offsets each row's positions (rope, or
+    the learned position rows) and blanks its pad slots out of the
+    visibility mask."""
     b, t = tokens.shape
     dev = tokens.device
-    cos_full, sin_full = _rope_full(p, s_max, dev)
     positions = pos + torch.arange(t, device=dev)       # absolute [T]
     slot = torch.arange(s_max, device=dev)
     if pads is None:
-        cos = cos_full[positions][None, :, None, :]
-        sin = sin_full[positions][None, :, None, :]
+        logical = positions[None, :]                         # [1, T]
         # query i (absolute pos+i) may see cache slot j iff j <= pos+i
         visible = (slot[None, :] <= positions[:, None])[None]   # [1, T, S]
     else:
         # per-row logical positions: absolute minus this row's pad run
-        rel = (positions[None, :] - pads[:, None]).clamp(min=0)  # [B, T]
-        cos = cos_full[rel][:, :, None, :]
-        sin = sin_full[rel][:, :, None, :]
+        logical = (positions[None, :] - pads[:, None]).clamp(min=0)
         visible = ((slot[None, None, :] <= positions[None, :, None])
                    & (slot[None, None, :] >= pads[:, None, None]))
     n_rep = p["nh"] // p["nkv"]
-    out = _llama_stack(
-        p, p["embed"][tokens], cos, sin,
+    out = _decoder_stack(
+        p, tokens, logical,
         lambda li, q, k, v: _cached_attention(q, k, v, caches[li],
-                                              positions, visible, n_rep))
+                                              positions, visible, n_rep),
+        s_max)
     return out if return_all else out[:, -1, :]
 
 
@@ -207,7 +296,7 @@ def _cached_attention(q, k, v, cache, positions, visible, n_rep):
     ck, cv = cache
     ck.index_copy_(1, positions, k)
     cv.index_copy_(1, positions, v)
-    qg = q.view(b, t, nh // n_rep, n_rep, dh)
+    qg = q.reshape(b, t, nh // n_rep, n_rep, dh)
     # bf16 products are exact in fp32, so this is the fp32 accumulation of
     # the dtype operands
     logits = torch.einsum("btkgd,bskd->bkgts", qg.float(),
@@ -274,9 +363,8 @@ def _sample_slot_tokens(logits, temps, generator):
 
 def _prep_decode(p, t0, max_new_tokens):
     """Shared decode-path check (one copy for the greedy, beam, paged and
-    speculative paths): a learned-position table must hold the target
-    length. Llama has none, so it passes until the GPT family brings
-    ``max_positions``."""
+    speculative paths): a learned-position table (GPT's
+    ``max_positions``; Llama has none) must hold the target length."""
     max_pos = p.get("max_positions")
     if max_pos is not None and t0 + max_new_tokens > max_pos:
         raise ValueError(
@@ -331,8 +419,8 @@ def generate(model, input_ids, max_new_tokens: int = 32,
              num_beams: int = 1,
              length_penalty: float = 0.0, repetition_penalty: float = 1.0,
              min_length: int = 0):
-    """Decode ``max_new_tokens`` from a Llama-family causal LM with a KV
-    cache, on the model's device. Returns ``[B, prompt_len +
+    """Decode ``max_new_tokens`` from a Llama- or GPT-family causal LM
+    with a KV cache, on the model's device. Returns ``[B, prompt_len +
     max_new_tokens]`` int64 (prompt included); positions after an emitted
     ``eos_token_id`` are filled with eos.
 
@@ -664,21 +752,22 @@ def _paged_block_tables(b, s_max, block_size, num_blocks=None):
 def _generate_paged(model, ids, pads_np, *, max_new_tokens, do_sample,
                     temperature, top_k, top_p, eos_token_id, seed,
                     block_size, num_blocks=None):
-    """Paged-KV-cache decode (Llama): the prefill packs each row's REAL
-    tokens (left pads dropped) one row after another and runs the prefill
+    """Paged-KV-cache decode (Llama and GPT): the prefill packs each row's
+    REAL tokens (left pads dropped) one row after another and runs the prefill
     branch of ``block_multihead_attention`` per layer (k/v into the pool,
     causal attention within each row through the varlen flash forward);
     each tick appends one token per row through the decode branch (the
     paged decode kernel over the block tables). Pads never enter the
     pool. The prefill attends over the packed prompt tokens themselves,
     so it needs no block-table view. On a CUDA model: one varlen launch
-    per layer for the prefill, one paged launch per layer per tick. q, k
-    (rotated) and v (its own projection) are contiguous, so the varlen
-    wrapper reads them in place, without a copy."""
-    if not hasattr(model, "llama"):
+    per layer for the prefill, one paged launch per layer per tick.
+    Positions are logical: slot j of a packed row is position j, and a
+    tick's token sits at its row's length less one (Llama rotates by it,
+    GPT adds that row of its learned table)."""
+    if not hasattr(model, "llama") and not hasattr(model, "gpt"):
         raise NotImplementedError(
-            "paged=True decode supports the Llama family in the port; "
-            "other families use the dense cache path")
+            "paged=True decode supports the Llama and GPT families in the "
+            "port; other families use the dense cache path")
     p = _decode_family(model)
     b, t0 = ids.shape
     nkv, dh = p["nkv"], p["dh"]
@@ -689,7 +778,6 @@ def _generate_paged(model, ids, pads_np, *, max_new_tokens, do_sample,
     dev = ids.device
     gen = make_generator(seed, dev)
     tables = torch.as_tensor(tables_np, device=dev)
-    cos_full, sin_full = _rope_full(p, s_max, dev)
     caches = [tuple(torch.zeros(nkv, nb, block_size, dh,
                                 dtype=p["embed"].dtype, device=dev)
                     for _ in range(2)) for _ in p["layers"]]
@@ -697,8 +785,7 @@ def _generate_paged(model, ids, pads_np, *, max_new_tokens, do_sample,
     def forward(tokens, pos, attend):
         """The stack on one token per entry of ``tokens`` [N] at logical
         positions ``pos`` [N]."""
-        return _llama_stack(p, p["embed"][tokens], cos_full[pos][:, None],
-                            sin_full[pos][:, None], attend)
+        return _decoder_stack(p, tokens, pos, attend, s_max)
 
     def pick(hidden):
         return _sample_token(_head_logits(p, hidden).float(), gen,

@@ -1,8 +1,11 @@
-"""Normalization functional ops (the RMSNorm subset of the port).
+"""Normalization functional ops: ``rms_norm`` and ``layer_norm``.
 
-Counterpart of ``paddle_tpu/nn/functional/norm.py::rms_norm``. The
-routing is the reference's: the fused kernel when its gate passes, the
-plain composition otherwise.
+Counterpart of ``paddle_tpu/nn/functional/norm.py::rms_norm`` and
+``::layer_norm``. RMSNorm's routing is the reference's: the fused kernel
+when its gate passes, the plain composition otherwise. LayerNorm is XLA
+composition in the reference (``_layer_norm_fwd``) and plain torch here,
+with the reference's precision: fp32 statistics, the affine in fp32 and
+one rounding to the input's dtype.
 
 The port's gate states what ``csrc/rms_norm.cu`` accepts, not the TPU's
 (8, 128) tile rule: the ``use_cuda_rms_norm`` flag is on, x and w are
@@ -20,7 +23,7 @@ from ...core.autocast import autocast_off
 from ...core.flags import get_flag
 from ...ops.cuda import rms_norm as _kernel
 
-__all__ = ["rms_norm"]
+__all__ = ["rms_norm", "layer_norm"]
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -59,3 +62,17 @@ def rms_norm(x, weight, epsilon=1e-6, name=None):
     if _use_kernel(x, weight):
         return _RmsNorm.apply(x, weight, float(epsilon))
     return _kernel.rms_norm_reference(x, weight, eps=float(epsilon))
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
+               name=None):
+    """LayerNorm over the trailing ``normalized_shape`` dims of ``x``
+    (``weight`` and ``bias`` of that shape, or None for ones and zeros):
+    computed in fp32 and rounded once to x's dtype."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    shape = tuple(int(n) for n in normalized_shape)
+    w = None if weight is None else weight.float()
+    b = None if bias is None else bias.float()
+    return torch.nn.functional.layer_norm(x.float(), shape, w, b,
+                                          float(epsilon)).to(x.dtype)

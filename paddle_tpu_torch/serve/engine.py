@@ -55,8 +55,14 @@ What differs from the reference, and why:
   (seeded from ``seed``), so sampled streams are reproducible within the
   port but differ from the reference's ``jax.random`` streams; greedy
   streams match the reference token for token.
-- Llama family only; ``trace=`` and ``slo=`` (request tracing, SLO
-  monitors) are not ported yet and raise.
+- The Llama and GPT families, as the reference; ``trace=`` and ``slo=``
+  (request tracing, SLO monitors) are not ported yet and raise.
+
+The layer math is ``models/generation``'s (``_decoder_stack``): every
+path (the decode tick, the cold prefill and the suffix prefill) embeds
+its tokens at their absolute positions in the stream (GPT adds the
+learned position rows, looked up on the device; Llama rotates by the
+rope rows), and only the attention differs.
 
 Attention over the pool is ``ops/cuda/paged_attention``'s
 ``paged_attention_decode``: the hand-written CUDA kernel for CUDA
@@ -74,13 +80,10 @@ from typing import Deque, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import observability as obs
 from ..core.generator import make_generator
 from ..core.place import device_of, resolve_device
-from ..incubate.nn.functional import _rope_tables
-from ..incubate.nn.functional._rope_common import rotate_half
 from ..incubate.nn.functional.inference_attention import _write_kv
 from ..jit._capture import Graphed
 from ..models import generation as _gen
@@ -200,7 +203,8 @@ class Request:
 
 class ServeEngine:
     """Continuous-batching server over a paged KV pool (module docstring
-    has the contract). Llama family.
+    has the contract). Llama and GPT families; a GPT model's
+    ``max_position_embeddings`` must cover ``max_seq_len``.
 
     Usage::
 
@@ -231,10 +235,16 @@ class ServeEngine:
             raise NotImplementedError(
                 "ServeEngine(slo=...): SLO monitoring (observability/slo.py) "
                 "is not ported yet")
-        if not hasattr(model, "llama"):
+        if not hasattr(model, "llama") and not hasattr(model, "gpt"):
             raise NotImplementedError(
-                f"the port's ServeEngine supports the Llama family; got "
-                f"{type(model).__name__}")
+                "ServeEngine supports the Llama and GPT families (the "
+                f"paged-decode surface); got {type(model).__name__}")
+        self._p = _gen._decode_family(model)
+        max_pos = self._p.get("max_positions")
+        if max_pos is not None and max_seq_len > max_pos:
+            raise ValueError(
+                f"max_seq_len ({max_seq_len}) exceeds the model's learned "
+                f"position table (max_position_embeddings={max_pos})")
         if max_slots < 1:
             raise ValueError(
                 f"max_slots must be >= 1, got {max_slots} — with no "
@@ -258,7 +268,6 @@ class ServeEngine:
         self.pool = BlockPool(num_blocks, block_size)
         self._backend = attention_backend
 
-        self._p = _gen._decode_family(model)
         self._nh, self._nkv = self._p["nh"], self._p["nkv"]
         self._dh, self._L = self._p["dh"], len(self._p["layers"])
         self._dtype = self._p["embed"].dtype
@@ -271,11 +280,9 @@ class ServeEngine:
             (torch.zeros(shape, dtype=self._dtype, device=self.device),
              torch.zeros(shape, dtype=self._dtype, device=self.device))
             for _ in range(self._L)]
-        # fp32 rope tables, built once (position-only, shared by every
-        # layer and call)
-        self._cos, self._sin = _rope_tables(
-            self.max_seq_len, self._dh, self._p["theta"], True,
-            torch.float32, self.device)
+        if self._p["family"] == "llama":
+            # the fp32 rope tables, built once, outside any capture
+            _gen._rope_full(self._p, self.max_seq_len, self.device)
 
         # host-side slot state
         self._slots: List[Optional[Request]] = [None] * self.max_slots
@@ -789,10 +796,7 @@ class ServeEngine:
         samples."""
         b = self.max_slots
         nh, dh, bs = self._nh, self._dh, self.block_size
-        p = self._p
-        x = p["embed"][tokens.long()]                      # [B, H]
         pos = lens.long()
-        rope = self._rope_rows(pos)
         lengths = torch.where(live, pos + 1, 0).to(torch.int32)
         bi = torch.clamp(pos // bs, 0, self.max_blocks_per_seq - 1)
         phys = tables.long().gather(1, bi[:, None])[:, 0]
@@ -803,43 +807,25 @@ class ServeEngine:
                 q, kc, vc, lengths, tables,
                 backend=self._backend).reshape(b, nh * dh)
 
-        out = self._stack_layers(x, rope, slot, attn)
-        logits = _gen._head_logits(p, out).float()          # [B, V]
+        out = self._stack_layers(tokens.long(), pos, slot, attn)
+        logits = _gen._head_logits(self._p, out).float()    # [B, V]
         return _gen._sample_slot_tokens(logits, temps, self._gen)
 
-    def _rope_rows(self, pos):
-        """fp32 cos/sin rows at per-row positions ``pos``: [rows, 1, dh]."""
-        return self._cos[pos][:, None, :], self._sin[pos][:, None, :]
+    def _stack_layers(self, tokens, pos, slot, attn):
+        """ONE transformer stack for decode and both prefills: the
+        family's stack (``generation._decoder_stack``) over ``tokens``
+        [rows] at positions ``pos`` [rows], each layer's K/V scattered
+        into the pool at ``slot`` before its attention. ``attn(q, k, v,
+        kc, vc) -> [rows, nh*dh]`` is the only thing the callers differ
+        in. Returns the normed hidden [rows, H]."""
 
-    def _rope(self, q, k, cos, sin):
-        """Rotate q/k ([rows, heads, dh]) in fp32, cast back."""
-        q32, k32 = q.float(), k.float()
-        q = q32 * cos + rotate_half(q32, True) * sin
-        k = k32 * cos + rotate_half(k32, True) * sin
-        return q.to(self._dtype), k.to(self._dtype)
-
-    def _stack_layers(self, x, rope, slot, attn):
-        """ONE transformer stack for decode and both prefills: norm,
-        projections, rope, K/V scatter into the pool, attention via the
-        given closure, residual + FFN, final norm. ``x`` is [rows, H];
-        ``attn(q, k, v, kc, vc) -> [rows, nh*dh]`` is the only thing the
-        callers differ in. Returns the normed hidden [rows, H]."""
-        n = x.shape[0]
-        nh, kvh, dh = self._nh, self._nkv, self._dh
-        dtype, p = self._dtype, self._p
-        eps = p["eps"]
-        for lp, (kc, vc) in zip(p["layers"], self._caches):
-            h = _gen._rms(x, lp["ln1"], eps, dtype)
-            q = F.linear(h, lp["wq"]).reshape(n, nh, dh)
-            k = F.linear(h, lp["wk"]).reshape(n, kvh, dh)
-            v = F.linear(h, lp["wv"]).reshape(n, kvh, dh)
-            q, k = self._rope(q, k, *rope)
+        def layer_attn(li, q, k, v):
+            kc, vc = self._caches[li]
             _write_kv(kc, vc, k, v, slot)
-            ctx = attn(q, k, v, kc, vc)
-            x = x + F.linear(ctx.to(dtype), lp["wo"])
-            x = x + _gen._llama_ffn(_gen._rms(x, lp["ln2"], eps, dtype), lp,
-                                    dtype)
-        return _gen._rms(x, p["norm"], eps, dtype)
+            return attn(q, k, v, kc, vc)
+
+        return _gen._decoder_stack(self._p, tokens, pos, layer_attn,
+                                   self.max_seq_len)
 
     def _positions_to_slots(self, positions, table_row):
         bs = self.block_size
@@ -854,8 +840,6 @@ class ServeEngine:
         nh, kvh, dh = self._nh, self._nkv, self._dh
         group = nh // kvh
         positions = torch.arange(n, device=self.device)
-        x = self._p["embed"][ids]                          # [n, H]
-        rope = self._rope_rows(positions)
         causal = positions[None, :] <= positions[:, None]  # [Tq, Tk]
         slot = self._positions_to_slots(positions, table_row)
 
@@ -869,7 +853,7 @@ class ServeEngine:
             return torch.einsum("hqk,khd->qhd", probs,
                                 v_rep.float()).reshape(n, nh * dh)
 
-        out = self._stack_layers(x, rope, slot, attn)
+        out = self._stack_layers(ids, positions, slot, attn)
         return _gen._head_logits(self._p, out[n - 1:n])[0].float()
 
     def _suffix_prefill_impl(self, ids, start, table_row):
@@ -883,8 +867,6 @@ class ServeEngine:
         n = ids.shape[0]
         nh, dh = self._nh, self._dh
         positions = start + torch.arange(n, device=self.device)
-        x = self._p["embed"][ids]
-        rope = self._rope_rows(positions)
         slot = self._positions_to_slots(positions, table_row)
         lengths = (positions + 1).to(torch.int32)
         tables_rep = table_row[None, :].expand(n, table_row.shape[0])
@@ -894,7 +876,7 @@ class ServeEngine:
                 q, kc, vc, lengths, tables_rep,
                 backend=self._backend).reshape(n, nh * dh)
 
-        out = self._stack_layers(x, rope, slot, attn)
+        out = self._stack_layers(ids, positions, slot, attn)
         return _gen._head_logits(self._p, out[n - 1:n])[0].float()
 
     @torch.no_grad()
