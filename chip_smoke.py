@@ -80,13 +80,42 @@ Phases, each fatal on failure:
              plain versions; then ``generate`` and ``ServeEngine`` through
              the phases of 5 and 5b with every check they make
              (``phase_generate`` and ``phase_serve`` take the family:
-             ``llama_family``, ``gpt_family``).
+             ``llama_family``, ``gpt_family``);
+10. bert   — ``BertForPretraining`` at ``BertConfig.base()`` (12 layers,
+             hidden 768, 12 heads of 64) in bf16: the dense flash kernels
+             at its shape [36, 12, 512, 64], not causal, dropout 0.1,
+             without and with a padding key bias (``flash_at_shape``);
+             the whole backward run after run from one state (the port's
+             embeddings must give the same gradients every time,
+             ``torch.nn.Embedding``'s are reported);
+             ``bench.py:bench_bert``'s step (36 x 512, MLM + NSP, dropout
+             0.1, ``AdamW(1e-4, multi_precision=True)``): sequences/s,
+             tokens/s, MFU, peak memory, busy share, the flash kernels by
+             name; a padded batch through ``attention_mask``; the step
+             under ``jit.to_static`` against eager steps from the same
+             state; the fp32 2-layer check on a padded batch;
+11. moe    — ``ErnieMoeForCausalLM`` at ``bench.py:bench_moe``'s
+             configuration (6 layers, hidden 2048, 16 heads of 128, 8
+             experts of 1408, top-2, MoE on every second layer) in bf16:
+             its step (4 x 2048, ``AdamW(3e-4, multi_precision=True)``;
+             the flash and RMSNorm kernels by name, the tokens each MoE
+             layer dropped, MFU by active parameters), captured against
+             eager, the fp32 2-layer check; ``generate`` (8 prompts of
+             128 tokens, 64 new: dense greedy, sampled, 4 beams) through
+             ``phase_generate`` over ``moe_family``, captured ticks
+             against eager ticks. The training phases of 9-11 are one
+             function, ``phase_model_train``, over a ``TrainSpec`` each
+             (``GptTrain``, ``BertTrain``, ``MoeTrain``).
+
+Each phase prints its seconds.
 
 Each kernel's ``launches`` in the ``kernels`` line is its count on its
 own main path (``main_path``: serve, train, varlen or calibrate); the
 paged and varlen-forward entries also carry their counts on the
 ``generate`` path under ``launches_by_path``, and every entry its counts
-on GPT's paths (``gpt_train``, ``gpt_generate``: one call, ``gpt_serve``).
+on GPT's paths (``gpt_train``, ``gpt_generate``: one call, ``gpt_serve``),
+BERT's (``bert_train``) and ERNIE-MoE's (``moe_train``, ``moe_generate``:
+the dense greedy call, which reaches no kernel).
 
 The paged kernel is held at the serving, GQA, decode-step and
 suffix-prefill shapes (``PAGED_SHAPES``) with the L2 cold and warm, and
@@ -109,7 +138,8 @@ training step must run the vector variant's kernels (``RMS_TRAIN_KERNELS``).
 The tiled matmul has one route, the tensor cores, and the calibrate path
 fails if any other tiled kernel ran.
 
-The last lines are the ``train``, ``train_recipe`` and ``gpt`` JSON, the
+The last lines are the ``train``, ``train_recipe``, ``gpt``, ``bert`` and
+``moe`` JSON, the
 ``kernels`` JSON, the ``nvidia-smi`` name/power line, and
 ``{"ok": true, "device": {...}}``.
 
@@ -1699,10 +1729,15 @@ class Family:
     ``label`` its log lines, ``prm`` is ``default_serving_setup``'s engine
     and load settings, and ``model(bf16=True, layers=None, seed=0)``
     builds it at full width on the card in eval mode (fp32 where ``bf16``
-    is False, ``layers`` cutting the depth)."""
+    is False, ``layers`` cutting the depth). ``paged`` is False for a
+    family that decodes on the dense cache only (ERNIE-MoE: no
+    ``paged=True``, speculative decoding or serving), and
+    ``prompt_lens`` the ``generate`` prompts' lengths (None:
+    ``GEN_PROMPT_LENS``)."""
 
-    def __init__(self, tag, label, model, prm):
+    def __init__(self, tag, label, model, prm, paged=True, prompt_lens=None):
         self.tag, self.label, self.model, self.prm = tag, label, model, prm
+        self.paged, self.prompt_lens = paged, prompt_lens
 
 
 def llama_family(torch, dev):
@@ -1736,6 +1771,20 @@ def gpt_family(torch, dev):
         return gpt_model(torch, dev, seed=seed, bf16=bf16, **kw).eval()
 
     return Family("gpt_", "GPT", model, default_serving_setup(dev)[1])
+
+
+def moe_family(torch, dev):
+    """bench_moe's ERNIE-MoE (``moe_model``: 6 layers, hidden 2048, 16
+    heads of 128, 8 experts of 1408, top-2, MoE on every second layer);
+    dense cache only, from 8 prompts of ``GEN_PROMPT_LENS[0]`` tokens (the
+    reference refuses ragged prompts, ``paged=True`` and speculative
+    decoding for MoE models)."""
+
+    def model(bf16=True, layers=None, seed=0):
+        return moe_model(torch, dev, bf16, layers, seed).eval()
+
+    return Family("moe_", "ERNIE-MoE", model, None, paged=False,
+                  prompt_lens=[GEN_PROMPT_LENS[0]] * len(GEN_PROMPT_LENS))
 
 
 def phase_serve(torch, dev, report, fam):
@@ -2160,7 +2209,10 @@ def phase_generate(torch, dev, report, fam):
     kernels and paged on their plain versions give equal tokens,
     speculative decoding equals the dense greedy stream, and sampled
     dense and paged streams are equal (``check_streams`` admits a
-    near-tie). Every call captures its tick once (the
+    near-tie). A family without ``paged`` (ERNIE-MoE) runs the dense
+    greedy, sampled and beam calls and the dense tick only, from
+    same-length prompts (``fam.prompt_lens``). Every call captures its
+    tick once (the
     first tick eager, the rest replays); the bf16 greedy and sampled
     streams must equal those of eager ticks (``eager_ticks``), the
     checked run's ticks are eager, and the tick is timed both ways, with
@@ -2175,7 +2227,9 @@ def phase_generate(torch, dev, report, fam):
     model = fam.model()
     config = model.config
     nl = config.num_hidden_layers
-    ids, pads = _gen_prompts(torch, config, GEN_PROMPT_LENS, 8)
+    lens = fam.prompt_lens or GEN_PROMPT_LENS
+    ids, pads = _gen_prompts(torch, config, lens, 8)
+    pad = {"pad_token_id": 0} if any(pads) else {}
     b, t0 = ids.shape
     ticks = GEN_NEW - 1
     prof_new = 1 + GEN_PROFILE_LAYER_TICKS // nl
@@ -2183,8 +2237,7 @@ def phase_generate(torch, dev, report, fam):
     res = {"tokens_per_s": {}}
 
     def gen(model, n=GEN_NEW, **kw):
-        return lambda: model.generate(ids, max_new_tokens=n, pad_token_id=0,
-                                      **kw)
+        return lambda: model.generate(ids, max_new_tokens=n, **pad, **kw)
 
     def run(label, fn, rows=b):
         """Time ``fn``; its output must be on the card, prompt + 64 ids
@@ -2200,67 +2253,75 @@ def phase_generate(torch, dev, report, fam):
         return out, first
 
     log(f"  {fam.label}, {model.num_parameters() / 1e6:.1f}M parameters, "
-        f"bf16, {b} prompts of {GEN_PROMPT_LENS} tokens (left-padded to "
-        f"{t0}), {GEN_NEW} new tokens; {smi_line()}")
+        f"bf16, {b} prompts of {lens} tokens"
+        + (f" (left-padded to {t0})" if pad else "")
+        + f", {GEN_NEW} new tokens; {smi_line()}")
+    reset_counts()
     dense, _ = run("dense greedy", gen(model))
+    if not fam.paged:
+        record_launches(report, f"{fam.tag}generate", read_counts())
     with eager_ticks():
         eager = gen(model)()
     check(torch.equal(eager, dense), f"bf16 {fam.label} dense greedy: the "
           f"captured ticks' tokens differ from the eager ticks' (first "
           f"differing new token per row {first_diffs(torch, dense, eager, t0)})")
     log("  bf16 dense greedy: captured ticks = eager ticks, token for token")
-    paged = {}
-    for block in (64, 128):
-        fn = gen(model, paged=True, block_size=block)
-        paged[block], _ = run(f"paged greedy, block {block}",
-                              lambda: (reset_counts(), fn())[1])
-        counts = read_counts()
-        log(f"    launches of the timed call: {counts}")
-        check(counts["paged"] == nl * ticks and counts["vflash"] == nl,
-              f"{fam.label} paged block {block}: paged launches "
-              f"{counts['paged']} (want {nl * ticks}), varlen forward "
-              f"{counts['vflash']} (want {nl})")
-        check(not any(n for k, n in counts.items()
-                      if k not in ("paged", "vflash")),
-              f"{fam.label} paged block {block}: other kernels launched: "
-              f"{counts}")
-        if block == 64:
-            record_launches(report, f"{fam.tag}generate", counts)
-    # the two kernels at the shapes of this path, bf16: every call of a
-    # checked run against its plain version (the run must give the timed
-    # run's tokens); then the stream of a run on the plain versions
-    worst = {}
-    res["bf16_gaps"] = {}
-    for block in (64, 128):
-        fn = gen(model, paged=True, block_size=block)
-        # the checks read the host, so this run's ticks are eager: its
-        # tokens are the eager ticks', and must be the captured run's
-        with checked_paged_attention(worst), eager_ticks():
-            again = fn()
-        check(torch.equal(again, paged[block]),
-              f"{fam.label} paged block {block}: the checked run's (eager "
-              f"ticks) tokens differ from the timed run's (captured ticks)")
-        with plain_paged_attention():
-            plain = fn()
-        log(f"  bf16 paged (block {block}), first differing new token per "
-            f"row (None: equal; reported, not required): vs dense "
-            f"{first_diffs(torch, paged[block], dense, t0)}, vs paged on "
-            f"the plain versions {first_diffs(torch, paged[block], plain, t0)}")
-        for other, against in (("dense", dense), ("plain", plain)):
-            res["bf16_gaps"][f"block{block}_vs_{other}"] = check_streams(
-                torch, model, pads, paged[block], against,
-                f"bf16 paged block {block} vs {other}", required=False)
-    for key, want in (("paged", 2 * nl * ticks), ("vflash", 2 * nl)):
-        calls, err, share = worst[key]
-        log(f"  bf16 {report[key]['name']} at generate's shapes (blocks 64 "
-            f"and 128), {calls} calls vs the plain version: max_abs_err="
-            f"{err:.3g}, {share:.3g} of the tolerance")
-        check(calls == want and share <= 1.0,
-              f"{fam.label} generate's {key} calls: {calls} checked (want "
-              f"{want}), {share:.3g} of the tolerance")
-        res[f"{key}_max_abs_err"] = err
-    for label, kw in (("sampled dense", {}),
-                      ("sampled paged", dict(paged=True))):
+    if fam.paged:
+        paged = {}
+        for block in (64, 128):
+            fn = gen(model, paged=True, block_size=block)
+            paged[block], _ = run(f"paged greedy, block {block}",
+                                  lambda: (reset_counts(), fn())[1])
+            counts = read_counts()
+            log(f"    launches of the timed call: {counts}")
+            check(counts["paged"] == nl * ticks and counts["vflash"] == nl,
+                  f"{fam.label} paged block {block}: paged launches "
+                  f"{counts['paged']} (want {nl * ticks}), varlen forward "
+                  f"{counts['vflash']} (want {nl})")
+            check(not any(n for k, n in counts.items()
+                          if k not in ("paged", "vflash")),
+                  f"{fam.label} paged block {block}: other kernels launched: "
+                  f"{counts}")
+            if block == 64:
+                record_launches(report, f"{fam.tag}generate", counts)
+        # the two kernels at the shapes of this path, bf16: every call of a
+        # checked run against its plain version (the run must give the timed
+        # run's tokens); then the stream of a run on the plain versions
+        worst = {}
+        res["bf16_gaps"] = {}
+        for block in (64, 128):
+            fn = gen(model, paged=True, block_size=block)
+            # the checks read the host, so this run's ticks are eager: its
+            # tokens are the eager ticks', and must be the captured run's
+            with checked_paged_attention(worst), eager_ticks():
+                again = fn()
+            check(torch.equal(again, paged[block]),
+                  f"{fam.label} paged block {block}: the checked run's (eager "
+                  f"ticks) tokens differ from the timed run's (captured "
+                  f"ticks)")
+            with plain_paged_attention():
+                plain = fn()
+            log(f"  bf16 paged (block {block}), first differing new token per "
+                f"row (None: equal; reported, not required): vs dense "
+                f"{first_diffs(torch, paged[block], dense, t0)}, vs paged on "
+                f"the plain versions "
+                f"{first_diffs(torch, paged[block], plain, t0)}")
+            for other, against in (("dense", dense), ("plain", plain)):
+                res["bf16_gaps"][f"block{block}_vs_{other}"] = check_streams(
+                    torch, model, pads, paged[block], against,
+                    f"bf16 paged block {block} vs {other}", required=False)
+        for key, want in (("paged", 2 * nl * ticks), ("vflash", 2 * nl)):
+            calls, err, share = worst[key]
+            log(f"  bf16 {report[key]['name']} at generate's shapes (blocks "
+                f"64 "
+                f"and 128), {calls} calls vs the plain version: max_abs_err="
+                f"{err:.3g}, {share:.3g} of the tolerance")
+            check(calls == want and share <= 1.0,
+                  f"{fam.label} generate's {key} calls: {calls} checked (want "
+                  f"{want}), {share:.3g} of the tolerance")
+            res[f"{key}_max_abs_err"] = err
+    modes = (("dense", {}), ("paged", dict(paged=True)))[:1 + fam.paged]
+    for label, kw in ((f"sampled {m}", kw) for m, kw in modes):
         out, first = run(label, gen(model, **GEN_SAMPLE, **kw))
         check(torch.equal(out, first),
               f"bf16 {fam.label} {label}: two calls with one seed differ")
@@ -2270,15 +2331,17 @@ def phase_generate(torch, dev, report, fam):
               f"bf16 {fam.label} {label}: captured ticks differ from eager "
               f"ticks {first_diffs(torch, out, eager, t0)}")
     log("  bf16 sampled, one seed twice: equal bit for bit, and equal to the "
-        "eager ticks' streams (dense, paged)")
+        f"eager ticks' streams ({', '.join(m for m, _ in modes)})")
     # the pad ids count as tokens here: beam search takes no ragged prompts
-    run("beam search, 4 beams (pads as tokens)", lambda: model.generate(
-        ids, max_new_tokens=GEN_NEW, num_beams=4))
-    draft = fam.model(layers=2, seed=1)
-    run(f"generate_speculative, the {t0}-token prompt, gamma {GEN_GAMMA}, "
-        f"2-layer draft", lambda: generate_speculative(
-            model, draft, ids[:1], max_new_tokens=GEN_NEW, gamma=GEN_GAMMA),
-        rows=1)
+    run("beam search, 4 beams" + (" (pads as tokens)" if pad else ""),
+        lambda: model.generate(ids, max_new_tokens=GEN_NEW, num_beams=4))
+    if fam.paged:
+        draft = fam.model(layers=2, seed=1)
+        run(f"generate_speculative, the {t0}-token prompt, gamma "
+            f"{GEN_GAMMA}, 2-layer draft", lambda: generate_speculative(
+                model, draft, ids[:1], max_new_tokens=GEN_NEW,
+                gamma=GEN_GAMMA), rows=1)
+        del draft
 
     # prefill and the decode tick: the wall of the 64-token call less the
     # 1-token call, the kernels of the profiled 16-token call less the
@@ -2287,10 +2350,10 @@ def phase_generate(torch, dev, report, fam):
     # once: the first tick runs eagerly, the others are replays)
     capture = obs.registry.get("jit.graph_capture_seconds")
     cap0 = {label: capture.stats(site=f"generate.{label}")
-            for label in ("dense", "paged")}
+            for label, _ in modes}
     tick_ms = {}
     for mode in ("eager", "captured"):
-        for label, kw in (("dense", {}), ("paged", dict(paged=True))):
+        for label, kw in modes:
             with (eager_ticks() if mode == "eager"
                   else contextlib.nullcontext()):
                 _, one_ms, _ = timed_call(torch, gen(model, 1, **kw))
@@ -2319,19 +2382,22 @@ def phase_generate(torch, dev, report, fam):
                             if abs(ms) >= 5e-4)
                 + f"; prefill (the 1-token call) {one_ms:.2f} ms wall, "
                 f"{sum(v[1] for v in tab[1].values()):.3f} ms of kernels")
-        paged_ms = kinds["paged decode (port)"]
-        got = named_launches(
-            {k: v[0] for k, v in tab[prof_new].items()},
-            PAGED_KERNELS + (tc, cc))
-        want = nl * (prof_new - 1)
-        log(f"  paged tick, {mode}: {PAGED_KERNELS[0]} {paged_ms:.4f} ms "
-            f"({paged_ms / busy:.1%} of the tick's kernels); launches of the "
-            f"profiled {prof_new}-token call by name {got}")
-        check(got[PAGED_KERNELS[0]] == want and got[tc] == nl
-              and got[cc] == 0,
-              f"profiled {fam.label} paged generate ({mode} ticks) ran "
-              f"{got}, want {PAGED_KERNELS[0]} {want} times, {tc} {nl} times "
-              f"and {cc} never")
+        if fam.paged:
+            paged_ms = kinds["paged decode (port)"]
+            got = named_launches(
+                {k: v[0] for k, v in tab[prof_new].items()},
+                PAGED_KERNELS + (tc, cc))
+            want = nl * (prof_new - 1)
+            log(f"  paged tick, {mode}: {PAGED_KERNELS[0]} {paged_ms:.4f} ms "
+                f"({paged_ms / busy:.1%} of the tick's kernels); launches of "
+                f"the "
+                f"profiled {prof_new}-token call by name {got}")
+            check(got[PAGED_KERNELS[0]] == want and got[tc] == nl
+                  and got[cc] == 0,
+                  f"profiled {fam.label} paged generate ({mode} ticks) ran "
+                  f"{got}, want {PAGED_KERNELS[0]} {want} times, {tc} {nl} "
+                  f"times "
+                  f"and {cc} never")
     cap = {}
     for label, s0 in cap0.items():
         s = capture.stats(site=f"generate.{label}")
@@ -2344,8 +2410,10 @@ def phase_generate(torch, dev, report, fam):
     res["ticks"] = {f"{label}_{mode}": v for (mode, label), v in
                     tick_ms.items()}
     res["capture_ms"] = cap
-    del model, draft
+    del model
     torch.cuda.empty_cache()
+    if not fam.paged:
+        return res
 
     # fp32 at 2 layers, full width: the kernels against the plain versions
     model = fam.model(bf16=False, layers=2)
@@ -2409,6 +2477,10 @@ def step_rates(dt, n_params, nl, hid, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     attn_flops = 12 * nl * hid * seq
     mfu = tok_s * (6 * n_params + attn_flops) / PEAK_FLOPS["bfloat16"]
     return dt / steps * 1e3, tok_s, mfu
+
+
+def _llama_loss(model, ids, labels):
+    return model(ids, labels=labels)[0]
 
 
 def check_train_kernels(per_kernel, nl, label):
@@ -2521,9 +2593,11 @@ def phase_train(torch, dev, report):
     del model, opt
     torch.cuda.empty_cache()
     report["train"]["to_static"] = static_vs_eager(
-        torch, dev, config, ids, labels,
+        torch, dev, lambda: LlamaForCausalLM(config, device=dev, seed=0),
+        (ids, labels), _llama_loss,
         lambda m: (AdamW(learning_rate=3e-4, parameters=m.parameters(),
-                         multi_precision=True), None), "bf16 train", nl)
+                         multi_precision=True), None), "bf16 train",
+        train_launches(nl), lambda pk, lb: check_train_kernels(pk, nl, lb))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2589,17 +2663,26 @@ def _master_share(new_c, new_e, old):
     return float(((new_c - new_e).abs() / ulp.clamp(min=1e-38)).max())
 
 
-def static_vs_eager(torch, dev, config, ids, labels, make_opt, label, nl):
+def static_vs_eager(torch, dev, make_model, batch, loss_of, make_opt, label,
+                    want, check_route, generators=lambda m: [],
+                    steps=TRAIN_STEPS):
     """The train step under ``jit.to_static(full_graph=True)`` against the
-    same step run eagerly. ``make_opt(model)`` -> (optimizer, scheduler or
-    None; the caller steps the scheduler after each call).
+    same step run eagerly. ``make_model()`` -> a model made from seed 0;
+    the step is ``loss_of(model, *batch)``, its backward and the
+    optimizer's step; ``make_opt(model)`` -> (optimizer, scheduler or
+    None; the caller steps the scheduler after each call); ``want`` the
+    launches of one step by counter and ``check_route(per_kernel,
+    label)`` the kernels a profiled step must run by name;
+    ``generators(model)`` the model's explicit generators, whose states
+    the eager model takes from the captured one before each compared
+    step (so both draw the same dropout and routing).
 
     First the captured run alone, from a model made from seed 0:
-    ``TRAIN_STEPS`` calls (the first one the warm-up and the capture),
-    then ``TRAIN_STEPS`` timed calls, whose launch counts through the
-    graph's replays must be the eager step's, one profiled call (the
-    tensor-core flash and vector RMSNorm kernels by name), the peak and
-    reserved memory. Then ``TRAIN_STEPS`` more captured calls, each
+    ``steps`` calls (the first one the warm-up and the capture), then
+    ``steps`` timed calls, whose launch counts through the graph's
+    replays must be the eager step's, one profiled call
+    (``check_route``), the peak and reserved memory. Then ``steps`` more
+    captured calls, each
     against one eager step of a second model and optimizer given the
     captured run's state just before it (parameters, masters, moments,
     step count, the scheduler's state): the same loss, the moments
@@ -2611,14 +2694,13 @@ def static_vs_eager(torch, dev, config, ids, labels, make_opt, label, nl):
     way. ``jit.fallbacks`` must stay 0. Returns the numbers."""
     from paddle_tpu_torch import jit
     from paddle_tpu_torch import observability as obs
-    from paddle_tpu_torch.models import LlamaForCausalLM
 
     def trainer(mode):
-        model = LlamaForCausalLM(config, device=dev, seed=0)
+        model = make_model()
         opt, sched = make_opt(model)
 
-        def step(x, y):
-            loss, _ = model(x, labels=y)
+        def step(*xs):
+            loss = loss_of(model, *xs)
             loss.backward()
             opt.step()
             opt.clear_grad()
@@ -2628,7 +2710,7 @@ def static_vs_eager(torch, dev, config, ids, labels, make_opt, label, nl):
             else step
 
         def call():
-            out = fn(ids, labels)
+            out = fn(*batch)
             if sched is not None:
                 sched.step()
             return out
@@ -2638,18 +2720,18 @@ def static_vs_eager(torch, dev, config, ids, labels, make_opt, label, nl):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             call()
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
         counts = read_counts()
-        for key, n in train_launches(nl).items():
-            check(counts[key] == n * TRAIN_STEPS,
-                  f"{label} ({mode}): {key} launches {counts[key]} != {n} x "
-                  f"{TRAIN_STEPS}")
+        for key in counts:
+            check(counts[key] == want.get(key, 0) * steps,
+                  f"{label} ({mode}): {key} launches {counts[key]} != "
+                  f"{want.get(key, 0)} x {steps}")
         busy, per_kernel = profile_kernels(torch, call, 1, step_ms,
                                            f"{label} step, {mode}")
-        check_train_kernels(per_kernel, nl, f"{label} step, {mode}")
+        check_route(per_kernel, f"{label} step, {mode}")
         return dict(step_ms=step_ms, busy_share=None if busy is None
                     else busy / step_ms, launches=counts)
 
@@ -2658,7 +2740,7 @@ def static_vs_eager(torch, dev, config, ids, labels, make_opt, label, nl):
     torch.cuda.reset_peak_memory_stats(dev)
     cm, co, csched, cfn, ccall = trainer("captured")
     t0 = time.perf_counter()
-    first = [float(ccall()) for _ in range(TRAIN_STEPS)]
+    first = [float(ccall()) for _ in range(steps)]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     entries = list(cfn._cache.values())
@@ -2672,7 +2754,7 @@ def static_vs_eager(torch, dev, config, ids, labels, make_opt, label, nl):
         peak_bytes=torch.cuda.max_memory_allocated(dev),
         reserved_bytes=torch.cuda.max_memory_reserved(dev))
     log(f"  {label}, captured: losses {[round(x, 5) for x in first]} "
-        f"({first_s:.2f} s for the first {TRAIN_STEPS}, the warm-up step "
+        f"({first_s:.2f} s for the first {steps}, the warm-up step "
         f"and capture {entries[0].graphed.capture_seconds or 0:.2f} s of "
         f"them), "
         f"then {out['captured']['step_ms']:.2f} ms a step; peak memory "
@@ -2685,7 +2767,7 @@ def static_vs_eager(torch, dev, config, ids, labels, make_opt, label, nl):
     worst = dict(loss=0.0, master_share=0.0, param_abs=0.0, params_apart=0,
                  rounded_once=True, moments_equal=True)
     with torch.no_grad():
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             for pc, pe in zip(cps, eps_):
                 pe.copy_(pc)
                 eo._master_weights[id(pe)].copy_(co._master_weights[id(pc)])
@@ -2693,6 +2775,8 @@ def static_vs_eager(torch, dev, config, ids, labels, make_opt, label, nl):
                     eo._accumulators[name][id(pe)].copy_(
                         co._accumulators[name][id(pc)])
             eo._step_count = co._step_count
+            for gc, ge in zip(generators(cm), generators(em)):
+                ge.set_state(gc.get_state())
             if es is not None:
                 es.set_state_dict(csched.state_dict())
             old = [co._master_weights[id(pc)].clone() for pc in cps]
@@ -2716,13 +2800,13 @@ def static_vs_eager(torch, dev, config, ids, labels, make_opt, label, nl):
             del old
     fallbacks = obs.registry.get("jit.fallbacks").total()
     n_params = sum(p.numel() for p in cps)
-    log(f"  {label}: {TRAIN_STEPS} captured steps each against an eager "
+    log(f"  {label}: {steps} captured steps each against an eager "
         f"step from the same state: loss diff {worst['loss']:.3g} (want 0), "
         f"moments equal {worst['moments_equal']}, masters at "
         f"{worst['master_share']:.3g} of {STATIC_MASTER_ULPS} fp32 ulps of "
         f"their operands (tol 1), each bf16 parameter its master rounded "
         f"once {worst['rounded_once']}; {worst['params_apart']} of "
-        f"{TRAIN_STEPS} x {n_params} bf16 entries apart, at most "
+        f"{steps} x {n_params} bf16 entries apart, at most "
         f"{worst['param_abs']:.3g}; jit.fallbacks {fallbacks}")
     check(worst["loss"] == 0.0 and worst["moments_equal"],
           f"{label}: captured and eager steps from one state differ: {worst}")
@@ -2900,8 +2984,10 @@ def phase_train_recipe(torch, dev, report):
     del model, opt, pairs, grads
     torch.cuda.empty_cache()
     report["train_recipe"]["to_static"] = static_vs_eager(
-        torch, dev, config, ids, labels,
-        lambda m: recipe_optimizer(m.named_parameters()), "bf16 recipe", nl)
+        torch, dev, lambda: LlamaForCausalLM(config, device=dev, seed=0),
+        (ids, labels), _llama_loss,
+        lambda m: recipe_optimizer(m.named_parameters()), "bf16 recipe",
+        train_launches(nl), lambda pk, lb: check_train_kernels(pk, nl, lb))
 
     # fp16 O1: fp32 parameters, autocast to fp16, dynamic loss scaling
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3318,24 +3404,31 @@ def plain_flash():
         fa._flash_fwd_kernel, fa._flash_bwd_kernel = saved
 
 
-def phase_gpt_kernels(torch, dev, report):
-    """Rows 2 and 4 at GPT-2 medium's training shape, [8, 16, 1024, 64]
-    bf16, causal, dropout 0.1 at a fixed seed. The forward's keep mask,
-    read back through one-hot values (q = 0 gives every visible key
-    p = 1 / (i + 1), so with v one-hot on the 64 keys of block c,
-    out[i, d] > 0 exactly where key 64c + d is kept; one call a block),
-    must equal the plain version's; out within ``tolerance(bf16, 1e-4)``
-    and lse within 1e-4 on random inputs, and dq, dk, dv within
-    ``tolerance(bf16, 1e-4)``. Then each kernel timed beside its plain
-    version, ``F.scaled_dot_product_attention`` at the same dropout rate
-    (its backward on a kept graph) and its bound."""
+def flash_at_shape(torch, dev, report, key, b, h, s, d, causal,
+                   dropout, bias=None):
+    """Rows 2 and 4 at a model's training shape [b, h, s, d] in bf16, at
+    dropout rate ``dropout`` with a fixed seed, causal or not, with the
+    key bias ``bias`` ([b, s] fp32, the padding mask's ``-1e4`` on padded
+    keys) or none. The forward's keep mask, read back through one-hot
+    values (q = 0 gives every visible key the same p, so with v one-hot
+    on the d keys of block c, out[i, j] > 0 exactly where key d c + j is
+    visible and kept; one call a block), must equal the plain version's;
+    out within ``tolerance(bf16, 1e-4)`` and lse within 1e-4 on random
+    inputs, and dq, dk, dv within ``tolerance(bf16, 1e-4)``. Then each
+    kernel timed beside its plain version,
+    ``F.scaled_dot_product_attention`` on the same inputs at the same
+    dropout rate (the bias as its additive mask; its backward on a kept
+    graph) and its bound: the work of the visible (query, key) pairs, a
+    padded key's none. Kept under ``report[...][key]``."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
-    b, h, s, d = GPT_BATCH, 16, GPT_SEQ, 64
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(12)
     seed = torch.tensor([2024], dtype=torch.int32, device=dev)
-    st = dict(causal=True, scale=d ** -0.5, dropout_rate=GPT_DROPOUT)
+    st = dict(causal=causal, scale=d ** -0.5, dropout_rate=dropout)
+    what = (f"[{b},{h},{s},{d}] bf16, {'causal' if causal else 'not causal'}"
+            f", dropout {dropout}"
+            + (", key bias" if bias is not None else ""))
 
     def rnd():
         return torch.randn(b, h, s, d, generator=g, device=dev).to(bf16)
@@ -3346,95 +3439,418 @@ def phase_gpt_kernels(torch, dev, report):
     for c in range(s // d):
         v = torch.zeros(b, h, s, d, device=dev, dtype=bf16)
         v[:, :, c * d:(c + 1) * d] = eye
-        kept = fa._flash_fwd_kernel(q0, k, v, seed, None, **st)[0] > 0
-        rkept = fa._flash_fwd_reference(q0, k, v, seed, None, **st)[0] > 0
+        kept = fa._flash_fwd_kernel(q0, k, v, seed, bias, **st)[0] > 0
+        rkept = fa._flash_fwd_reference(q0, k, v, seed, bias, **st)[0] > 0
         same = same and torch.equal(kept, rkept)
         n_kept += int(kept.sum())
-    visible = b * h * s * (s + 1) // 2
-    log(f"  flash dropout keep mask at [8,16,1024,64] bf16, rate "
-        f"{GPT_DROPOUT}: kernel keeps {n_kept} of {visible} visible "
-        f"(q, k) pairs ({n_kept / visible:.4f}), identical to the plain "
-        f"version's: {same}")
-    check(same, "flash keep mask at GPT's shape differs from the plain "
-                "version's")
+    # the visible (query, key) pairs: below the diagonal, or every
+    # unpadded key of the row
+    keys = b * s if bias is None else int((bias > -1.0).sum())
+    pairs = (b * h * s * (s + 1) // 2 if causal else h * s * keys)
+    log(f"  flash dropout keep mask at {what}: kernel keeps {n_kept} of "
+        f"{pairs} visible (q, k) pairs ({n_kept / pairs:.4f}), identical to "
+        f"the plain version's: {same}")
+    check(same, f"flash keep mask at {what} differs from the plain "
+                f"version's")
     del q0, k, v, kept, rkept
     q, k, v, do = rnd(), rnd(), rnd(), rnd()
-    out, lse = fa._flash_fwd_kernel(q, k, v, seed, None, **st)
-    rout, rlse = fa._flash_fwd_reference(q, k, v, seed, None, **st)
+    out, lse = fa._flash_fwd_kernel(q, k, v, seed, bias, **st)
+    rout, rlse = fa._flash_fwd_reference(q, k, v, seed, bias, **st)
     tol = tolerance(bf16, 1e-4)
     e_out, share = close_err(out, rout, *tol)
     e_lse = max_err(lse, rlse)
-    got = fa._flash_bwd_kernel(q, k, v, out, lse, do, seed, None, **st)
-    ref = fa._flash_bwd_reference(q, k, v, out, lse, do, seed, None, **st)
+    got = fa._flash_bwd_kernel(q, k, v, out, lse, do, seed, bias, **st)
+    ref = fa._flash_bwd_reference(q, k, v, out, lse, do, seed, bias, **st)
     torch.cuda.synchronize()
     res = [close_err(a, r, *tol) for a, r in zip(got, ref)]
-    log(f"  flash at [8,16,1024,64] bf16, dropout {GPT_DROPOUT}: out err "
-        f"{e_out:.3g} ({share:.3g} of the tolerance), lse err {e_lse:.3g}; "
+    log(f"  flash at {what}: out err {e_out:.3g} ({share:.3g} of the "
+        f"tolerance), lse err {e_lse:.3g}; "
         + ", ".join(f"{n} err {e:.3g} ({sh:.3g} of the tolerance)"
                     for n, (e, sh) in zip(("dq", "dk", "dv"), res)))
-    check(share <= 1.0 and e_lse <= 1e-4, "flash forward at GPT's shape")
-    check(all(sh <= 1.0 for _, sh in res), "flash backward at GPT's shape")
+    check(share <= 1.0 and e_lse <= 1e-4, f"flash forward at {what}")
+    check(all(sh <= 1.0 for _, sh in res), f"flash backward at {what}")
     del rout, rlse, got, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = None if bias is None else bias[:, None, None, :].to(bf16)
+    extra = 0 if bias is None else nbytes(bias)
     fwd = timings(
-        lambda: fa._flash_fwd_kernel(q, k, v, seed, None, **st),
-        lambda: fa._flash_fwd_reference(q, k, v, seed, None, **st),
-        lambda: sdpa(q, k, v, is_causal=True, dropout_p=GPT_DROPOUT),
-        nbytes(q, k, v, q) + b * h * s * 4, 4 * b * h * s * s * d / 2,
+        lambda: fa._flash_fwd_kernel(q, k, v, seed, bias, **st),
+        lambda: fa._flash_fwd_reference(q, k, v, seed, bias, **st),
+        lambda: sdpa(q, k, v, attn_mask=mask, is_causal=causal,
+                     dropout_p=dropout),
+        nbytes(q, k, v, q) + b * h * s * 4 + extra, 4 * pairs * d,
         "bfloat16", plain_iters=5)
-    show("flash causal [8,16,1024,64] bf16, dropout 0.1", fwd)
+    show(f"flash {what}", fwd)
     bwd = timings(
-        lambda: fa._flash_bwd_kernel(q, k, v, out, lse, do, seed, None, **st),
-        lambda: fa._flash_bwd_reference(q, k, v, out, lse, do, seed, None,
+        lambda: fa._flash_bwd_kernel(q, k, v, out, lse, do, seed, bias, **st),
+        lambda: fa._flash_bwd_reference(q, k, v, out, lse, do, seed, bias,
                                         **st),
         library_grad(torch, lambda a, b_, c: sdpa(
-            a, b_, c, is_causal=True, dropout_p=GPT_DROPOUT), (q, k, v), do),
-        nbytes(q, k, v, out, do, q, k, v) + lse.numel() * 4,
-        5 * 2 * b * h * s * s * d / 2, "bfloat16", plain_iters=5)
-    show("flash_bwd causal [8,16,1024,64] bf16, dropout 0.1", bwd)
-    shape = dict(shape=[b, h, s, d], dtype="bfloat16", dropout=GPT_DROPOUT)
-    report["flash"]["at_gpt_shape"] = dict(
+            a, b_, c, attn_mask=mask, is_causal=causal, dropout_p=dropout),
+            (q, k, v), do),
+        nbytes(q, k, v, out, do, q, k, v) + lse.numel() * 4 + extra,
+        5 * 2 * pairs * d, "bfloat16", plain_iters=5)
+    show(f"flash_bwd {what}", bwd)
+    shape = dict(shape=[b, h, s, d], dtype="bfloat16", causal=causal,
+                 dropout=dropout, key_bias=bias is not None)
+    report["flash"][key] = dict(
         max_abs_err=e_out, share=share, lse_err=e_lse, keep_mask_equal=same,
-        keep_rate=n_kept / visible, **shape, **fwd)
-    report["flash_bwd"]["at_gpt_shape"] = dict(
+        keep_rate=n_kept / pairs, **shape, **fwd)
+    report["flash_bwd"][key] = dict(
         max_abs_err=max(e for e, _ in res), **shape, **bwd)
     del q, k, v, do, out, lse
     torch.cuda.empty_cache()
 
 
-def phase_gpt_train(torch, dev, report):
-    """GPT-2 medium's training step at full width and depth (24 layers,
-    hidden 1024, 16 heads of 64, vocab 50304, tied head, about 355M
-    parameters) in bf16, batch 8 x 1024, dropout 0.1 in attention (inside
-    the flash kernels) and hidden states, ``AdamW(3e-4,
-    multi_precision=True)`` with weight decay 0.01: one warm-up step and
-    ``GPT_STEPS`` timed steps on one batch. Every step must launch the
-    flash forward and backward once a layer and no other kernel of the
-    port; the profiled step must show the tensor-core flash forward, dq
-    and dk/dv once a layer, no CUDA-core flash kernel and no RMSNorm
-    kernel; the loss must fall. Then 2 layers in fp32 (TF32 off), dropout
-    0.1, batch 2 x 512, one seed: the loss and every gradient through the
-    kernels against the same step on their plain versions (the same
-    counter-hash mask, the same hidden masks from the restored
-    generator), to the ``[train]`` phase's tolerances: loss 1e-4, each
-    gradient 1e-4 of its own max |g|."""
-    from paddle_tpu_torch.optimizer import AdamW
+class TrainSpec:
+    """A model's training step for ``phase_model_train``: ``model(torch,
+    dev, bf16=True, layers=None)`` at full width (``layers`` cuts the
+    depth, fp32 where ``bf16`` is False), its batch, the fp32 check's
+    batch (``small``: two rows of 512 tokens), its loss and optimizer,
+    the launches of one step by counter (``launches``; every other
+    counter 0), the kernels a profiled bf16 step must run by name
+    (``check_route``), its rates, the context that puts the kernels'
+    plain versions in place (``plain``), the model's explicit generators
+    (restored before each run of the fp32 check, copied from the
+    captured model to the eager one by ``static_vs_eager``) and
+    ``extra``, a model's own checks after the timed steps."""
 
+    tag = label = ""
+    steps = 5
+    to_static = False
+    #: parameter-name endings whose gradient is 0 in exact arithmetic:
+    #: the fp32 check holds them below 1e-6 of the largest gradient
+    #: instead of to their own (rounding-noise) scale
+    zero_grads = ()
+
+    def launches(self, nl):
+        return dict(flash=nl, flash_bwd=nl)
+
+    def check_route(self, per_kernel, nl, label):
+        """The tensor-core flash kernels once a layer, no RMSNorm."""
+        check_flash_route(per_kernel, {"fwd": nl, "dq": nl, "dkv": nl},
+                          label)
+        rms = {k: c for k, c in per_kernel.items() if "rms_norm" in k}
+        check(not rms, f"{label} ran RMSNorm kernels {rms}")
+
+    def plain(self):
+        return plain_flash()
+
+    def rates(self, dt, model, batch):
+        """bench.py's formula (step_rates) over the batch's tokens."""
+        cfg = model.config
+        step_ms, tok_s, mfu = step_rates(
+            dt, model.num_parameters(), cfg.num_hidden_layers,
+            cfg.hidden_size, *batch[0].shape, self.steps)
+        return dict(step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu)
+
+    def extra(self, torch, dev, model, opt, batch, out):
+        pass
+
+
+def _ids_and_labels(torch, cfg, dev, rows, seq):
+    """Ids from a seeded generator on the card, labels = ids rolled by
+    one."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    ids = torch.randint(0, cfg.vocab_size, (rows, seq), generator=g,
+                        device=dev)
+    return ids, torch.roll(ids, -1, dims=1)
+
+
+def _small_lm(batch):
+    """Two rows of 512 tokens of an (ids, labels) batch, each row's last
+    label ignored."""
+    ids, labels = batch
+    labels2 = labels[:2, :512].clone()
+    labels2[:, -1] = -100
+    return ids[:2, :512], labels2
+
+
+class GptTrain(TrainSpec):
+    """GPT-2 medium (24 layers, hidden 1024, 16 heads of 64, vocab 50304,
+    tied head, about 355M parameters), batch 8 x 1024, dropout 0.1 in
+    attention (inside the flash kernels) and hidden states,
+    ``AdamW(3e-4, multi_precision=True)`` with weight decay 0.01."""
+
+    tag, label, steps = "gpt", "GPT", GPT_STEPS
+
+    def model(self, torch, dev, bf16=True, layers=None):
+        kw = {"num_hidden_layers": layers} if layers else {}
+        return gpt_model(torch, dev, bf16=bf16, **kw)
+
+    def batch(self, torch, cfg, dev):
+        return _ids_and_labels(torch, cfg, dev, GPT_BATCH, GPT_SEQ)
+
+    small = staticmethod(_small_lm)
+
+    def loss(self, model, ids, labels):
+        return model(ids, labels=labels)[0]
+
+    def opt(self, model):
+        from paddle_tpu_torch.optimizer import AdamW
+
+        return AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                     multi_precision=True, weight_decay=0.01)
+
+    def generators(self, model):
+        return [model.dropout_generator]
+
+
+#: bench.py:bench_bert's batch (bench.py:780): 36 sequences of 512 tokens
+BERT_BATCH, BERT_SEQ = 36, 512
+#: BERT-base's dropout rates (attention and hidden)
+BERT_DROPOUT = 0.1
+
+
+def bert_padding(torch, dev, rows, seq, seed):
+    """A [rows, seq] int64 padding mask (1 keep, 0 pad): each row pads its
+    last n keys, n drawn uniformly from 0 to seq / 4 (the first row 0,
+    the second seq / 4), from a seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pads = torch.randint(0, seq // 4 + 1, (rows,), generator=g, device=dev)
+    pads[0], pads[min(1, rows - 1)] = 0, seq // 4
+    return (torch.arange(seq, device=dev)[None, :]
+            < (seq - pads)[:, None]).long()
+
+
+class BertTrain(TrainSpec):
+    """``bench.py:bench_bert``'s step: ``BertConfig.base()`` (12 layers,
+    hidden 768, 12 heads of 64, vocab 30522, about 110M parameters) in
+    bf16, MLM + NSP, batch 36 x 512 (token types 0 then 1, MLM labels on
+    15% of positions, random NSP labels), dropout 0.1 in attention
+    (inside the flash kernels, not causal) and hidden states,
+    ``AdamW(1e-4, multi_precision=True)``. MFU is bench.py's formula
+    (bench.py:822-825). The fp32 check runs a padded batch (the mask as
+    the kernels' key bias)."""
+
+    tag, label, to_static = "bert", "BERT", True
+    # q . b_k shifts a row's logits by one constant, which softmax drops
+    zero_grads = ("k_proj.bias",)
+
+    def model(self, torch, dev, bf16=True, layers=None):
+        import dataclasses
+
+        from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+        cfg = BertConfig.base()
+        if layers:
+            cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+        model = BertForPretraining(cfg, device=dev, seed=0)
+        return model.to(torch.bfloat16) if bf16 else model
+
+    def batch(self, torch, cfg, dev):
+        g = torch.Generator(device=dev).manual_seed(9)
+        shape = (BERT_BATCH, BERT_SEQ)
+        ids = torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)
+        tt = (torch.arange(BERT_SEQ, device=dev) >= BERT_SEQ // 2).long(
+            ).expand(shape).contiguous()
+        mlm = torch.where(torch.rand(shape, generator=g, device=dev) < 0.15,
+                          ids, -100)
+        nsp = torch.randint(0, 2, (BERT_BATCH, 1), generator=g, device=dev)
+        return ids, tt, mlm, nsp
+
+    def small(self, batch):
+        import torch
+
+        mask = bert_padding(torch, batch[0].device, 2, BERT_SEQ, 6)
+        return tuple(t[:2] for t in batch) + (mask,)
+
+    def loss(self, model, ids, tt, mlm, nsp, mask=None):
+        return model(ids, tt, attention_mask=mask, masked_lm_labels=mlm,
+                     next_sentence_labels=nsp)[0]
+
+    def opt(self, model):
+        from paddle_tpu_torch.optimizer import AdamW
+
+        return AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                     multi_precision=True)
+
+    def generators(self, model):
+        return [model.dropout_generator]
+
+    def rates(self, dt, model, batch):
+        out = super().rates(dt, model, batch)
+        out["sequences_per_s"] = BERT_BATCH * self.steps / dt
+        return out
+
+    def extra(self, torch, dev, model, opt, batch, out):
+        """A padded batch through ``attention_mask`` (0-25% of each row's
+        keys, ``bert_padding``): one training step launches the flash
+        forward and backward once a layer with the key bias and gives a
+        finite loss; in eval mode, new ids on the padded positions leave
+        every unpadded position's MLM logits equal bit for bit (a padded
+        key's -1e4 bias gives it p = 0 in fp32)."""
+        nl = model.config.num_hidden_layers
+        mask = bert_padding(torch, dev, BERT_BATCH, BERT_SEQ, 5)
+        reset_counts()
+        loss = self.loss(model, *batch, mask)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        counts = read_counts()
+        loss = float(loss)
+        check(counts["flash"] == nl and counts["flash_bwd"] == nl
+              and math.isfinite(loss),
+              f"padded BERT step: launches {counts}, loss {loss}")
+        model.eval()
+        ids, tt = batch[0], batch[1]
+        other = torch.where(mask.bool(), ids,
+                            (ids + 7) % model.config.vocab_size)
+        with torch.no_grad():
+            a = model(ids, tt, attention_mask=mask)[0]
+            b = model(other, tt, attention_mask=mask)[0]
+        model.train()
+        keep = mask.bool()
+        same = torch.equal(a[keep], b[keep])
+        pads = int((~keep).sum())
+        log(f"  padded BERT batch ({pads} of {mask.numel()} keys padded, "
+            f"0-25% a row): step loss {loss:.4f}, launches "
+            f"{ {k: n for k, n in counts.items() if n} }; new ids on the "
+            f"padded positions leave the unpadded MLM logits equal: {same}")
+        check(same, "BERT: padded keys changed unpadded outputs")
+        out["padded"] = dict(loss=loss, padded_keys=pads,
+                             unpadded_logits_equal=same)
+
+
+#: bench.py:bench_moe's ERNIE-MoE configuration (bench.py:694-700) and
+#: batch: 6 layers, hidden 2048, 16 heads of 128, 8 experts of width 1408,
+#: top-2, MoE on every second layer
+MOE_CONFIG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                  moe_intermediate_size=1408, num_hidden_layers=6,
+                  num_attention_heads=16, num_key_value_heads=16,
+                  num_experts=8, moe_top_k=2, max_position_embeddings=2048)
+MOE_BATCH, MOE_SEQ = 4, 2048
+
+
+def moe_model(torch, dev, bf16=True, layers=None, seed=0):
+    """``MOE_CONFIG`` on the card in bf16 (fp32 where ``bf16`` is False),
+    ``layers`` cutting the depth."""
+    from paddle_tpu_torch.models import ErnieMoeConfig, ErnieMoeForCausalLM
+
+    cfg = dict(MOE_CONFIG, dtype="bfloat16" if bf16 else "float32")
+    if layers:
+        cfg["num_hidden_layers"] = layers
+    return ErnieMoeForCausalLM(ErnieMoeConfig(**cfg), device=dev, seed=seed)
+
+
+class MoeTrain(TrainSpec):
+    """``bench.py:bench_moe``'s step (``MOE_CONFIG``, about 470M
+    parameters, bf16, batch 4 x 2048, labels = ids rolled by one, GShard
+    gates with random routing, ``AdamW(3e-4, multi_precision=True)``).
+    Each step launches rows 2-5 as Llama's does (``train_launches``);
+    MFU is bench.py's active-parameter formula (bench.py:736-745: the
+    non-expert parameters and top-k / E of the experts'). The fp32 check
+    runs the plain compositions (flags off) with the routing generator
+    restored, so both runs draw the same random routing."""
+
+    tag, label, to_static = "moe", "ERNIE-MoE", True
+
+    def model(self, torch, dev, bf16=True, layers=None):
+        return moe_model(torch, dev, bf16, layers)
+
+    def batch(self, torch, cfg, dev):
+        return _ids_and_labels(torch, cfg, dev, MOE_BATCH, MOE_SEQ)
+
+    small = staticmethod(_small_lm)
+
+    def loss(self, model, ids, labels):
+        return model(ids, labels=labels)[0]
+
+    def opt(self, model):
+        from paddle_tpu_torch.optimizer import AdamW
+
+        return AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                     multi_precision=True)
+
+    def launches(self, nl):
+        return {k: n for k, n in train_launches(nl).items() if n}
+
+    def check_route(self, per_kernel, nl, label):
+        check_train_kernels(per_kernel, nl, label)
+
+    def plain(self):
+        from paddle_tpu_torch.core.flags import flags_scope
+
+        return flags_scope(use_cuda_flash_attention=False,
+                           use_cuda_rms_norm=False)
+
+    def generators(self, model):
+        return [model.routing_generator]
+
+    def rates(self, dt, model, batch):
+        cfg = model.config
+        tok_s = batch[0].numel() * self.steps / dt
+        n_params = model.num_parameters()
+        experts = sum(p.numel() for n, p in model.named_parameters()
+                      if ".experts." in n)
+        active = n_params - experts + experts * cfg.moe_top_k / cfg.num_experts
+        return dict(step_ms=dt / self.steps * 1e3, tokens_per_s=tok_s,
+                    mfu=tok_s * 6 * active / PEAK_FLOPS["bfloat16"],
+                    active_params=active)
+
+    def extra(self, torch, dev, model, opt, batch, out):
+        """Tokens each MoE layer dropped in one step: the routing of every
+        MoE layer read from ``moe_layer._route`` (the (token, choice)
+        pairs routed, those past the expert's capacity, the tokens left
+        with no expert)."""
+        from paddle_tpu_torch.incubate.distributed.models.moe import (
+            moe_layer as ml)
+
+        seen, real = [], ml._route
+
+        def spy(*a, **k):
+            seen.append(real(*a, **k))
+            return seen[-1]
+
+        ml._route = spy
+        try:
+            loss = self.loss(model, *batch)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        finally:
+            ml._route = real
+        layers = []
+        for r in seen:
+            raw_tv, keep = r[1], r[3]
+            live = raw_tv > 0
+            layers.append(dict(
+                routed=int(live.sum()), dropped=int((live & ~keep).sum()),
+                tokens_without_expert=int((~keep).all(1).sum())))
+        log(f"  {self.label} routing in one step, per MoE layer "
+            f"({batch[0].numel()} tokens, top-{model.config.moe_top_k}, "
+            f"capacity factor 1.2): {layers}")
+        check(len(layers) == sum(l.is_moe for l in model.model.layers),
+              f"{self.label}: {len(layers)} routings for the MoE layers")
+        out["routing"] = layers
+
+
+def phase_model_train(torch, dev, report, spec):
+    """A model's training step at full width and depth in bf16 (``spec``,
+    a ``TrainSpec``): one warm-up step and ``spec.steps`` timed steps on
+    one batch. Every step must launch the kernels of ``spec.launches``
+    and no other kernel of the port, the profiled step must show the
+    kernels of ``spec.check_route`` by name, and the loss must fall.
+    Prints tokens/s, MFU, peak memory and the busy share; then
+    ``spec.extra``, and with ``spec.to_static`` the step under
+    ``jit.to_static(full_graph=True)`` (``static_vs_eager``). Then 2
+    layers in fp32 (TF32 off), training mode, ``spec.small``'s batch, the
+    generators restored before each run: the loss and every gradient
+    through the kernels against the same step on their plain versions
+    (``spec.plain``), to ``[train]``'s tolerances: loss 1e-4, each
+    gradient 1e-4 of its own max |g|. Returns the numbers."""
+    label = spec.label
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    model = gpt_model(torch, dev).train()
+    model = spec.model(torch, dev).train()
     cfg = model.config
-    nl, hid = cfg.num_hidden_layers, cfg.hidden_size
+    nl = cfg.num_hidden_layers
     n_params = model.num_parameters()
-    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
-                multi_precision=True, weight_decay=0.01)
-    g = torch.Generator(device=dev).manual_seed(9)
-    ids = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ), generator=g,
-                        device=dev)
-    labels = torch.roll(ids, -1, dims=1)
+    opt = spec.opt(model)
+    batch = spec.batch(torch, cfg, dev)
 
     def step():
-        loss, _ = model(ids, labels=labels)
+        loss = spec.loss(model, *batch)
         loss.backward()
         opt.step()
         opt.clear_grad()
@@ -3442,55 +3858,61 @@ def phase_gpt_train(torch, dev, report):
 
     t0 = time.perf_counter()
     warm = float(step())
-    log(f"  gpt2_medium: {n_params / 1e6:.1f}M parameters, bf16, dropout "
-        f"{cfg.attention_probs_dropout_prob} / {cfg.hidden_dropout_prob}; "
-        f"warm-up step {time.perf_counter() - t0:.2f} s, loss {warm:.4f}")
+    log(f"  {label}: {n_params / 1e6:.1f}M parameters, bf16, batch "
+        f"{list(batch[0].shape)}; warm-up step "
+        f"{time.perf_counter() - t0:.2f} s, loss {warm:.4f}")
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    losses = [step() for _ in range(GPT_STEPS)]
+    losses = [step() for _ in range(spec.steps)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"  {GPT_STEPS} steps: launches {counts}, losses "
+    log(f"  {spec.steps} steps: launches {counts}, losses "
         f"{[round(x, 4) for x in losses]}")
     want = {key: 0 for key in counts}
-    want.update(flash=nl * GPT_STEPS, flash_bwd=nl * GPT_STEPS)
-    check(counts == want, f"GPT train launches {counts}, want {want}")
+    want.update({k: n * spec.steps for k, n in spec.launches(nl).items()})
+    check(counts == want, f"{label} train launches {counts}, want {want}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(losses[-1] < losses[0], f"GPT loss did not fall: {losses}")
-    record_launches(report, "gpt_train", counts)
-    step_ms, tok_s, mfu = step_rates(dt, n_params, nl, hid, GPT_BATCH,
-                                     GPT_SEQ, GPT_STEPS)
-    log(f"  GPT train step: {step_ms:.2f} ms mean, {tok_s:.1f} tokens/s, MFU "
-        f"{mfu:.4f} (bench.py's formula, 989 TFLOP/s bf16 peak), peak "
-        f"memory {peak / 2**30:.2f} GiB (max_memory_allocated); {smi_line()}")
-    busy, per_kernel = profile_kernels(torch, step, 1, step_ms,
-                                       "GPT train step, kernels")
-    check_flash_route(per_kernel, {"fwd": nl, "dq": nl, "dkv": nl},
-                      "bf16 GPT train step")
-    rms = {k: c for k, c in per_kernel.items() if "rms_norm" in k}
-    check(not rms, f"the GPT step ran RMSNorm kernels {rms}")
-    report["gpt"]["train"] = dict(
-        step_ms=step_ms, tokens_per_s=tok_s, mfu=mfu, peak_bytes=peak,
-        losses=losses, n_params=n_params,
-        busy_share=None if busy is None else busy / step_ms)
+    check(losses[-1] < losses[0], f"{label} loss did not fall: {losses}")
+    record_launches(report, f"{spec.tag}_train", counts)
+    rates = spec.rates(dt, model, batch)
+    log(f"  {label} train step: {rates['step_ms']:.2f} ms mean, "
+        f"{rates['tokens_per_s']:.1f} tokens/s"
+        + (f", {rates['sequences_per_s']:.2f} sequences/s"
+           if "sequences_per_s" in rates else "")
+        + f", MFU {rates['mfu']:.4f} (bench.py's formula, 989 TFLOP/s bf16 "
+        f"peak), peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)"
+        f"; {smi_line()}")
+    busy, per_kernel = profile_kernels(torch, step, 1, rates["step_ms"],
+                                       f"{label} train step, kernels")
+    spec.check_route(per_kernel, nl, f"bf16 {label} train step")
+    out = dict(rates, peak_bytes=peak, losses=losses, n_params=n_params,
+               busy_share=None if busy is None
+               else busy / rates["step_ms"])
+    spec.extra(torch, dev, model, opt, batch, out)
     del model, opt
     torch.cuda.empty_cache()
+    if spec.to_static:
+        out["to_static"] = static_vs_eager(
+            torch, dev, lambda: spec.model(torch, dev).train(), batch,
+            spec.loss, lambda m: (spec.opt(m), None), f"bf16 {label}",
+            spec.launches(nl), lambda pk, lb: spec.check_route(pk, nl, lb),
+            spec.generators, steps=spec.steps)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = gpt_model(torch, dev, bf16=False, num_hidden_layers=2).train()
-    ids2 = ids[:2, :512]
-    labels2 = labels[:2, :512].clone()
-    labels2[:, -1] = -100
-    state = model.dropout_generator.get_state()
+    model = spec.model(torch, dev, bf16=False, layers=2).train()
+    small = spec.small(batch)
+    gens = spec.generators(model)
+    states = [g.get_state() for g in gens]
 
     def loss_and_grads():
-        model.dropout_generator.set_state(state)
-        loss, _ = model(ids2, labels=labels2)
+        for g, st in zip(gens, states):
+            g.set_state(st)
+        loss = spec.loss(model, *small)
         loss.backward()
         grads = {n: p.grad.detach().clone()
                  for n, p in model.named_parameters()}
@@ -3500,42 +3922,153 @@ def phase_gpt_train(torch, dev, report):
     reset_counts()
     k_loss, k_grads = loss_and_grads()
     k_counts = read_counts()
-    with plain_flash():
+    with spec.plain():
         p_loss, p_grads = loss_and_grads()
     torch.cuda.synchronize()
-    check(read_counts() == k_counts, "the plain GPT run launched a kernel")
-    check(k_counts["flash"] == 2 and k_counts["flash_bwd"] == 2,
-          f"the fp32 GPT kernel run's launches {k_counts}")
+    check(read_counts() == k_counts, f"the plain {label} run launched a "
+                                     f"kernel")
+    check(all(k_counts[k] == n for k, n in spec.launches(2).items()),
+          f"the fp32 {label} kernel run's launches {k_counts}")
+    zero = {n for n in p_grads if n.endswith(spec.zero_grads)}
     worst = max(((float((k_grads[n] - gp).abs().max())
-                  / float(gp.abs().max()), n) for n, gp in p_grads.items()))
-    log(f"  fp32 GPT 2 layers [2, 512], dropout {GPT_DROPOUT}, kernels vs "
-        f"plain versions: loss {k_loss:.6f} vs {p_loss:.6f} (diff "
-        f"{abs(k_loss - p_loss):.3g}, tol 1e-4); worst gradient {worst[1]} "
-        f"off by {worst[0]:.3g} of its max |g| (tol 1e-4) over "
-        f"{len(p_grads)} gradients")
-    check(abs(k_loss - p_loss) <= 1e-4, "fp32 GPT training loss differs")
-    check(worst[0] <= 1e-4, f"fp32 GPT gradient {worst[1]} differs")
-    report["gpt"]["train_fp32_check"] = dict(
-        loss_diff=abs(k_loss - p_loss), worst_grad_share=worst[0])
+                  / float(gp.abs().max()), n)
+                 for n, gp in p_grads.items() if n not in zero))
+    top = max(float(g.abs().max()) for g in p_grads.values())
+    noise = max((float(g[n].abs().max()) for g in (k_grads, p_grads)
+                 for n in zero), default=0.0)
+    log(f"  fp32 {label} 2 layers, kernels vs plain versions: loss "
+        f"{k_loss:.6f} vs {p_loss:.6f} (diff {abs(k_loss - p_loss):.3g}, tol "
+        f"1e-4); worst gradient {worst[1]} off by {worst[0]:.3g} of its max "
+        f"|g| (tol 1e-4) over {len(p_grads) - len(zero)} gradients"
+        + (f"; the {len(zero)} gradients 0 in exact arithmetic at most "
+           f"{noise:.3g} ({noise / top:.3g} of the largest |g|, tol 1e-6)"
+           if zero else ""))
+    check(abs(k_loss - p_loss) <= 1e-4, f"fp32 {label} training loss differs")
+    check(worst[0] <= 1e-4, f"fp32 {label} gradient {worst[1]} differs")
+    check(noise <= 1e-6 * top, f"fp32 {label}: a gradient that is 0 in "
+                               f"exact arithmetic is {noise:.3g}")
+    out["fp32_check"] = dict(loss_diff=abs(k_loss - p_loss),
+                             worst_grad_share=worst[0], launches=k_counts)
     del model, k_grads, p_grads
     torch.cuda.empty_cache()
+    return out
 
 
-def phase_gpt(torch, dev, report):
-    """The ``[gpt]`` phase: rows 2 and 4 at GPT's shape, the training step
-    (``phase_gpt_*``), then ``generate`` and ``ServeEngine`` through
-    ``phase_generate`` and ``phase_serve`` over ``gpt_family``."""
-    report["gpt"] = {}
-    fam = gpt_family(torch, dev)
-    for name, part in (
-            ("kernels", phase_gpt_kernels), ("train", phase_gpt_train),
-            ("generate", functools.partial(phase_generate, fam=fam)),
-            ("serve", functools.partial(phase_serve, fam=fam))):
+def run_parts(torch, dev, report, key, label, parts):
+    """Run a model's phases in order, each ``part(torch, dev, report)``,
+    keeping what each returns under ``report[key][name]`` and printing
+    its seconds."""
+    report[key] = {}
+    for name, part in parts:
         t0 = time.perf_counter()
         out = part(torch, dev, report)
         if out is not None:
-            report["gpt"][name] = out
-        log(f"  ({fam.label} {name}: {time.perf_counter() - t0:.1f} s)")
+            report[key][name] = out
+        log(f"  ({label} {name}: {time.perf_counter() - t0:.1f} s)")
+
+
+def phase_gpt(torch, dev, report):
+    """The ``[gpt]`` phase: rows 2 and 4 at GPT's shape [8, 16, 1024, 64],
+    causal, dropout 0.1 (``flash_at_shape``), the training step
+    (``phase_model_train`` over ``GptTrain``), then ``generate`` and
+    ``ServeEngine`` through ``phase_generate`` and ``phase_serve`` over
+    ``gpt_family``."""
+    fam = gpt_family(torch, dev)
+    run_parts(torch, dev, report, "gpt", fam.label, (
+        ("kernels", functools.partial(
+            flash_at_shape, key="at_gpt_shape", b=GPT_BATCH, h=16,
+            s=GPT_SEQ, d=64, causal=True, dropout=GPT_DROPOUT)),
+        ("train", functools.partial(phase_model_train, spec=GptTrain())),
+        ("generate", functools.partial(phase_generate, fam=fam)),
+        ("serve", functools.partial(phase_serve, fam=fam))))
+
+
+def phase_bert_kernels(torch, dev, report):
+    """Rows 2 and 4 at BERT-base's training shape, [36, 12, 512, 64], not
+    causal, dropout 0.1, without a bias and with the key bias of a
+    padding mask over 0-25% of each row's keys (``bert_padding``)
+    (``flash_at_shape``)."""
+    shape = (BERT_BATCH, 12, BERT_SEQ, 64)
+    flash_at_shape(torch, dev, report, "at_bert_shape", *shape,
+                   causal=False, dropout=BERT_DROPOUT)
+    mask = bert_padding(torch, dev, BERT_BATCH, BERT_SEQ, 5)
+    flash_at_shape(torch, dev, report, "at_bert_shape_key_bias", *shape,
+                   causal=False, dropout=BERT_DROPOUT,
+                   bias=(1.0 - mask.float()) * -1e4)
+
+
+#: BERT backward passes from one state per embedding implementation
+EMBEDDING_RUNS = 20
+
+
+def phase_embedding_determinism(torch, dev, report):
+    """BERT-base's forward and backward (bf16, training mode, batch 36 x
+    512, the dropout generator restored before each pass)
+    ``EMBEDDING_RUNS`` times from one state, each pass's gradients against
+    the first pass's: with the port's ``Embedding`` (``_row_sums``, no
+    atomics) every gradient must be the same every time; with the three
+    embeddings swapped for ``torch.nn.Embedding`` (the same parameters)
+    the passes whose gradients differ, and which parameters, are
+    reported. A captured step can equal an eager one only if the step is
+    deterministic."""
+    from paddle_tpu_torch.nn.functional.common import Embedding
+
+    spec = BertTrain()
+    model = spec.model(torch, dev).train()
+    batch = spec.batch(torch, model.config, dev)
+    state = model.dropout_generator.get_state()
+    embs = model.bert.embeddings
+    names = ("word_embeddings", "position_embeddings",
+             "token_type_embeddings")
+    out = {}
+    for cls in (Embedding, torch.nn.Embedding):
+        for name in names:
+            getattr(embs, name).__class__ = cls
+        first, differ = None, {}
+        for run in range(EMBEDDING_RUNS):
+            model.dropout_generator.set_state(state)
+            spec.loss(model, *batch).backward()
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            if first is None:
+                first = grads
+                continue
+            for n, g in grads.items():
+                if not torch.equal(g, first[n]):
+                    differ[n] = differ.get(n, 0) + 1
+        runs = max(differ.values(), default=0)
+        label = "port" if cls is Embedding else "torch"
+        out[label] = dict(runs_differing=runs, by_parameter=differ)
+        log(f"  BERT backward from one state, {EMBEDDING_RUNS} passes, "
+            f"embeddings {cls.__module__}.{cls.__name__}: gradients of "
+            f"{len(differ)} parameters differ from the first pass's "
+            f"({differ or 'none'})")
+        check(cls is not Embedding or not differ,
+              f"BERT's gradients differ from run to run with the port's "
+              f"embeddings: {differ}")
+    del model, first, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bert(torch, dev, report):
+    """The ``[bert]`` phase: rows 2 and 4 at BERT's shape, the embedding
+    gradient's determinism at its shapes, then ``bench_bert``'s step
+    (``phase_model_train`` over ``BertTrain``)."""
+    run_parts(torch, dev, report, "bert", "BERT", (
+        ("kernels", phase_bert_kernels),
+        ("embedding", phase_embedding_determinism),
+        ("train", functools.partial(phase_model_train, spec=BertTrain()))))
+
+
+def phase_moe(torch, dev, report):
+    """The ``[moe]`` phase: ``bench_moe``'s step (``phase_model_train``
+    over ``MoeTrain``), then ``generate`` through ``phase_generate`` over
+    ``moe_family`` (dense greedy, sampled, 4 beams)."""
+    fam = moe_family(torch, dev)
+    run_parts(torch, dev, report, "moe", fam.label, (
+        ("train", functools.partial(phase_model_train, spec=MoeTrain())),
+        ("generate", functools.partial(phase_generate, fam=fam))))
 
 
 def main() -> int:
@@ -3555,13 +4088,24 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     report = {}
     t_all = time.perf_counter()
+    marks = []
+
+    def mark(name=None):
+        """Print the seconds of the phase that ends here; start ``name``."""
+        now = time.perf_counter()
+        if marks:
+            log(f"  ([{marks[-1][0]}]: {now - marks[-1][1]:.1f} s)")
+        if name:
+            marks.append((name, now))
+            log(f"[{name}]")
+
     try:
-        log("[device]")
+        mark("device")
         smi = smi_line()
         log(f"  {smi}")
         log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
             f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-        log("[build]")
+        mark("build")
         from paddle_tpu_torch.ops.cuda import _build
         t0 = time.perf_counter()
         per = _build.build()
@@ -3580,39 +4124,43 @@ def main() -> int:
             for row in ptxas_table(_build._target(lib).with_suffix(".log")
                                    .read_text()):
                 log(f"    {row}")
-        log("[kernels]")
+        mark("kernels")
         phase_rms_norm(torch, dev, report)
         phase_paged(torch, dev, report)
         phase_flash(torch, dev, report)
         phase_flash_bwd(torch, dev, report)
         phase_varlen(torch, dev, report)
         phase_tiled_mm(torch, dev, report)
-        log("[forward]")
+        mark("forward")
         phase_forward(torch, dev, report)
         llama = llama_family(torch, dev)
-        log("[serve]")
+        mark("serve")
         out = phase_serve(torch, dev, report, llama)
         report["paged"].update(serve_decode_step=out["decode_step"],
                                serve_peak_bytes=out["peak_bytes"])
-        log("[generate]")
+        mark("generate")
         out = phase_generate(torch, dev, report, llama)
         report["paged"].update(generate_ticks=out["ticks"],
                                generate_capture_ms=out["capture_ms"])
         for key in ("paged", "vflash"):
             report[key]["generate_max_abs_err"] = out[f"{key}_max_abs_err"]
-        log("[train]")
+        mark("train")
         phase_train(torch, dev, report)
         train = report.pop("train")
-        log("[train-recipe]")
+        mark("train-recipe")
         phase_train_recipe(torch, dev, report)
         recipe = report.pop("train_recipe")
-        log("[varlen]")
+        mark("varlen")
         phase_varlen_path(torch, dev, report)
-        log("[calibrate]")
+        mark("calibrate")
         phase_calibrate(torch, dev, report)
-        log("[gpt]")
-        phase_gpt(torch, dev, report)
-        gpt = report.pop("gpt")
+        models = {}
+        for name, phase in (("gpt", phase_gpt), ("bert", phase_bert),
+                            ("moe", phase_moe)):
+            mark(name)
+            phase(torch, dev, report)
+            models[name] = report.pop(name)
+        mark()
         # launches: each kernel's count on its own main path
         for key, r in report.items():
             r["main_path"] = MAIN_PATH[key]
@@ -3630,7 +4178,8 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"train": train}))
     log(json.dumps({"train_recipe": recipe}))
-    log(json.dumps({"gpt": gpt}))
+    for name, out in models.items():
+        log(json.dumps({name: out}))
     log(json.dumps({"kernels": list(report.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

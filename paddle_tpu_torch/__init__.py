@@ -7,7 +7,7 @@ every kernel the reference wrote in Pallas becomes a hand-written CUDA
 kernel under ``csrc/`` with a plain PyTorch version beside it, which is
 what a CPU tensor runs.
 
-Six slices are ported. Serving: ``models.LlamaForCausalLM``,
+Seven slices are ported. Serving: ``models.LlamaForCausalLM``,
 ``serve.ServeEngine`` and ``serve.run_load``, over the paged-decode,
 flash-forward and RMSNorm-forward kernels. Decoding:
 ``LlamaForCausalLM.generate`` (dense and paged KV caches, the paged one
@@ -31,15 +31,26 @@ run as replayed CUDA graphs (``jit/_capture.py``). GPT:
 ``models.GPTForCausalLM`` (GPT-2 family: forward, training loss,
 ``generate`` in every mode, and ``ServeEngine``) with the functional ops
 it calls (``nn.functional``'s activations, ``linear``, ``dropout``,
-``embedding`` and ``layer_norm``).
+``embedding`` and ``layer_norm``). BERT and ERNIE-MoE:
+``models.BertForPretraining`` / ``BertForSequenceClassification`` (the
+encoder's padding mask as the flash kernels' key bias, attention dropout
+inside them) and ``models.ErnieMoeForCausalLM`` (the Llama decoder with
+``incubate.distributed.models.moe``'s gates and expert layers: training
+and ``generate``, dense and beam), with ``nn.functional.one_hot`` and
+``incubate.nn.functional.fused_ec_moe``.
 """
 from . import amp, convert, jit, models, nn, optimizer, regularizer, serve
 from .convert import load_paddle_tpu_state
 from .core.place import resolve_device
-from .models import GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM
+from .models import (BertConfig, BertForPretraining,
+                     BertForSequenceClassification, ErnieMoeConfig,
+                     ErnieMoeForCausalLM, GPTConfig, GPTForCausalLM,
+                     LlamaConfig, LlamaForCausalLM)
 from .serve import ServeEngine, default_serving_setup, run_load, warm_engine
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "GPTConfig", "GPTForCausalLM",
+           "BertConfig", "BertForPretraining", "BertForSequenceClassification",
+           "ErnieMoeConfig", "ErnieMoeForCausalLM",
            "ServeEngine", "run_load",
            "warm_engine", "default_serving_setup", "load_paddle_tpu_state",
            "resolve_device", "amp", "convert", "jit", "models", "nn",

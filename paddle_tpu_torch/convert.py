@@ -7,8 +7,12 @@ jax_model.state_dict().items()}`` — and copies them into a port model of
 the same configuration. paddle keeps Linear weights as ``[in, out]``
 (``x @ w``); torch keeps ``[out, in]``, so those are transposed (GPT's
 fused ``qkv_proj`` ``[h, 3h]`` becomes ``[3h, h]``, its q|k|v order
-kept). Everything else (embeddings, LayerNorm and RMSNorm weights,
-biases) is copied as it is. A tied model has no ``lm_head`` key, as in
+kept; every ``nn.Linear`` of BERT). Everything else (embeddings, BERT's
+three among them, LayerNorm and RMSNorm weights, biases) is copied as
+it is, and so are the MoE layers' raw parameters: the expert banks
+``w0`` / ``w1`` ``[E, in, out]`` with their ``[E, 1, out]`` biases and a
+gate's ``[d, E]`` weight, which are parameters in the reference's
+layout, not ``nn.Linear``s. A tied model has no ``lm_head`` key, as in
 the reference. Every name and shape is checked: a missing or extra key,
 or a shape that does not fit, raises before anything is copied.
 """

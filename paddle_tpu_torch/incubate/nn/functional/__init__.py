@@ -1,8 +1,9 @@
 """``paddle.incubate.nn.functional`` subset the Llama path uses.
 
 Counterpart of ``paddle_tpu/incubate/nn/functional/__init__.py``:
-``_rope_tables``, ``fused_rotary_position_embedding`` and ``swiglu``.
-The reference leaves all three to XLA, so here they are plain PyTorch.
+``_rope_tables``, ``fused_rotary_position_embedding``, ``swiglu`` and
+``fused_ec_moe``. The reference leaves all four to XLA, so here they are
+plain PyTorch.
 ``fused_linear_cross_entropy`` lives in ``fused_linear_ce.py`` and the
 serving attention ops (``block_multihead_attention`` over the paged and
 varlen kernels, ``masked_multihead_attention``, ``blha_get_max_len``,
@@ -22,7 +23,8 @@ from .inference_attention import (blha_get_max_len,
                                   masked_multihead_attention,
                                   variable_length_memory_efficient_attention)
 
-__all__ = ["fused_rotary_position_embedding", "swiglu", "rotate_half",
+__all__ = ["fused_rotary_position_embedding", "swiglu", "fused_ec_moe",
+           "rotate_half",
            "fused_linear_cross_entropy", "masked_multihead_attention",
            "blha_get_max_len", "block_multihead_attention",
            "variable_length_memory_efficient_attention",
@@ -76,3 +78,23 @@ def swiglu(x, y=None, name=None):
     if y is None:
         x, y = torch.chunk(x, 2, dim=-1)
     return torch.nn.functional.silu(x) * y
+
+
+def fused_ec_moe(x, gate, bmm0_weight, bmm0_bias, bmm1_weight, bmm1_bias,
+                 act_type="gelu"):
+    """The softmax-weighted sum of every expert's FFN: x [B, S, d], gate
+    logits [B, S, E], stacked expert weights ``bmm0`` [E, d, h] and
+    ``bmm1`` [E, h, d] with biases [E, 1, h] / [E, 1, d] (or None).
+    ``act_type`` is ``"gelu"`` (exact) or ``"relu"``."""
+    if act_type not in ("gelu", "relu"):
+        raise ValueError(f"fused_ec_moe: unsupported act_type {act_type!r}")
+    probs = torch.softmax(gate, dim=-1)                 # [B, S, E]
+    h = torch.einsum("bsd,edh->bseh", x, bmm0_weight)
+    if bmm0_bias is not None:
+        h = h + bmm0_bias.reshape(bmm0_bias.shape[0], bmm0_bias.shape[-1])
+    h = (torch.nn.functional.gelu(h) if act_type == "gelu"
+         else torch.relu(h))
+    y = torch.einsum("bseh,ehd->bsed", h, bmm1_weight)
+    if bmm1_bias is not None:
+        y = y + bmm1_bias.reshape(bmm1_bias.shape[0], bmm1_bias.shape[-1])
+    return torch.einsum("bse,bsed->bsd", probs, y)

@@ -1,5 +1,5 @@
-"""Incremental decoding (KV-cache generation) for the Llama and GPT
-families.
+"""Incremental decoding (KV-cache generation) for the Llama, GPT and
+ERNIE-MoE families.
 
 Counterpart of ``paddle_tpu/models/generation.py``: ``generate`` (greedy,
 temperature / top-k / top-p sampling, ``repetition_penalty``,
@@ -11,10 +11,12 @@ shape ``[B, prompt_len + max_new_tokens]``. The serving engine shares the
 parameter views, the decoder stacks, the head and the sampler
 (``_decode_family``, ``_decoder_stack``, ``_head_logits``,
 ``_sample_slot_tokens``). Each family is a dict of parameter views
-(``_llama_decode_params``: rope, RMSNorm, SwiGLU; ``_gpt_decode_params``:
-learned positions added by each token's logical position, LayerNorm in
-fp32, the fused qkv, exact GELU in fp32, biases, a tied or untied head)
-and one stack that the dense, paged and serving paths all run.
+(``_llama_decode_params``: rope, RMSNorm, SwiGLU, and for ERNIE-MoE a
+routed expert bank as the FFN of each MoE layer, ``_moe_mlp``;
+``_gpt_decode_params``: learned positions added by each token's logical
+position, LayerNorm in fp32, the fused qkv, exact GELU in fp32, biases,
+a tied or untied head) and one stack that the dense, paged and serving
+paths all run.
 
 What differs from the reference, and why:
 
@@ -43,9 +45,14 @@ What differs from the reference, and why:
   same stream for one seed; they are not ``jax.random``'s.
 - Ids are accepted as a tensor, numpy array or nested list and come back
   as an int64 tensor (the reference's are int32).
-- The Llama and GPT families. Other models raise ``TypeError`` (the
-  ERNIE-MoE family comes with that model), so the reference's checks that
-  only an MoE model reaches have no counterpart yet.
+- The Llama, GPT and ERNIE-MoE families; other models raise
+  ``TypeError``. ERNIE-MoE decodes on the dense cache only (greedy,
+  sampled, beam search), with the reference's refusals: ragged prompts,
+  ``paged=True`` and ``generate_speculative`` raise for it. Its MoE
+  layers route each decode call in the gate's current mode without
+  random routing, the capacity computed over the call's tokens, through
+  the same index path as the training forward
+  (``moe_layer._moe_idx_ffn_fwd``).
 
 ``paged=True`` runs the two branches of
 ``incubate/nn/functional/inference_attention``: the prefill through the
@@ -81,25 +88,34 @@ __all__ = ["generate", "generate_speculative"]
 
 
 def _llama_decode_params(model):
-    """Detached views of the Llama model's parameter tensors plus its
-    shape statics."""
+    """Detached views of a Llama or ERNIE-MoE model's parameter tensors
+    plus its shape statics. An ERNIE-MoE layer's FFN is the dense SwiGLU
+    or, on an MoE layer, ``moe`` (:func:`_moe_views`); the family is
+    marked ``moe``."""
     cfg = model.config
+    moe = not hasattr(model, "llama")
+    inner = model.model if moe else model.llama
     layers = []
-    for layer in model.llama.layers:
+    for layer in inner.layers:
         a, m = layer.self_attn, layer.mlp
-        layers.append(dict(
+        entry = dict(
             ln1=layer.input_layernorm.weight.detach(),
             wq=a.q_proj.weight.detach(), wk=a.k_proj.weight.detach(),
             wv=a.v_proj.weight.detach(), wo=a.o_proj.weight.detach(),
             ln2=layer.post_attention_layernorm.weight.detach(),
-            wg=m.gate_proj.weight.detach(), wu=m.up_proj.weight.detach(),
-            wd=m.down_proj.weight.detach(),
-        ))
+        )
+        if getattr(layer, "is_moe", False):
+            entry["moe"] = _moe_views(m)
+        else:
+            entry.update(wg=m.gate_proj.weight.detach(),
+                         wu=m.up_proj.weight.detach(),
+                         wd=m.down_proj.weight.detach())
+        layers.append(entry)
     return dict(
-        embed=model.llama.embed_tokens.weight.detach(),
-        norm=model.llama.norm.weight.detach(),
+        embed=inner.embed_tokens.weight.detach(),
+        norm=inner.norm.weight.detach(),
         head=model.lm_head.weight.detach(),
-        layers=layers, family="llama",
+        layers=layers, family="llama", moe=moe,
         nh=cfg.num_attention_heads, nkv=cfg.num_key_value_heads,
         dh=cfg.hidden_size // cfg.num_attention_heads,
         eps=cfg.rms_norm_eps, theta=cfg.rope_theta,
@@ -141,6 +157,42 @@ def _gpt_decode_params(model):
     return out
 
 
+def _moe_views(mlp):
+    """An MoE layer's decode views: the gate's raw ``[d, E]`` weight and
+    bias, the expert bank, and the routing statics (top-k, the gate's
+    capacity factor in its current mode, the activation,
+    normalization)."""
+    gate, ex = mlp.gate, mlp.experts
+    return dict(
+        gw=gate.weight.detach(), gb=gate.bias.detach(),
+        w0=ex.w0.detach(), b0=ex.b0.detach(),
+        w1=ex.w1.detach(), b1=ex.b1.detach(),
+        topk=int(gate.topk), factor=float(gate._train_factor()),
+        activation=ex.activation, normalize=bool(gate._normalize))
+
+
+def _moe_mlp(h, m, dtype):
+    """A routed expert FFN for the decode paths: the gate's softmax in
+    fp32, top-k without random routing, the capacity over this call's
+    tokens (``gate._capacity``), through the training forward's index
+    path, so decode and the full-prefix forward route alike wherever no
+    expert overflows. When one does, this call's tokens drop, as the
+    reference's per-call capacity does."""
+    from ..incubate.distributed.models.moe.gate import _capacity
+    from ..incubate.distributed.models.moe.moe_layer import _moe_idx_ffn_fwd
+
+    shape = h.shape
+    x = h.reshape(-1, shape[-1])
+    n, e = x.shape[0], m["gw"].shape[1]
+    probs = torch.softmax((torch.matmul(x, m["gw"]) + m["gb"]).float(),
+                          dim=-1)
+    out = _moe_idx_ffn_fwd(
+        probs, x, m["w0"], m["b0"], m["w1"], m["b1"], None, k=m["topk"],
+        capacity=_capacity(n, e, m["topk"], m["factor"]),
+        activation=m["activation"], normalize=m["normalize"], random2=False)
+    return out.to(dtype).reshape(shape)
+
+
 def _rms(h, g, eps, dtype):
     """RMSNorm in fp32, output in ``dtype`` (the plain composition, as in
     the reference's decode paths; ``h`` is in ``dtype`` or fp32, so the
@@ -166,13 +218,16 @@ def _gpt_ffn(h, lp, dtype):
 
 
 def _decode_family(model):
-    """Decode parameters for a supported causal-LM family (Llama, GPT)."""
-    if hasattr(model, "llama"):
+    """Decode parameters for a supported causal-LM family (Llama, GPT,
+    ERNIE-MoE)."""
+    from .ernie_moe import ErnieMoeForCausalLM
+
+    if hasattr(model, "llama") or isinstance(model, ErnieMoeForCausalLM):
         return _llama_decode_params(model)
     if hasattr(model, "gpt"):
         return _gpt_decode_params(model)
     raise TypeError(
-        f"generate() supports the Llama and GPT families in the port; got "
+        f"generate() supports the Llama, GPT and ERNIE-MoE families; got "
         f"{type(model).__name__}")
 
 
@@ -196,9 +251,9 @@ def _llama_stack(p, x, cos, sin, attn):
     the dense path, ``[N, H]`` on the paged one and in the engine): per
     layer the norm, the q/k/v projections, rope in fp32 by ``cos``/``sin``
     (broadcast against ``[..., heads, dh]``), ``attn(layer, q, k, v)``
-    (the only thing the paths differ in), the residual and the FFN; then
-    the final norm. One stack for every path, so their math cannot
-    drift."""
+    (the only thing the paths differ in), the residual and the FFN (an
+    MoE layer's routed bank, :func:`_moe_mlp`); then the final norm. One
+    stack for every path, so their math cannot drift."""
     nh, nkv, dh, eps = p["nh"], p["nkv"], p["dh"], p["eps"]
     dtype = x.dtype
     lead = x.shape[:-1]
@@ -210,7 +265,9 @@ def _llama_stack(p, x, cos, sin, attn):
         q, k = _rope_qk(q, k, cos, sin)
         ctx = attn(li, q, k, v)
         x = x + F.linear(ctx.reshape(*lead, nh * dh).to(dtype), lp["wo"])
-        x = x + _llama_ffn(_rms(x, lp["ln2"], eps, dtype), lp, dtype)
+        h2 = _rms(x, lp["ln2"], eps, dtype)
+        x = x + (_moe_mlp(h2, lp["moe"], dtype) if "moe" in lp
+                 else _llama_ffn(h2, lp, dtype))
     return _rms(x, p["norm"], eps, dtype)
 
 
@@ -419,7 +476,7 @@ def generate(model, input_ids, max_new_tokens: int = 32,
              num_beams: int = 1,
              length_penalty: float = 0.0, repetition_penalty: float = 1.0,
              min_length: int = 0):
-    """Decode ``max_new_tokens`` from a Llama- or GPT-family causal LM
+    """Decode ``max_new_tokens`` from a Llama-, GPT- or ERNIE-MoE causal LM
     with a KV cache, on the model's device. Returns ``[B, prompt_len +
     max_new_tokens]`` int64 (prompt included); positions after an emitted
     ``eos_token_id`` are filled with eos.
@@ -499,6 +556,11 @@ def generate(model, input_ids, max_new_tokens: int = 32,
             "first min_length new tokens; it has no effect with "
             "eos_token_id=None — refusing to silently ignore it")
     p = _decode_family(model)
+    if pads_np is not None and any("moe" in lp for lp in p["layers"]):
+        raise NotImplementedError(
+            "generate: ragged (left-padded) prompts are not supported "
+            "for MoE models — pad rows would consume expert capacity, "
+            "so a padded row could not reproduce its solo decode")
     s_max = t0 + max_new_tokens
     _prep_decode(p, t0, max_new_tokens)
     eos = -1 if eos_token_id is None else int(eos_token_id)
@@ -670,6 +732,13 @@ def generate_speculative(model, draft_model, input_ids,
     if max_new_tokens <= 0:
         return ids
     pt, pd = _decode_family(model), _decode_family(draft_model)
+    if pt.get("moe") or pd.get("moe"):
+        raise NotImplementedError(
+            "generate_speculative supports dense families only: a MoE "
+            "model's expert capacity is computed per call, so the "
+            "multi-token verify window could drop tokens that the "
+            "one-token-per-step greedy decode keeps, breaking the "
+            "exact-equality guarantee")
     if pt["embed"].shape[0] != pd["embed"].shape[0]:
         raise ValueError(
             f"target and draft vocabularies differ "
@@ -766,8 +835,8 @@ def _generate_paged(model, ids, pads_np, *, max_new_tokens, do_sample,
     GPT adds that row of its learned table)."""
     if not hasattr(model, "llama") and not hasattr(model, "gpt"):
         raise NotImplementedError(
-            "paged=True decode supports the Llama and GPT families in the "
-            "port; other families use the dense cache path")
+            "paged=True decode supports the Llama and GPT families; "
+            "MoE models use the dense cache path")
     p = _decode_family(model)
     b, t0 = ids.shape
     nkv, dh = p["nkv"], p["dh"]

@@ -33,6 +33,7 @@ from ..core.generator import make_generator
 from ..core.place import resolve_device
 from ..distributed.fleet.utils import recompute
 from ..nn import functional as F
+from ..nn.functional.common import Embedding
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "GPTDecoderLayer",
            "GPTAttention", "gpt_shard_plan"]
@@ -127,8 +128,8 @@ class GPTModel(nn.Module):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        self.wte = nn.Embedding(config.vocab_size, h, **factory)
-        self.wpe = nn.Embedding(config.max_position_embeddings, h, **factory)
+        self.wte = Embedding(config.vocab_size, h, **factory)
+        self.wpe = Embedding(config.max_position_embeddings, h, **factory)
         self.layers = nn.ModuleList(
             [GPTDecoderLayer(config, generator, **factory)
              for _ in range(config.num_hidden_layers)])

@@ -30,9 +30,11 @@ from ..distributed.fleet.utils import recompute
 from ..incubate.nn.functional import (fused_linear_cross_entropy,
                                       fused_rotary_position_embedding, swiglu)
 from ..nn import functional as F
+from ..nn.functional.common import Embedding
 
 __all__ = ["LlamaConfig", "LlamaRMSNorm", "LlamaAttention", "LlamaMLP",
-           "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM"]
+           "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
+           "fused_qkv_linear"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -97,6 +99,27 @@ class LlamaRMSNorm(nn.Module):
         return F.rms_norm(x, self.weight, self.eps)
 
 
+def fused_qkv_linear(x, projs):
+    """One wide product against the concatenated weights of ``projs``
+    (``nn.Linear``s sharing the input ``x``), split back per projection.
+    The bias is concatenated when every projection has one; a mix raises
+    ``ValueError``, as in the reference. The parameters stay separate:
+    only the computation is fused."""
+    w = torch.cat([p.weight for p in projs], dim=0)
+    biases = [p.bias for p in projs]
+    if all(bb is not None for bb in biases):
+        b = torch.cat(biases)
+    elif any(bb is not None for bb in biases):
+        raise ValueError(
+            "fused_qkv_linear: projections mix bias and bias-free "
+            "layers; fuse only uniform projections (or disable "
+            "fused_qkv for this model)")
+    else:
+        b = None
+    out = torch.nn.functional.linear(x, w, b)
+    return list(out.split([p.weight.shape[0] for p in projs], dim=-1))
+
+
 class LlamaAttention(nn.Module):
     """GQA attention."""
 
@@ -117,9 +140,7 @@ class LlamaAttention(nn.Module):
         b, s, h = hidden_states.shape
         projs = (self.q_proj, self.k_proj, self.v_proj)
         if self.config.fused_qkv:
-            w = torch.cat([p.weight for p in projs], dim=0)
-            q, k, v = torch.nn.functional.linear(hidden_states, w).split(
-                [p.weight.shape[0] for p in projs], dim=-1)
+            q, k, v = fused_qkv_linear(hidden_states, projs)
         else:
             q, k, v = (p(hidden_states) for p in projs)
         q = q.reshape(b, s, self.num_heads, self.head_dim)
@@ -172,8 +193,8 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size, **factory)
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      **factory)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, **factory)
              for _ in range(config.num_hidden_layers)])

@@ -1,15 +1,16 @@
 """Functional ops of the port: the activations, ``linear``, ``dropout``,
-``embedding``, ``layer_norm`` and ``rms_norm``, the whole loss module and
-the flash-attention entry points. ``flash_attention`` here is the submodule,
-as in paddle (``flash_attention.flash_attention`` is the dense function,
-``flash_attention.flash_attn_unpadded`` the varlen one)."""
+``embedding``, ``one_hot``, ``layer_norm`` and ``rms_norm``, the whole
+loss module and the flash-attention entry points. ``flash_attention``
+here is the submodule, as in paddle (``flash_attention.flash_attention``
+is the dense function, ``flash_attention.flash_attn_unpadded`` the varlen
+one)."""
 import torch
 
 from . import flash_attention
 from .activation import *  # noqa: F401,F403
 from .activation import __all__ as _activation_all
 from .attention import scaled_dot_product_attention, sdp_kernel
-from .common import dropout, embedding, linear
+from .common import dropout, embedding, linear, one_hot
 from .flash_attention import flash_attn_unpadded
 from .loss import *  # noqa: F401,F403
 from .loss import __all__ as _loss_all
@@ -18,7 +19,7 @@ from .norm import layer_norm, rms_norm
 __all__ = ["scaled_dot_product_attention", "sdp_kernel", "flash_attention",
            "flash_attn_unpadded", "flash_attn_qkvpacked",
            "flash_attn_varlen_qkvpacked", "rms_norm", "layer_norm", "linear",
-           "dropout", "embedding", *_activation_all, *_loss_all]
+           "dropout", "embedding", "one_hot", *_activation_all, *_loss_all]
 
 
 def flash_attn_qkvpacked(qkv, dropout=0.0, causal=False, return_softmax=False,

@@ -205,6 +205,50 @@ def test_embedding_bf16_gradient_sums_in_fp32():
     assert bool((w.grad[2] == want).all()) and not w.grad[[0, 1, 3]].any()
 
 
+def test_embedding_gradient_is_deterministic_row_sums(monkeypatch):
+    """The weight gradient sums each id's rows without atomics (a stable
+    sort, fp64 prefix sums along the tokens, one write per id): no
+    scatter-add or accumulating index_put_ runs, long runs of one id (two
+    ids over 9216 tokens each, as BERT's token types) and scattered ids
+    agree with an fp64 sum within one fp32 rounding of it, and the
+    ``Embedding`` module gives the same gradient. torch.nn.Embedding's
+    CUDA backward gave BERT's token-type rows different bits from run to
+    run."""
+    g = torch.Generator().manual_seed(3)
+    cases = []
+    for num, ids in ((2, torch.arange(18432) >= 9216),
+                     (300, torch.randint(0, 300, (2, 700), generator=g))):
+        ids = ids.long()
+        gout = torch.randn(*ids.shape, 16, generator=g)
+        want = torch.zeros(num, 16, dtype=torch.float64).index_add_(
+            0, ids.reshape(-1), gout.reshape(-1, 16).double())
+        cases.append((num, ids, gout, want))
+
+    def refuse(*a, **k):
+        raise AssertionError("an atomic scatter-add ran")
+
+    real_put = torch.Tensor.index_put_
+
+    def put(self, idx, vals, accumulate=False):
+        if accumulate:
+            refuse()
+        return real_put(self, idx, vals)
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", refuse)
+    monkeypatch.setattr(torch.Tensor, "scatter_add_", refuse)
+    monkeypatch.setattr(torch.Tensor, "index_put_", put)
+    for num, ids, gout, want in cases:
+        w = torch.randn(num, 16, generator=g, requires_grad=True)
+        TF.embedding(ids, w).backward(gout)
+        tol = torch.finfo(torch.float32).eps * want.abs().clamp(min=1.0)
+        assert bool(((w.grad.double() - want).abs() <= tol).all())
+        mod = TF.common.Embedding(num, 16)
+        with torch.no_grad():
+            mod.weight.copy_(w)
+        mod(ids).backward(gout)
+        assert torch.equal(mod.weight.grad, w.grad)
+
+
 def test_embedding_ids_out_of_range_raise_like_the_reference():
     w = _x((5, 3))
     for bad in ([[0, 5]], [[-1, 2]]):

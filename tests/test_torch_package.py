@@ -23,7 +23,12 @@ import pytest
 import torch
 
 import paddle_tpu_torch
-from paddle_tpu_torch import LlamaConfig, LlamaForCausalLM, ServeEngine
+from paddle_tpu_torch import (BertConfig, BertForPretraining,
+                              BertForSequenceClassification, ErnieMoeConfig,
+                              ErnieMoeForCausalLM, LlamaConfig,
+                              LlamaForCausalLM, ServeEngine)
+from paddle_tpu_torch.incubate.distributed.models.moe import (FusedMoELayer,
+                                                              GShardGate)
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.nn import functional as TF
@@ -88,6 +93,16 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert default_serving_setup("cpu")[0].hidden_size == cfg.hidden_size
     ServeEngine(model, device="cpu")
+    # BERT, ERNIE-MoE and the MoE layers and gates
+    bert, moe = BertConfig.tiny(), ErnieMoeConfig.tiny()
+    for make in (lambda **k: BertForPretraining(bert, **k),
+                 lambda **k: BertForSequenceClassification(bert, **k),
+                 lambda **k: ErnieMoeForCausalLM(moe, **k),
+                 lambda **k: FusedMoELayer(16, 32, 4, **k),
+                 lambda **k: GShardGate(16, 4, 1, **k)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        make(device="cpu")
 
 
 def test_cpu_tensors_never_reach_a_kernel(monkeypatch):
