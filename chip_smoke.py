@@ -103,9 +103,35 @@ Phases, each fatal on failure:
              eager, the fp32 2-layer check; ``generate`` (8 prompts of
              128 tokens, 64 new: dense greedy, sampled, 4 beams) through
              ``phase_generate`` over ``moe_family``, captured ticks
-             against eager ticks. The training phases of 9-11 are one
-             function, ``phase_model_train``, over a ``TrainSpec`` each
-             (``GptTrain``, ``BertTrain``, ``MoeTrain``).
+             against eager ticks;
+12. resnet — ``vision.models.resnet50`` at ``bench.py:bench_resnet``'s
+             step (bf16 NCHW, 256 x 3 x 224 x 224, fp32 logits into
+             cross-entropy, ``Momentum(0.1, 0.9, multi_precision=True)``):
+             the forward and backward run after run from one state with
+             cuDNN's deterministic algorithms (the port's default: the
+             gradients must be the same every time) and without them
+             (reported, with what determinism costs a pass); images/s,
+             MFU, peak memory, busy share, no kernel of the port by
+             counter or by name; the step under ``jit.to_static`` against
+             eager steps from the same state (batch-norm buffers
+             included); the fp32 check on ``resnet18`` at 64 x 64;
+13. sdxl   — ``models.UNet2DConditionModel`` at ``bench.py:
+             bench_sdxl_unet``'s geometry (399.6M parameters, bf16): the
+             dense flash kernels at its attention shapes (the
+             cross-attention's 77 keys first, then the self-attention at
+             [32, 10, 1024, 64] and [32, 10, 256, 128]) against their
+             plain versions and timed beside
+             ``F.scaled_dot_product_attention``; the backward's
+             determinism as in 12; its step (batch 32 of 4 x 64 x 64
+             latents, a 32 x 77 x 2048 context, fp32 MSE,
+             ``AdamW(1e-4, multi_precision=True)``): the tensor-core flash
+             kernels twice a transformer block, by counter and by name at
+             head dims 64 and 128, images/s, MFU from the analytic FLOP
+             count, captured against eager, the fp32 check on one
+             transformer level at 32 x 32 latents. The training phases of
+             9-13 are one function, ``phase_model_train``, over a
+             ``TrainSpec`` each (``GptTrain``, ``BertTrain``, ``MoeTrain``,
+             ``ResnetTrain``, ``SdxlTrain``).
 
 Each phase prints its seconds.
 
@@ -114,8 +140,9 @@ own main path (``main_path``: serve, train, varlen or calibrate); the
 paged and varlen-forward entries also carry their counts on the
 ``generate`` path under ``launches_by_path``, and every entry its counts
 on GPT's paths (``gpt_train``, ``gpt_generate``: one call, ``gpt_serve``),
-BERT's (``bert_train``) and ERNIE-MoE's (``moe_train``, ``moe_generate``:
-the dense greedy call, which reaches no kernel).
+BERT's (``bert_train``), ERNIE-MoE's (``moe_train``, ``moe_generate``:
+the dense greedy call, which reaches no kernel), ResNet-50's
+(``resnet_train``: none) and the UNet's (``sdxl_train``).
 
 The paged kernel is held at the serving, GQA, decode-step and
 suffix-prefill shapes (``PAGED_SHAPES``) with the L2 cold and warm, and
@@ -138,8 +165,8 @@ training step must run the vector variant's kernels (``RMS_TRAIN_KERNELS``).
 The tiled matmul has one route, the tensor cores, and the calibrate path
 fails if any other tiled kernel ran.
 
-The last lines are the ``train``, ``train_recipe``, ``gpt``, ``bert`` and
-``moe`` JSON, the
+The last lines are the ``train``, ``train_recipe``, ``gpt``, ``bert``,
+``moe``, ``resnet`` and ``sdxl`` JSON, the
 ``kernels`` JSON, the ``nvidia-smi`` name/power line, and
 ``{"ok": true, "device": {...}}``.
 
@@ -1674,6 +1701,12 @@ KERNEL_KINDS = (
     ("tiled matmul (port)", ("tiled_mm_",)),
     ("RMSNorm (port)", ("rms_norm_",)),
     ("paged decode (port)", PAGED_KERNELS),
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "Conv",
+                             "cudnn")),
+    ("batch / group norm", ("batch_norm", "BatchNorm", "GroupNorm",
+                            "group_norm", "RowwiseMoments", "FusedParams",
+                            "GammaBeta", "ComputeInternalGradients")),
+    ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "cutlass", "sm90_xmma")),
 )
 
@@ -2675,7 +2708,8 @@ def static_vs_eager(torch, dev, make_model, batch, loss_of, make_opt, label,
     label)`` the kernels a profiled step must run by name;
     ``generators(model)`` the model's explicit generators, whose states
     the eager model takes from the captured one before each compared
-    step (so both draw the same dropout and routing).
+    step (so both draw the same dropout and routing); its buffers (batch
+    norm's running statistics) are copied too, and must come out equal.
 
     First the captured run alone, from a model made from seed 0:
     ``steps`` calls (the first one the warm-up and the capture), then
@@ -2765,15 +2799,17 @@ def static_vs_eager(torch, dev, make_model, batch, loss_of, make_opt, label,
     eo._ensure_accumulators()
     cps, eps_ = list(cm.parameters()), list(em.parameters())
     worst = dict(loss=0.0, master_share=0.0, param_abs=0.0, params_apart=0,
-                 rounded_once=True, moments_equal=True)
+                 rounded_once=True, moments_equal=True, buffers_equal=True)
     with torch.no_grad():
         for _ in range(steps):
             for pc, pe in zip(cps, eps_):
                 pe.copy_(pc)
                 eo._master_weights[id(pe)].copy_(co._master_weights[id(pc)])
-                for name in ("moment1", "moment2"):
+                for name in co._accum_names:
                     eo._accumulators[name][id(pe)].copy_(
                         co._accumulators[name][id(pc)])
+            for bc, be in zip(cm.buffers(), em.buffers()):
+                be.copy_(bc)
             eo._step_count = co._step_count
             for gc, ge in zip(generators(cm), generators(em)):
                 ge.set_state(gc.get_state())
@@ -2796,19 +2832,24 @@ def static_vs_eager(torch, dev, make_model, batch, loss_of, make_opt, label,
                 worst["moments_equal"] &= all(
                     torch.equal(co._accumulators[n][id(pc)],
                                 eo._accumulators[n][id(pe)])
-                    for n in ("moment1", "moment2"))
+                    for n in co._accum_names)
+            worst["buffers_equal"] &= all(
+                torch.equal(bc, be)
+                for bc, be in zip(cm.buffers(), em.buffers()))
             del old
     fallbacks = obs.registry.get("jit.fallbacks").total()
     n_params = sum(p.numel() for p in cps)
     log(f"  {label}: {steps} captured steps each against an eager "
         f"step from the same state: loss diff {worst['loss']:.3g} (want 0), "
-        f"moments equal {worst['moments_equal']}, masters at "
+        f"moments equal {worst['moments_equal']}, buffers equal "
+        f"{worst['buffers_equal']}, masters at "
         f"{worst['master_share']:.3g} of {STATIC_MASTER_ULPS} fp32 ulps of "
         f"their operands (tol 1), each bf16 parameter its master rounded "
         f"once {worst['rounded_once']}; {worst['params_apart']} of "
         f"{steps} x {n_params} bf16 entries apart, at most "
         f"{worst['param_abs']:.3g}; jit.fallbacks {fallbacks}")
-    check(worst["loss"] == 0.0 and worst["moments_equal"],
+    check(worst["loss"] == 0.0 and worst["moments_equal"]
+          and worst["buffers_equal"],
           f"{label}: captured and eager steps from one state differ: {worst}")
     check(worst["master_share"] <= 1.0 and worst["rounded_once"],
           f"{label}: captured update off the eager one: {worst}")
@@ -3405,55 +3446,62 @@ def plain_flash():
 
 
 def flash_at_shape(torch, dev, report, key, b, h, s, d, causal,
-                   dropout, bias=None):
-    """Rows 2 and 4 at a model's training shape [b, h, s, d] in bf16, at
-    dropout rate ``dropout`` with a fixed seed, causal or not, with the
-    key bias ``bias`` ([b, s] fp32, the padding mask's ``-1e4`` on padded
-    keys) or none. The forward's keep mask, read back through one-hot
-    values (q = 0 gives every visible key the same p, so with v one-hot
-    on the d keys of block c, out[i, j] > 0 exactly where key d c + j is
-    visible and kept; one call a block), must equal the plain version's;
-    out within ``tolerance(bf16, 1e-4)`` and lse within 1e-4 on random
-    inputs, and dq, dk, dv within ``tolerance(bf16, 1e-4)``. Then each
-    kernel timed beside its plain version,
-    ``F.scaled_dot_product_attention`` on the same inputs at the same
-    dropout rate (the bias as its additive mask; its backward on a kept
-    graph) and its bound: the work of the visible (query, key) pairs, a
-    padded key's none. Kept under ``report[...][key]``."""
+                   dropout, bias=None, sk=None):
+    """Rows 2 and 4 at a model's training shape, q [b, h, s, d] and k, v
+    [b, h, sk, d] (``sk`` = ``s`` unless given: a cross-attention's
+    context), in bf16, at dropout rate ``dropout`` with a fixed seed,
+    causal or not, with the key bias ``bias`` ([b, sk] fp32, the padding
+    mask's ``-1e4`` on padded keys) or none. With dropout the forward's
+    keep mask, read back through one-hot values (q = 0 gives every
+    visible key the same p, so with v one-hot on the d keys of block c,
+    out[i, j] > 0 exactly where key d c + j is visible and kept; one call
+    a block), must equal the plain version's; out within
+    ``tolerance(bf16, 1e-4)`` and lse within 1e-4 on random inputs, and
+    dq, dk, dv within ``tolerance(bf16, 1e-4)``. Then each kernel timed
+    beside its plain version, ``F.scaled_dot_product_attention`` on the
+    same inputs at the same dropout rate (the bias as its additive mask;
+    its backward on a kept graph) and its bound: the work of the visible
+    (query, key) pairs, a padded key's none. Kept under
+    ``report[...][key]``."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
+    sk = s if sk is None else sk
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(12)
     seed = torch.tensor([2024], dtype=torch.int32, device=dev)
     st = dict(causal=causal, scale=d ** -0.5, dropout_rate=dropout)
-    what = (f"[{b},{h},{s},{d}] bf16, {'causal' if causal else 'not causal'}"
+    what = (f"[{b},{h},{s},{d}]" + (f" x {sk} keys" if sk != s else "")
+            + f" bf16, {'causal' if causal else 'not causal'}"
             f", dropout {dropout}"
             + (", key bias" if bias is not None else ""))
 
-    def rnd():
-        return torch.randn(b, h, s, d, generator=g, device=dev).to(bf16)
+    def rnd(n=s):
+        return torch.randn(b, h, n, d, generator=g, device=dev).to(bf16)
 
-    q0, k = torch.zeros(b, h, s, d, device=dev, dtype=bf16), rnd()
-    eye = torch.eye(d, device=dev, dtype=bf16)
-    same, n_kept = True, 0
-    for c in range(s // d):
-        v = torch.zeros(b, h, s, d, device=dev, dtype=bf16)
-        v[:, :, c * d:(c + 1) * d] = eye
-        kept = fa._flash_fwd_kernel(q0, k, v, seed, bias, **st)[0] > 0
-        rkept = fa._flash_fwd_reference(q0, k, v, seed, bias, **st)[0] > 0
-        same = same and torch.equal(kept, rkept)
-        n_kept += int(kept.sum())
     # the visible (query, key) pairs: below the diagonal, or every
     # unpadded key of the row
-    keys = b * s if bias is None else int((bias > -1.0).sum())
+    keys = b * sk if bias is None else int((bias > -1.0).sum())
     pairs = (b * h * s * (s + 1) // 2 if causal else h * s * keys)
-    log(f"  flash dropout keep mask at {what}: kernel keeps {n_kept} of "
-        f"{pairs} visible (q, k) pairs ({n_kept / pairs:.4f}), identical to "
-        f"the plain version's: {same}")
-    check(same, f"flash keep mask at {what} differs from the plain "
-                f"version's")
-    del q0, k, v, kept, rkept
-    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    same, n_kept = True, pairs
+    if dropout > 0.0:
+        q0, k = torch.zeros(b, h, s, d, device=dev, dtype=bf16), rnd()
+        eye = torch.eye(d, device=dev, dtype=bf16)
+        n_kept = 0
+        for c in range(s // d):
+            v = torch.zeros(b, h, s, d, device=dev, dtype=bf16)
+            v[:, :, c * d:(c + 1) * d] = eye
+            kept = fa._flash_fwd_kernel(q0, k, v, seed, bias, **st)[0] > 0
+            rkept = fa._flash_fwd_reference(q0, k, v, seed, bias,
+                                            **st)[0] > 0
+            same = same and torch.equal(kept, rkept)
+            n_kept += int(kept.sum())
+        log(f"  flash dropout keep mask at {what}: kernel keeps {n_kept} of "
+            f"{pairs} visible (q, k) pairs ({n_kept / pairs:.4f}), identical "
+            f"to the plain version's: {same}")
+        check(same, f"flash keep mask at {what} differs from the plain "
+                    f"version's")
+        del q0, k, v, kept, rkept
+    q, k, v, do = rnd(), rnd(sk), rnd(sk), rnd()
     out, lse = fa._flash_fwd_kernel(q, k, v, seed, bias, **st)
     rout, rlse = fa._flash_fwd_reference(q, k, v, seed, bias, **st)
     tol = tolerance(bf16, 1e-4)
@@ -3493,6 +3541,8 @@ def flash_at_shape(torch, dev, report, key, b, h, s, d, causal,
     show(f"flash_bwd {what}", bwd)
     shape = dict(shape=[b, h, s, d], dtype="bfloat16", causal=causal,
                  dropout=dropout, key_bias=bias is not None)
+    if sk != s:
+        shape["keys"] = sk
     report["flash"][key] = dict(
         max_abs_err=e_out, share=share, lse_err=e_lse, keep_mask_equal=same,
         keep_rate=n_kept / pairs, **shape, **fwd)
@@ -3522,6 +3572,16 @@ class TrainSpec:
     #: the fp32 check holds them below 1e-6 of the largest gradient
     #: instead of to their own (rounding-noise) scale
     zero_grads = ()
+
+    def depth(self, model):
+        """The count ``launches`` and ``check_route`` take: the model's
+        layers."""
+        return model.config.num_hidden_layers
+
+    def loss_fell(self, warm, losses):
+        """Whether the timed steps' losses show training: the last below
+        the first."""
+        return losses[-1] < losses[0]
 
     def launches(self, nl):
         return dict(flash=nl, flash_bwd=nl)
@@ -3825,6 +3885,258 @@ class MoeTrain(TrainSpec):
         out["routing"] = layers
 
 
+#: bench.py:bench_resnet's batch and resolution (bench.py:619)
+RESNET_BATCH, RESNET_HW = 256, 224
+#: ResNet-50's forward FLOPs an image at 224 x 224 (bench.py:663)
+RESNET_FWD_FLOPS = 4.1e9
+#: the port's kernels by report key, none of which ResNet may launch
+PORT_KERNELS = ("flash_", "vflash_", "rms_norm_", "paged_decode",
+                "tiled_mm_")
+
+
+class ResnetTrain(TrainSpec):
+    """``bench.py:bench_resnet``'s step: ``resnet50(num_classes=1000)`` in
+    bf16, a random batch of 256 x 3 x 224 x 224 and labels from a seeded
+    generator, fp32 logits into cross-entropy, ``Momentum(0.1, 0.9,
+    multi_precision=True)``. It reaches no kernel of the port (the
+    reference leaves convolution, batch norm and pooling to XLA): every
+    launch count is 0 and the profiled step runs no port kernel. MFU is
+    bench.py's (4.1 GFLOP x 3 an image at 224). The fp32 check runs
+    ``resnet18`` on 8 images cropped to 64 x 64."""
+
+    tag, label, to_static = "resnet", "ResNet-50", True
+
+    def model(self, torch, dev, bf16=True, layers=None):
+        from paddle_tpu_torch.vision.models import resnet18, resnet50
+
+        model = (resnet18 if layers else resnet50)(num_classes=1000,
+                                                   device=dev, seed=0)
+        return model.to(torch.bfloat16) if bf16 else model
+
+    def depth(self, model):
+        return 0
+
+    def loss_fell(self, warm, losses):
+        """The first update lowers the loss. At lr 0.1 from random weights
+        on one fixed batch, the later ones overshoot and come back (fp32
+        on the CPU, batch 32 at 112 x 112: 7.29, 7.19, 15.18, 22.71,
+        18.03, 13.27), so the last step need not be the lowest."""
+        return losses[0] < warm
+
+    def launches(self, nl):
+        return {}
+
+    def check_route(self, per_kernel, nl, label):
+        ran = {k: c for k, c in per_kernel.items()
+               if any(p in k for p in PORT_KERNELS)}
+        log(f"  {label}: kernels of the port {ran or 'none'}")
+        check(not ran, f"{label} ran kernels of the port: {ran}")
+
+    def plain(self):
+        return contextlib.nullcontext()
+
+    def batch(self, torch, cfg, dev):
+        g = torch.Generator(device=dev).manual_seed(9)
+        x = torch.rand(RESNET_BATCH, 3, RESNET_HW, RESNET_HW, generator=g,
+                       device=dev).to(torch.bfloat16)
+        y = torch.randint(0, 1000, (RESNET_BATCH,), generator=g, device=dev)
+        return x, y
+
+    def small(self, batch):
+        x, y = batch
+        return x[:8, :, :64, :64].float(), y[:8]
+
+    def loss(self, model, x, y):
+        from paddle_tpu_torch.nn import functional as F
+
+        return F.cross_entropy(model(x).float(), y)
+
+    def opt(self, model):
+        from paddle_tpu_torch.optimizer import Momentum
+
+        return Momentum(learning_rate=0.1, momentum=0.9,
+                        parameters=model.parameters(), multi_precision=True)
+
+    def generators(self, model):
+        return []
+
+    def rates(self, dt, model, batch):
+        ips = RESNET_BATCH * self.steps / dt
+        flops = 3 * RESNET_FWD_FLOPS * (RESNET_HW / 224) ** 2
+        return dict(step_ms=dt / self.steps * 1e3, images_per_s=ips,
+                    mfu=ips * flops / PEAK_FLOPS["bfloat16"])
+
+
+#: bench.py:bench_sdxl_unet's configuration (bench.py:920-926): SDXL's
+#: channels, attention levels and context width at one layer a block
+SDXL_CONFIG = dict(in_channels=4, out_channels=4, sample_size=64,
+                   block_out_channels=(320, 640, 1280), layers_per_block=1,
+                   attention_levels=(False, True, True),
+                   num_attention_heads=10, cross_attention_dim=2048,
+                   norm_num_groups=32)
+#: the fp32 check's UNet: one transformer level (640 channels, 10 heads
+#: of 64) at 32 x 32 latents
+SDXL_SMALL = dict(SDXL_CONFIG, sample_size=32, block_out_channels=(320, 640),
+                  attention_levels=(False, True))
+#: bench.py's batch and context length (bench.py:934)
+SDXL_BATCH, SDXL_CTX = 32, 77
+
+
+def unet_fwd_flops(cfg, batch, ctx_len):
+    """Forward FLOPs of ``UNet2DConditionModel`` at ``cfg`` (a
+    ``UNetConfig``): convolutions, linears and attention products along
+    the model's channel and resolution flow, norms and activations left
+    out; the count of ``bench.py:_unet_fwd_flops_analytic``
+    (bench.py:832)."""
+    chs = list(cfg.block_out_channels)
+    temb = chs[0] * cfg.time_embed_mult
+    hw0, xdim, b = cfg.sample_size, cfg.cross_attention_dim, batch
+
+    def conv(cin, cout, h, w, k=3):
+        return 2 * b * cout * h * w * cin * k * k
+
+    def res_block(cin, cout, h, w):
+        f = conv(cin, cout, h, w) + conv(cout, cout, h, w) + 2 * b * temb * cout
+        return f + (conv(cin, cout, h, w, k=1) if cin != cout else 0)
+
+    def attn_block(ch, h, w):
+        n = h * w
+
+        def lin(i, o, rows):
+            return 2 * b * rows * i * o
+
+        return (2 * lin(ch, ch, n) + 4 * lin(ch, ch, n) + 4 * b * n * n * ch
+                + 2 * lin(ch, ch, n) + 2 * lin(xdim, ch, ctx_len)
+                + 4 * b * n * ctx_len * ch + 2 * lin(ch, 4 * ch, n))
+
+    total = conv(cfg.in_channels, chs[0], hw0, hw0)
+    skip_chs, in_ch = [chs[0]], chs[0]
+    for level, out_ch in enumerate(chs):
+        h = hw0 >> level
+        for _ in range(cfg.layers_per_block):
+            total += res_block(in_ch, out_ch, h, h)
+            if cfg.attention_levels[level]:
+                total += attn_block(out_ch, h, h)
+            in_ch = out_ch
+            skip_chs.append(in_ch)
+        if level < len(chs) - 1:
+            total += conv(in_ch, in_ch, h // 2, h // 2)
+            skip_chs.append(in_ch)
+    h_mid = hw0 >> (len(chs) - 1)
+    total += 2 * res_block(in_ch, in_ch, h_mid, h_mid)
+    total += attn_block(in_ch, h_mid, h_mid)
+    for level, out_ch in reversed(list(enumerate(chs))):
+        h = hw0 >> level
+        for _ in range(cfg.layers_per_block + 1):
+            total += res_block(in_ch + skip_chs.pop(), out_ch, h, h)
+            if cfg.attention_levels[level]:
+                total += attn_block(out_ch, h, h)
+            in_ch = out_ch
+        if level > 0:
+            total += conv(in_ch, in_ch, 2 * h, 2 * h)
+    return total + conv(chs[0], cfg.out_channels, hw0, hw0)
+
+
+def flash_launches_by_head_dim(per_kernel, dims=(64, 128)):
+    """Launches of each tensor-core flash kernel at each head dim in a
+    profile, read from the kernels' template arguments (demangled or
+    mangled names)."""
+    out = {}
+    for step, (tc, _) in FLASH_KERNELS.items():
+        for d in dims:
+            out[f"{step}_d{d}"] = sum(
+                c for key, c in per_kernel.items()
+                if re.search(rf"(?<![a-z]){tc}(<[^<>]*\b{d}\b|I\w*?Li{d}E)",
+                             key))
+    return out
+
+
+class SdxlTrain(TrainSpec):
+    """``bench.py:bench_sdxl_unet``'s step at the TPU configuration's
+    geometry (``SDXL_CONFIG``: 399.6M parameters) in bf16: latents 32 x 4
+    x 64 x 64, timesteps in [0, 1000), a 32 x 77 x 2048 context, fp32 MSE
+    against a noise target, ``AdamW(1e-4, multi_precision=True)``. Its
+    attention runs the flash kernels: two calls (self and cross) in each
+    of its 7 transformer blocks, at head dim 64 (640 channels, 32 x 32)
+    and 128 (1280 channels, 16 x 16); the cross-attention's keys are the
+    77 context tokens. MFU from the analytic count (``unet_fwd_flops``)
+    x 3. The fp32 check runs ``SDXL_SMALL`` on two rows cropped to 32 x
+    32 latents."""
+
+    tag, label, to_static = "sdxl", "SDXL UNet", True
+
+    def model(self, torch, dev, bf16=True, layers=None):
+        from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+
+        cfg = UNetConfig(**(SDXL_SMALL if layers else SDXL_CONFIG))
+        model = UNet2DConditionModel(cfg, device=dev, seed=0)
+        return model.to(torch.bfloat16) if bf16 else model
+
+    def depth(self, model):
+        from paddle_tpu_torch.models.unet_diffusion import TransformerBlock2D
+
+        return sum(isinstance(m, TransformerBlock2D) for m in model.modules())
+
+    def launches(self, nl):
+        return dict(flash=2 * nl, flash_bwd=2 * nl)
+
+    def check_route(self, per_kernel, nl, label):
+        """The tensor-core flash kernels twice a transformer block (by
+        name), at head dims 64 and 128 as the blocks' widths give them;
+        no RMSNorm kernel."""
+        super().check_route(per_kernel, 2 * nl, label)
+        by_dim = flash_launches_by_head_dim(per_kernel)
+        log(f"  {label}: tensor-core flash kernels by head dim {by_dim}")
+        want = {}
+        for level, ch in enumerate(SDXL_CONFIG["block_out_channels"]):
+            if SDXL_CONFIG["attention_levels"][level]:
+                d = ch // SDXL_CONFIG["num_attention_heads"]
+                # down 1 + up 2 a level, and the middle block at the last
+                blocks = 3 + (level == len(SDXL_CONFIG["attention_levels"])
+                              - 1)
+                for step in FLASH_KERNELS:
+                    want[f"{step}_d{d}"] = 2 * blocks
+        check(by_dim == want, f"{label}: flash launches by head dim "
+                              f"{by_dim}, want {want}")
+
+    def batch(self, torch, cfg, dev):
+        g = torch.Generator(device=dev).manual_seed(9)
+        hw, bf16 = cfg.sample_size, torch.bfloat16
+        shape = (SDXL_BATCH, cfg.in_channels, hw, hw)
+        noisy = torch.randn(shape, generator=g, device=dev).to(bf16)
+        target = torch.randn(shape, generator=g, device=dev).to(bf16)
+        t = torch.randint(0, 1000, (SDXL_BATCH,), generator=g, device=dev)
+        ctx = torch.randn(SDXL_BATCH, SDXL_CTX, cfg.cross_attention_dim,
+                          generator=g, device=dev).to(bf16)
+        return noisy, t, ctx, target
+
+    def small(self, batch):
+        x, t, ctx, target = batch
+        hw = SDXL_SMALL["sample_size"]
+        return (x[:2, :, :hw, :hw].float(), t[:2], ctx[:2].float(),
+                target[:2, :, :hw, :hw].float())
+
+    def loss(self, model, x, t, ctx, target):
+        pred = model(x, t, ctx)
+        return ((pred.float() - target.float()) ** 2).mean()
+
+    def opt(self, model):
+        from paddle_tpu_torch.optimizer import AdamW
+
+        return AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                     multi_precision=True)
+
+    def generators(self, model):
+        return []
+
+    def rates(self, dt, model, batch):
+        ips = SDXL_BATCH * self.steps / dt
+        flops = 3 * unet_fwd_flops(model.config, SDXL_BATCH, SDXL_CTX)
+        return dict(step_ms=dt / self.steps * 1e3, images_per_s=ips,
+                    mfu=ips / SDXL_BATCH * flops / PEAK_FLOPS["bfloat16"],
+                    fwd_flops=flops / 3)
+
+
 def phase_model_train(torch, dev, report, spec):
     """A model's training step at full width and depth in bf16 (``spec``,
     a ``TrainSpec``): one warm-up step and ``spec.steps`` timed steps on
@@ -3834,7 +4146,8 @@ def phase_model_train(torch, dev, report, spec):
     Prints tokens/s, MFU, peak memory and the busy share; then
     ``spec.extra``, and with ``spec.to_static`` the step under
     ``jit.to_static(full_graph=True)`` (``static_vs_eager``). Then 2
-    layers in fp32 (TF32 off), training mode, ``spec.small``'s batch, the
+    layers in fp32 (TF32 off; ``spec.model``'s ``layers=2``: a model's
+    small form), training mode, ``spec.small``'s batch, the
     generators restored before each run: the loss and every gradient
     through the kernels against the same step on their plain versions
     (``spec.plain``), to ``[train]``'s tolerances: loss 1e-4, each
@@ -3843,11 +4156,10 @@ def phase_model_train(torch, dev, report, spec):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     model = spec.model(torch, dev).train()
-    cfg = model.config
-    nl = cfg.num_hidden_layers
+    nl = spec.depth(model)
     n_params = model.num_parameters()
     opt = spec.opt(model)
-    batch = spec.batch(torch, cfg, dev)
+    batch = spec.batch(torch, getattr(model, "config", None), dev)
 
     def step():
         loss = spec.loss(model, *batch)
@@ -3876,13 +4188,15 @@ def phase_model_train(torch, dev, report, spec):
     want.update({k: n * spec.steps for k, n in spec.launches(nl).items()})
     check(counts == want, f"{label} train launches {counts}, want {want}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(losses[-1] < losses[0], f"{label} loss did not fall: {losses}")
+    check(spec.loss_fell(warm, losses),
+          f"{label} loss did not fall: {warm} then {losses}")
     record_launches(report, f"{spec.tag}_train", counts)
     rates = spec.rates(dt, model, batch)
     log(f"  {label} train step: {rates['step_ms']:.2f} ms mean, "
-        f"{rates['tokens_per_s']:.1f} tokens/s"
-        + (f", {rates['sequences_per_s']:.2f} sequences/s"
-           if "sequences_per_s" in rates else "")
+        + ", ".join(f"{rates[k]:.{p}f} {unit}" for k, p, unit in (
+            ("tokens_per_s", 1, "tokens/s"),
+            ("sequences_per_s", 2, "sequences/s"),
+            ("images_per_s", 2, "images/s")) if k in rates)
         + f", MFU {rates['mfu']:.4f} (bench.py's formula, 989 TFLOP/s bf16 "
         f"peak), peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)"
         f"; {smi_line()}")
@@ -3927,7 +4241,8 @@ def phase_model_train(torch, dev, report, spec):
     torch.cuda.synchronize()
     check(read_counts() == k_counts, f"the plain {label} run launched a "
                                      f"kernel")
-    check(all(k_counts[k] == n for k, n in spec.launches(2).items()),
+    check(all(k_counts[k] == n
+              for k, n in spec.launches(spec.depth(model)).items()),
           f"the fp32 {label} kernel run's launches {k_counts}")
     zero = {n for n in p_grads if n.endswith(spec.zero_grads)}
     worst = max(((float((k_grads[n] - gp).abs().max())
@@ -4051,6 +4366,131 @@ def phase_embedding_determinism(torch, dev, report):
     return out
 
 
+#: backward passes from one state per cuDNN setting
+CONV_RUNS = 20
+
+
+@contextlib.contextmanager
+def default_cudnn():
+    """The port's convolutions on cuDNN's default choice of algorithms for
+    the block: ``nn/functional/conv.py``'s ``_deterministic_cudnn``
+    swapped for a no-op."""
+    from paddle_tpu_torch.nn.functional import conv
+
+    saved = conv._deterministic_cudnn
+    conv._deterministic_cudnn = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        conv._deterministic_cudnn = saved
+
+
+def phase_backward_determinism(torch, dev, report, spec, runs=CONV_RUNS):
+    """``spec``'s model at full width (bf16, training mode, its batch):
+    the forward and backward ``runs`` times from one state with the
+    port's convolutions as they are (cuDNN's deterministic algorithms),
+    then on cuDNN's default choice (``default_cudnn``), each pass's
+    gradients against the first pass's of its setting. As they are,
+    every gradient must be the same every time; on the default choice,
+    the parameters whose gradients differed are reported, and the median
+    time of a pass (the first left out) is given both ways: what the
+    determinism costs. Then one more pass under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, whose
+    warnings name the ops torch has no deterministic path for."""
+    import warnings
+
+    model = spec.model(torch, dev).train()
+    batch = spec.batch(torch, getattr(model, "config", None), dev)
+    out = {}
+    for on in (True, False):
+        first, differ, times = None, {}, []
+        with contextlib.nullcontext() if on else default_cudnn():
+            for run in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                spec.loss(model, *batch).backward()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                grads = {n: p.grad for n, p in model.named_parameters()}
+                model.zero_grad(set_to_none=True)
+                if first is None:
+                    first = grads
+                    continue
+                for n, g in grads.items():
+                    if not torch.equal(g, first[n]):
+                        differ[n] = differ.get(n, 0) + 1
+        label = "on" if on else "off"
+        ms = sorted(times[1:])[(len(times) - 1) // 2] * 1e3
+        out[label] = dict(runs_differing=max(differ.values(), default=0),
+                          parameters_differing=len(differ),
+                          pass_ms=ms, by_parameter=differ)
+        log(f"  {spec.label} forward + backward from one state, {runs} "
+            f"passes, deterministic cuDNN {label}: {ms:.2f} ms a pass; "
+            f"gradients of {len(differ)} parameters differ from the first "
+            f"pass's in up to {out[label]['runs_differing']} passes "
+            f"({sorted(differ)[:6] or 'none'})")
+        check(not on or not differ,
+              f"{spec.label}: gradients differ from run to run with "
+              f"deterministic convolutions: {differ}")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            spec.loss(model, *batch).backward()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    names = sorted({str(w.message).split(" does not have")[0].split(
+        " is not deterministic")[0][:120] for w in seen
+        if "determinis" in str(w.message)})
+    log(f"  {spec.label}: ops torch names as without a deterministic path: "
+        f"{names or 'none'}")
+    out["nondeterministic_ops"] = names
+    out["cost"] = out["on"]["pass_ms"] / out["off"]["pass_ms"] - 1.0
+    del model, first, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resnet(torch, dev, report):
+    """The ``[resnet]`` phase: the backward's determinism at ResNet-50's
+    full batch (``phase_backward_determinism``), then ``bench_resnet``'s
+    step (``phase_model_train`` over ``ResnetTrain``)."""
+    spec = ResnetTrain()
+    run_parts(torch, dev, report, "resnet", spec.label, (
+        ("determinism", functools.partial(phase_backward_determinism,
+                                          spec=spec)),
+        ("train", functools.partial(phase_model_train, spec=spec))))
+
+
+def phase_sdxl_kernels(torch, dev, report):
+    """Rows 2 and 4 at the SDXL UNet's attention shapes, bf16, not
+    causal, no dropout (``flash_at_shape``): the cross-attention first
+    (32 x 10 heads, 1024 queries of 64 and 256 of 128, against the 77
+    context tokens: Sk is no multiple of a key tile), then the
+    self-attention at [32, 10, 1024, 64] and [32, 10, 256, 128]."""
+    h = SDXL_CONFIG["num_attention_heads"]
+    for d, s in ((64, 1024), (128, 256)):
+        flash_at_shape(torch, dev, report, f"at_sdxl_cross_d{d}", SDXL_BATCH,
+                       h, s, d, causal=False, dropout=0.0, sk=SDXL_CTX)
+    for d, s in ((64, 1024), (128, 256)):
+        flash_at_shape(torch, dev, report, f"at_sdxl_self_d{d}", SDXL_BATCH,
+                       h, s, d, causal=False, dropout=0.0)
+
+
+def phase_sdxl(torch, dev, report):
+    """The ``[sdxl]`` phase: rows 2 and 4 at the UNet's attention shapes
+    (``phase_sdxl_kernels``), the backward's determinism at its full
+    batch, then ``bench_sdxl_unet``'s step (``phase_model_train`` over
+    ``SdxlTrain``)."""
+    spec = SdxlTrain()
+    run_parts(torch, dev, report, "sdxl", spec.label, (
+        ("kernels", phase_sdxl_kernels),
+        ("determinism", functools.partial(phase_backward_determinism,
+                                          spec=spec, runs=CONV_RUNS // 2)),
+        ("train", functools.partial(phase_model_train, spec=spec))))
+
+
 def phase_bert(torch, dev, report):
     """The ``[bert]`` phase: rows 2 and 4 at BERT's shape, the embedding
     gradient's determinism at its shapes, then ``bench_bert``'s step
@@ -4156,7 +4596,8 @@ def main() -> int:
         phase_calibrate(torch, dev, report)
         models = {}
         for name, phase in (("gpt", phase_gpt), ("bert", phase_bert),
-                            ("moe", phase_moe)):
+                            ("moe", phase_moe), ("resnet", phase_resnet),
+                            ("sdxl", phase_sdxl)):
             mark(name)
             phase(torch, dev, report)
             models[name] = report.pop(name)

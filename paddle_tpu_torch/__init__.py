@@ -7,7 +7,7 @@ every kernel the reference wrote in Pallas becomes a hand-written CUDA
 kernel under ``csrc/`` with a plain PyTorch version beside it, which is
 what a CPU tensor runs.
 
-Seven slices are ported. Serving: ``models.LlamaForCausalLM``,
+Eight slices are ported. Serving: ``models.LlamaForCausalLM``,
 ``serve.ServeEngine`` and ``serve.run_load``, over the paged-decode,
 flash-forward and RMSNorm-forward kernels. Decoding:
 ``LlamaForCausalLM.generate`` (dense and paged KV caches, the paged one
@@ -37,9 +37,15 @@ encoder's padding mask as the flash kernels' key bias, attention dropout
 inside them) and ``models.ErnieMoeForCausalLM`` (the Llama decoder with
 ``incubate.distributed.models.moe``'s gates and expert layers: training
 and ``generate``, dense and beam), with ``nn.functional.one_hot`` and
-``incubate.nn.functional.fused_ec_moe``.
+``incubate.nn.functional.fused_ec_moe``. ResNet and the diffusion UNet:
+``vision.models.resnet50`` and its family, ``models.UNet2DConditionModel``
+and ``models.DDPMScheduler``, with ``nn.functional``'s convolutions,
+pools, batch / group / instance norms and ``interpolate`` (torch's ops,
+as the reference leaves them to XLA; the UNet's attention runs the flash
+kernels).
 """
-from . import amp, convert, jit, models, nn, optimizer, regularizer, serve
+from . import (amp, convert, jit, models, nn, optimizer, regularizer, serve,
+               vision)
 from .convert import load_paddle_tpu_state
 from .core.place import resolve_device
 from .models import (BertConfig, BertForPretraining,
@@ -54,4 +60,4 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "GPTConfig", "GPTForCausalLM",
            "ServeEngine", "run_load",
            "warm_engine", "default_serving_setup", "load_paddle_tpu_state",
            "resolve_device", "amp", "convert", "jit", "models", "nn",
-           "optimizer", "regularizer", "serve"]
+           "optimizer", "regularizer", "serve", "vision"]

@@ -13,8 +13,13 @@ it is, and so are the MoE layers' raw parameters: the expert banks
 ``w0`` / ``w1`` ``[E, in, out]`` with their ``[E, 1, out]`` biases and a
 gate's ``[d, E]`` weight, which are parameters in the reference's
 layout, not ``nn.Linear``s. A tied model has no ``lm_head`` key, as in
-the reference. Every name and shape is checked: a missing or extra key,
-or a shape that does not fit, raises before anything is copied.
+the reference. Persistent buffers are state too: batch norm's running
+``_mean`` / ``_variance`` (ResNet's) keep the reference's names and are
+copied as they are, as are convolution weights (``[out, in / groups,
+*k]`` in both packages); the UNet's and ResNet's ``nn.Linear`` weights
+(``fc``, the projections) are transposed. Every name and shape is
+checked: a missing or extra key, or a shape that does not fit, raises
+before anything is copied.
 """
 from __future__ import annotations
 
@@ -35,14 +40,16 @@ def _linear_weight_names(model: nn.Module):
 
 def load_paddle_tpu_state(model: nn.Module,
                           params: Dict[str, np.ndarray]) -> nn.Module:
-    """Copy reference-package weights into ``model`` in place (cast to
-    each parameter's dtype, on its device). Returns ``model``."""
+    """Copy reference-package weights and buffers into ``model`` in place
+    (cast to each tensor's dtype, on its device). Returns ``model``."""
     own = dict(model.named_parameters())
+    persistent = model.state_dict().keys()
+    own.update((n, b) for n, b in model.named_buffers() if n in persistent)
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:
         raise KeyError(
-            f"load_paddle_tpu_state: parameter names differ — missing "
+            f"load_paddle_tpu_state: state names differ — missing "
             f"{missing[:8]}{' ...' if len(missing) > 8 else ''}, extra "
             f"{extra[:8]}{' ...' if len(extra) > 8 else ''}")
     linear = _linear_weight_names(model)

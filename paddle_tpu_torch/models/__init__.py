@@ -1,5 +1,6 @@
-"""Model zoo of the port (the Llama, GPT, BERT and ERNIE-MoE families),
-and ``generate``."""
+"""Model zoo of the port (the Llama, GPT, BERT and ERNIE-MoE families
+and the diffusion UNet), and ``generate``. ResNet is in
+``vision.models``, as in the reference."""
 from .bert import (BertConfig, BertEmbeddings, BertEncoderLayer,
                    BertForPretraining, BertForSequenceClassification,
                    BertModel, bert_shard_plan)
@@ -10,6 +11,7 @@ from .gpt import (GPTAttention, GPTConfig, GPTDecoderLayer, GPTForCausalLM,
                   GPTModel, gpt_shard_plan)
 from .llama import (LlamaAttention, LlamaConfig, LlamaDecoderLayer,
                     LlamaForCausalLM, LlamaMLP, LlamaModel, LlamaRMSNorm)
+from .unet_diffusion import DDPMScheduler, UNet2DConditionModel, UNetConfig
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP", "LlamaRMSNorm",
@@ -18,4 +20,5 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "BertForPretraining", "BertForSequenceClassification",
            "BertEmbeddings", "BertEncoderLayer", "bert_shard_plan",
            "ErnieMoeConfig", "ErnieMoeForCausalLM", "ErnieMoeModel",
-           "ernie_moe_shard_plan", "generate"]
+           "ernie_moe_shard_plan", "UNetConfig", "UNet2DConditionModel",
+           "DDPMScheduler", "generate"]

@@ -1,10 +1,12 @@
-"""Common functional ops: ``linear``, ``dropout``, ``embedding`` and
-``one_hot``.
+"""Common functional ops: ``linear``, ``dropout``, ``embedding``,
+``one_hot``, ``interpolate`` / ``upsample``, ``pixel_shuffle``,
+``pixel_unshuffle``, ``channel_shuffle``, ``unfold`` / ``fold`` and
+``zeropad2d``.
 
-Counterpart of those four functions of
-``paddle_tpu/nn/functional/common.py``; the rest of that module waits for
-the rest of ``ROADMAP.md`` queue A item 2. The reference composes them
-in XLA, so here they are plain torch.
+Counterpart of those functions of ``paddle_tpu/nn/functional/common.py``;
+the rest of that module waits for the rest of ``ROADMAP.md`` queue A
+item 2. The reference composes them in XLA, so here they are plain
+torch.
 
 - ``linear`` takes paddle's ``[in, out]`` weight: ``x @ weight + bias``.
 - ``dropout`` has paddle's ``axis`` (one mask shared along the other
@@ -24,6 +26,17 @@ in XLA, so here they are plain torch.
   token types). ``Embedding`` is ``torch.nn.Embedding`` on this
   function, without the host read of the bounds, for the models.
 - ``one_hot`` returns float32, as the reference's ``one_hot_p``.
+- ``interpolate`` is ``jax.image.resize`` as the reference calls it:
+  ``nearest`` takes input ``floor((j + 0.5) * in / out)`` (align_corners
+  ignored); ``bilinear`` / ``linear`` / ``trilinear`` / ``area`` take the
+  triangle kernel and ``bicubic`` Keys' cubic (a = -0.5), as weight
+  matrices built as ``jax.image.scale_and_translate`` builds them
+  (antialiased when shrinking, the weights of taps inside the input
+  renormalised at the edges); ``align_corners`` maps the corners onto
+  each other through its scale and translation. Each resized dim is one
+  product with its weight matrix in the input's dtype. A nearest resize
+  by a whole factor repeats entries (its gradient a sum over the
+  repeats, no scatter); any other factor gathers rows.
 """
 from __future__ import annotations
 
@@ -31,7 +44,9 @@ import torch
 
 from ...core.generator import use_generator
 
-__all__ = ["linear", "dropout", "embedding", "one_hot", "Embedding"]
+__all__ = ["linear", "dropout", "embedding", "one_hot", "Embedding",
+           "interpolate", "upsample", "pixel_shuffle", "pixel_unshuffle",
+           "channel_shuffle", "unfold", "fold", "zeropad2d"]
 
 
 def linear(x, weight, bias=None, name=None):
@@ -165,3 +180,162 @@ class Embedding(torch.nn.Embedding):
 
     def forward(self, ids):
         return _Embedding.apply(self.weight, ids.long(), self.padding_idx)
+
+
+def _triangle(x):
+    return torch.clamp_min(1 - x.abs(), 0)
+
+
+def _keys_cubic(x):
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+_RESIZE_KERNELS = {"bilinear": _triangle, "linear": _triangle,
+                   "trilinear": _triangle, "area": _triangle,
+                   "bicubic": _keys_cubic}
+
+
+def _weight_mat(m, n, inv_scale, translation, kernel):
+    """``jax.image``'s ``compute_weight_mat`` in fp32: [m, n] weights of
+    input taps for each output sample, ``inv_scale`` (input pixels per
+    output pixel) and ``translation`` fp32 scalars, antialiased."""
+    f32, dev = torch.float32, inv_scale.device
+    kernel_scale = torch.clamp_min(inv_scale, 1.0)
+    sample = ((torch.arange(n, dtype=f32, device=dev) + 0.5) * inv_scale
+              - translation * inv_scale - 0.5)
+    w = kernel((sample[None, :] - torch.arange(m, dtype=f32, device=dev)[
+        :, None]).abs() / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def _resize_nearest(x, sizes):
+    for ax, n in enumerate(sizes, start=2):
+        m = x.shape[ax]
+        if n == m:
+            continue
+        if n % m == 0:
+            f = n // m
+            x = x.unsqueeze(ax + 1).expand(
+                *x.shape[:ax + 1], f, *x.shape[ax + 1:]).flatten(ax, ax + 1)
+        else:
+            idx = torch.floor((torch.arange(n, dtype=torch.float32,
+                                            device=x.device) + 0.5)
+                              * m / n).long()
+            x = x.index_select(ax, idx)
+    return x
+
+
+def _resize_weighted(x, sizes, kernel, align_corners):
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=x.device)
+
+    for ax, n in enumerate(sizes, start=2):
+        m = x.shape[ax]
+        if align_corners:
+            scale = f32((m - 1) / (n - 1) if n > 1 else 0.0)
+            inv = torch.where(scale > 0, 1.0 / torch.clamp_min(scale, 1e-12),
+                              f32(1.0))
+            w = _weight_mat(m, n, 1.0 / inv, 0.5 * (inv - 1), kernel)
+        elif n == m:
+            continue
+        else:
+            w = _weight_mat(m, n, f32(1.0 / (n / m)), f32(0.0), kernel)
+        x = torch.tensordot(x, w.to(x.dtype),
+                            dims=([ax], [0])).movedim(-1, ax)
+    return x
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format=None,
+                name=None):
+    """Resize the spatial dims of ``x`` to ``size`` (or ``int(in *
+    scale_factor)``), channels first unless ``data_format`` ends in C.
+    ``align_mode`` is accepted and ignored, as in the reference."""
+    n_sp = x.ndim - 2
+    if data_format is None:
+        data_format = {1: "NCW", 2: "NCHW", 3: "NCDHW"}[n_sp]
+    cf = data_format.startswith("NC")
+    spatial = x.shape[2:] if cf else x.shape[1:-1]
+    if size is None:
+        if isinstance(scale_factor, (int, float)):
+            scale_factor = [scale_factor] * n_sp
+        if isinstance(scale_factor, torch.Tensor):
+            scale_factor = scale_factor.tolist()
+        size = [int(s * f) for s, f in zip(spatial, scale_factor)]
+    else:
+        if isinstance(size, torch.Tensor):
+            size = size.tolist()
+        size = [int(s) for s in size]
+    xc = x if cf else x.movedim(-1, 1)
+    if mode == "nearest":
+        y = _resize_nearest(xc, size)
+    else:
+        y = _resize_weighted(xc, size, _RESIZE_KERNELS[mode],
+                             bool(align_corners))
+    return y if cf else y.movedim(1, -1)
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, align_mode=0, data_format=None, name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       align_mode, data_format)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """Sliding [C * kh * kw] patches of NCHW ``x`` as [N, C * kh * kw,
+    L]."""
+    from .conv import _ntuple
+
+    return torch.nn.functional.unfold(
+        x, _ntuple(kernel_sizes, 2), dilation=_ntuple(dilations, 2),
+        padding=_ntuple(paddings, 2), stride=_ntuple(strides, 2))
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    """The sum of ``unfold``'s patches [N, C * kh * kw, L] back into NCHW
+    ``output_sizes``."""
+    from .conv import _ntuple
+
+    return torch.nn.functional.fold(
+        x, _ntuple(output_sizes, 2), _ntuple(kernel_sizes, 2),
+        dilation=_ntuple(dilations, 2), padding=_ntuple(paddings, 2),
+        stride=_ntuple(strides, 2))
+
+
+def _in_nchw(fn, x, data_format):
+    if data_format.startswith("NC"):
+        return fn(x)
+    return fn(x.movedim(-1, 1)).movedim(1, -1)
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    return _in_nchw(lambda t: torch.nn.functional.pixel_shuffle(
+        t, int(upscale_factor)), x, data_format)
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
+    return _in_nchw(lambda t: torch.nn.functional.pixel_unshuffle(
+        t, int(downscale_factor)), x, data_format)
+
+
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    def shuffle(t):
+        n, c, rest = t.shape[0], t.shape[1], t.shape[2:]
+        return t.reshape(n, int(groups), c // int(groups), *rest
+                         ).transpose(1, 2).reshape(n, c, *rest)
+    return _in_nchw(shuffle, x, data_format)
+
+
+def zeropad2d(x, padding, data_format="NCHW", name=None):
+    """Zeros around the spatial dims: ``padding`` is ``[left, right, top,
+    bottom]``."""
+    pad = [int(p) for p in padding]
+    return _in_nchw(lambda t: torch.nn.functional.pad(t, pad), x,
+                           data_format)

@@ -1,0 +1,17 @@
+"""``paddle.vision.models`` of the port: the ResNet family (ResNet,
+ResNeXt, Wide-ResNet). The reference's other models (AlexNet, VGG, the
+MobileNets, DenseNet, GoogLeNet, InceptionV3, ShuffleNetV2, SqueezeNet,
+LeNet) wait for ``ROADMAP.md`` queue A item 2."""
+from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18,
+                     resnet34, resnet50, resnet101, resnet152,
+                     resnext50_32x4d, resnext50_64x4d, resnext101_32x4d,
+                     resnext101_64x4d, resnext152_32x4d, resnext152_64x4d,
+                     wide_resnet50_2, wide_resnet101_2)
+
+__all__ = [
+    "ResNet", "BasicBlock", "BottleneckBlock",
+    "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+    "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
+    "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
+    "wide_resnet50_2", "wide_resnet101_2",
+]

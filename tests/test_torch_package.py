@@ -30,6 +30,7 @@ from paddle_tpu_torch import (BertConfig, BertForPretraining,
 from paddle_tpu_torch.incubate.distributed.models.moe import (FusedMoELayer,
                                                               GShardGate)
 from paddle_tpu_torch.core.place import resolve_device
+from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
 from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
@@ -38,6 +39,7 @@ from paddle_tpu_torch.ops.cuda import paged_attention as tpa
 from paddle_tpu_torch.ops.cuda import rms_norm as trn
 from paddle_tpu_torch.ops.cuda import tiled_mm as ttm
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.vision.models import resnet18
 from paddle_tpu_torch.serve import default_serving_setup
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -93,13 +95,15 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert default_serving_setup("cpu")[0].hidden_size == cfg.hidden_size
     ServeEngine(model, device="cpu")
-    # BERT, ERNIE-MoE and the MoE layers and gates
+    # BERT, ERNIE-MoE and the MoE layers and gates; ResNet and the UNet
     bert, moe = BertConfig.tiny(), ErnieMoeConfig.tiny()
     for make in (lambda **k: BertForPretraining(bert, **k),
                  lambda **k: BertForSequenceClassification(bert, **k),
                  lambda **k: ErnieMoeForCausalLM(moe, **k),
                  lambda **k: FusedMoELayer(16, 32, 4, **k),
-                 lambda **k: GShardGate(16, 4, 1, **k)):
+                 lambda **k: GShardGate(16, 4, 1, **k),
+                 lambda **k: resnet18(num_classes=10, **k),
+                 lambda **k: UNet2DConditionModel(UNetConfig.tiny(), **k)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         make(device="cpu")

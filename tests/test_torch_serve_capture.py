@@ -11,8 +11,15 @@ fixed-shape tick in which every slot writes, the device counters of
 ``generate``'s ticks, the trace counts. The graphs run on the card
 (chip_smoke.py's ``[serve]`` and ``[generate]`` phases).
 
-Greedy streams are compared token for token with the reference (fp32,
-the same bridged weights); sampled streams within the port.
+Greedy streams under slot churn are held against an oracle that does not
+vary from run to run: the reference model's full-prefix forward over the
+port's own stream (fp32, the same bridged weights), token for token
+wherever the reference's top two logits are apart (``_hold_to_oracle``).
+The reference engine's own greedy stream is not the oracle: in whole
+runs of the suite it has left the full-prefix argmax (by 0.35 of a logit,
+not a rounding tie) where the port's stream kept it. ``generate``'s
+greedy streams are compared with the reference's token for token;
+sampled streams are held within the port.
 """
 import gc
 import weakref
@@ -50,16 +57,17 @@ def models():
     return jm, tm
 
 
-def _churn(model, jax_side, burst=1, eos=None, name="t_churn"):
-    """Slot churn: arrivals mid-flight, finishes, and a pool small enough
-    to preempt."""
+def _plans():
+    """The churn's requests: (prompt, max_new_tokens), in arrival order."""
     rng = np.random.RandomState(21)
-    kw = dict(max_slots=3, block_size=4, num_blocks=8, max_seq_len=32,
-              name=f"{name}{burst}", decode_burst=burst)
-    eng = (JEngine(model, **kw) if jax_side
-           else ServeEngine(model, device="cpu", **kw))
-    plans = [(rng.randint(1, 97, n), k) for n, k in
-             [(7, 9), (3, 12), (11, 6), (5, 10), (9, 7), (2, 11)]]
+    return [(rng.randint(1, 97, n), k) for n, k in
+            [(7, 9), (3, 12), (11, 6), (5, 10), (9, 7), (2, 11)]]
+
+
+def _drive(eng, eos):
+    """Slot churn on ``eng``: three requests at once, the rest arriving
+    mid-flight every third step; the engine's streams."""
+    plans = _plans()
     reqs = [eng.submit(p, max_new_tokens=k, eos_token_id=eos)
             for p, k in plans[:3]]
     pending, steps = list(plans[3:]), 0
@@ -69,14 +77,64 @@ def _churn(model, jax_side, burst=1, eos=None, name="t_churn"):
             reqs.append(eng.submit(p, max_new_tokens=k, eos_token_id=eos))
         eng.step()
         steps += 1
-    return [r.output_ids for r in reqs], eng
+    return [r.output_ids for r in reqs]
+
+
+def _churn(model, jax_side, burst=1, eos=None, name="t_churn"):
+    """Slot churn: arrivals mid-flight, finishes, and a pool small enough
+    to preempt."""
+    kw = dict(max_slots=3, block_size=4, num_blocks=8, max_seq_len=32,
+              name=f"{name}{burst}", decode_burst=burst)
+    eng = (JEngine(model, **kw) if jax_side
+           else ServeEngine(model, device="cpu", **kw))
+    return _drive(eng, eos), eng
+
+
+#: a step where the reference's top two logits are at most this far apart
+#: (fp32 logits of order 1; the two packages' sums differ near 1e-6) may
+#: emit either of the two tokens
+NEAR_TIE_MARGIN = 1e-4
+#: the most such steps one churn run may have
+NEAR_TIE_CAP = 2
+
+
+def _hold_to_oracle(jm, streams, eos=None):
+    """Each request's greedy stream against the reference model's
+    full-prefix forward over the prompt and the stream itself (one causal
+    forward a request: the logits at each position pick the next token).
+    Every token must be the reference's argmax, or the runner-up within
+    ``NEAR_TIE_MARGIN`` of it; such steps are printed and at most
+    ``NEAR_TIE_CAP`` are allowed. A stream ends at ``max_new_tokens``, or
+    at its first ``eos``. Returns the near-tie steps."""
+    near = []
+    for i, ((prompt, k), toks) in enumerate(zip(_plans(), streams)):
+        assert 0 < len(toks) <= k
+        assert eos not in toks[:-1]
+        assert len(toks) == k or toks[-1] == eos
+        ids = np.concatenate([prompt, np.asarray(toks, "int64")])[None]
+        logits = np.asarray(jm(paddle.to_tensor(ids)).numpy())[0]
+        for t, tok in enumerate(toks):
+            row = logits[len(prompt) - 1 + t]
+            top = int(row.argmax())
+            if tok == top:
+                continue
+            gap = float(row[top] - row[tok])
+            runner_up = float(np.sort(row)[-2])
+            assert row[tok] == runner_up and gap <= NEAR_TIE_MARGIN, (
+                f"request {i}, new token {t}: {tok} is {gap:.4g} below the "
+                f"reference's argmax {top}")
+            near.append((i, t, tok, top, gap))
+    if near:
+        print(f"near-tie steps (request, step, token, argmax, gap): {near}")
+    assert len(near) <= NEAR_TIE_CAP, near
+    return near
 
 
 def test_one_trace_under_slot_churn(models):
     jm, tm = models
-    want, jeng = _churn(jm, True)
+    _, jeng = _churn(jm, True)
     got, eng = _churn(tm, False)
-    assert got == want
+    _hold_to_oracle(jm, got)
     assert eng._n_preempts > 0 and jeng.decode_traces == 1
     assert eng.decode_traces == 1 and eng.prefill_traces == 0
     assert tobs.registry.get("serve.decode_traces").value(
@@ -87,9 +145,8 @@ def test_one_trace_under_slot_churn(models):
 @pytest.mark.parametrize("eos", [None, 5])
 def test_one_trace_per_burst_length(models, eos):
     jm, tm = models
-    want, _ = _churn(jm, True, burst=8, eos=eos, name="t_cburst")
     got, eng = _churn(tm, False, burst=8, eos=eos, name="t_cburst")
-    assert got == want
+    _hold_to_oracle(jm, got, eos)
     assert len(eng.burst_lens_used) > 1
     assert eng.burst_lens_used <= {1, 2, 4, 8}
     assert eng.decode_traces == len(eng.burst_lens_used) == len(eng._graphs)
@@ -99,9 +156,10 @@ def test_one_trace_per_burst_length(models, eos):
 def test_sink_block_never_handed_out_or_read(models):
     """Every slot writes each tick; idle and eos-latched rows write into
     the sink block, one past the pool's blocks. It is never allocated,
-    never in a block table, and never read: NaN in it changes no token."""
-    jm, tm = models
-    want, _ = _churn(jm, True, burst=4, eos=5, name="t_sink")
+    never in a block table, and never read: NaN in it changes no token
+    (the streams equal the same engine's without the NaN)."""
+    _, tm = models
+    want, _ = _churn(tm, False, burst=4, eos=5, name="t_sink_clean")
     eng = ServeEngine(tm, max_slots=3, block_size=4, num_blocks=8,
                       max_seq_len=32, name="t_sink_port", decode_burst=4,
                       device="cpu")
@@ -119,19 +177,7 @@ def test_sink_block_never_handed_out_or_read(models):
         return orig(tokens, lens, live, tables, temps)
 
     eng._decode_core = spy
-    rng = np.random.RandomState(21)
-    plans = [(rng.randint(1, 97, n), k) for n, k in
-             [(7, 9), (3, 12), (11, 6), (5, 10), (9, 7), (2, 11)]]
-    reqs = [eng.submit(p, max_new_tokens=k, eos_token_id=5)
-            for p, k in plans[:3]]
-    pending, steps = list(plans[3:]), 0
-    while eng.has_work or pending:
-        if pending and steps % 3 == 2:
-            p, k = pending.pop(0)
-            reqs.append(eng.submit(p, max_new_tokens=k, eos_token_id=5))
-        eng.step()
-        steps += 1
-    assert [r.output_ids for r in reqs] == want
+    assert _drive(eng, 5) == want
     assert seen and not any(seen)
     assert eng.pool.free_blocks == 8 and eng._n_preempts > 0
     # the pool hands out exactly its 8 blocks, never the sink
