@@ -17,13 +17,28 @@ Phases, each fatal on failure:
              through the paged kernel (``paged_decode_split_kernel``, by
              name, once per layer in a profiled decode step), its decode
              tick a replayed CUDA graph (one capture, launches counted
-             through the replays), the decode step eager and captured,
-             serving's peak memory; bf16 sampled streams and fp32 greedy
-             streams (cold, and prefix + 4-tick bursts: one graph per
-             burst length) equal with captured and eager ticks, and on
-             the reference attention; every paged call of a bf16 run
-             with the prefix cache (decode, bursts, suffix prefills) held
-             against its plain version;
+             through the replays) and every prefill a replayed graph of
+             its power-of-two bucket (``warm_engine`` captured one per
+             reachable bucket; none made under load), TTFT, tokens/s and
+             the decode step beside the same load with eager prefills
+             and ticks, the decode step eager and captured, serving's
+             peak memory before and after warm-up; the same load traced
+             (``trace=True``: every request's span tree valid and tiling
+             its latency, each prefill span's bucket, the Chrome lanes,
+             the serve-trace lint, tracing's overhead) and SLO monitors
+             (one latched ``ttft_p99`` breach with its counter, event,
+             PTL401 and flight dump; none at 60 s); every cold and
+             suffix bucket of an uncapped warm-up with the prefix cache
+             (the graphs' memory and capture seconds; captured = eager
+             bf16 logits bit for bit; pad rows write only the sink;
+             buckets 32, 64 and 128 timed cold and suffix, captured and
+             eager: wall, kernel ms, kernels, paged launches); bf16
+             sampled streams and fp32 greedy streams (cold, and prefix +
+             4-tick bursts: one graph per burst length) equal with
+             captured and eager ticks and prefills, and on the reference
+             attention; every paged call of a bf16 run with the prefix
+             cache (decode, bursts, suffix prefills) held against its
+             plain version;
 5b. generate — ``LlamaForCausalLM.generate`` at the serving width (bf16,
              8 left-padded prompts, 64 new tokens): dense, ``paged=True``
              at blocks 64 and 128 (the paged kernel once per layer per
@@ -139,7 +154,9 @@ Each kernel's ``launches`` in the ``kernels`` line is its count on its
 own main path (``main_path``: serve, train, varlen or calibrate); the
 paged and varlen-forward entries also carry their counts on the
 ``generate`` path under ``launches_by_path``, and every entry its counts
-on GPT's paths (``gpt_train``, ``gpt_generate``: one call, ``gpt_serve``),
+on GPT's paths (``gpt_train``, ``gpt_generate``: one call, ``gpt_serve``,
+``gpt_serve_prefill``: one captured suffix prefill of bucket 128; Llama's
+is ``serve_prefill``),
 BERT's (``bert_train``), ERNIE-MoE's (``moe_train``, ``moe_generate``:
 the dense greedy call, which reaches no kernel), ResNet-50's
 (``resnet_train``: none) and the UNet's (``sdxl_train``).
@@ -1820,14 +1837,370 @@ def moe_family(torch, dev):
                   prompt_lens=[GEN_PROMPT_LENS[0]] * len(GEN_PROMPT_LENS))
 
 
+#: prefill buckets timed one by one, cold and suffix, captured and eager
+PREFILL_PROFILE_BUCKETS = (32, 64, 128)
+#: timed calls of one prefill (wall), and calls under the profiler
+PREFILL_ITERS = 10
+PREFILL_PROFILE_CALLS = 3
+
+
+def reachable_buckets(eng, cap, prefix):
+    """The (kind, bucket) prefill graphs ``warm_engine`` captures up to
+    prompts of ``cap`` tokens: cold buckets for 1..cap tokens and, with
+    the prefix cache, suffix buckets for the suffixes behind one cached
+    block (1..cap - block_size)."""
+    from paddle_tpu_torch.serve.engine import prefill_bucket
+
+    want = {("cold", prefill_bucket(n, eng.max_seq_len))
+            for n in range(1, cap + 1)}
+    if prefix:
+        want |= {("suffix", prefill_bucket(n, eng.max_seq_len))
+                 for n in range(1, cap - eng.block_size + 1)}
+    return want
+
+
+def check_prefill_graphs(eng, want, label):
+    """``eng`` made exactly the prefill graphs ``want``, each captured,
+    counted by ``prefill_traces`` and by the ``serve.prefill_traces``
+    bucket labels. Prints each capture's seconds."""
+    from paddle_tpu_torch import observability as obs
+
+    graphs = eng._prefill_graphs
+    labels = sorted(int(ls["bucket"]) for ls in obs.registry.get(
+        "serve.prefill_traces").labelsets() if ls["engine"] == eng.name)
+    log(f"  {label}: {len(graphs)} prefill graphs, capture ms " + ", ".join(
+        f"{k[0]} {k[1]}: {(g.capture_seconds or 0) * 1e3:.1f}"
+        for k, g in sorted(graphs.items())))
+    check(set(graphs) == want and eng.prefill_traces == len(want),
+          f"{label}: prefill graphs {sorted(graphs)} ({eng.prefill_traces} "
+          f"counted), want {sorted(want)}")
+    check(all(g.captured for g in graphs.values()),
+          f"{label}: a prefill graph was not captured")
+    check(labels == sorted({b for _, b in want}),
+          f"{label}: serve.prefill_traces buckets {labels}")
+
+
+def prefill_kernels(torch, fn):
+    """Device ms and kernels a call of ``fn`` from ``torch.profiler`` (CUDA
+    activity only) over ``PREFILL_PROFILE_CALLS`` calls; ms None if the
+    profiler saw no kernels."""
+    from torch.autograd import DeviceType
+
+    n = PREFILL_PROFILE_CALLS
+    kernels = [e for e in profiled(fn, n) if e.device_type == DeviceType.CUDA]
+    ms = sum(_dev_us(e) for e in kernels) / n / 1e3
+    return (ms or None), sum(e.count for e in kernels) // n
+
+
+def stream_table(eng, start, n):
+    """Blocks from ``eng``'s pool for positions 0 .. start + n - 1 of one
+    stream, and its block-table row."""
+    blocks = eng.pool.alloc(eng.pool.blocks_for_tokens(start + n))
+    return blocks, blocks + [0] * (eng.max_blocks_per_seq - len(blocks))
+
+
+def load_line(res, dstep):
+    return (f"TTFT p50 {res.ttft_p50 * 1e3:.2f} ms p99 "
+            f"{res.ttft_p99 * 1e3:.2f} ms, {res.tokens_per_sec:.1f} tokens/s, "
+            f"decode step mean {dstep * 1e3:.3f} ms")
+
+
+def serve_buckets(torch, dev, report, fam, engine, model, nl):
+    """The prefill graphs at ``default_serving_setup``'s whole length: an
+    engine with the prefix cache warmed with no prompt cap captures every
+    cold and suffix bucket (8 .. 1024, 16 graphs); serving's memory before
+    and after, each capture's seconds. Then, for each bucket, one prompt
+    through the captured prefill and through the same function eagerly
+    (``eager_ticks``): the bf16 logits must be equal bit for bit; a cold
+    and a suffix prefill with pad rows must leave every pool block but the
+    stream's own and the sink as it was; and the buckets of
+    ``PREFILL_PROFILE_BUCKETS``, cold and suffix, captured and eager: wall
+    ms, kernel ms and kernels a call, and the paged kernel's launches a
+    prefill (through the replays: ``nl`` a suffix prefill, none cold)."""
+    from paddle_tpu_torch.serve import warm_engine
+    from paddle_tpu_torch.serve.engine import prefill_bucket
+
+    name = f"{fam.tag}smoke_buckets"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = engine(model, name, prefix_cache=True)
+    alloc0, res0 = (torch.cuda.memory_allocated(dev),
+                    torch.cuda.memory_reserved(dev))
+    t0 = time.perf_counter()
+    warm_engine(eng)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    alloc1, res1 = (torch.cuda.memory_allocated(dev),
+                    torch.cuda.memory_reserved(dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    cap = min(eng.max_seq_len - 1, eng.pool.num_blocks * eng.block_size)
+    check_prefill_graphs(eng, reachable_buckets(eng, cap, True),
+                         f"{fam.label} warm_engine, no prompt cap")
+    log(f"  {fam.label} warm_engine (prefix cache, prompts up to {cap}): "
+        f"{warm_s:.2f} s; device memory allocated {alloc0 / 2**30:.3f} -> "
+        f"{alloc1 / 2**30:.3f} GiB, reserved {res0 / 2**30:.3f} -> "
+        f"{res1 / 2**30:.3f} GiB (the graphs' pools: "
+        f"{(res1 - res0) / 2**30:.3f} GiB), peak {peak / 2**30:.3f} GiB; "
+        f"{smi_line()}")
+    out = dict(graphs=len(eng._prefill_graphs), warm_seconds=warm_s,
+               reserved_before=res0, reserved_after=res1, peak_bytes=peak,
+               capture_ms={f"{k}{b}": (g.capture_seconds or 0.0) * 1e3
+                           for (k, b), g in sorted(eng._prefill_graphs.items())})
+
+    g = torch.Generator().manual_seed(12)
+    vocab, bs = model.config.vocab_size, eng.block_size
+
+    def ids(n):
+        return torch.randint(1, vocab, (n,), generator=g).tolist()
+
+    # captured = eager, bit for bit, one prompt per bucket (padded)
+    same = []
+    for kind, bucket in sorted(eng._prefill_graphs):
+        start = 0 if kind == "cold" else bs
+        n = min(bucket // 2 + 1, eng.max_seq_len - 1 - start)
+        blocks, row = stream_table(eng, start, n)
+        prompt = ids(n)
+        got = eng._run_prefill(prompt, start, row).clone()
+        with eager_ticks():
+            want = eng._run_prefill(prompt, start, row).clone()
+        same.append(bool(torch.equal(got, want)))
+        if not same[-1]:
+            log(f"    {kind} {bucket}: captured vs eager logits differ by "
+                f"{(got - want).abs().max().item():.3g}")
+        eng.pool.free(blocks)
+    log(f"  bf16 prefill logits, captured vs eager, one prompt per bucket: "
+        f"{sum(same)}/{len(same)} equal bit for bit")
+    check(all(same), f"{fam.label}: captured prefill logits != eager")
+
+    # pad rows write only the sink: every other block outside the stream's
+    # table is as it was
+    n = min(65, eng.max_seq_len - 1 - bs)
+    for kind, start in (("cold", 0), ("suffix", bs)):
+        blocks, row = stream_table(eng, start, n)
+        before = [(k.clone(), v.clone()) for k, v in eng._caches]
+        eng._run_prefill(ids(n), start, row)
+        torch.cuda.synchronize()
+        keep = torch.tensor([b for b in range(eng.pool.num_blocks + 1)
+                             if b not in blocks and b != eng._sink],
+                            device=dev)
+        changed = sum(int(not torch.equal(a.index_select(1, keep),
+                                          c.index_select(1, keep)))
+                      for (k0, v0), (k1, v1) in zip(before, eng._caches)
+                      for a, c in ((k0, k1), (v0, v1)))
+        log(f"  {kind} prefill of {n} tokens in bucket "
+            f"{prefill_bucket(n, eng.max_seq_len)} (pad rows to the sink): "
+            f"{changed} of {2 * nl} K/V pools changed outside the "
+            f"stream's {len(blocks)} blocks and the sink")
+        check(changed == 0, f"{fam.label} {kind} prefill wrote outside its "
+                            f"blocks and the sink")
+        del before
+        eng.pool.free(blocks)
+
+    # prefill by bucket
+    by_bucket = {}
+    for bucket in PREFILL_PROFILE_BUCKETS:
+        for kind, start in (("cold", 0), ("suffix", bs)):
+            blocks, row = stream_table(eng, start, bucket)
+            prompt = ids(bucket)
+
+            def call():
+                return eng._run_prefill(prompt, start, row).cpu()
+
+            for mode in ("captured", "eager"):
+                with (eager_ticks() if mode == "eager"
+                      else contextlib.nullcontext()):
+                    call()
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    for _ in range(PREFILL_ITERS):
+                        call()
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) / PREFILL_ITERS * 1e3
+                    counts = read_counts()
+                    paged = counts["paged"] / PREFILL_ITERS
+                    busy, kernels = prefill_kernels(torch, call)
+                by_bucket[f"{kind}{bucket}_{mode}"] = dict(
+                    wall_ms=wall, kernel_ms=busy, kernels=kernels,
+                    paged_launches=paged)
+                want = nl if kind == "suffix" else 0
+                check(paged == want,
+                      f"{fam.label} {kind} prefill {bucket} {mode}: "
+                      f"{paged} paged launches a prefill, want {want}")
+                if kind == "suffix" and mode == "captured" and bucket == 128:
+                    record_launches(report, f"{fam.tag}serve_prefill",
+                                    {k: v // PREFILL_ITERS
+                                     for k, v in counts.items()})
+            eng.pool.free(blocks)
+    log(f"  {fam.label} prefill by bucket, wall ms / kernel ms (busy) / "
+        f"kernels a call / paged launches a call; {smi_line()}:")
+    for k, v in by_bucket.items():
+        busy = (f"{v['kernel_ms']:.3f} ({v['kernel_ms'] / v['wall_ms']:.1%})"
+                if v["kernel_ms"] else "not measured")
+        log(f"    {k:18s} {v['wall_ms']:8.3f} / {busy} / {v['kernels']} / "
+            f"{v['paged_launches']:g}")
+    out["by_bucket"] = by_bucket
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_tracing(torch, fam, engine, model, prm, res_off, n_req):
+    """The load of ``phase_serve`` on an engine with ``trace=True``: every
+    request traced, every doc valid (no PTL403), each request's leaf
+    phases tiling its latency within 1e-6 s, each prefill span's bucket
+    the bucket function of its tokens, the decode tick still one graph;
+    the Chrome trace written, read back, one lane per slot plus the queue
+    and engine lanes; the serve-trace lint's PTL404 / PTL405 counts and
+    the decode gap; tracing's overhead against the untraced load
+    (``check_tracing_overhead``; printed, not checked: at 30 req/s the
+    load's tokens/s is bound by the arrivals)."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.observability.tracing import (
+        check_tracing_overhead, validate_trace)
+    from paddle_tpu_torch.serve import run_load, warm_engine
+    from paddle_tpu_torch.serve.engine import prefill_bucket
+    from paddle_tpu_torch.static.analysis import lint_serve_trace
+
+    eng = engine(model, f"{fam.tag}smoke_traced", trace=True)
+    warm_engine(eng, max_prompt_len=prm["prompt_len"][1])
+    res = run_load(eng, rate=prm["rate"], n_requests=n_req,
+                   prompt_len=prm["prompt_len"], max_new=prm["max_new"],
+                   seed=0)
+    tr = eng.tracer
+    dump = tr.dump_dict()
+    bad, worst_tile, buckets = 0, 0.0, 0
+    for doc in dump["requests"]:
+        bad += len(validate_trace(doc).diagnostics)
+        leaves = sum(c["seconds"] for c in doc["spans"]["children"])
+        worst_tile = max(worst_tile, abs(leaves - doc["latency_seconds"]))
+        for c in doc["spans"]["children"]:
+            a = c.get("attrs", {})
+            if "bucket" in a:
+                buckets += 1
+                check(a["bucket"] == prefill_bucket(a["tokens"],
+                                                    eng.max_seq_len),
+                      f"prefill span {a} of request {doc['id']}: the bucket "
+                      f"is not its tokens'")
+    check(tr.n_traced == n_req == len(dump["requests"]) and bad == 0,
+          f"{fam.label} tracing: {tr.n_traced} of {n_req} traced, {bad} "
+          f"PTL403 findings")
+    check(worst_tile <= 1e-6, f"leaf phases miss the latency by {worst_tile}")
+    check(eng.decode_traces == 1, f"decode_traces {eng.decode_traces} with "
+                                  f"tracing on, want 1")
+    with tempfile.TemporaryDirectory() as d:
+        path = tr.write_chrome_trace(os.path.join(d, "serve_trace.json"))
+        with open(path) as f:
+            chrome = json.load(f)
+    lanes = {e["tid"] for e in chrome["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    n_x = sum(e["ph"] == "X" for e in chrome["traceEvents"])
+    check(len(lanes) == eng.max_slots + 2,
+          f"Chrome trace lanes {sorted(lanes)}, want {eng.max_slots + 2}")
+    lint = lint_serve_trace(dump)
+    n404, n405 = len(lint.by_code("PTL404")), len(lint.by_code("PTL405"))
+    guard = check_tracing_overhead(res.tokens_per_sec, res_off.tokens_per_sec,
+                                   engine=eng.name)
+    overhead = (100.0 * (res_off.tokens_per_sec - res.tokens_per_sec)
+                / res_off.tokens_per_sec)
+    log(f"  {fam.label} traced run_load: {tr.n_traced} requests traced, "
+        f"{len(dump['decode_steps'])} decode steps, {buckets} prefill spans "
+        f"with their bucket, leaves tile latency within {worst_tile:.2g} s; "
+        f"Chrome trace {n_x} spans on {len(lanes)} lanes; lint PTL404 "
+        f"{n404}, PTL405 {n405}, decode gap {tr.total_decode_gap * 1e3:.2f} "
+        f"ms; TTFT p50 {res.ttft_p50 * 1e3:.2f} ms p99 "
+        f"{res.ttft_p99 * 1e3:.2f} ms, {res.tokens_per_sec:.1f} tokens/s "
+        f"(untraced {res_off.tokens_per_sec:.1f}); tracing overhead "
+        f"{overhead:.2f}% "
+        f"of tokens/s (PTL402 {'fired' if guard.diagnostics else 'silent'})")
+    log(tr.exemplars.render())
+    out = dict(n_traced=tr.n_traced, ptl404=n404, ptl405=n405,
+               decode_gap_s=tr.total_decode_gap, overhead_pct=overhead,
+               ptl402=bool(guard.diagnostics),
+               ttft_p50_ms=res.ttft_p50 * 1e3, ttft_p99_ms=res.ttft_p99 * 1e3,
+               tokens_per_s=res.tokens_per_sec)
+    del eng
+    return out
+
+
+def serve_slo(torch, fam, engine, model, prm):
+    """SLO monitors with ``PADDLE_TPU_FLIGHT_DIR`` on a temporary
+    directory: an engine with a ``ttft_p99`` rule at 1e-6 s (min_samples
+    3) over 8 requests latches exactly one breach, and leaves its
+    ``trace.slo_breaches`` count, its ``trace.slo_breach`` event, PTL401
+    on the monitor's report and one flight dump (reason ``slo_breach``,
+    the tail exemplars in its context); the rule at 60 s latches none."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import observability as obs
+
+    g = torch.Generator().manual_seed(13)
+    lo, hi = prm["prompt_len"]
+    prompts = [torch.randint(1, model.config.vocab_size, (int(n),),
+                             generator=g).tolist()
+               for n in torch.randint(lo, hi + 1, (8,), generator=g)]
+    d = tempfile.mkdtemp()
+    prev = os.environ.get(obs.flight.FLIGHT_DIR_ENV)
+    os.environ[obs.flight.FLIGHT_DIR_ENV] = d
+    obs.enable()
+    try:
+        for threshold, want in ((1e-6, 1), (60.0, 0)):
+            name = f"{fam.tag}smoke_slo{want}"
+            eng = engine(model, name, trace=True, slo=[dict(
+                name="ttft", kind="ttft_p99", threshold=threshold,
+                min_samples=3)])
+            before = set(os.listdir(d))
+            for p in prompts:
+                eng.submit(p, max_new_tokens=2)
+            eng.run()
+            count = obs.registry.get("trace.slo_breaches").value(
+                engine=name, rule="ttft")
+            evs = [e for e in obs.events("trace.slo_breach")
+                   if e.fields.get("engine") == name]
+            dumps = []
+            for f in sorted(set(os.listdir(d)) - before):
+                with open(os.path.join(d, f)) as fh:
+                    dumps.append(json.load(fh))
+            ptl = eng.slo.report.by_code("PTL401")
+            kept = [len(x["context"].get("exemplars", {}).get("worst_ttft",
+                                                                ()))
+                    for x in dumps]
+            log(f"  {fam.label} SLO ttft_p99 <= {threshold:g} s: "
+                f"{len(eng.slo.breaches)} breaches, counter {count}, "
+                f"{len(evs)} events, {len(ptl)} PTL401, flight dumps "
+                f"{[x['reason'] for x in dumps]} with {kept} exemplars")
+            check(len(eng.slo.breaches) == count == len(evs) == len(ptl)
+                  == len(dumps) == want,
+                  f"{fam.label} SLO at {threshold}: want {want} breach")
+            if want:
+                check(dumps[0]["reason"] == "slo_breach" and kept[0] > 0,
+                      "the breach dump holds no tail exemplars")
+                log("    " + ptl[0].render().replace("\n", "\n    "))
+            del eng
+    finally:
+        obs.disable()
+        if prev is None:
+            os.environ.pop(obs.flight.FLIGHT_DIR_ENV, None)
+        else:
+            os.environ[obs.flight.FLIGHT_DIR_ENV] = prev
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def phase_serve(torch, dev, report, fam):
     """The ``default_serving_setup`` engine (8 slots, 96 x 128-token
     blocks, max_seq_len 1024) over the family ``fam`` in bf16 under
     Poisson load: every request finishes, ``warm_engine`` captured the
-    decode tick once (``decode_traces`` 1) and every decode step replayed
-    it, the paged kernel launching once per layer per step through the
-    replays; the decode step profiled with eager and captured ticks;
-    serving's peak memory. bf16 sampled streams (temperature 0.8, one
+    decode tick once (``decode_traces`` 1) and one prefill graph per
+    bucket prompts of up to 128 tokens reach, every decode step and
+    every prefill replayed them, the paged kernel launching once per
+    layer per step through the replays; the same load with eager
+    prefills and ticks beside it; the decode step profiled with eager
+    and captured ticks; serving's peak memory. Then ``serve_tracing``,
+    ``serve_slo`` and ``serve_buckets``. bf16 sampled streams (temperature 0.8, one
     seed) equal with captured and eager ticks. A bf16 run with the prefix
     cache and 4-tick bursts on eager ticks holds every paged call (decode
     ticks, bursts and suffix prefills) against its plain version on the
@@ -1835,8 +2208,9 @@ def phase_serve(torch, dev, report, fam):
     with captured kernel ticks, eager kernel ticks and captured
     reference-attention ticks must be equal token for token, cold and
     with the prefix cache and 4-tick decode bursts on (the suffix prefill
-    runs the paged kernel over many rows; one graph per burst length
-    used). Returns the serving numbers."""
+    runs the paged kernel over a bucket of rows; one graph per burst
+    length used); eager ticks are eager prefills too. Returns the
+    serving numbers."""
     from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.serve import ServeEngine, run_load, warm_engine
 
@@ -1858,16 +2232,29 @@ def phase_serve(torch, dev, report, fam):
     log(f"  {fam.label}: {model.num_parameters() / 1e6:.1f}M parameters, "
         f"bf16; KV pool {2 * nl * eng._caches[0][0].numel() * 2 / 2**30:.2f}"
         f" GiB bf16 (the sink block included)")
+    torch.cuda.synchronize()
+    peak0 = torch.cuda.max_memory_allocated(dev)
     t0 = time.perf_counter()
     warm_engine(eng, max_prompt_len=prm["prompt_len"][1])
+    torch.cuda.synchronize()
+    peak_warm = torch.cuda.max_memory_allocated(dev)
     log(f"  warm_engine: {time.perf_counter() - t0:.2f} s (the tick "
-        f"captured in {(eng._graphs[1].capture_seconds or 0) * 1e3:.1f} ms)")
+        f"captured in {(eng._graphs[1].capture_seconds or 0) * 1e3:.1f} ms); "
+        f"peak device memory {peak0 / 2**30:.3f} GiB before, "
+        f"{peak_warm / 2**30:.3f} GiB after")
     check(eng.decode_traces == 1 and eng._graphs[1].captured,
           f"{fam.label} warm_engine: decode_traces {eng.decode_traces}, "
           f"want 1 captured")
+    # one captured graph per bucket prompts of 1..128 tokens reach
+    want = reachable_buckets(eng, prm["prompt_len"][1], False)
+    check_prefill_graphs(eng, want, f"{fam.label} warm_engine")
     n_req = 24
     reset_counts()
     replays = eng._graphs[1].replays
+    pre_calls = {k: (g.calls, g.replays)
+                 for k, g in eng._prefill_graphs.items()}
+    dstat = obs.registry.get("serve.decode_step_seconds").stats
+    d0 = dstat(engine=smoke)
     res = run_load(eng, rate=prm["rate"], n_requests=n_req,
                    prompt_len=prm["prompt_len"], max_new=prm["max_new"],
                    seed=0)
@@ -1875,8 +2262,21 @@ def phase_serve(torch, dev, report, fam):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     done = sum(r.state == "FINISHED" for r in res.requests)
-    dstep = obs.registry.get("serve.decode_step_seconds").stats(engine=smoke)
+    d1 = dstat(engine=smoke)
+    dstep = dict(avg=(d1["sum"] - d0["sum"]) / max(1, d1["count"] - d0["count"]),
+                 min=d1["min"])
     replays = eng._graphs[1].replays - replays
+    prefills = sum(g.calls - pre_calls[k][0]
+                   for k, g in eng._prefill_graphs.items())
+    pre_replays = sum(g.replays - pre_calls[k][1]
+                      for k, g in eng._prefill_graphs.items())
+    log(f"  {fam.label} run_load prefills: {prefills} calls, {pre_replays} "
+        f"graph replays, prefill_traces {eng.prefill_traces} (no graph "
+        f"made in the load)")
+    check(set(eng._prefill_graphs) == want and eng.prefill_traces == len(want)
+          and prefills == pre_replays >= n_req,
+          f"{fam.label} run_load: {prefills} prefills, {pre_replays} "
+          f"replays, graphs {sorted(eng._prefill_graphs)}")
     log(f"  {fam.label} run_load: {done}/{n_req} finished, "
         f"{res.total_tokens} tokens in {res.wall_seconds:.3f} s = "
         f"{res.tokens_per_sec:.1f} tokens/s, TTFT p50 "
@@ -1912,6 +2312,20 @@ def phase_serve(torch, dev, report, fam):
           f"paged launches {counts['paged']} != layers x decode steps "
           f"{nl * res.engine_steps}")
     record_launches(report, f"{fam.tag}serve", counts)
+    # the same load (seed, arrivals, prompts) with eager prefills and
+    # ticks on the same buckets
+    e0 = dstat(engine=smoke)
+    with eager_ticks():
+        res_e = run_load(eng, rate=prm["rate"], n_requests=n_req,
+                         prompt_len=prm["prompt_len"],
+                         max_new=prm["max_new"], seed=0)
+    torch.cuda.synchronize()
+    e1 = dstat(engine=smoke)
+    dstep_e = (e1["sum"] - e0["sum"]) / max(1, e1["count"] - e0["count"])
+    log(f"  {fam.label} run_load, captured prefills and ticks: "
+        f"{load_line(res, dstep['avg'])}; eager: {load_line(res_e, dstep_e)}"
+        f"; {smi_line()}")
+    check(eng.prefill_traces == len(want), "the eager load made a graph")
     decode = {}
     for label in ("eager", "captured"):
         with (eager_ticks() if label == "eager" else contextlib.nullcontext()):
@@ -1931,8 +2345,23 @@ def phase_serve(torch, dev, report, fam):
     out = dict(tokens_per_s=res.tokens_per_sec,
                ttft_p50_ms=res.ttft_p50 * 1e3, ttft_p99_ms=res.ttft_p99 * 1e3,
                decode_steps=res.engine_steps, paged_launches=counts["paged"],
-               peak_bytes=peak, decode_step=decode)
+               peak_bytes=peak, peak_bytes_before_warm=peak0,
+               peak_bytes_after_warm=peak_warm, decode_step=decode,
+               decode_step_ms=dstep["avg"] * 1e3,
+               eager_prefill_load=dict(
+                   tokens_per_s=res_e.tokens_per_sec,
+                   ttft_p50_ms=res_e.ttft_p50 * 1e3,
+                   ttft_p99_ms=res_e.ttft_p99 * 1e3,
+                   decode_step_ms=dstep_e * 1e3))
     del eng
+    t0 = time.perf_counter()
+    out["tracing"] = serve_tracing(torch, fam, engine, model, prm, res, n_req)
+    t1 = time.perf_counter()
+    serve_slo(torch, fam, engine, model, prm)
+    t2 = time.perf_counter()
+    out["prefill"] = serve_buckets(torch, dev, report, fam, engine, model, nl)
+    log(f"  ({fam.label} serve: tracing {t1 - t0:.1f} s, SLOs {t2 - t1:.1f} "
+        f"s, buckets {time.perf_counter() - t2:.1f} s)")
 
     # bf16 sampled streams from one seed: captured = eager, token for token
     rng = torch.Generator().manual_seed(4)
@@ -2011,8 +2440,9 @@ def phase_serve(torch, dev, report, fam):
                   f"{name}: decode_traces {eng.decode_traces}, want {want} "
                   f"(burst lengths {sorted(eng.burst_lens_used)})")
             if ticks == "captured":
-                check(all(g.captured for g in eng._graphs.values()),
-                      f"{name}: a tick graph was not captured")
+                check(all(g.captured for g in itertools.chain(
+                    eng._graphs.values(), eng._prefill_graphs.values())),
+                      f"{name}: a tick or prefill graph was not captured")
             lens = sorted(eng.burst_lens_used)
             del eng
         ref = streams[mode, "kernel", "captured"]
@@ -2021,7 +2451,7 @@ def phase_serve(torch, dev, report, fam):
         label = (f"{mode}, {hits} prefix hits, burst lengths {lens}" if kw
                  else mode)
         log(f"  fp32 {fam.label} greedy streams ({label}), captured kernel "
-            f"ticks vs eager kernel ticks: {same['kernel', 'eager']}/"
+            f"ticks and prefills vs eager: {same['kernel', 'eager']}/"
             f"{len(plans)}, vs captured reference attention: "
             f"{same['reference', 'captured']}/{len(plans)} identical")
         check(all(n == len(plans) for n in same.values()),
@@ -4577,7 +5007,8 @@ def main() -> int:
         mark("serve")
         out = phase_serve(torch, dev, report, llama)
         report["paged"].update(serve_decode_step=out["decode_step"],
-                               serve_peak_bytes=out["peak_bytes"])
+                               serve_peak_bytes=out["peak_bytes"],
+                               serve_prefill=out["prefill"]["by_bucket"])
         mark("generate")
         out = phase_generate(torch, dev, report, llama)
         report["paged"].update(generate_ticks=out["ticks"],

@@ -22,11 +22,17 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 #: subsystems that have claimed a metric-name prefix in the port
 CLAIMED_SUBSYSTEMS = {
+    "jit",         # jit/_capture.py — CUDA graph captures and their
+                   # seconds, by site
     "serve",       # serve/engine.py — continuous-batching server: queue
                    # depth, TTFT, tokens/sec, preemptions, pool
-                   # occupancy, batch fill; prefix-cache sharing
-                   # (prefix_hits, prefix_blocks_shared, cow_copies) and
-                   # decode bursts (burst_tokens, host_roundtrips)
+                   # occupancy, batch fill, decode/prefill traces;
+                   # prefix-cache sharing (prefix_hits,
+                   # prefix_blocks_shared, cow_copies) and decode
+                   # bursts (burst_tokens, host_roundtrips)
+    "trace",       # observability/tracing.py + slo.py — request-scoped
+                   # span tracing: per-phase seconds, tail exemplars,
+                   # decode-gap accounting, SLO breaches, overhead guard
     "test",        # scratch names registered by the test suite
 }
 

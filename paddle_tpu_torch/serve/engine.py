@@ -30,19 +30,38 @@ contract:
   ``decode_traces``) stays at 1 for the life of the engine, or at
   ``len(burst_lens_used)`` in burst mode, one graph per power-of-two
   burst length.
+- **Prefill buckets.** A prefill is padded to a power-of-two bucket
+  (:func:`prefill_bucket`: at least 8, at most ``max_seq_len``) and runs
+  through one captured graph per (kind, bucket), kind being the cold
+  prefill or the prefix-cache suffix prefill. The ids, their count, the
+  start position and the block-table row enter as data, packed into one
+  int32 tensor; the graph returns the last real row's fp32 logits.
+  ``serve.prefill_traces{bucket}`` (and ``prefill_traces``) counts the
+  graphs made, as the reference counts its compiles, so the counts
+  equal the reference's for the same submissions. Pad rows attend to
+  the real keys only, their K/V go to the sink block (below) and their
+  logits are never read.
+- **Tracing and SLOs** (``trace=``, ``slo=``, or the reference's
+  ``PADDLE_TPU_TRACE`` / ``PADDLE_TPU_SLO``): an
+  ``observability.tracing.ServeTracer`` grows a span tree on every
+  request (queue, prefill with its bucket, decode, preempt, resume,
+  recompute) and an ``observability.slo.SloMonitor`` evaluates its rules
+  at every step boundary. Their hooks are host-side, on the scheduler
+  path, never inside a graph, so ``decode_traces`` stays 1 with tracing
+  on. Both read the engine's ``clock``.
 
 What differs from the reference, and why:
 
-- The reference's compiled step is a jitted function; here it is a
-  CUDA graph (``jit/_capture.py``): the first call of the tick (and of
-  each burst length) runs eagerly and is then captured, every later
-  pass replays it. Slot churn is data, so the graph never changes. On
-  the CPU the same tick runs eagerly. ``warm_burst`` captures a length
-  before traffic arrives and leaves the sampler's generator as it found
-  it, so sampled streams do not depend on warm-up.
-- Prefill runs eagerly, on the prompt's own length (no power-of-two
-  padding buckets), so ``prefill_traces`` stays 0; capturing bucketed
-  prefills is queued in ``ROADMAP.md``.
+- The reference's compiled steps are jitted functions; here they are
+  CUDA graphs (``jit/_capture.py``): the first call of the tick (of each
+  burst length, of each prefill bucket) runs eagerly and is then
+  captured, every later call replays it. Slot churn and prompt lengths
+  within a bucket are data, so a graph never changes. On the CPU, and
+  under ``jit.enable_capture(False)``, the same functions run eagerly on
+  the same buffers; a capture that fails raises ``CaptureFailed``.
+  ``warm_burst`` captures a length before traffic arrives and leaves the
+  sampler's generator as it found it, so sampled streams do not depend
+  on warm-up. Copy-on-write (``_cow``) stays eager.
 - The KV pool is updated IN PLACE (``index_put_`` on a flat view of
   each layer's ``[KVH, blocks, block_size, DH]`` tensors), where the
   reference donated the pool buffers to each jitted call. Torch indexing
@@ -55,14 +74,18 @@ What differs from the reference, and why:
   (seeded from ``seed``), so sampled streams are reproducible within the
   port but differ from the reference's ``jax.random`` streams; greedy
   streams match the reference token for token.
-- The Llama and GPT families, as the reference; ``trace=`` and ``slo=``
-  (request tracing, SLO monitors) are not ported yet and raise.
+- The Llama and GPT families, as the reference. The reference's step
+  also feeds its health monitor (``observability.health``), which the
+  port does not have yet (ROADMAP queue A item 5).
 
 The layer math is ``models/generation``'s (``_decoder_stack``): every
 path (the decode tick, the cold prefill and the suffix prefill) embeds
 its tokens at their absolute positions in the stream (GPT adds the
 learned position rows, looked up on the device; Llama rotates by the
-rope rows), and only the attention differs.
+rope rows), and only the attention differs. A suffix prefill's pad rows
+can sit past ``max_seq_len``, where the reference's ``jnp.take`` fills;
+torch indexing would fault on the card, so their positions are clamped
+to the last row of the tables.
 
 Attention over the pool is ``ops/cuda/paged_attention``'s
 ``paged_attention_decode``: the hand-written CUDA kernel for CUDA
@@ -86,12 +109,14 @@ from ..core.generator import make_generator
 from ..core.place import device_of, resolve_device
 from ..incubate.nn.functional.inference_attention import _write_kv
 from ..jit._capture import Graphed
+from ..observability import slo as _slo_mod
+from ..observability import tracing as _tracing_mod
 from ..models import generation as _gen
 from ..ops.cuda.paged_attention import paged_attention_decode
 from .pool import BlockPool, PoolExhaustedError
 from .prefix import PrefixCache
 
-__all__ = ["ServeEngine", "Request", "PoolExhaustedError"]
+__all__ = ["ServeEngine", "Request", "PoolExhaustedError", "prefill_bucket"]
 
 # --- serve. metric subsystem (the reference's names) --------------------
 _M_QUEUE_DEPTH = obs.gauge(
@@ -123,6 +148,8 @@ _M_DECODE_STEPS = obs.counter(
 _M_DECODE_TRACES = obs.counter(
     "serve.decode_traces", "times the persistent decode step was "
     "traced — slot churn must keep this at 1 per engine")
+_M_PREFILL_TRACES = obs.counter(
+    "serve.prefill_traces", "prefill graphs made, by length bucket")
 _M_TTFT = obs.histogram(
     "serve.ttft_seconds", "submit -> first generated token wall time "
     "(queue wait included)")
@@ -155,6 +182,12 @@ RUNNING = "RUNNING"
 FINISHED = "FINISHED"
 
 
+def prefill_bucket(n: int, max_seq_len: int) -> int:
+    """The padded length of an ``n``-token prefill: the next power of two,
+    at least 8 and at most ``max_seq_len`` (the reference's buckets)."""
+    return min(max(8, 1 << (n - 1).bit_length()), max_seq_len)
+
+
 @dataclass
 class Request:
     """One stream: prompt in, tokens out, scheduling state in between."""
@@ -180,6 +213,9 @@ class Request:
     registered_upto: int = 0
     shared_blocks: int = 0
     prefilled_tokens: int = 0
+    # span tree (observability.tracing.RequestTrace) when the engine
+    # runs with tracing on; None otherwise
+    trace: Optional[object] = field(default=None, repr=False)
 
     @property
     def n_prompt(self) -> int:
@@ -218,7 +254,13 @@ class ServeEngine:
     ``device=None`` means the card (raises without one); the model must
     already live on the engine's device. ``prefix_cache`` turns on
     cross-request KV block sharing; ``decode_burst`` is the most decode
-    ticks run per scheduler pass (1 = one tick per step).
+    ticks run per scheduler pass (1 = one tick per step). ``clock`` is a
+    zero-argument callable giving seconds (default
+    ``time.perf_counter``): every request timestamp, tracer span and SLO
+    window reads it. ``trace`` is True/False, a ready ``ServeTracer``, or
+    None to read ``PADDLE_TPU_TRACE``; ``slo`` is a rule list
+    (``SloRule`` s, dicts, inline JSON or a file path), a ready
+    ``SloMonitor``, or None to read ``PADDLE_TPU_SLO``.
     """
 
     def __init__(self, model, *, max_slots: int = 4, block_size: int = 32,
@@ -227,14 +269,6 @@ class ServeEngine:
                  attention_backend: str = "auto", clock=None,
                  trace=None, slo=None, prefix_cache: bool = False,
                  decode_burst: int = 1, device=None):
-        if trace:
-            raise NotImplementedError(
-                "ServeEngine(trace=...): request tracing "
-                "(observability/tracing.py) is not ported yet")
-        if slo:
-            raise NotImplementedError(
-                "ServeEngine(slo=...): SLO monitoring (observability/slo.py) "
-                "is not ported yet")
         if not hasattr(model, "llama") and not hasattr(model, "gpt"):
             raise NotImplementedError(
                 "ServeEngine supports the Llama and GPT families (the "
@@ -302,9 +336,11 @@ class ServeEngine:
         # power-of-two burst lengths actually run; each is one captured
         # graph, so decode_traces == len(burst_lens_used) in burst mode
         self.burst_lens_used: set = set()
-        # captured ticks by burst length (1 = the single tick), and the
-        # counts of the reference's compiled-step counters
+        # captured ticks by burst length (1 = the single tick), captured
+        # prefills by (kind, bucket), and the counts of the reference's
+        # compiled-step counters
         self._graphs: dict = {}
+        self._prefill_graphs: dict = {}
         self.decode_traces = 0
         self.prefill_traces = 0
 
@@ -317,6 +353,29 @@ class ServeEngine:
         # decode-tick sampler (device) and first-token sampler (host)
         self._gen = make_generator(seed, self.device)
         self._rng = np.random.default_rng(seed)
+
+        # request tracing and SLO monitors: host-side bookkeeping on the
+        # scheduler path, never inside a graph
+        if trace is None:
+            trace = _tracing_mod.trace_enabled_from_env()
+        if isinstance(trace, _tracing_mod.ServeTracer):
+            self.tracer: Optional[_tracing_mod.ServeTracer] = trace
+        elif trace:
+            self.tracer = _tracing_mod.ServeTracer(
+                self.name, self._clock, max_slots=self.max_slots)
+        else:
+            self.tracer = None
+        if slo is None:
+            slo = _slo_mod.rules_from_env() or None
+        if isinstance(slo, _slo_mod.SloMonitor):
+            self.slo: Optional[_slo_mod.SloMonitor] = slo
+        elif slo:
+            self.slo = _slo_mod.SloMonitor(
+                slo, engine=self.name, clock=self._clock,
+                exemplars=(self.tracer.exemplars if self.tracer
+                           else None))
+        else:
+            self.slo = None
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32,
@@ -364,6 +423,8 @@ class ServeEngine:
             ids=[int(t) for t in prompt], warmup=bool(warmup))
         self._next_id += 1
         self.queue.append(req)
+        if self.tracer is not None and not req.warmup:
+            self.tracer.on_submit(req)
         _M_QUEUE_DEPTH.set(len(self.queue), engine=self.name)
         return req
 
@@ -382,6 +443,9 @@ class ServeEngine:
         """One scheduler iteration: admit from the queue into free slots
         (prefill), then one decode pass (one tick, or a burst) for every
         active stream. Returns the number of streams active this step."""
+        serving_real_work = self.slo is not None and any(
+            not r.warmup for r in self._live_requests())
+        tok0, pre0 = self._n_tokens, self._n_preempts
         self._admit()
         n_active = self.n_active
         if n_active:
@@ -394,7 +458,17 @@ class ServeEngine:
                               engine=self.name)
         _M_BATCH_FILL.set(round(n_active / self.max_slots, 4),
                           engine=self.name)
+        if serving_real_work:
+            # step-boundary SLO evaluation, skipped while the only work
+            # is warm-up (whose TTFT bills captures, not serving)
+            self.slo.on_step(tokens=self._n_tokens - tok0,
+                             preemptions=self._n_preempts - pre0,
+                             now=self._clock())
         return n_active
+
+    def _live_requests(self):
+        yield from self.queue
+        yield from (r for r in self._slots if r is not None)
 
     def run(self, max_steps: int = 100_000) -> List[Request]:
         """Drive :meth:`step` until queue and slots drain; returns the
@@ -487,6 +561,9 @@ class ServeEngine:
             row = np.zeros(self.max_blocks_per_seq, np.int32)
             row[:len(req.blocks)] = req.blocks
             self._tables[slot] = row
+            if self.tracer is not None:
+                self.tracer.on_admit(req, slot,
+                                     resumed=req.n_generated > 0)
             # shared tokens are resident KV the suffix attends to but
             # never recomputes; under CoW the suffix is the last token
             start = (n_pre - 1) if cow else len(read_only) * bs
@@ -514,18 +591,16 @@ class ServeEngine:
         resident (mounted from the prefix cache), so only the suffix is
         computed — through the block table, where each suffix row attends
         to the shared prefix it never recomputed. ``start == 0`` is the
-        cold path (in-prompt causal attention)."""
+        cold path (in-prompt causal attention). Either runs padded to its
+        bucket through that bucket's graph (:meth:`_run_prefill`)."""
         suffix = prefill_ids[start:]
         n = len(suffix)
+        if self.tracer is not None:
+            self.tracer.on_prefill(
+                req, bucket=prefill_bucket(n, self.max_seq_len), tokens=n)
         req.prefilled_tokens += n
-        with _M_PREFILL_SECONDS.time(engine=self.name), torch.no_grad():
-            ids = torch.tensor(suffix, dtype=torch.long, device=self.device)
-            table_row = torch.tensor(self._tables[req.slot],
-                                     device=self.device)
-            if start == 0:
-                logits = self._prefill_impl(ids, table_row)
-            else:
-                logits = self._suffix_prefill_impl(ids, start, table_row)
+        with _M_PREFILL_SECONDS.time(engine=self.name):
+            logits = self._run_prefill(suffix, start, self._tables[req.slot])
             if req.n_generated == 0:
                 logits = logits.cpu().numpy()
         if req.n_generated == 0:
@@ -536,11 +611,17 @@ class ServeEngine:
             req.first_token_time = now
             if not req.warmup:
                 _M_TTFT.observe(now - req.submit_time, engine=self.name)
+                if self.slo is not None:
+                    self.slo.observe_ttft(now - req.submit_time, now=now)
+            if self.tracer is not None:
+                self.tracer.on_first_token(req, now)
             self._append_token(req, tok)
         else:
             # resumed streams append nothing; their just-refilled full
             # blocks still need trie registration
             self._register_full_blocks(req)
+        if self.tracer is not None and req.state is not FINISHED:
+            self.tracer.on_decode_begin(req)
 
     def _sample_host(self, logits: np.ndarray, temperature: float) -> int:
         """First-token sampling (host-side, numpy, as the reference).
@@ -605,6 +686,8 @@ class ServeEngine:
         _M_FINISHED.inc(engine=self.name, reason=reason)
         _M_REQUEST_SECONDS.observe(req.finish_time - req.submit_time,
                                    engine=self.name)
+        if self.tracer is not None:
+            self.tracer.on_finish(req)
 
     def _clear_slot(self, slot: int):
         self._slots[slot] = None
@@ -627,6 +710,8 @@ class ServeEngine:
         self._n_preempts += 1
         self.queue.appendleft(victim)
         _M_PREEMPTIONS.inc(engine=self.name, reason="pool_exhausted")
+        if self.tracer is not None:
+            self.tracer.on_preempt(victim)
         return victim
 
     def _ensure_blocks(self, lookahead: int = 1):
@@ -660,8 +745,10 @@ class ServeEngine:
         active_np = np.array([r is not None for r in self._slots], bool)
         if not active_np.any():
             return                # everyone was preempted away
+        t0 = self._clock()
         with _M_DECODE_SECONDS.time(engine=self.name):
             ys, _ = self._run_ticks(1, active_np)
+        t1 = self._clock()
         _M_DECODE_STEPS.inc(engine=self.name)
         _M_HOST_RT.inc(engine=self.name)
         for slot, req in enumerate(self._slots):
@@ -671,6 +758,12 @@ class ServeEngine:
             self._append_token(req, int(ys[0, slot]))
             if req.state is not FINISHED:
                 self._tokens[slot] = req.ids[-1]
+        if self.tracer is not None:
+            # active_after: the runnable slots this step left behind; the
+            # gap to the next step counts as host stall (PTL404) only
+            # while someone was still waiting to decode
+            self.tracer.on_decode_step(t0, t1, active_after=self.n_active,
+                                       queued=len(self.queue))
 
     def _pick_burst_len(self) -> int:
         """Burst length: never cross a block boundary (blocks are
@@ -720,6 +813,9 @@ class ServeEngine:
             if req.state is not FINISHED:
                 self._tokens[slot] = req.ids[-1]
         _M_BURST_TOKENS.inc(n_emitted, engine=self.name)
+        if self.tracer is not None:
+            self.tracer.on_decode_step(t0, t1, active_after=self.n_active,
+                                       queued=len(self.queue), tokens=n)
 
     def warm_burst(self, n: int):
         """Capture the ``n``-tick burst (``n`` = 1: the tick) and replay it
@@ -827,57 +923,91 @@ class ServeEngine:
         return _gen._decoder_stack(self._p, tokens, pos, layer_attn,
                                    self.max_seq_len)
 
-    def _positions_to_slots(self, positions, table_row):
-        bs = self.block_size
-        bi = torch.clamp(positions // bs, 0, self.max_blocks_per_seq - 1)
-        return table_row.long()[bi] * bs + positions % bs
+    @torch.no_grad()
+    def _run_prefill(self, suffix, start: int, table_row: np.ndarray):
+        """Prefill ``suffix`` (token ids at positions ``start ..``) into
+        the blocks of ``table_row`` through the graph of its kind (cold
+        when ``start`` is 0, else suffix) and bucket, made on first use
+        (``prefill_traces``). The ids padded with 0 to the bucket, their
+        count, ``start`` and the table row go in as ONE int32 tensor (one
+        host-to-device copy). Returns the last real row's fp32 logits
+        ``[V]`` on the device (the graph's own buffer: read it before the
+        next prefill of this bucket)."""
+        n = len(suffix)
+        bucket = prefill_bucket(n, self.max_seq_len)
+        cold = start == 0
+        key = ("cold" if cold else "suffix", bucket)
+        graph = self._prefill_graphs.get(key)
+        if graph is None:
+            engine = weakref.ref(self)      # as the decode graphs
+            graph = self._prefill_graphs[key] = Graphed(
+                lambda packed: engine()._prefill_core(cold, bucket, packed),
+                self.device, name=f"serve.prefill[{key[0]},{bucket}]",
+                fresh_outputs=False)
+            self.prefill_traces += 1
+            _M_PREFILL_TRACES.inc(engine=self.name, bucket=bucket)
+        packed = np.zeros(bucket + 2 + self.max_blocks_per_seq, np.int32)
+        packed[:n] = suffix
+        packed[bucket:bucket + 2] = n, start
+        packed[bucket + 2:] = table_row
+        return graph(torch.from_numpy(packed))
 
-    def _prefill_impl(self, ids, table_row):
-        """Prompt prefill for ONE stream: causal self-attention over the
-        prompt (plain fp32 softmax, as the reference), K/V written into
-        this stream's pool blocks, the last token's logits returned."""
-        n = ids.shape[0]
+    def _prefill_core(self, cold: bool, bucket: int, packed):
+        """The captured prefill of one stream at ``bucket`` rows (the
+        packed ids, ``n``, ``start``, the block-table row). Row ``i`` sits
+        at position ``start + i``; rows past ``n`` are padding: their K/V
+        go to the sink block and their outputs are never read. Cold
+        (``start`` 0): causal self-attention over the prompt in a plain
+        fp32 softmax, as the reference, pad keys masked (a pad row sees
+        the real keys, so no row is all ``-inf``). Suffix: each row
+        writes its K/V into the stream's blocks, then attends THROUGH the
+        block table with the paged decode attention (length ``start + i +
+        1``, 0 for pad rows), so it sees the shared resident prefix plus
+        the suffix rows written so far. Returns the fp32 logits of row
+        ``n - 1``, gathered on the device: nothing here reads ``n`` or
+        ``start`` on the host."""
         nh, kvh, dh = self._nh, self._nkv, self._dh
-        group = nh // kvh
-        positions = torch.arange(n, device=self.device)
-        causal = positions[None, :] <= positions[:, None]  # [Tq, Tk]
-        slot = self._positions_to_slots(positions, table_row)
+        bs = self.block_size
+        ids = packed[:bucket].long()
+        n, start = packed[bucket].long(), packed[bucket + 1].long()
+        table_row = packed[bucket + 2:]
+        offs = torch.arange(bucket, device=self.device)
+        valid = offs < n
+        # pad rows of a suffix can pass max_seq_len: any row of the
+        # tables will do for them
+        positions = offs if cold else torch.clamp(
+            start + offs, max=self.max_seq_len - 1)
+        bi = torch.clamp(positions // bs, 0, self.max_blocks_per_seq - 1)
+        phys = torch.where(valid, table_row.long()[bi], self._sink)
+        slot = phys * bs + positions % bs
 
-        def attn(q, k, v, _kc, _vc):
-            k_rep = torch.repeat_interleave(k, group, dim=1) if group > 1 else k
-            v_rep = torch.repeat_interleave(v, group, dim=1) if group > 1 else v
-            scores = torch.einsum("qhd,khd->hqk", q.float(),
-                                  k_rep.float()) * (dh ** -0.5)
-            scores = scores.masked_fill(~causal[None], float("-inf"))
-            probs = torch.softmax(scores, dim=-1)
-            return torch.einsum("hqk,khd->qhd", probs,
-                                v_rep.float()).reshape(n, nh * dh)
+        if cold:
+            group = nh // kvh
+            causal = (offs[None, :] <= offs[:, None]) & valid[None, :]
+
+            def attn(q, k, v, _kc, _vc):
+                k_rep = (torch.repeat_interleave(k, group, dim=1)
+                         if group > 1 else k)
+                v_rep = (torch.repeat_interleave(v, group, dim=1)
+                         if group > 1 else v)
+                scores = torch.einsum("qhd,khd->hqk", q.float(),
+                                      k_rep.float()) * (dh ** -0.5)
+                scores = scores.masked_fill(~causal[None], float("-inf"))
+                probs = torch.softmax(scores, dim=-1)
+                return torch.einsum("hqk,khd->qhd", probs,
+                                    v_rep.float()).reshape(bucket, nh * dh)
+        else:
+            lengths = torch.where(valid, positions + 1, 0).to(torch.int32)
+            tables_rep = table_row[None, :].expand(bucket, -1)
+
+            def attn(q, _k, _v, kc, vc):
+                return paged_attention_decode(
+                    q, kc, vc, lengths, tables_rep,
+                    backend=self._backend).reshape(bucket, nh * dh)
 
         out = self._stack_layers(ids, positions, slot, attn)
-        return _gen._head_logits(self._p, out[n - 1:n])[0].float()
-
-    def _suffix_prefill_impl(self, ids, start, table_row):
-        """Prefill of the UNSHARED suffix only, for a stream whose first
-        ``start`` tokens were mounted from the prefix cache: suffix K/V
-        goes into this stream's own blocks at positions ``start + i``,
-        then each suffix row attends THROUGH the block table (length
-        ``start + i + 1``) with the paged decode attention, so it sees
-        the shared resident prefix plus the suffix rows written so far —
-        scatter precedes attention per layer, exactly as in decode."""
-        n = ids.shape[0]
-        nh, dh = self._nh, self._dh
-        positions = start + torch.arange(n, device=self.device)
-        slot = self._positions_to_slots(positions, table_row)
-        lengths = (positions + 1).to(torch.int32)
-        tables_rep = table_row[None, :].expand(n, table_row.shape[0])
-
-        def attn(q, _k, _v, kc, vc):
-            return paged_attention_decode(
-                q, kc, vc, lengths, tables_rep,
-                backend=self._backend).reshape(n, nh * dh)
-
-        out = self._stack_layers(ids, positions, slot, attn)
-        return _gen._head_logits(self._p, out[n - 1:n])[0].float()
+        last = out.index_select(0, (n - 1).reshape(1))
+        return _gen._head_logits(self._p, last)[0].float()
 
     @torch.no_grad()
     def _cow(self, src: int, dst: int):

@@ -59,13 +59,18 @@ def default_serving_setup(device=None):
 
 
 def warm_engine(engine: ServeEngine, max_prompt_len=None):
-    """Run the prefills of every power-of-two length up to the longest
-    admissible prompt, and capture the decode tick and every power-of-two
-    burst length up to ``decode_burst`` (``ServeEngine.warm_burst``),
-    outside the measured window, so the kernels' first-use build, the
-    BLAS library's start-up, the allocator's growth and the graph
-    captures are not billed to a served request's TTFT (the reference
-    warmed the same lengths to compile its jit buckets)."""
+    """Capture every reachable prefill bucket, cold and (with the prefix
+    cache) suffix, the decode tick and every power-of-two burst length up
+    to ``decode_burst`` (``ServeEngine.warm_burst``), outside the
+    measured window, so the kernels' first-use build, the BLAS library's
+    start-up, the allocator's growth and the graph captures are not
+    billed to a served request's TTFT (a bucket first hit mid-load would
+    bill its capture). The reference warms the same lengths to compile
+    its jit buckets, with one difference: with the prefix cache on, the
+    reference's cold warm-up prompts share their leading blocks, so from
+    the second block on they prefill as suffixes and the cold buckets
+    above one block stay cold; here the cache is emptied after each cold
+    warm-up prompt, so every cold bucket is captured."""
     vocab = int(engine._p["embed"].shape[0])
     # the longest ADMISSIBLE prompt: max_new >= 1 bounds it at
     # max_seq_len - 1, and its n-token working set must fit the pool
@@ -86,6 +91,9 @@ def warm_engine(engine: ServeEngine, max_prompt_len=None):
         engine.run()
         if req.state != "FINISHED":   # pragma: no cover — engine contract
             raise RuntimeError("warm-up request did not finish")
+        if engine._prefix is not None:
+            # the next, longer prompt must not mount this one's blocks
+            engine._prefix.reset(engine.pool)
     if engine._prefix is not None:
         # suffix prefills: a prompt that shares its first block with a
         # resident one prefills only the suffix — warm those lengths by

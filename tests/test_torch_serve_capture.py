@@ -136,7 +136,8 @@ def test_one_trace_under_slot_churn(models):
     got, eng = _churn(tm, False)
     _hold_to_oracle(jm, got)
     assert eng._n_preempts > 0 and jeng.decode_traces == 1
-    assert eng.decode_traces == 1 and eng.prefill_traces == 0
+    assert eng.decode_traces == 1
+    assert eng.prefill_traces == jeng.prefill_traces
     assert tobs.registry.get("serve.decode_traces").value(
         engine="t_churn1") == 1
     assert set(eng._graphs) == {1} and eng._graphs[1].calls > 10
