@@ -48,12 +48,15 @@ Phases, each fatal on failure:
              version, and the score gap at each first token where the
              streams differ from the dense run's and from a run on the
              plain versions printed), sampled (one seed twice, bit for bit),
-             beam search and ``generate_speculative``; greedy and
-             sampled streams of captured ticks equal to eager ticks';
-             tokens/s, prefill and decode-tick times eager and captured,
-             the capture's cost a call; then fp32 token streams at 2 layers:
-             dense = paged on the kernels = paged on the plain versions =
-             speculative, sampled dense = paged;
+             beam search (4 beams) and ``generate_speculative`` (gamma
+             4, a 2-layer draft); greedy, sampled and beam streams of
+             captured ticks equal to eager ticks', speculative streams of
+             captured rounds equal to eager rounds'; tokens/s, prefill and
+             decode-tick (beam: tick; speculative: round) times eager and
+             captured, the capture's cost a call; then fp32 token streams
+             at 2 layers: dense = paged on the kernels = paged on the
+             plain versions = speculative (captured rounds), sampled
+             dense = paged;
 6. train   — ``bench.py:bench_llama``'s training step (645M Llama, bf16,
              batch 4 x 2048, ``AdamW(multi_precision=True)``): launch
              counts per step, falling loss, tokens/s, MFU, peak memory and
@@ -147,6 +150,18 @@ Phases, each fatal on failure:
              9-13 are one function, ``phase_model_train``, over a
              ``TrainSpec`` each (``GptTrain``, ``BertTrain``, ``MoeTrain``,
              ``ResnetTrain``, ``SdxlTrain``).
+14. incubate — the fused surface of ``incubate.nn``: a 24-layer
+             ``FusedMultiTransformer`` at GPT-2 medium's widths (bf16, 8
+             x 1024): its eval forward launches the tensor-core flash
+             forward 24 times and no other port kernel, its training
+             step (dropout 0.1) the forward and backward 24 times each
+             (by counter and by name), timed; the stack at 2 layers in
+             fp32 against the plain composition; ``fused_rms_norm`` with
+             bias and residual at [8192, 2048] bf16 (the RMSNorm forward
+             and backward once each) against the plain composition;
+             ``fused_multi_head_attention`` with a key-only mask, whose
+             flash call takes the key bias and is held against its plain
+             version.
 
 Each phase prints its seconds.
 
@@ -159,7 +174,9 @@ on GPT's paths (``gpt_train``, ``gpt_generate``: one call, ``gpt_serve``,
 is ``serve_prefill``),
 BERT's (``bert_train``), ERNIE-MoE's (``moe_train``, ``moe_generate``:
 the dense greedy call, which reaches no kernel), ResNet-50's
-(``resnet_train``: none) and the UNet's (``sdxl_train``).
+(``resnet_train``: none), the UNet's (``sdxl_train``) and the
+``incubate`` path's (the stack's training step and one
+``fused_rms_norm`` forward and backward).
 
 The paged kernel is held at the serving, GQA, decode-step and
 suffix-prefill shapes (``PAGED_SHAPES``) with the L2 cold and warm, and
@@ -182,8 +199,9 @@ training step must run the vector variant's kernels (``RMS_TRAIN_KERNELS``).
 The tiled matmul has one route, the tensor cores, and the calibrate path
 fails if any other tiled kernel ran.
 
-The last lines are the ``train``, ``train_recipe``, ``gpt``, ``bert``,
-``moe``, ``resnet`` and ``sdxl`` JSON, the
+The last lines are the ``train``, ``train_recipe``, ``generate``
+(Llama's beam and speculative numbers), ``gpt``, ``bert``, ``moe``,
+``resnet``, ``sdxl`` and ``incubate`` JSON, the
 ``kernels`` JSON, the ``nvidia-smi`` name/power line, and
 ``{"ok": true, "device": {...}}``.
 
@@ -2481,9 +2499,11 @@ GEN_NEW = 64
 #: of serving decode steps holds, 150 // layers ticks: Llama's 15 (about
 #: 8.6k kernels eager), GPT's 6
 GEN_PROFILE_LAYER_TICKS = 150
-#: sampling knobs of the sampled runs, and speculative decoding's gamma
+#: sampling knobs of the sampled runs, speculative decoding's gamma and
+#: beam search's beams
 GEN_SAMPLE = dict(do_sample=True, top_k=50, top_p=0.9, seed=3)
 GEN_GAMMA = 4
+GEN_BEAMS = 4
 
 
 def _gen_prompts(torch, config, lens, seed):
@@ -2646,6 +2666,144 @@ def timed_call(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3, first
 
 
+def tick_numbers(torch, call, prof_new, all_ms):
+    """A decode tick of ``call(n)`` (a ``generate`` call of ``n`` new
+    tokens), as ``phase_generate`` measures the dense tick: the wall of
+    the ``GEN_NEW``-token call (``all_ms``, timed by the caller) less the
+    1-token call over ``GEN_NEW - 1`` ticks, and the kernels (device ms
+    and launches) of the profiled ``prof_new``-token call less the
+    1-token call over ``prof_new - 1``."""
+    _, one_ms, _ = timed_call(torch, lambda: call(1))
+    tab = {n: device_table(torch, lambda: call(n), 1) for n in (1, prof_new)}
+    kernel_ms, launches = (
+        sum((1 if n > 1 else -1) * v[i] for n, t in tab.items()
+            for v in t.values()) / (prof_new - 1) for i in (1, 0))
+    wall = (all_ms - one_ms) / (GEN_NEW - 1)
+    return dict(wall_ms=wall, kernel_ms=kernel_ms, busy=kernel_ms / wall,
+                launches=launches, prefill_ms=one_ms)
+
+
+def capture_cost(site, since):
+    """Mean host wall ms of the captures of ``site`` (a ``Graphed``'s
+    first call: its warm-up run and the capture) after ``since`` (a
+    ``stats`` of ``jit.graph_capture_seconds``), and their number."""
+    from paddle_tpu_torch import observability as obs
+
+    s = obs.registry.get("jit.graph_capture_seconds").stats(site=site)
+    n = s["count"] - since["count"]
+    return ((s["sum"] - since["sum"]) / n * 1e3 if n else None), n
+
+
+def beam_both_ways(torch, fam, model, ids, run, prof_new):
+    """Beam search (``GEN_BEAMS`` beams, the pad ids as tokens: beam search
+    takes no ragged prompts) with captured ticks and with eager ticks
+    (``eager_ticks``): the two must give the same tokens. For each:
+    tokens/s of the ``GEN_NEW``-token call, the tick's wall and kernel ms,
+    busy share and kernels (``tick_numbers``), and the capture's cost a
+    call (site ``generate.beam``)."""
+    from paddle_tpu_torch import observability as obs
+
+    t0 = ids.shape[1]
+    capture = obs.registry.get("jit.graph_capture_seconds")
+
+    def call(n):
+        return model.generate(ids, max_new_tokens=n, num_beams=GEN_BEAMS)
+
+    out, streams = {}, {}
+    for mode in ("captured", "eager"):
+        since = capture.stats(site="generate.beam")
+        with (eager_ticks() if mode == "eager"
+              else contextlib.nullcontext()):
+            streams[mode], _ = run(f"beam search, {GEN_BEAMS} beams, {mode} "
+                                   f"ticks", lambda: call(GEN_NEW))
+            all_ms = ids.shape[0] * GEN_NEW / run.last_tokens_per_s * 1e3
+            tick = tick_numbers(torch, call, prof_new, all_ms)
+        cap_ms, n_cap = capture_cost("generate.beam", since)
+        check((n_cap > 0) == (mode == "captured"),
+              f"{fam.label} beam, {mode} ticks: {n_cap} captures")
+        out[mode] = dict(tick, tokens_per_s=ids.shape[0] * GEN_NEW / all_ms
+                         * 1e3, call_ms=all_ms, capture_ms=cap_ms)
+        log(f"  {fam.label} beam tick, {mode}: {tick['wall_ms']:.3f} ms "
+            f"wall, {tick['kernel_ms']:.3f} ms of kernels "
+            f"({tick['busy']:.1%} busy), {tick['launches']:.0f} kernels; "
+            f"{out[mode]['tokens_per_s']:.1f} tokens/s; the capture's cost a "
+            f"call "
+            + ("not measured" if cap_ms is None else f"{cap_ms:.2f} ms")
+            + f" ({n_cap} calls)")
+    check(torch.equal(streams["captured"], streams["eager"]),
+          f"bf16 {fam.label} beam search: captured ticks differ from eager "
+          f"ticks {first_diffs(torch, streams['captured'], streams['eager'], t0)}")
+    log(f"  bf16 {fam.label} beam search: captured ticks = eager ticks, token "
+        f"for token")
+    return out
+
+
+def speculative_both_ways(torch, fam, model, draft, one, run, prof_new):
+    """``generate_speculative`` of the one prompt ``one`` with the 2-layer
+    ``draft``, gamma ``GEN_GAMMA``, with captured rounds and with eager
+    rounds (``eager_ticks``): the two must give the same tokens. For
+    each: tokens/s of the ``GEN_NEW``-token call, its rounds and mean
+    accepted drafts a round (the ``generate.speculative_*`` counters), a
+    round's wall ms (that call less the 1-token call, over the rounds
+    between them: the prefill and the capture fall out) and kernel ms
+    (the profiled ``prof_new``-token call less the 1-token call, over
+    their rounds), and the capture's cost a call (site
+    ``generate.speculative``)."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models.generation import generate_speculative
+
+    rounds = obs.registry.get("generate.speculative_rounds")
+    accepted = obs.registry.get("generate.speculative_accepted")
+    capture = obs.registry.get("jit.graph_capture_seconds")
+    out, streams = {}, {}
+    for mode in ("captured", "eager"):
+        since = capture.stats(site="generate.speculative")
+        counted = {}
+
+        def call(n=GEN_NEW):
+            r0, a0 = rounds.total(), accepted.total()
+            toks = generate_speculative(model, draft, one, max_new_tokens=n,
+                                        gamma=GEN_GAMMA)
+            counted[n] = (rounds.total() - r0, accepted.total() - a0)
+            return toks
+
+        with (eager_ticks() if mode == "eager"
+              else contextlib.nullcontext()):
+            streams[mode], _ = run(
+                f"generate_speculative, the {one.shape[1]}-token prompt, "
+                f"gamma {GEN_GAMMA}, 2-layer draft, {mode} rounds", call,
+                rows=1)
+            tps = run.last_tokens_per_s
+            all_ms = GEN_NEW / tps * 1e3
+            n_rounds, n_acc = counted[GEN_NEW]     # the timed call's
+            _, one_ms, _ = timed_call(torch, lambda: call(1))
+            kern = {n: sum(v[1] for v in device_table(
+                torch, lambda: call(n), 1).values()) for n in (1, prof_new)}
+        cap_ms, n_cap = capture_cost("generate.speculative", since)
+        check((n_cap > 0) == (mode == "captured") and n_rounds > 1,
+              f"{fam.label} speculative, {mode} rounds: {n_cap} captures, "
+              f"{n_rounds} rounds")
+        wall = (all_ms - one_ms) / (n_rounds - counted[1][0])
+        kernel = (kern[prof_new] - kern[1]) / (counted[prof_new][0]
+                                               - counted[1][0])
+        out[mode] = dict(tokens_per_s=tps, rounds=n_rounds,
+                         accepted_per_round=n_acc / n_rounds, round_ms=wall,
+                         round_kernel_ms=kernel, busy=kernel / wall,
+                         capture_ms=cap_ms)
+        log(f"  {fam.label} speculative, {mode} rounds: {n_rounds} rounds, "
+            f"{n_acc / n_rounds:.2f} drafts accepted a round; a round "
+            f"{wall:.3f} ms wall, {kernel:.3f} ms of kernels ({kernel / wall:.1%}"
+            f" busy); {tps:.1f} tokens/s; the capture's cost a call "
+            + ("not measured" if cap_ms is None else f"{cap_ms:.2f} ms")
+            + f" ({n_cap} calls)")
+    check(torch.equal(streams["captured"], streams["eager"]),
+          f"bf16 {fam.label} speculative: captured rounds differ from eager "
+          f"rounds {first_diffs(torch, streams['captured'], streams['eager'], one.shape[1])}")
+    log(f"  bf16 {fam.label} speculative: captured rounds = eager rounds, "
+        f"token for token")
+    return out
+
+
 def phase_generate(torch, dev, report, fam):
     """``generate`` of the family ``fam`` at full width in bf16 (Llama:
     ``default_serving_setup``'s 10 layers, hidden 2048, 16 heads of 128;
@@ -2662,15 +2820,20 @@ def phase_generate(torch, dev, report, fam):
     row's first differing token (``check_streams``, reported, not
     required in bf16); sampled (top-k 50, top-p 0.9), dense and paged,
     the two calls of one seed equal bit for bit; beam search with 4
-    beams; ``generate_speculative`` of the 128-token prompt with a 2-layer
-    draft of the same family and widths, gamma 4. Prints tokens/s,
+    beams, captured and eager ticks giving equal tokens
+    (``beam_both_ways``: tokens/s, the tick and the capture's cost both
+    ways); ``generate_speculative`` of the 128-token prompt with a 2-layer
+    draft of the same family and widths, gamma 4, captured and eager
+    rounds giving equal tokens (``speculative_both_ways``: rounds,
+    accepted drafts, ms a round). Prints tokens/s,
     prefill and decode-tick times (a tick: the 64-token call less the
     1-token call, over 63; its kernels from profiles of a longer call
     and the 1-token call: 16 new tokens for Llama, 7 for GPT,
     ``GEN_PROFILE_LAYER_TICKS``) and where a tick's kernel time goes.
     Then fp32 at 2 layers (TF32 off): greedy dense (plain), paged on the
     kernels and paged on their plain versions give equal tokens,
-    speculative decoding equals the dense greedy stream, and sampled
+    speculative decoding (captured rounds) equals the dense greedy
+    stream, and sampled
     dense and paged streams are equal (``check_streams`` admits a
     near-tie). A family without ``paged`` (ERNIE-MoE) runs the dense
     greedy, sampled and beam calls and the dense tick only, from
@@ -2712,7 +2875,8 @@ def phase_generate(torch, dev, report, fam):
               f"{out.device}")
         log(f"  {fam.label} {label}: {ms:.1f} ms, "
             f"{rows * GEN_NEW / ms * 1e3:.1f} tokens/s")
-        res["tokens_per_s"][label] = rows * GEN_NEW / ms * 1e3
+        res["tokens_per_s"][label] = run.last_tokens_per_s = (
+            rows * GEN_NEW / ms * 1e3)
         return out, first
 
     log(f"  {fam.label}, {model.num_parameters() / 1e6:.1f}M parameters, "
@@ -2795,15 +2959,11 @@ def phase_generate(torch, dev, report, fam):
               f"ticks {first_diffs(torch, out, eager, t0)}")
     log("  bf16 sampled, one seed twice: equal bit for bit, and equal to the "
         f"eager ticks' streams ({', '.join(m for m, _ in modes)})")
-    # the pad ids count as tokens here: beam search takes no ragged prompts
-    run("beam search, 4 beams" + (" (pads as tokens)" if pad else ""),
-        lambda: model.generate(ids, max_new_tokens=GEN_NEW, num_beams=4))
+    res["beam"] = beam_both_ways(torch, fam, model, ids, run, prof_new)
     if fam.paged:
         draft = fam.model(layers=2, seed=1)
-        run(f"generate_speculative, the {t0}-token prompt, gamma "
-            f"{GEN_GAMMA}, 2-layer draft", lambda: generate_speculative(
-                model, draft, ids[:1], max_new_tokens=GEN_NEW,
-                gamma=GEN_GAMMA), rows=1)
+        res["speculative"] = speculative_both_ways(torch, fam, model, draft,
+                                                   ids[:1], run, prof_new)
         del draft
 
     # prefill and the decode tick: the wall of the 64-token call less the
@@ -2897,18 +3057,24 @@ def phase_generate(torch, dev, report, fam):
     check_streams(torch, model, pads, paged, plain,
                   f"fp32 {fam.label} greedy, paged kernels vs plain")
     one = ids[:1]                              # 128 real tokens
+    capture = obs.registry.get("jit.graph_capture_seconds")
+    spec0 = capture.stats(site="generate.speculative")["count"]
     check_streams(torch, model, [0],
                   generate_speculative(model, draft, one,
                                        max_new_tokens=GEN_NEW,
                                        gamma=GEN_GAMMA),
                   model.generate(one, max_new_tokens=GEN_NEW),
-                  f"fp32 {fam.label} speculative vs dense greedy")
+                  f"fp32 {fam.label} speculative (captured rounds) vs dense "
+                  f"greedy")
+    check(capture.stats(site="generate.speculative")["count"] == spec0 + 1,
+          f"fp32 {fam.label} speculative: its rounds were not captured")
     sampled = [gen(model, **GEN_SAMPLE, **kw)() for kw in ({}, dict(paged=True))]
     check_streams(torch, model, pads, *sampled,
                   f"fp32 {fam.label} sampled, dense vs paged (kernels)",
                   sample=GEN_SAMPLE)
     log(f"  fp32 {fam.label}, 2 layers: greedy dense = paged (kernels) = "
-        f"paged (plain), speculative = dense greedy, sampled dense = paged "
+        f"paged (plain), speculative (captured rounds) = dense greedy, "
+        f"sampled dense = paged "
         f"(a near-tie is printed above if one was admitted)")
     del model, draft
     torch.cuda.empty_cache()
@@ -4941,6 +5107,349 @@ def phase_moe(torch, dev, report):
         ("generate", functools.partial(phase_generate, fam=fam))))
 
 
+#: ``FusedMultiTransformer`` of the ``[incubate]`` phase: GPT-2 medium's
+#: widths (embed 1024, 16 heads of 64, FFN 4096, 24 layers, gelu,
+#: pre-LN) and its input [INCUBATE_BATCH, INCUBATE_SEQ, 1024]
+INCUBATE_STACK = dict(embed_dim=1024, num_heads=16, dim_feedforward=4096,
+                      num_layers=24, activation="gelu", normalize_before=True)
+INCUBATE_BATCH, INCUBATE_SEQ = 8, 1024
+INCUBATE_DROPOUT = 0.1
+#: ``fused_rms_norm``'s rows and hidden size in the ``[incubate]`` phase,
+#: and the calls its profile records
+INCUBATE_RMS = (8192, 2048)
+INCUBATE_RMS_PROFILED = 5
+
+
+@contextlib.contextmanager
+def flags(**values):
+    """The port's flags set to ``values`` for the block."""
+    from paddle_tpu_torch.core.flags import set_flags
+
+    prev = set_flags(values)
+    try:
+        yield
+    finally:
+        set_flags(prev)
+
+
+def port_launches(per_kernel, allowed):
+    """Launches by name of the port's kernels (``PORT_KERNELS``) in
+    ``per_kernel`` other than those named in ``allowed``."""
+    return {k: c for k, c in per_kernel.items()
+            if any(p in k for p in PORT_KERNELS)
+            and not any(re.search(rf"(?<![a-z]){a}", k) for a in allowed)}
+
+
+def incubate_stack(torch, dev, report, res):
+    """(a) ``FusedMultiTransformer`` at ``INCUBATE_STACK`` in bf16: an eval
+    forward must launch ``flash_fwd_tc_kernel`` once a layer (by counter
+    and by name) and no other kernel of the port; a training forward and
+    backward (dropout ``INCUBATE_DROPOUT`` from an explicit generator)
+    the forward and ``flash_bwd_dq_tc_kernel`` / ``flash_bwd_dkv_tc_kernel``
+    once a layer each. Prints forward ms, step ms, tokens/s, busy share
+    and peak memory. Returns the step's launch counts."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+
+    nl = INCUBATE_STACK["num_layers"]
+    b, s, e = INCUBATE_BATCH, INCUBATE_SEQ, INCUBATE_STACK["embed_dim"]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    model = FusedMultiTransformer(**INCUBATE_STACK,
+                                  dropout_rate=INCUBATE_DROPOUT, device=dev,
+                                  dtype=torch.bfloat16, seed=0,
+                                  generator=gen)
+    x = torch.randn(b, s, e, generator=torch.Generator(device=dev)
+                    .manual_seed(8), device=dev).to(torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  FusedMultiTransformer {INCUBATE_STACK}, {n_params / 1e6:.1f}M "
+        f"parameters, bf16, input [{b}, {s}, {e}]")
+
+    model.eval()
+    with torch.no_grad():
+        def fwd():
+            return model(x)
+
+        out = fwd()
+        check(bool(torch.isfinite(out).all()) and out.shape == x.shape,
+              f"FusedMultiTransformer eval forward: {tuple(out.shape)}, "
+              f"finite {bool(torch.isfinite(out).all())}")
+        reset_counts()
+        fwd()
+        counts = read_counts()
+        check(counts["flash"] == nl and not any(
+            n for k, n in counts.items() if k != "flash"),
+            f"FusedMultiTransformer eval forward launched {counts}, want "
+            f"flash {nl} and nothing else")
+        fwd_ms = time_ms(fwd, iters=10)
+        busy, per_kernel = profile_kernels(torch, fwd, 3, fwd_ms,
+                                           "incubate stack, eval forward")
+    check_flash_route(per_kernel, {"fwd": nl}, "incubate stack forward")
+    other = port_launches(per_kernel, [FLASH_KERNELS["fwd"][0]])
+    check(not other, f"incubate stack forward ran other port kernels "
+                     f"{other}")
+
+    model.train()
+    w = torch.randn(b, s, e, generator=torch.Generator(device=dev)
+                    .manual_seed(9), device=dev).to(torch.bfloat16)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = (model(x).float() * w.float()).mean()
+        loss.backward()
+        return loss
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss = step()
+    torch.cuda.synchronize()
+    step_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(loss)) and all(
+        p.grad is not None and bool(torch.isfinite(p.grad).all())
+        for p in model.parameters()),
+        "incubate stack step: a non-finite loss or gradient")
+    check(step_counts["flash"] == nl and step_counts["flash_bwd"] == nl
+          and not any(n for k, n in step_counts.items()
+                      if k not in ("flash", "flash_bwd")),
+          f"incubate stack step launched {step_counts}, want flash {nl} and "
+          f"flash_bwd {nl}")
+    step_ms = time_ms(step, iters=5, warmup=1)
+    sbusy, per_kernel = profile_kernels(torch, step, 2, step_ms,
+                                        "incubate stack, training step")
+    check_flash_route(per_kernel, {"fwd": nl, "dq": nl, "dkv": nl},
+                      "incubate stack step")
+    other = port_launches(per_kernel, [tc for tc, _ in FLASH_KERNELS.values()])
+    check(not other, f"incubate stack step ran other port kernels {other}")
+    tps = b * s / step_ms * 1e3
+    log(f"  incubate stack: eval forward {fwd_ms:.2f} ms, training step "
+        f"(dropout {INCUBATE_DROPOUT}) {step_ms:.2f} ms, {tps:.0f} tokens/s, "
+        f"peak allocated {peak / 2**30:.2f} GiB; {smi_line()}")
+    res["stack"] = dict(forward_ms=fwd_ms, step_ms=step_ms, tokens_per_s=tps,
+                        forward_busy=None if busy is None else busy / fwd_ms,
+                        step_busy=None if sbusy is None else sbusy / step_ms,
+                        peak_bytes=peak, params=n_params)
+    del model, x, w
+    torch.cuda.empty_cache()
+    return step_counts
+
+
+def incubate_stack_fp32(torch, dev, res):
+    """(b) The stack at 2 layers in fp32 (TF32 off), eval mode: output and
+    input gradient on the kernels (the CUDA-core flash route) against the
+    same call with ``use_cuda_flash_attention`` off (the plain
+    composition), at ``tolerance(float32, 1e-4)``."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+
+    b, s, e = INCUBATE_BATCH, INCUBATE_SEQ, INCUBATE_STACK["embed_dim"]
+    model = FusedMultiTransformer(**dict(INCUBATE_STACK, num_layers=2),
+                                  device=dev, seed=1).eval()
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(b, s, e, generator=g, device=dev)
+    w = torch.randn(b, s, e, generator=g, device=dev)
+
+    def run():
+        xi = x.clone().requires_grad_()
+        out = model(xi)
+        (out * w).sum().backward()
+        return out.detach(), xi.grad
+
+    reset_counts()
+    got = run()
+    counts = read_counts()
+    check(counts["flash"] == 2 and counts["flash_bwd"] == 2,
+          f"fp32 incubate stack launched {counts}")
+    with flags(use_cuda_flash_attention=False):
+        reset_counts()
+        want = run()
+        check(not any(read_counts().values()),
+              "the plain fp32 incubate stack launched a kernel")
+    atol, rtol = tolerance(torch.float32, 1e-4)
+    for name, a, ref in zip(("output", "input gradient"), got, want):
+        err, share = close_err(a, ref, atol, rtol)
+        log(f"  fp32 incubate stack, 2 layers, {name} on the kernels vs the "
+            f"plain composition: max_abs_err={err:.3g}, {share:.3g} of the "
+            f"tolerance")
+        check(share <= 1.0, f"fp32 incubate stack {name}: {share:.3g} of the "
+                            f"tolerance")
+        res.setdefault("fp32_max_abs_err", {})[name] = err
+    del model
+    torch.cuda.empty_cache()
+
+
+def incubate_rms(torch, dev, res):
+    """(c) ``fused_rms_norm`` with ``bias`` and ``residual`` at
+    ``INCUBATE_RMS`` in bf16, backward from ``out``'s gradient (so the
+    gradient of x is the RMSNorm backward's own output, not that plus
+    ``residual_out``'s gradient, whose sum cancels to values far below
+    its terms): one forward and backward must launch the RMSNorm forward
+    and backward once each (by counter and by name). ``out``,
+    ``residual_out`` and the gradients of x and the weight are held
+    against the same call with ``use_cuda_rms_norm`` off (the plain
+    composition) at ``tolerance(bf16, 1e-4)`` (the weight's, a sum over
+    the rows, at ``tolerance(bf16, 1e-3)``); the residual's gradient
+    must equal x's, and the bias's must be x's summed over the rows
+    within two bf16 units of the sum of their magnitudes. Returns the
+    launch counts."""
+    from paddle_tpu_torch.incubate.nn.functional import fused_rms_norm
+
+    rows, hid = INCUBATE_RMS
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf16)
+
+    x, res_in, gy = rnd(rows, hid), rnd(rows, hid), rnd(rows, hid)
+    wt, bias = rnd(hid, scale=0.1) + 1, rnd(hid, scale=0.1)
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in (x, wt, bias, res_in)]
+        out, res_out = fused_rms_norm(leaves[0], leaves[1], epsilon=1e-6,
+                                      bias=leaves[2], residual=leaves[3])
+        out.backward(gy)
+        return [out.detach(), res_out.detach()] + [t.grad for t in leaves]
+
+    reset_counts()
+    got = run()
+    counts = read_counts()
+    check(counts["rms_norm"] == 1 and counts["rms_norm_bwd"] == 1
+          and not any(n for k, n in counts.items()
+                      if k not in ("rms_norm", "rms_norm_bwd")),
+          f"fused_rms_norm launched {counts}, want the RMSNorm forward and "
+          f"backward once each")
+    # the counters above show one launch each a call; the profile shows
+    # the route (the vector variant) by name, over INCUBATE_RMS_PROFILED
+    # calls of a fraction of a millisecond each: one profile of a single
+    # call recorded none of its kernels once, so a lost launch is admitted
+    # and a second one a call is not
+    from torch.autograd import DeviceType
+
+    n = INCUBATE_RMS_PROFILED
+    names = named_launches(
+        {e.key: e.count for e in profiled(run, n, cpu=True)
+         if e.device_type == DeviceType.CUDA}, RMS_TRAIN_KERNELS[:2])
+    check(all(1 <= c <= n for c in names.values()),
+          f"fused_rms_norm's profile of {n} calls ran {names}, want each "
+          f"once a call")
+    with flags(use_cuda_rms_norm=False):
+        want = run()
+    for name, a, ref, base in zip(("out", "residual_out", "dx", "dweight"),
+                                  got, want, (1e-4, 1e-4, 1e-4, 1e-3)):
+        err, share = close_err(a, ref, *tolerance(bf16, base))
+        log(f"  fused_rms_norm [{rows}, {hid}] bf16, bias + residual, {name} "
+            f"on the kernels vs plain: max_abs_err={err:.3g}, {share:.3g} "
+            f"of the tolerance")
+        check(share <= 1.0, f"fused_rms_norm {name}: {share:.3g} of the "
+                            f"tolerance")
+        res.setdefault("rms_max_abs_err", {})[name] = err
+    dx, dbias, dres = got[2], got[4], got[5]
+    sums = dx.float().sum(0)
+    bias_share = float(((dbias.float() - sums).abs() / (
+        2 * torch.finfo(bf16).eps * dx.float().abs().sum(0) + 1e-6)).max())
+    check(torch.equal(dres, dx) and bias_share <= 1.0,
+          f"fused_rms_norm: d(residual) equal to dx {torch.equal(dres, dx)}, "
+          f"d(bias) {bias_share:.3g} of its bound")
+    log(f"  fused_rms_norm: d(residual) = dx bit for bit, d(bias) = dx "
+        f"summed over the rows ({bias_share:.3g} of the bound); the RMSNorm "
+        f"kernels by name over {n} profiled calls {names}")
+    return counts
+
+
+def incubate_mha(torch, dev, res):
+    """(d) ``fused_multi_head_attention`` at GPT-2 medium's widths (x
+    [8, 1024, 1024] bf16, 16 heads of 64, pre-LN) with a key-only mask
+    [8, 1, 1, 1024] (the last 0-25% of each row's keys masked): it must
+    reach ``flash_attention_fused`` with the mask as its key bias and
+    launch the forward once; that call is held against its plain version
+    on the same inputs at ``tolerance(bf16, 1e-4)``, and the block's
+    output against the block on the plain version is reported."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        fused_multi_head_attention)
+    from paddle_tpu_torch.nn.functional import attention as ta
+
+    b, s, e, h = INCUBATE_BATCH, INCUBATE_SEQ, 1024, 16
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf16)
+
+    x = rnd(b, s, e)
+    qkv_w, lin_w = rnd(3, h, e // h, e, scale=0.03), rnd(e, e, scale=0.03)
+    qkv_b, lin_b = rnd(3, h, e // h, scale=0.02), rnd(e, scale=0.02)
+    ln_s, ln_b = rnd(e, scale=0.1) + 1, rnd(e, scale=0.1)
+    keep = torch.randint(int(s * 0.75), s + 1, (b,), generator=g, device=dev)
+    mask = torch.where(torch.arange(s, device=dev)[None] < keep[:, None],
+                       0.0, -1e4).reshape(b, 1, 1, s)
+    calls = []
+    real = ta.flash_attention_fused
+
+    def checked(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        with plain_flash():
+            ref = real(q, k, v, **kw)
+        calls.append((kw.get("key_bias") is not None,
+                      close_err(out, ref, *tolerance(bf16, 1e-4))))
+        return out
+
+    def block():
+        return fused_multi_head_attention(
+            x, qkv_w, lin_w, pre_layer_norm=True, pre_ln_scale=ln_s,
+            pre_ln_bias=ln_b, qkv_bias=qkv_b, linear_bias=lin_b,
+            attn_mask=mask, training=False)
+
+    with torch.no_grad():
+        reset_counts()
+        ta.flash_attention_fused = checked
+        try:
+            out = block()
+        finally:
+            ta.flash_attention_fused = real
+        counts = read_counts()
+        check(counts["flash"] == 1, f"fused_multi_head_attention launched "
+                                    f"{counts}")
+        check(len(calls) == 1 and calls[0][0],
+              f"fused_multi_head_attention's flash calls (key bias, err): "
+              f"{calls}")
+        err, share = calls[0][1]
+        log(f"  fused_multi_head_attention, key-only mask [{b}, 1, 1, {s}]: "
+            f"the key-bias flash call vs its plain version max_abs_err="
+            f"{err:.3g}, {share:.3g} of the tolerance")
+        check(share <= 1.0, f"fused_multi_head_attention's flash call: "
+                            f"{share:.3g} of the tolerance")
+        with plain_flash():
+            plain = block()
+        block_err = max_err(out, plain)
+        scale = float(plain.float().abs().max())
+        log(f"  fused_multi_head_attention block on the kernel vs on the "
+            f"plain version: max_abs_err={block_err:.3g} at max |out| "
+            f"{scale:.3g} (reported; the kernel's call is the check)")
+        check(math.isfinite(block_err), "fused_multi_head_attention: "
+                                        "non-finite output")
+    res["mha"] = dict(flash_max_abs_err=err, flash_share=share,
+                      block_max_abs_err=block_err)
+
+
+def phase_incubate(torch, dev, report):
+    """The ``[incubate]`` phase: the fused ops and layers of
+    ``incubate.nn`` reaching rows 2-5 from their own entry points
+    (``incubate_stack``, ``incubate_stack_fp32``, ``incubate_rms``,
+    ``incubate_mha``). Their launches are kept under
+    ``launches_by_path["incubate"]``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    stack_counts = incubate_stack(torch, dev, report, res)
+    incubate_stack_fp32(torch, dev, res)
+    rms_counts = incubate_rms(torch, dev, res)
+    incubate_mha(torch, dev, res)
+    record_launches(report, "incubate", {
+        k: stack_counts[k] + rms_counts[k] for k in stack_counts})
+    report["incubate"] = res
+
+
 def main() -> int:
     try:
         import torch
@@ -5013,6 +5522,8 @@ def main() -> int:
         out = phase_generate(torch, dev, report, llama)
         report["paged"].update(generate_ticks=out["ticks"],
                                generate_capture_ms=out["capture_ms"])
+        llama_generate = {k: out[k] for k in ("tokens_per_s", "beam",
+                                              "speculative")}
         for key in ("paged", "vflash"):
             report[key]["generate_max_abs_err"] = out[f"{key}_max_abs_err"]
         mark("train")
@@ -5028,7 +5539,8 @@ def main() -> int:
         models = {}
         for name, phase in (("gpt", phase_gpt), ("bert", phase_bert),
                             ("moe", phase_moe), ("resnet", phase_resnet),
-                            ("sdxl", phase_sdxl)):
+                            ("sdxl", phase_sdxl),
+                            ("incubate", phase_incubate)):
             mark(name)
             phase(torch, dev, report)
             models[name] = report.pop(name)
@@ -5050,6 +5562,7 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"train": train}))
     log(json.dumps({"train_recipe": recipe}))
+    log(json.dumps({"generate": llama_generate}))
     for name, out in models.items():
         log(json.dumps({name: out}))
     log(json.dumps({"kernels": list(report.values())}))

@@ -30,10 +30,15 @@ What differs from the reference, and why:
   position in the cache and rope and ``min_length``'s eos mask are read
   from the device counters. The sampler's generator is registered with
   the graph, so a captured sampled stream equals the eager one. On the
-  CPU the same tick runs eagerly. Beam search and speculative decoding
-  stay eager Python loops (``ROADMAP.md`` queue A). The reference's
-  per-model jit cache (``_generation_jit_cache``) has no counterpart: a
-  graph lives for one call.
+  CPU the same tick runs eagerly. Beam search replays its tick the same
+  way (the beams' tokens, scores, eos latches, lengths and token rows
+  kept on the device, the caches reordered in place), and speculative
+  decoding replays one whole round (the draft ticks, the verify forward,
+  the accepted count and the output window, all on the device); the
+  host reads the generated count after each replay, the counterpart of
+  the reference's ``while_loop`` condition. The reference's per-model
+  jit cache (``_generation_jit_cache``) has no counterpart: a graph
+  lives for one call.
 - ``generate`` runs on the model's own device (the ids are moved there)
   under ``torch.no_grad()``. The KV caches are written in place:
   ``[B, S_max, kvh, dh]`` per layer on the dense path, the paged
@@ -72,6 +77,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import observability as obs
 from ..core.generator import make_generator, use_generator
 from ..core.place import device_of
 from ..incubate.nn.functional import _rope_tables
@@ -85,6 +91,13 @@ from ..nn.functional.norm import layer_norm
 from ..ops.cuda.rms_norm import rms_norm_reference
 
 __all__ = ["generate", "generate_speculative"]
+
+_M_SPEC_ROUNDS = obs.counter(
+    "generate.speculative_rounds", "speculative decoding's rounds (one "
+    "draft-and-verify graph replay each)")
+_M_SPEC_ACCEPTED = obs.counter(
+    "generate.speculative_accepted", "draft tokens the target accepted in "
+    "speculative decoding")
 
 
 def _llama_decode_params(model):
@@ -615,17 +628,25 @@ def generate(model, input_ids, max_new_tokens: int = 32,
         done.logical_or_(tok == eos)
         toks.index_copy_(1, step, tok[:, None])
 
-    _decode_ticks(tick, max_new_tokens - 1, dev, gen, "generate.dense")
+    _decode_ticks(tick, max_new_tokens - 1, dev, "generate.dense", gen)
     return torch.cat([ids, toks], dim=1)
 
 
-def _decode_ticks(tick, n, device, generator, name):
+def _decode_ticks(tick, n, device, name, generator=None):
     """Run ``tick`` ``n`` times: one tick eagerly, more as one captured
-    graph (the first tick eager, then replays; eagerly on the CPU)."""
-    graph = (Graphed(tick, device, name=name, generators=[generator])
-             if n > 1 else tick)
+    graph (the first tick eager, then replays; eagerly on the CPU).
+    ``generator``: the sampler's, registered with the graph (beam search
+    draws nothing). Returns the :class:`Graphed` (its ``calls``,
+    ``replays`` and ``capture_seconds``), or None for one eager tick."""
+    if n <= 1:
+        for _ in range(n):
+            tick()
+        return None
+    graph = Graphed(tick, device, name=name,
+                    generators=() if generator is None else [generator])
     for _ in range(n):
         graph()
+    return graph
 
 
 def _topk(x, k):
@@ -645,7 +666,9 @@ def _generate_beam(model, ids, *, max_new_tokens, num_beams,
     """Beam search over the dense cache: the batch axis carries B*K beam
     rows, each tick forwards every beam one token, expands to K*V
     candidates, keeps the top K per batch row (:func:`_topk`) and reorders
-    the KV caches in place by each survivor's parent beam. Finished beams
+    the KV caches in place by each survivor's parent beam; every tick
+    after the prefill is one replay of a captured graph
+    (:func:`_decode_ticks`, site ``generate.beam``). Finished beams
     (emitted eos) are frozen: their only continuation is eos at zero
     added logprob. Returns each row's best beam; ``length_penalty`` != 0
     ranks them by sum_logprob / len(generated)**length_penalty (GNMT)."""
@@ -667,35 +690,48 @@ def _generate_beam(model, ids, *, max_new_tokens, num_beams,
     # prefill on the B prompt rows, then expand to K beams
     caches = _new_caches(p, b, s_max, dev)
     hidden = _cached_forward(p, ids, caches, 0, s_max)
-    scores, tok = _topk(
+    scores, first = _topk(
         torch.log_softmax(_head_logits(p, hidden).float(), dim=-1), K)
-    done = tok == eos
+    tok = first.reshape(b * K)                          # [B*K]
+    done = first == eos
     gen_len = torch.ones(b, K, dtype=torch.long, device=dev)  # incl. eos
     caches = [(ck.repeat_interleave(K, dim=0), cv.repeat_interleave(K, dim=0))
               for ck, cv in caches]                     # [B*K, S, kvh, dh]
     tok_buf = torch.full((b, K, max_new_tokens), eos, dtype=torch.long,
                          device=dev)
-    tok_buf[:, :, 0] = tok
+    tok_buf[:, :, 0] = first
     base = torch.arange(b, device=dev)[:, None] * K
-    for i in range(1, max_new_tokens):
-        hidden = _cached_forward(p, tok.reshape(b * K, 1), caches,
-                                 t0 + i - 1, s_max)
+    step = torch.zeros(1, dtype=torch.long, device=dev)    # new-token index
+
+    def tick():
+        """One beam step on the device state, every buffer updated in
+        place: the carried tokens sit at absolute position ``t0 + step -
+        1`` (as in the dense tick), the K*V candidates of each row keep
+        their top K, and the caches, latches, lengths and token rows
+        follow each survivor's parent beam."""
+        step.add_(1)
+        hidden = _cached_forward(p, tok[:, None], caches, step + (t0 - 1),
+                                 s_max)
         lp = torch.log_softmax(_head_logits(p, hidden).float(),
                                dim=-1).reshape(b, K, vocab)
         lp = torch.where(done[:, :, None], frozen, lp)
-        scores, idx = _topk((scores[:, :, None] + lp).reshape(b, K * vocab),
-                            K)
-        parent, tok = idx // vocab, idx % vocab
+        best, idx = _topk((scores[:, :, None] + lp).reshape(b, K * vocab),
+                          K)
+        parent, new = idx // vocab, idx % vocab
         order = (base + parent).reshape(-1)
         for ck, cv in caches:
             ck.copy_(ck.index_select(0, order))
             cv.copy_(cv.index_select(0, order))
         parent_done = done.gather(1, parent)
-        done = parent_done | (tok == eos)
-        gen_len = gen_len.gather(1, parent) + (~parent_done).long()
-        tok_buf = tok_buf.gather(
-            1, parent[:, :, None].expand(-1, -1, max_new_tokens))
-        tok_buf[:, :, i] = tok
+        gen_len.copy_(gen_len.gather(1, parent) + (~parent_done).long())
+        done.copy_(parent_done | (new == eos))
+        tok_buf.copy_(tok_buf.gather(
+            1, parent[:, :, None].expand(-1, -1, max_new_tokens)))
+        tok_buf.index_copy_(2, step, new[:, :, None])
+        tok.copy_(new.reshape(-1))
+        scores.copy_(best)
+
+    _decode_ticks(tick, max_new_tokens - 1, dev, "generate.beam")
     if length_penalty != 0.0:
         scores = scores / gen_len.float() ** float(length_penalty)
     best = torch.argmax(scores, dim=1)                  # [B]
@@ -714,12 +750,21 @@ def generate_speculative(model, draft_model, input_ids,
     ``model``'s greedy decode while each accepted draft token saves a
     target forward.
 
-    A Python loop over rounds: cache "rollback" after a rejection is free
-    because the dense caches are addressed by position (stale slots are
-    overwritten before they become visible). Each round reads the
-    accepted count back to the host once, to advance the loop. Batch 1,
-    the latency-bound regime speculative decoding is for. Returns ``[1,
-    prompt_len + max_new_tokens]`` int64.
+    One round (the ``gamma`` draft ticks, the draft's forward of
+    ``d_gamma``, the verify forward, the accepted count ``a``, the
+    round's window written at the generated count) runs on the device
+    state alone, so every round after the first is one replay of a
+    captured graph (site ``generate.speculative``; eager on the CPU and
+    under ``jit.enable_capture(False)``). The host reads the generated
+    count after each round, outside the graph, to decide whether to run
+    another: the counterpart of the reference's ``while_loop``
+    condition. Cache "rollback" after a rejection is free because the
+    dense caches are addressed by position (stale slots are overwritten
+    before they become visible). The rounds and accepted drafts are
+    added to the counters ``generate.speculative_rounds`` and
+    ``generate.speculative_accepted``. Batch 1, the latency-bound
+    regime speculative decoding is for. Returns ``[1, prompt_len +
+    max_new_tokens]`` int64.
     """
     ids = _as_ids(input_ids, device_of(model))
     if ids.ndim != 2 or ids.shape[0] != 1:
@@ -760,9 +805,15 @@ def generate_speculative(model, draft_model, input_ids,
     _cached_forward(pd, ids, cd, 0, s_max)
     out = torch.full((1, cap), eos if eos >= 0 else 0, dtype=torch.long,
                      device=dev)
-    n_gen = 0
-    while n_gen < max_new_tokens:
-        P = t0 + n_gen                        # the pending token's position
+    n_gen = torch.zeros(1, dtype=torch.long, device=dev)
+    accepted = torch.zeros(1, dtype=torch.long, device=dev)
+    rounds = torch.zeros(1, dtype=torch.long, device=dev)
+    window_slots = torch.arange(gamma + 1, device=dev)
+
+    def one_round():
+        """One draft-and-verify round on the device state: ``P = t0 +
+        n_gen`` is the pending token's position."""
+        P = n_gen + t0
         drafts, tok = [], pending
         for i in range(gamma):
             tok = greedy(pd, _cached_forward(pd, tok[:, None], cd, P + i,
@@ -777,13 +828,21 @@ def generate_speculative(model, draft_model, input_ids,
         t_preds = greedy(pt, _cached_forward(pt, window, ct, P, s_max,
                                              return_all=True)[0])
         matches = (t_preds[:gamma] == window[0, 1:]).long()
-        a = int(torch.cumprod(matches, dim=0).sum())   # the round's host read
+        a = torch.cumprod(matches, dim=0).sum().reshape(1)
         # this round emits [pending, d_1..d_a], all the target's own greedy
         # choices; slots past a+1 hold rejected drafts the next round
         # overwrites, and the target's token at a is the next pending
-        out[0, n_gen:n_gen + gamma + 1] = window[0]
-        n_gen += a + 1
-        pending = t_preds[a:a + 1]
+        out.index_copy_(1, n_gen + window_slots, window)
+        pending.copy_(t_preds.index_select(0, a))
+        n_gen.add_(a + 1)
+        accepted.add_(a)
+        rounds.add_(1)
+
+    graph = Graphed(one_round, dev, name="generate.speculative")
+    while int(n_gen) < max_new_tokens:     # the round's one host read
+        graph()
+    _M_SPEC_ROUNDS.inc(int(rounds))
+    _M_SPEC_ACCEPTED.inc(int(accepted))
     out = out[:, :max_new_tokens]
     if eos >= 0:
         # greedy-equivalent eos semantics: everything after the first eos
@@ -894,5 +953,5 @@ def _generate_paged(model, ids, pads_np, *, max_new_tokens, do_sample,
         done.logical_or_(tok == eos)
         toks.index_copy_(1, step, tok[:, None])
 
-    _decode_ticks(tick, max_new_tokens - 1, dev, gen, "generate.paged")
+    _decode_ticks(tick, max_new_tokens - 1, dev, "generate.paged", gen)
     return torch.cat([ids, toks], dim=1)

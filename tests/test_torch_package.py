@@ -30,6 +30,7 @@ from paddle_tpu_torch import (BertConfig, BertForPretraining,
 from paddle_tpu_torch.incubate.distributed.models.moe import (FusedMoELayer,
                                                               GShardGate)
 from paddle_tpu_torch.core.place import resolve_device
+from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
 from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
 from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.nn import functional as TF
@@ -55,7 +56,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serve, "
             "paddle_tpu_torch.models, paddle_tpu_torch.convert, "
             "paddle_tpu_torch.nn.functional.flash_attention, "
-            "paddle_tpu_torch.tools.conv_calibration; "
+            "paddle_tpu_torch.tools.conv_calibration, "
+            "paddle_tpu_torch.incubate.nn, "
+            "paddle_tpu_torch.incubate.nn.memory_efficient_attention; "
             "print('\\n'.join(sys.modules))")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -64,6 +67,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert "paddle_tpu_torch.serve.engine" in out
     assert "paddle_tpu_torch.ops.cuda.flash_attention_varlen" in out
     assert "paddle_tpu_torch.ops.cuda.tiled_mm" in out
+    assert "paddle_tpu_torch.incubate.nn.layer" in out
+    assert "paddle_tpu_torch.incubate.nn.attn_bias" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -78,6 +83,20 @@ def test_no_module_imports_jax_or_the_reference(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module or "")
     assert [n for n in names if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("module", ["incubate.nn", "incubate.nn.functional",
+                                    "incubate.nn.attn_bias",
+                                    "incubate.nn.layer"])
+def test_incubate_all_matches_the_reference(module):
+    """The port's incubate ``__all__`` names the reference's, each name
+    defined."""
+    import importlib
+
+    ref = importlib.import_module(f"paddle_tpu.{module}")
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    assert all(hasattr(port, n) for n in port.__all__)
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
@@ -103,7 +122,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
                  lambda **k: FusedMoELayer(16, 32, 4, **k),
                  lambda **k: GShardGate(16, 4, 1, **k),
                  lambda **k: resnet18(num_classes=10, **k),
-                 lambda **k: UNet2DConditionModel(UNetConfig.tiny(), **k)):
+                 lambda **k: UNet2DConditionModel(UNetConfig.tiny(), **k),
+                 lambda **k: FusedMultiTransformer(16, 2, 32, **k)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         make(device="cpu")
