@@ -1,12 +1,12 @@
-"""Common functional ops: ``linear``, ``dropout``, ``embedding``,
-``one_hot``, ``interpolate`` / ``upsample``, ``pixel_shuffle``,
-``pixel_unshuffle``, ``channel_shuffle``, ``unfold`` / ``fold`` and
-``zeropad2d``.
+"""Common functional ops: ``linear``, ``bilinear``, the dropouts,
+``embedding``, ``one_hot``, ``label_smooth``, ``cosine_similarity``,
+``interpolate`` / ``upsample``, ``pixel_shuffle``, ``pixel_unshuffle``,
+``channel_shuffle``, ``unfold`` / ``fold``, ``pad`` and ``zeropad2d``.
 
-Counterpart of those functions of ``paddle_tpu/nn/functional/common.py``;
-the rest of that module waits for the rest of ``ROADMAP.md`` queue A
-item 2. The reference composes them in XLA, so here they are plain
-torch.
+Counterpart of ``paddle_tpu/nn/functional/common.py`` and of ``pad``
+(``paddle_tpu/ops/manipulation.py``, which the reference's
+``nn.functional`` re-exports). The reference composes them in XLA, so
+here they are plain torch.
 
 - ``linear`` takes paddle's ``[in, out]`` weight: ``x @ weight + bias``.
 - ``dropout`` has paddle's ``axis`` (one mask shared along the other
@@ -25,7 +25,23 @@ torch.
   backward does not, where an id repeats thousands of times (BERT's
   token types). ``Embedding`` is ``torch.nn.Embedding`` on this
   function, without the host read of the bounds, for the models.
+- ``dropout2d`` / ``dropout3d`` are ``dropout`` with one draw per
+  (sample, channel); ``alpha_dropout`` sets dropped entries to SELU's
+  negative saturation and rescales so that a standard-normal input keeps
+  mean 0 and variance 1. Each draws from ``generator=``.
 - ``one_hot`` returns float32, as the reference's ``one_hot_p``.
+- ``cosine_similarity`` divides by ``max(|x1| * |x2|, eps)``: the product
+  of the norms clamped once, as the reference (torch's own function
+  clamps each norm).
+- ``pad`` has paddle's two forms: ``2 * ndim`` entries are pairs in
+  dimension order over every dim; fewer pad the trailing spatial dims
+  (after the channel for ``NC*`` formats, before it for ``N*C``), last
+  dim first. ``reflect`` (no edge repeat), ``replicate`` and
+  ``circular`` on any dim, widths past the dim's size included (the
+  pattern repeats, as ``jnp.pad``'s ``reflect`` / ``edge`` / ``wrap``):
+  each padded dim is a concatenation of slices of the input, flipped or
+  broadcast, so the backward is slicing and fixed-order sums (no
+  scatter).
 - ``interpolate`` is ``jax.image.resize`` as the reference calls it:
   ``nearest`` takes input ``floor((j + 0.5) * in / out)`` (align_corners
   ignored); ``bilinear`` / ``linear`` / ``trilinear`` / ``area`` take the
@@ -44,9 +60,11 @@ import torch
 
 from ...core.generator import use_generator
 
-__all__ = ["linear", "dropout", "embedding", "one_hot", "Embedding",
-           "interpolate", "upsample", "pixel_shuffle", "pixel_unshuffle",
-           "channel_shuffle", "unfold", "fold", "zeropad2d"]
+__all__ = ["linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
+           "embedding", "one_hot", "label_smooth", "cosine_similarity",
+           "bilinear", "Embedding", "interpolate", "upsample",
+           "pixel_shuffle", "pixel_unshuffle", "channel_shuffle", "unfold",
+           "fold", "pad", "zeropad2d"]
 
 
 def linear(x, weight, bias=None, name=None):
@@ -85,6 +103,71 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     kept = x / (1.0 - p) if mode == "upscale_in_train" else x
     return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device))
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None,
+              generator=None):
+    """``dropout`` of whole feature maps: one draw per (sample,
+    channel)."""
+    axis = (0, 1) if data_format == "NCHW" else (0, 3)
+    return dropout(x, p, axis=axis, training=training, generator=generator)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None,
+              generator=None):
+    axis = (0, 1) if data_format == "NCDHW" else (0, 4)
+    return dropout(x, p, axis=axis, training=training, generator=generator)
+
+
+#: SELU's negative saturation, ``-scale * alpha``
+_ALPHA_P = -1.0507009873554805 * 1.6732632423543772
+
+
+def _alpha_mix(x, keep, p):
+    a = ((1 - p) * (1 + p * _ALPHA_P ** 2)) ** -0.5
+    b = -a * _ALPHA_P * p
+    kept = torch.where(keep, x, torch.full((), _ALPHA_P, dtype=x.dtype,
+                                           device=x.device))
+    return a * kept + b
+
+
+def alpha_dropout(x, p=0.5, training=True, name=None, generator=None):
+    """Alpha dropout (for SELU networks): dropped entries become
+    ``-scale * alpha``, then ``a * x + b`` restores a standard-normal
+    input's mean and variance. A draw needs ``generator``."""
+    p = float(p)
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("alpha_dropout draws a keep mask: pass generator= "
+                         "(a torch.Generator on the input's device)")
+    keep = torch.rand(x.shape, generator=use_generator(generator),
+                      device=x.device) < (1.0 - p)
+    return _alpha_mix(x, keep, p)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """``label * (1 - epsilon)`` plus ``epsilon`` spread uniformly over
+    the last axis, or ``epsilon * prior_dist``."""
+    if prior_dist is not None:
+        return label * (1 - epsilon) + prior_dist * epsilon
+    return label * (1.0 - epsilon) + epsilon / label.shape[-1]
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8, name=None):
+    """``sum(x1 * x2) / max(|x1| * |x2|, eps)`` along ``axis`` (inputs
+    broadcast)."""
+    axis = int(axis)
+    norms = (torch.linalg.vector_norm(x1, dim=axis)
+             * torch.linalg.vector_norm(x2, dim=axis))
+    return torch.sum(x1 * x2, dim=axis) / torch.clamp_min(norms, float(eps))
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """``out[b, o] = x1[b] @ weight[o] @ x2[b] (+ bias)``; ``weight`` is
+    ``[out, in1, in2]``."""
+    y = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return y if bias is None else y + bias
 
 
 def _row_sums(ids, rows, num, dtype):
@@ -331,6 +414,77 @@ def channel_shuffle(x, groups, data_format="NCHW", name=None):
         return t.reshape(n, int(groups), c // int(groups), *rest
                          ).transpose(1, 2).reshape(n, c, *rest)
     return _in_nchw(shuffle, x, data_format)
+
+
+def _pad_index(n, lo, hi, mode):
+    """Source index of each of the ``lo + n + hi`` output entries along
+    one dim (``jnp.pad``'s ``reflect`` / ``edge`` / ``wrap``)."""
+    out = []
+    for j in range(-lo, n + hi):
+        if mode == "replicate":
+            out.append(min(max(j, 0), n - 1))
+        elif mode == "circular":
+            out.append(j % n)
+        elif n == 1:
+            out.append(0)
+        else:
+            m = j % (2 * (n - 1))
+            out.append(m if m < n else 2 * (n - 1) - m)
+    return out
+
+
+def _pad_dim(x, dim, lo, hi, mode):
+    """``x`` padded along ``dim`` as a concatenation of its runs: each
+    maximal run of consecutive source indices that rises, falls or stays
+    is a slice (flipped where it falls, broadcast where it stays)."""
+    idx = _pad_index(x.shape[dim], lo, hi, mode)
+    pieces, start = [], 0
+    while start < len(idx):
+        step = idx[start + 1] - idx[start] if start + 1 < len(idx) else 1
+        if step not in (-1, 0, 1):
+            step = 1
+        end = start + 1
+        while end < len(idx) and idx[end] - idx[end - 1] == step:
+            end += 1
+        count = end - start
+        if step == 1:
+            pieces.append(x.narrow(dim, idx[start], count))
+        elif step == -1:
+            pieces.append(x.narrow(dim, idx[end - 1], count).flip(dim))
+        else:
+            one = x.narrow(dim, idx[start], 1)
+            shape = list(x.shape)
+            shape[dim] = count
+            pieces.append(one.expand(shape))
+        start = end
+    return torch.cat(pieces, dim=dim)
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
+    """paddle's ``nn.functional.pad`` (see the module docstring for the
+    two forms of ``pad``)."""
+    if isinstance(pad, torch.Tensor):
+        pad = pad.tolist()
+    pad = [int(p) for p in pad]
+    nd = x.ndim
+    widths = [(0, 0)] * nd
+    if len(pad) == 2 * nd:
+        widths = [(pad[2 * i], pad[2 * i + 1]) for i in range(nd)]
+    else:
+        n_sp = len(pad) // 2
+        spatial = (list(range(1, 1 + n_sp)) if data_format.endswith("C")
+                   else list(range(nd - n_sp, nd)))
+        for i, d in enumerate(reversed(spatial)):
+            widths[d] = (pad[2 * i], pad[2 * i + 1])
+    if mode == "constant":
+        flat = [w for lo_hi in reversed(widths) for w in lo_hi]
+        return torch.nn.functional.pad(x, flat, value=float(value))
+    if mode not in ("reflect", "replicate", "circular"):
+        raise ValueError(f"pad: unsupported mode {mode!r}")
+    for d, (lo, hi) in enumerate(widths):
+        if lo or hi:
+            x = _pad_dim(x, d, lo, hi, mode)
+    return x
 
 
 def zeropad2d(x, padding, data_format="NCHW", name=None):

@@ -19,9 +19,13 @@ reference's semantics where they differ from torch's:
   flat over the input's spatial dims (the first maximum of a window).
 - The adaptive pools split each spatial dim into windows ``[floor(i *
   in / out), ceil((i + 1) * in / out))``, one dim after the other, each
-  reduced in the input's dtype: equal windows as strided windows, others
-  piece by piece. ``adaptive_max_pool*``'s ``return_mask`` is ignored
-  and ``adaptive_max_pool2d`` is NCHW, as in the reference.
+  reduced in the input's dtype: equal windows as strided windows (with
+  the stride of the first two, as the reference), others piece by piece.
+  Equal windows that would repeat (an output a multiple of a smaller
+  input, such as 1 to 6) raise ``ValueError``, where the reference's
+  ``reduce_window`` refuses a stride of 0. ``adaptive_max_pool*``'s
+  ``return_mask`` is ignored and ``adaptive_max_pool2d`` is NCHW, as in
+  the reference.
 """
 from __future__ import annotations
 
@@ -185,6 +189,11 @@ def _adaptive(x, kind, output_size, n, data_format):
         starts = [(j * size) // os for j in range(os)]
         ends = [-(-((j + 1) * size) // os) for j in range(os)]
         widths = {e - s for s, e in zip(starts, ends)}
+        if len(widths) == 1 and os > 1 and starts[1] == starts[0]:
+            raise ValueError(
+                f"adaptive pool: {os} equal windows over {size} entries "
+                f"would repeat each window (stride 0); the reference "
+                f"refuses this too")
         if widths == {size}:
             out = (out.amax(ax, keepdim=True) if kind == "max"
                    else out.sum(ax, keepdim=True) / size)

@@ -14,20 +14,19 @@ them to XLA, so no kernel of the port is on this path. ``fc`` is an
 transposes the reference's ``[in, out]``).
 
 ``pretrained=True`` raises ``NotImplementedError``: the weights are a
-download. The reference has no ``dtype`` field: bf16 comes from
-``model.to(torch.bfloat16)``, which casts the running statistics too,
-as the reference's ``model.bfloat16()`` does.
+download. ``dtype`` casts the model after its fp32 initialisation, the
+running statistics too, as ``model.to(torch.bfloat16)`` (the reference's
+``model.bfloat16()``) does.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
-from ...core.generator import make_generator
-from ...core.place import resolve_device
 from ...nn import functional as F
 from ...nn.functional.conv import Conv2d
 from ...nn.functional.norm import BatchNorm
-from ...nn.initializer import paddle_default_init_
+from ._layers import finish, refuse_pretrained, start
 
 __all__ = [
     "ResNet", "BasicBlock", "BottleneckBlock",
@@ -95,15 +94,16 @@ class ResNet(nn.Module):
     with_pool=True, groups=1)`` as the reference's. ``device=None`` builds
     on the card (and raises without one); parameters are fp32, drawn
     from ``seed`` with the reference's layer defaults
-    (``nn.initializer.paddle_default_init_``)."""
+    (``nn.initializer.paddle_default_init_``), then cast to ``dtype``."""
 
     _cfg = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
             101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
 
     def __init__(self, block, depth=50, width=64, num_classes=1000,
-                 with_pool=True, groups=1, device=None, seed: int = 0):
+                 with_pool=True, groups=1, device=None, dtype=torch.float32,
+                 seed: int = 0):
         super().__init__()
-        dev = resolve_device(device)
+        dev = start(self, device, seed)
         factory = dict(device=dev)
         layers = self._cfg[depth]
         self.groups = groups
@@ -121,7 +121,7 @@ class ResNet(nn.Module):
         self.layer4 = self._make_layer(block, 512, layers[3], 2, factory)
         if num_classes > 0:
             self.fc = nn.Linear(512 * block.expansion, num_classes, **factory)
-        paddle_default_init_(self, make_generator(seed, dev))
+        finish(self, dev, dtype, seed)
 
     def _make_layer(self, block, planes, blocks, stride, factory):
         downsample = None
@@ -155,10 +155,7 @@ class ResNet(nn.Module):
 
 def _resnet(arch, block, depth, pretrained, **kwargs):
     if pretrained:
-        raise NotImplementedError(
-            f"{arch}(pretrained=True): the pretrained weights are a download, "
-            f"and the port reads no network; bridge local weights with "
-            f"convert.load_paddle_tpu_state")
+        refuse_pretrained(arch)
     return ResNet(block, depth, **kwargs)
 
 

@@ -40,7 +40,7 @@ from paddle_tpu_torch.ops.cuda import paged_attention as tpa
 from paddle_tpu_torch.ops.cuda import rms_norm as trn
 from paddle_tpu_torch.ops.cuda import tiled_mm as ttm
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.vision.models import resnet18
+from paddle_tpu_torch.vision.models import LeNet, mobilenet_v3_small, resnet18
 from paddle_tpu_torch.serve import default_serving_setup
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,7 +58,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "paddle_tpu_torch.nn.functional.flash_attention, "
             "paddle_tpu_torch.tools.conv_calibration, "
             "paddle_tpu_torch.incubate.nn, "
-            "paddle_tpu_torch.incubate.nn.memory_efficient_attention; "
+            "paddle_tpu_torch.incubate.nn.memory_efficient_attention, "
+            "paddle_tpu_torch.vision.models; "
             "print('\\n'.join(sys.modules))")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -69,6 +70,10 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert "paddle_tpu_torch.ops.cuda.tiled_mm" in out
     assert "paddle_tpu_torch.incubate.nn.layer" in out
     assert "paddle_tpu_torch.incubate.nn.attn_bias" in out
+    assert "paddle_tpu_torch.nn.functional.extra_loss" in out
+    assert "paddle_tpu_torch.nn.functional.extra_pooling" in out
+    assert "paddle_tpu_torch.nn.functional.vision" in out
+    assert "paddle_tpu_torch.vision.models.inceptionv3" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -99,6 +104,25 @@ def test_incubate_all_matches_the_reference(module):
     assert all(hasattr(port, n) for n in port.__all__)
 
 
+def _public(module):
+    return {n for n in dir(module) if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("module", ["nn.functional", "vision.models"])
+def test_every_public_name_of_the_reference_is_in_the_port(module):
+    """Every public name of the reference's ``nn.functional`` and
+    ``vision.models`` (functions, classes, submodules; neither has an
+    ``__all__`` that lists them all) exists in the port's; ``annotations``
+    is the reference's ``from __future__`` import, not a name."""
+    import importlib
+
+    ref = importlib.import_module(f"paddle_tpu.{module}")
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    missing = sorted(_public(ref) - _public(port) - {"annotations"})
+    assert missing == []
+    assert all(hasattr(port, n) for n in port.__all__)
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = LlamaConfig.tiny()
@@ -122,6 +146,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
                  lambda **k: FusedMoELayer(16, 32, 4, **k),
                  lambda **k: GShardGate(16, 4, 1, **k),
                  lambda **k: resnet18(num_classes=10, **k),
+                 lambda **k: LeNet(**k),
+                 lambda **k: mobilenet_v3_small(scale=0.5, **k),
                  lambda **k: UNet2DConditionModel(UNetConfig.tiny(), **k),
                  lambda **k: FusedMultiTransformer(16, 2, 32, **k)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
