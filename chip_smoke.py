@@ -180,6 +180,20 @@ Phases, each fatal on failure:
              images/s, MFU from a conv + linear FLOP count, eager and
              captured), and the smallest configuration on the card
              against the CPU (fp32; ``vgg11`` fp64).
+17. detection — ``vision.ops`` (plain torch: no kernel of the port, by
+             counter and by name): every op in fp32 on the card against
+             the CPU at a reduced size (selections equal, backwards
+             twice from one state bit-equal); then at published
+             detectors' shapes, on synthetic maps: Faster R-CNN R50-FPN
+             (``FRCNN``: proposals on P2-P6, 512 RoIs an image through
+             RoIAlign and back, 81-class decode, per-class NMS) and
+             RoIPool / PSRoIPool on its stride-16 map (``POOLS``),
+             YOLOv3-608 (``YOLO``: the loss of three heads and its
+             backward, yolo_box and per-class NMS), PP-YOLO's DCNv2,
+             yolo_box and MatrixNMS (``PPYOLO``), SSD300's 8732 priors
+             and their encoding (``SSD``): each op's device ms forward
+             and backward, host syncs a call of each selection op, each
+             path's wall ms, peak memory.
 
 Each phase prints its seconds.
 
@@ -196,7 +210,7 @@ the dense greedy call, which reaches no kernel), ResNet-50's
 ``incubate`` path's (the stack's training step and one
 ``fused_rms_norm`` forward and backward), ``sparse_mask`` (one
 ``flash_attention_with_sparse_mask`` forward and backward) and the zoo's
-(``vision_train``: none).
+(``vision_train``: none) and the detection ops' (``detection``: none).
 
 The paged kernel is held at the serving, GQA, decode-step and
 suffix-prefill shapes (``PAGED_SHAPES``) with the L2 cold and warm, and
@@ -224,7 +238,8 @@ lost events only where a later one passes and shows every launch it did.
 
 The last lines are the ``train``, ``train_recipe``, ``generate``
 (Llama's beam and speculative numbers), ``gpt``, ``bert``, ``moe``,
-``resnet``, ``sdxl``, ``incubate``, ``functional`` and ``vision`` JSON,
+``resnet``, ``sdxl``, ``incubate``, ``functional``, ``vision`` and
+``detection`` JSON,
 the
 ``kernels`` JSON, the ``nvidia-smi`` name/power line, and
 ``{"ok": true, "device": {...}}``.
@@ -6203,6 +6218,715 @@ def phase_vision(torch, dev, report):
         log(f"  ({spec.label}: {time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# [detection]: the detection ops at published detectors' shapes
+# ---------------------------------------------------------------------------
+#: PaddleDetection configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.yml and
+#: its _base_: images resized to a short side of 800 (long side at most
+#: 1333) and padded to a multiple of 32, FPN levels P2-P6 (strides 4-64),
+#: 256 channels, 3 anchors a position (ratios 0.5 / 1 / 2, size 32 at P2
+#: doubling a level); RPN proposals 2000 before NMS and 1000 after, NMS
+#: 0.7, no minimum size; the 1000 best of an image over the levels; 512
+#: RoIs an image into RoIAlign (7 x 7, sampling ratio 0, aligned) over
+#: P2-P5 (refer level 4, refer scale 224); 81 classes decoded with
+#: variances 0.1 / 0.1 / 0.2 / 0.2, per-class NMS 0.5 after a 0.05 score
+#: threshold, 100 kept
+FRCNN = dict(images=2, hw=(800, 1344), strides=(4, 8, 16, 32, 64),
+             channels=256, ratios=(0.5, 1.0, 2.0), size0=32, pre_nms=2000,
+             post_nms=1000, nms=0.7, top=1000, rois=512, classes=81,
+             score=0.05, class_nms=0.5, keep=100)
+#: RoIPool (Fast R-CNN, VGG16's 512 channels) and PSRoIPool (R-FCN on VOC:
+#: 7 x 7 x 21 channels) on the stride-16 map of one such image, 300 RoIs
+POOLS = dict(channels=512, ps_classes=21, out=7, rois=300, stride=16)
+#: configs/yolov3/yolov3_darknet53_270e_coco.yml: batch 8 at 608 x 608, 80
+#: classes, heads at strides 32 / 16 / 8 with anchor masks [6, 7, 8],
+#: [3, 4, 5], [0, 1, 2]; 50 ground truths an image with a gt_score;
+#: YOLOv3Loss(ignore_thresh 0.7, label smoothing off); yolo_box
+#: (conf_thresh 0.005, clip_bbox), then per-class NMS 0.45 over the
+#: image's 1000 best
+YOLO = dict(batch=8, side=608, classes=80, strides=(32, 16, 8),
+            masks=((6, 7, 8), (3, 4, 5), (0, 1, 2)), gts=50, ignore=0.7,
+            conf=0.005, nms=0.45, top=1000)
+YOLO_ANCHORS = (10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326)
+#: configs/ppyolo/ppyolo_r50vd_dcn_1x_coco.yml: DCNv2 in ResNet50-vd's
+#: stage 5 at 608 (x [8, 512, 19, 19], a 3 x 3 weight [512, 512]), the
+#: YOLOv3 heads decoded with scale_x_y 1.05, MatrixNMS(keep_top_k 100,
+#: score_threshold 0.01, post_threshold 0.01, nms_top_k -1,
+#: background_label -1)
+PPYOLO = dict(batch=8, channels=512, side=19, scale_x_y=1.05, keep=100,
+              score=0.01, post=0.01)
+#: configs/ssd/ssd_vgg16_300_240e_voc.yml: six maps (38, 19, 10, 5, 3, 1)
+#: of a 300 x 300 image with their steps, min / max sizes and ratios
+#: (flip, min-max order): 8732 priors, encoded against 50 ground truths
+SSD = dict(side=300, maps=(38, 19, 10, 5, 3, 1),
+           steps=(8, 16, 32, 64, 100, 300),
+           min_sizes=(30.0, 60.0, 111.0, 162.0, 213.0, 264.0),
+           max_sizes=(60.0, 111.0, 162.0, 213.0, 264.0, 315.0),
+           ratios=((2.0,), (2.0, 3.0), (2.0, 3.0), (2.0, 3.0), (2.0,),
+                   (2.0,)), gts=50, priors=8732)
+#: device-timed calls of each op, and wall-timed runs of each path
+DETECTION_ITERS, DETECTION_PATH_RUNS = 5, 3
+
+
+def host_syncs(torch, fn):
+    """How often a call of ``fn`` made the host wait for the card,
+    counted by ``torch.cuda.set_sync_debug_mode``'s warnings (a
+    device-to-host copy, ``item``, ``tolist``, a copy from pageable
+    memory)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in seen)
+
+
+def wall_ms(torch, fn, runs=DETECTION_PATH_RUNS):
+    """The median host-clock ms of ``fn`` (ended by a synchronise) over
+    ``runs`` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _first(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def op_numbers(torch, label, fn, inputs, grad=False, syncs=False):
+    """``fn(*inputs)``'s device ms and, with ``grad``, those of the
+    backward into ``inputs`` of its (first) output for a fixed random
+    gradient (on a kept graph); that backward run twice from one state
+    must give the same bits. With ``syncs``, the host waits a call."""
+    out = dict(fwd_ms=device_ms(lambda: fn(*inputs), iters=DETECTION_ITERS,
+                                warmup=1))
+    if grad:
+        res = _first(fn(*inputs))
+        gen = torch.Generator(device=res.device).manual_seed(1)
+        g = torch.randn(res.shape, device=res.device, generator=gen)
+        bwd = library_grad(torch, lambda *a: _first(fn(*a)), inputs, g)
+        out["bwd_ms"] = device_ms(bwd, iters=DETECTION_ITERS, warmup=1)
+        same = all(torch.equal(a, b) for a, b in zip(bwd(), bwd()))
+        out["backward_bit_equal"] = same
+        check(same, f"{label}: two backward passes from one state differ")
+    if syncs:
+        out["host_syncs"] = host_syncs(torch, lambda: fn(*inputs))
+    log(f"  {label}: forward {out['fwd_ms']:.3f} ms"
+        + (f", backward {out['bwd_ms']:.3f} ms (two passes bit-equal)"
+           if grad else "")
+        + (f", {out['host_syncs']} host syncs a call" if syncs else ""))
+    return out
+
+
+def _anchor_table(np, hw, stride, size, ratios):
+    """Anchors [h, w, A, 4] of one FPN level centred on its cells, and
+    unit variances: numpy, as the configuration's anchor generator."""
+    h, w = hw
+    ws = np.array([size / math.sqrt(r) for r in ratios], np.float32)
+    hs = np.array([size * math.sqrt(r) for r in ratios], np.float32)
+    cy, cx = np.meshgrid((np.arange(h) + 0.5) * stride,
+                         (np.arange(w) + 0.5) * stride, indexing="ij")
+    cx, cy = cx[:, :, None], cy[:, :, None]
+    table = np.stack([cx - ws / 2, cy - hs / 2, cx + ws / 2, cy + hs / 2],
+                     -1).astype(np.float32)
+    return table, np.ones_like(table)
+
+
+def _level_hw(stride):
+    h, w = FRCNN["hw"]
+    return -(-h // stride), -(-w // stride)
+
+
+def detection_two_stage(torch, dev, report):
+    """Faster R-CNN R50-FPN's (``FRCNN``) detection ops on synthetic FPN
+    maps and RPN outputs: per level ``generate_proposals``, the 1000 best
+    of each image, ``distribute_fpn_proposals`` of 512 an image,
+    ``roi_align`` on P2-P5 with its backward, ``box_coder``'s decode of
+    1000 x 81 and the per-class ``nms``; then ``roi_pool`` and
+    ``psroi_pool`` at the stride-16 map (``POOLS``). Each op's device ms
+    (forward, backward), host syncs a call of each selection op, the
+    path's wall ms with the backward, peak memory."""
+    import numpy as np
+
+    from paddle_tpu_torch.vision import ops as V
+
+    cfg, g = FRCNN, torch.Generator(device=dev).manual_seed(21)
+    n, levels = cfg["images"], range(len(cfg["strides"]))
+    img = torch.tensor([cfg["hw"]] * n, dtype=torch.float32, device=dev)
+    rpn = []
+    for lv in levels:
+        stride = cfg["strides"][lv]
+        hw = _level_hw(stride)
+        anc, var = _anchor_table(np, hw, stride, cfg["size0"] << lv,
+                                 cfg["ratios"])
+        a = len(cfg["ratios"])
+        rpn.append((torch.rand(n, a, *hw, generator=g, device=dev),
+                    0.3 * torch.randn(n, 4 * a, *hw, generator=g, device=dev),
+                    torch.from_numpy(anc).to(dev),
+                    torch.from_numpy(var).to(dev)))
+    feats = [torch.randn(n, cfg["channels"], *_level_hw(s), generator=g,
+                         device=dev, requires_grad=True)
+             for s in cfg["strides"][:4]]
+    out = {}
+
+    def proposals(lv):
+        s, d, anc, var = rpn[lv]
+        return V.generate_proposals(
+            s, d, img, anc, var, pre_nms_top_n=cfg["pre_nms"],
+            post_nms_top_n=cfg["post_nms"], nms_thresh=cfg["nms"],
+            min_size=0.0, return_rois_num=True)
+
+    def best_per_image():
+        """The ``top`` best proposals of each image over the levels."""
+        per = [proposals(lv) for lv in levels]
+        counts = torch.stack([p[2] for p in per]).tolist()
+        rois, probs = [], []
+        for i in range(n):
+            r = torch.cat([p[0][sum(c[:i]):sum(c[:i + 1])]
+                           for p, c in zip(per, counts)])
+            s = torch.cat([p[1][sum(c[:i]):sum(c[:i + 1])]
+                           for p, c in zip(per, counts)])
+            top = torch.topk(s, min(cfg["top"], s.numel())).indices
+            rois.append(r[top])
+            probs.append(s[top])
+        return rois, probs
+
+    def roi_features(rois):
+        """512 RoIs an image through the levels' RoIAlign, restored to
+        their order."""
+        sel = torch.cat([r[:cfg["rois"]] for r in rois])
+        num = torch.tensor([min(cfg["rois"], r.shape[0]) for r in rois],
+                           dtype=torch.int32, device=dev)
+        outs, restore, nums = V.distribute_fpn_proposals(
+            sel, 2, 5, 4, 224, rois_num=num)
+        pooled = [V.roi_align(f, b, k, 7, 1.0 / s, sampling_ratio=0,
+                              aligned=True)
+                  for f, b, k, s in zip(feats, outs, nums, cfg["strides"])]
+        return torch.cat(pooled)[restore[:, 0].long()]
+
+    def detections(rois, gk):
+        """Decode 81 classes around each image's proposals, then per-class
+        NMS after the score threshold."""
+        kept = []
+        for r in rois:
+            deltas = 0.5 * torch.randn(r.shape[0], cfg["classes"], 4,
+                                       generator=gk, device=dev)
+            logits = torch.randn(r.shape[0], cfg["classes"], generator=gk,
+                                 device=dev) * 3.0
+            boxes = V.box_coder(r, [0.1, 0.1, 0.2, 0.2], deltas,
+                                "decode_center_size", False, axis=1)
+            scores = torch.softmax(logits, -1)[:, 1:]
+            ri, ci = torch.nonzero(scores > cfg["score"], as_tuple=True)
+            kept.append(V.nms(boxes[ri, ci + 1], cfg["class_nms"],
+                              scores[ri, ci], ci + 1,
+                              list(range(1, cfg["classes"])), cfg["keep"]))
+        return kept
+
+    rois, probs = best_per_image()
+    check(all(r.shape == (cfg["top"], 4) and bool(torch.isfinite(r).all())
+              for r in rois), "two-stage: 1000 finite proposals an image")
+    for lv in levels:
+        out[f"generate_proposals_P{lv + 2}"] = op_numbers(
+            torch, f"generate_proposals P{lv + 2} {list(rpn[lv][0].shape)}",
+            lambda lv=lv: proposals(lv), [], syncs=True)
+    sel = torch.cat([r[:cfg["rois"]] for r in rois])
+    num = torch.tensor([cfg["rois"]] * n, dtype=torch.int32, device=dev)
+    out["distribute_fpn_proposals"] = op_numbers(
+        torch, f"distribute_fpn_proposals {list(sel.shape)}",
+        lambda b: V.distribute_fpn_proposals(b, 2, 5, 4, 224, rois_num=num),
+        [sel], syncs=True)
+    outs, restore, nums = V.distribute_fpn_proposals(sel, 2, 5, 4, 224,
+                                                     rois_num=num)
+    log(f"  RoIs a level (P2-P5): {[o.shape[0] for o in outs]}")
+    for f, b, k, s in zip(feats, outs, nums, cfg["strides"]):
+        out[f"roi_align_stride{s}"] = op_numbers(
+            torch, f"roi_align {list(f.shape)} x {b.shape[0]} RoIs",
+            lambda f, b=b, k=k, s=s: V.roi_align(f, b, k, 7, 1.0 / s, 0,
+                                                 True),
+            [f.detach()], grad=True)
+    feats_all = roi_features(rois)
+    check(feats_all.shape == (n * cfg["rois"], cfg["channels"], 7, 7)
+          and bool(torch.isfinite(feats_all).all()),
+          "two-stage: RoI features, 512 an image, finite")
+    gk = torch.Generator(device=dev).manual_seed(5)
+    deltas = 0.5 * torch.randn(cfg["top"], cfg["classes"], 4, generator=gk,
+                               device=dev)
+    out["box_coder_decode"] = op_numbers(
+        torch, f"box_coder decode {list(deltas.shape)}",
+        lambda d: V.box_coder(rois[0], [0.1, 0.1, 0.2, 0.2], d,
+                              "decode_center_size", False, axis=1), [deltas])
+    kept = detections(rois, gk)
+    check(all(0 < k.numel() <= cfg["keep"] for k in kept),
+          f"two-stage: 1-100 detections an image "
+          f"({[k.numel() for k in kept]})")
+    boxes = V.box_coder(rois[0], [0.1, 0.1, 0.2, 0.2], deltas,
+                        "decode_center_size", False, axis=1)
+    scores = torch.softmax(torch.randn(cfg["top"], cfg["classes"],
+                                       generator=gk, device=dev) * 3.0, -1)
+    ri, ci = torch.nonzero(scores[:, 1:] > cfg["score"], as_tuple=True)
+    cand = (boxes[ri, ci + 1], scores[ri, ci + 1], ci + 1)
+    out["class_nms"] = op_numbers(
+        torch, f"per-class nms over {ri.numel()} candidates",
+        lambda b: V.nms(b, cfg["class_nms"], cand[1], cand[2],
+                        list(range(1, cfg["classes"])), cfg["keep"]),
+        [cand[0]], syncs=True)
+    out["class_nms"]["candidates"] = int(ri.numel())
+
+    def path():
+        rois, _ = best_per_image()
+        roi_features(rois).backward(torch.ones(
+            n * cfg["rois"], cfg["channels"], 7, 7, device=dev))
+        detections(rois, torch.Generator(device=dev).manual_seed(5))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["path_ms"] = wall_ms(torch, path)
+    out["path_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["path_host_syncs"] = host_syncs(torch, path)
+    log(f"  Faster R-CNN path (proposals on 5 levels, 1000 an image, 512 "
+        f"RoIs an image through RoIAlign and back, decode, per-class NMS): "
+        f"{out['path_ms']:.1f} ms wall, {out['path_host_syncs']} host syncs, "
+        f"peak {out['path_peak_bytes'] / 2**30:.2f} GiB")
+    # RoIPool and PSRoIPool on the stride-16 map, 300 of image 0's RoIs
+    hw = _level_hw(POOLS["stride"])
+    ps_c = POOLS["ps_classes"] * POOLS["out"] ** 2
+    x = torch.relu(torch.randn(1, POOLS["channels"], *hw, generator=g,
+                               device=dev))
+    xp = torch.randn(1, ps_c, *hw, generator=g, device=dev)
+    b300 = rois[0][:POOLS["rois"]]
+    k300 = torch.tensor([POOLS["rois"]], device=dev)
+    scale = 1.0 / POOLS["stride"]
+    out["roi_pool"] = op_numbers(
+        torch, f"roi_pool {list(x.shape)} x {POOLS['rois']} RoIs",
+        lambda x: V.roi_pool(x, b300, k300, POOLS["out"], scale), [x],
+        grad=True, syncs=True)
+    out["psroi_pool"] = op_numbers(
+        torch, f"psroi_pool {list(xp.shape)} x {POOLS['rois']} RoIs",
+        lambda x: V.psroi_pool(x, b300, k300, POOLS["out"], scale), [xp],
+        grad=True)
+    del feats, feats_all, x, xp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _yolo_heads(torch, dev, g, cfg, side):
+    """Synthetic YOLO heads [batch, 3 * (5 + classes), s, s] a stride:
+    objectness logits around -8 (most boxes under the confidence
+    threshold, as a trained head's) with 50 confident cells an image,
+    class logits around -6 with a hot class on those cells."""
+    heads = []
+    for stride in cfg["strides"]:
+        s = side // stride
+        x = torch.randn(cfg["batch"], 3, 5 + cfg["classes"], s, s,
+                        generator=g, device=dev)
+        x[:, :, 4] = x[:, :, 4] - 8.0
+        x[:, :, 5:] = 1.5 * x[:, :, 5:] - 6.0
+        cells = torch.randint(0, s * s, (cfg["batch"], 50), generator=g,
+                              device=dev)
+        hot = torch.randint(0, cfg["classes"], (cfg["batch"], 50),
+                            generator=g, device=dev)
+        flat = x.view(cfg["batch"], 3, 5 + cfg["classes"], s * s)
+        bi = torch.arange(cfg["batch"], device=dev)[:, None]
+        flat[bi, 0, 4, cells] = 3.0
+        flat[bi, 0, 5 + hot, cells] = 4.0
+        heads.append(x.reshape(cfg["batch"], -1, s, s))
+    return heads
+
+
+def _decode_heads(torch, V, heads, img, cfg, **kw):
+    """``yolo_box`` of each head, concatenated: boxes [N, M, 4], scores
+    [N, M, classes]."""
+    boxes, scores = [], []
+    for x, stride, mask in zip(heads, cfg["strides"], cfg["masks"]):
+        anchors = [YOLO_ANCHORS[2 * m + k] for m in mask for k in (0, 1)]
+        b, s = V.yolo_box(x, img, anchors, cfg["classes"], cfg["conf"],
+                          stride, True, **kw)
+        boxes.append(b)
+        scores.append(s)
+    return torch.cat(boxes, 1), torch.cat(scores, 1)
+
+
+def detection_one_stage(torch, dev, report):
+    """YOLOv3-608 (``YOLO``): ``yolo_loss`` forward and backward on the
+    three heads, ``yolo_box`` and per-class NMS over each image's 1000
+    best; then PP-YOLO's (``PPYOLO``) ``deform_conv2d`` forward and
+    backward at its DCN shape, ``yolo_box`` with ``scale_x_y`` and
+    ``matrix_nms``. Device ms, host syncs, wall ms of the paths."""
+    from paddle_tpu_torch.vision import ops as V
+
+    cfg, g = YOLO, torch.Generator(device=dev).manual_seed(31)
+    heads = _yolo_heads(torch, dev, g, cfg, cfg["side"])
+    nb = cfg["batch"]
+    gt = torch.cat([0.1 + 0.8 * torch.rand(nb, cfg["gts"], 2, generator=g,
+                                           device=dev),
+                    0.02 + 0.4 * torch.rand(nb, cfg["gts"], 2, generator=g,
+                                            device=dev)], -1)
+    label = torch.randint(0, cfg["classes"], (nb, cfg["gts"]), generator=g,
+                          device=dev)
+    score = 0.5 + 0.5 * torch.rand(nb, cfg["gts"], generator=g, device=dev)
+    img = torch.full((nb, 2), cfg["side"], dtype=torch.int32, device=dev)
+    out = {}
+
+    def loss(x, stride, mask):
+        return V.yolo_loss(x, gt, label, list(YOLO_ANCHORS), list(mask),
+                           cfg["classes"], cfg["ignore"], stride,
+                           gt_score=score, use_label_smooth=False)
+
+    for x, stride, mask in zip(heads, cfg["strides"], cfg["masks"]):
+        out[f"yolo_loss_stride{stride}"] = op_numbers(
+            torch, f"yolo_loss {list(x.shape)}",
+            lambda x, stride=stride, mask=mask: loss(x, stride, mask), [x],
+            grad=True)
+    boxes, scores = _decode_heads(torch, V, heads, img, cfg)
+    m = 3 * sum((cfg["side"] // s) ** 2 for s in cfg["strides"])
+    check(boxes.shape == (nb, m, 4) and bool(torch.isfinite(scores).all()),
+          f"one-stage: yolo_box [{nb}, {m}, 4], finite")
+    out["yolo_box"] = op_numbers(
+        torch, "yolo_box, three heads",
+        lambda: _decode_heads(torch, V, heads, img, cfg), [])
+
+    def best_nms(b, s):
+        top = torch.topk(s.reshape(-1), cfg["top"]).indices
+        return V.nms(b[top // cfg["classes"]], cfg["nms"],
+                     s.reshape(-1)[top], top % cfg["classes"],
+                     list(range(cfg["classes"])), 100)
+
+    out["class_nms"] = op_numbers(
+        torch, "per-class nms over an image's 1000 best",
+        lambda b: best_nms(b, scores[0]), [boxes[0]], syncs=True)
+
+    def yolo_path():
+        leaves = [h.detach().requires_grad_() for h in heads]
+        sum(loss(x, s, m).sum() for x, s, m in zip(
+            leaves, cfg["strides"], cfg["masks"])).backward()
+
+    def decode_path():
+        b, s = _decode_heads(torch, V, heads, img, cfg)
+        return [best_nms(b[i], s[i]) for i in range(nb)]
+
+    kept = decode_path()
+    check(all(k.numel() > 0 for k in kept), "one-stage: detections an image")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["loss_path_ms"] = wall_ms(torch, yolo_path)
+    out["loss_path_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["decode_path_ms"] = wall_ms(torch, decode_path)
+    out["decode_path_host_syncs"] = host_syncs(torch, decode_path)
+    log(f"  YOLOv3 loss over three heads with backward: "
+        f"{out['loss_path_ms']:.1f} ms wall, peak "
+        f"{out['loss_path_peak_bytes'] / 2**30:.2f} GiB; yolo_box + "
+        f"per-class NMS of 8 images: {out['decode_path_ms']:.1f} ms wall, "
+        f"{out['decode_path_host_syncs']} host syncs")
+    # PP-YOLO
+    pp = PPYOLO
+    x = torch.randn(pp["batch"], pp["channels"], pp["side"], pp["side"],
+                    generator=g, device=dev)
+    w = torch.randn(pp["channels"], pp["channels"], 3, 3, generator=g,
+                    device=dev) * (2.0 / (pp["channels"] * 9)) ** 0.5
+    off = torch.randn(pp["batch"], 18, pp["side"], pp["side"], generator=g,
+                      device=dev)
+    msk = torch.sigmoid(torch.randn(pp["batch"], 9, pp["side"], pp["side"],
+                                    generator=g, device=dev))
+    bias = torch.zeros(pp["channels"], device=dev)
+    out["deform_conv2d"] = op_numbers(
+        torch, f"deform_conv2d {list(x.shape)}, weight {list(w.shape)}",
+        lambda x, off, w, msk, bias: V.deform_conv2d(
+            x, off, w, bias, padding=1, mask=msk),
+        [x, off, w, msk, bias], grad=True)
+    ppb, pps = _decode_heads(torch, V, heads, img, cfg,
+                             scale_x_y=pp["scale_x_y"])
+    pps = pps.transpose(1, 2).contiguous()
+
+    def matrix(b):
+        return V.matrix_nms(b, pps, pp["score"], pp["post"], -1, pp["keep"],
+                            background_label=-1, normalized=False,
+                            return_index=True)
+
+    rows, _, per = matrix(ppb)
+    check(rows.shape[1] == 6 and 0 < rows.shape[0] <= nb * pp["keep"],
+          f"PP-YOLO: matrix_nms rows {list(rows.shape)}")
+    out["matrix_nms"] = op_numbers(
+        torch, f"matrix_nms {list(ppb.shape)} x {pps.shape[1]} classes",
+        matrix, [ppb], syncs=True)
+    out["matrix_nms"]["rows_an_image"] = per.tolist()
+
+    def pp_path():
+        b, s = _decode_heads(torch, V, heads, img, cfg,
+                             scale_x_y=pp["scale_x_y"])
+        return V.matrix_nms(b, s.transpose(1, 2), pp["score"], pp["post"],
+                            -1, pp["keep"], background_label=-1)
+
+    out["ppyolo_path_ms"] = wall_ms(torch, pp_path)
+    log(f"  PP-YOLO yolo_box + matrix_nms of 8 images: "
+        f"{out['ppyolo_path_ms']:.1f} ms wall")
+    del heads, x, w, off, msk
+    torch.cuda.empty_cache()
+    return out
+
+
+def detection_ssd(torch, dev, report):
+    """SSD300's (``SSD``) priors over its six maps (8732) and their
+    ``box_coder`` encoding against 50 ground truths."""
+    from paddle_tpu_torch.vision import ops as V
+
+    cfg = SSD
+    image = torch.zeros(1, 3, cfg["side"], cfg["side"], device=dev)
+
+    def priors():
+        out = [V.prior_box(torch.zeros(1, 1, m, m, device=dev), image,
+                           [mn], [mx], list(r), [0.1, 0.1, 0.2, 0.2],
+                           flip=True, clip=True, steps=[st, st],
+                           min_max_aspect_ratios_order=True)
+               for m, st, mn, mx, r in zip(cfg["maps"], cfg["steps"],
+                                           cfg["min_sizes"],
+                                           cfg["max_sizes"], cfg["ratios"])]
+        return (torch.cat([b.reshape(-1, 4) for b, _ in out]),
+                torch.cat([v.reshape(-1, 4) for _, v in out]))
+
+    boxes, var = priors()
+    check(boxes.shape == (cfg["priors"], 4), f"SSD: {cfg['priors']} priors, "
+          f"got {boxes.shape[0]}")
+    g = torch.Generator(device=dev).manual_seed(41)
+    xy = torch.rand(cfg["gts"], 2, generator=g, device=dev) * 0.7
+    gt = torch.cat([xy, xy + 0.05 + 0.25 * torch.rand(
+        cfg["gts"], 2, generator=g, device=dev)], 1)
+    out = dict(priors=op_numbers(torch, "prior_box, six maps", priors, []))
+    enc = V.box_coder(boxes, var, gt, "encode_center_size")
+    check(enc.shape == (cfg["gts"], cfg["priors"], 4)
+          and bool(torch.isfinite(enc).all()), "SSD: encoding finite")
+    out["box_coder_encode"] = op_numbers(
+        torch, f"box_coder encode {cfg['gts']} x {cfg['priors']}",
+        lambda t: V.box_coder(boxes, var, t, "encode_center_size"), [gt],
+        grad=True)
+    return out
+
+
+def _flat(out):
+    """The tensors of an op's output (tuples and lists of tensors, None
+    left out), in order."""
+    if out is None:
+        return []
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def _distinct_scores(torch, g, *shape):
+    """Scores in (0, 1), all distinct (the reference's selection sorts
+    are numpy's; distinct scores fix the order)."""
+    n = math.prod(shape)
+    return ((torch.randperm(n, generator=g).float() + 0.5) / n).reshape(shape)
+
+
+def _detection_cases(torch, V):
+    """(name, function, make(generator) -> (inputs, indices of the inputs
+    that take a gradient), selection?) for every op of ``vision.ops`` at
+    a reduced size: a few RoIs, one or two images, narrow channels."""
+
+    def boxes(g, n, size, over=0.2):
+        a = (torch.rand(n, 2, generator=g) * (1 + 2 * over) - over) * size
+        b = (torch.rand(n, 2, generator=g) * (1 + 2 * over) - over) * size
+        return torch.cat([torch.minimum(a, b), torch.maximum(a, b)], 1)
+
+    def ties(g, *shape):
+        x = torch.randn(*shape, generator=g)
+        return torch.relu(torch.round(x * 2) / 2)
+
+    def rpn(g):
+        s = _distinct_scores(torch, g, 1, 3, 8, 10)
+        d = 0.3 * torch.randn(1, 12, 8, 10, generator=g)
+        cy, cx = torch.meshgrid(torch.arange(8) * 8.0 + 4,
+                                torch.arange(10) * 8.0 + 4, indexing="ij")
+        size = torch.tensor([8.0, 16.0, 32.0])
+        c = torch.stack([cx, cy], -1)[:, :, None, :]
+        anc = torch.cat([c - size[:, None] / 2, c + size[:, None] / 2], -1)
+        return [s, d, torch.tensor([[64.0, 80.0]]), anc, torch.ones_like(anc)]
+
+    num1 = torch.tensor([6])
+    return [
+        ("roi_align", lambda x, b: V.roi_align(x, b, num1, 7, 0.25, 0, True),
+         lambda g: ([torch.randn(1, 8, 24, 30, generator=g),
+                     boxes(g, 6, 110.0)], [0, 1]), False),
+        ("roi_align unaligned", lambda x, b: V.roi_align(
+            x, b, torch.tensor([2, 4]), 3, 0.5, 2, False),
+         lambda g: ([torch.randn(2, 4, 12, 14, generator=g),
+                     boxes(g, 6, 26.0)], [0, 1]), False),
+        ("roi_pool", lambda x, b: V.roi_pool(x, b, num1, 7, 1 / 16),
+         lambda g: ([ties(g, 1, 8, 20, 25), boxes(g, 6, 380.0)], [0]),
+         False),
+        ("psroi_pool", lambda x, b: V.psroi_pool(x, b, num1, 7, 1 / 16),
+         lambda g: ([torch.randn(1, 2 * 49, 20, 25, generator=g),
+                     boxes(g, 6, 380.0)], [0]), False),
+        ("deform_conv2d", lambda x, o, w, m, b: V.deform_conv2d(
+            x, o, w, b, padding=1, mask=m),
+         lambda g: ([torch.randn(2, 8, 9, 9, generator=g),
+                     2 * torch.randn(2, 18, 9, 9, generator=g),
+                     torch.randn(8, 8, 3, 3, generator=g) * 0.2,
+                     torch.rand(2, 9, 9, 9, generator=g),
+                     torch.randn(8, generator=g)], [0, 1, 2, 3, 4]), False),
+        ("yolo_loss", lambda x, gt, lab, sc: V.yolo_loss(
+            x, gt, lab, list(YOLO_ANCHORS), [3, 4, 5], 4, 0.7, 16,
+            gt_score=sc),
+         lambda g: ([torch.randn(2, 27, 8, 8, generator=g),
+                     torch.cat([0.1 + 0.8 * torch.rand(2, 6, 2, generator=g),
+                                0.05 + 0.4 * torch.rand(2, 6, 2, generator=g)],
+                               -1),
+                     torch.randint(0, 4, (2, 6), generator=g),
+                     torch.rand(2, 6, generator=g)], [0]), False),
+        ("yolo_box", lambda x, im: V.yolo_box(
+            x, im, [10, 13, 16, 30, 33, 23], 4, 0.3, 16, True, scale_x_y=1.05),
+         lambda g: ([2 * torch.randn(2, 27, 8, 8, generator=g),
+                     torch.tensor([[128, 128], [100, 120]])], []), False),
+        ("box_coder encode", lambda p, t: V.box_coder(
+            p, [0.1, 0.1, 0.2, 0.2], t, "encode_center_size"),
+         lambda g: ([boxes(g, 30, 1.0, 0.0) + torch.tensor([0, 0, 0.05, 0.05]),
+                     boxes(g, 5, 1.0, 0.0) + torch.tensor([0, 0, 0.05, 0.05])],
+                    [1]), False),
+        ("box_coder decode", lambda p, t: V.box_coder(
+            p, [0.1, 0.1, 0.2, 0.2], t, "decode_center_size", False, 1),
+         lambda g: ([boxes(g, 30, 80.0, 0.0) + torch.tensor([0, 0, 1, 1]),
+                     torch.randn(30, 5, 4, generator=g)], [1]), False),
+        ("prior_box", lambda x, im: V.prior_box(
+            x, im, [30.0], [60.0], [2.0, 3.0], flip=True, clip=True,
+            steps=[16, 16], min_max_aspect_ratios_order=True),
+         lambda g: ([torch.zeros(1, 1, 5, 5), torch.zeros(1, 3, 80, 80)],
+                    []), False),
+        ("nms", lambda b, s, c: V.nms(b, 0.5, s, c, [2, 0, 1], 20),
+         lambda g: ([boxes(g, 64, 100.0, 0.0),
+                     _distinct_scores(torch, g, 64),
+                     torch.randint(0, 3, (64,), generator=g)], []), True),
+        ("matrix_nms", lambda b, s: V.matrix_nms(
+            b, s, 0.3, 0.2, -1, 30, background_label=0, return_index=True),
+         lambda g: ([torch.stack([boxes(g, 40, 1.0, 0.0) for _ in range(2)]),
+                     _distinct_scores(torch, g, 2, 4, 40)], []), True),
+        ("matrix_nms gaussian", lambda b, s: V.matrix_nms(
+            b, s, 0.2, 0.1, 10, -1, True, 0.5, -1, return_index=True),
+         lambda g: ([torch.stack([boxes(g, 40, 1.0, 0.0) for _ in range(2)]),
+                     _distinct_scores(torch, g, 2, 4, 40)], []), True),
+        ("generate_proposals", lambda s, d, im, a, v: V.generate_proposals(
+            s, d, im, a, v, 100, 30, 0.7, 0.0, return_rois_num=True),
+         lambda g: (rpn(g), []), True),
+        ("distribute_fpn_proposals",
+         lambda b, n: V.distribute_fpn_proposals(b, 2, 5, 4, 224, rois_num=n),
+         lambda g: ([boxes(g, 40, 800.0, 0.0), torch.tensor([25, 15])], []),
+         True),
+    ]
+
+
+def detection_card_vs_cpu(torch, dev, report):
+    """Every op of ``vision.ops`` (``_detection_cases``) in fp32 (TF32
+    off) on the card against the same call on the CPU: selection outputs
+    equal (values, dtypes, order), other outputs within 1e-5 of their own
+    max |value| (absolute below 1), gradients of ``sum(out * w)`` within
+    1e-4 of their own max |g|; the card's backward run twice from one
+    state must give the same bits."""
+    from paddle_tpu_torch.vision import ops as V
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst_out, worst_grad, failed = (0.0, ""), (0.0, ""), []
+    cases = _detection_cases(torch, V)
+    for name, fn, make, select in cases:
+        g = torch.Generator().manual_seed(sum(map(ord, name)))
+        args, grads = make(g)
+        weights = []
+
+        def run(device):
+            xs = [_moved(a, device, i in grads) for i, a in enumerate(args)]
+            outs = _flat(fn(*xs))
+            if not weights:
+                weights.extend(torch.randn(o.shape, generator=g)
+                               for o in outs)
+            if grads:
+                sum((o * w.to(device)).sum() for o, w in zip(outs, weights)
+                    if o.is_floating_point() and o.requires_grad).backward()
+            return ([o.detach().cpu() for o in outs],
+                    [xs[i].grad.cpu() for i in grads])
+
+        c_out, c_grad = run("cpu")
+        d_out, d_grad = run(dev)
+        _, d_grad2 = run(dev)
+        if len(c_out) != len(d_out):
+            failed.append(f"{name}: {len(d_out)} outputs, {len(c_out)} on "
+                          f"the CPU")
+            continue
+        for k, (got, want) in enumerate(zip(d_out, c_out)):
+            if select or not want.is_floating_point():
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    failed.append(f"{name} output {k}")
+                continue
+            err = (float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1.0)) if want.numel() else 0.0
+            worst_out = max(worst_out, (err, name))
+            if err > 1e-5:
+                failed.append(f"{name} output {k} {err:.3g}")
+        for i, got, want in zip(grads, d_grad, c_grad):
+            err = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1.0)
+            worst_grad = max(worst_grad, (err, name))
+            if err > 1e-4:
+                failed.append(f"{name} gradient {i} {err:.3g}")
+        if not all(torch.equal(a, b) for a, b in zip(d_grad, d_grad2)):
+            failed.append(f"{name}: two backward passes differ")
+    log(f"  {len(cases)} cases in fp32, card against CPU: selections equal, "
+        f"worst output {worst_out[0]:.3g} of its max ({worst_out[1]}; tol "
+        f"1e-5), worst gradient {worst_grad[0]:.3g} ({worst_grad[1]}; tol "
+        f"1e-4), every backward twice from one state bit-equal")
+    check(not failed, f"detection card vs CPU: {failed}")
+    return dict(cases=len(cases), worst_out=worst_out[0],
+                worst_grad=worst_grad[0])
+
+
+def phase_detection(torch, dev, report):
+    """The ``[detection]`` phase: ``detection_card_vs_cpu``, then the
+    detectors' paths (``detection_two_stage``, ``detection_one_stage``,
+    ``detection_ssd``). No kernel of the port runs: every launch counter
+    stays 0 (kept under ``launches_by_path["detection"]``) and a
+    profiled run of each path shows none of the port's kernels by
+    name."""
+    from torch.autograd import DeviceType
+
+    reset_counts()
+    run_parts(torch, dev, report, "detection", "detection", (
+        ("card_vs_cpu", detection_card_vs_cpu),
+        ("two_stage", detection_two_stage),
+        ("one_stage", detection_one_stage),
+        ("ssd", detection_ssd)))
+    counts = read_counts()
+    record_launches(report, "detection", counts)
+    check(not any(counts.values()),
+          f"detection: kernels of the port launched: {counts}")
+    from paddle_tpu_torch.vision import ops as V
+
+    x = torch.randn(2, 256, 50, 84, device=dev, requires_grad=True)
+    b = torch.rand(64, 4, device=dev) * 400
+    b[:, 2:] += b[:, :2]
+    num = torch.tensor([32, 32], device=dev)
+
+    def sample():
+        V.roi_align(x, b, num, 7, 1 / 16, 0, True).sum().backward()
+        V.roi_pool(x, b, num, 7, 1 / 16).sum().backward()
+        V.nms(b, 0.5, torch.rand(64, device=dev))
+
+    names = {e.key for e in profiled(sample, 1)
+             if e.device_type == DeviceType.CUDA}
+    ran = port_launches({k: 1 for k in names}, ())
+    log(f"  detection ops by name: kernels of the port {ran or 'none'} "
+        f"({len(names)} kernels)")
+    check(not ran, f"detection ran kernels of the port: {ran}")
+
+
 def main() -> int:
     try:
         import torch
@@ -6295,7 +7019,8 @@ def main() -> int:
                             ("sdxl", phase_sdxl),
                             ("incubate", phase_incubate),
                             ("functional", phase_functional),
-                            ("vision", phase_vision)):
+                            ("vision", phase_vision),
+                            ("detection", phase_detection)):
             mark(name)
             phase(torch, dev, report)
             models[name] = report.pop(name)

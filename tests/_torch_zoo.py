@@ -6,9 +6,21 @@ The reference draws each parameter with a ``jax.random`` call compiled
 for its shape (about 19 s to build ``mobilenet_v3_large`` on the CPU),
 so the tests build its models with ``numpy_init``: the same
 initializers (``Constant``, ``Normal``, ``XavierNormal`` and zero
-biases, with their parameters), drawn with numpy. The port's weights are
-bridged from the reference's in every case, so the draws only have to
-be of the right scale.
+biases, with their parameters), drawn with numpy (zeros where only
+names and shapes are compared). The port's weights are bridged from the
+reference's in every case, so the draws only have to be of the right
+scale.
+
+The reference runs its forward and its training step under its own
+``jit.to_static`` (``reference_programs``): one XLA program each, where
+its eager dispatch compiles a program for every op at every shape,
+which made the reference the slow side of these tests. The compiled
+step is the eager one's computation, equal to it up to rounding far
+inside the tolerances below. The port runs on one torch thread
+(``one_torch_thread``, autouse where imported): beside XLA's own thread
+pool in the same process, torch's default of one thread per core spent
+many times the CPU of one thread on these small inputs, which the zoo's
+files, run side by side, pay in wall time.
 
 ``step_matches_reference`` runs the smallest configuration of each
 family (``FAMILIES``) at a small input, ``num_classes=10``, dropout off
@@ -39,6 +51,7 @@ Tolerances otherwise: logits and statistics ``OUT_TOL`` of their own max
 after the step within lr x that gradient bound plus ``PARAM_TOL`` of its
 own max |value|."""
 import numpy as np
+import pytest
 import torch
 
 import paddle_tpu as paddle
@@ -64,9 +77,19 @@ VGG_GRAD_TOL = 2e-3
 BUFFER_FLOOR = 1e-3
 
 
-def numpy_init(monkeypatch, seed=0):
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch's intra-op threads set to 1 for a test (see the module
+    docstring), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def numpy_init(monkeypatch, seed=0, zeros=False):
     """Make the reference's ``Layer.create_parameter`` draw with numpy
-    (see the module docstring)."""
+    (see the module docstring); with ``zeros`` every parameter is 0."""
     from paddle_tpu.core.tensor import Parameter
     from paddle_tpu.nn import initializer as I
     from paddle_tpu.nn.layer import Layer
@@ -81,7 +104,9 @@ def numpy_init(monkeypatch, seed=0):
         if attr is not None or (dtype not in (None, "float32")):
             return original(self, shape, attr, dtype, is_bias,
                             default_initializer)
-        if isinstance(init, I.Constant) or (init is None and is_bias):
+        if zeros:
+            value = np.zeros(shape, np.float32)
+        elif isinstance(init, I.Constant) or (init is None and is_bias):
             value = np.full(shape, init.value if init else 0.0, np.float32)
         elif isinstance(init, I.Normal):
             value = rng.normal(init.mean, init.std, shape)
@@ -91,7 +116,8 @@ def numpy_init(monkeypatch, seed=0):
         else:
             return original(self, shape, attr, dtype, is_bias,
                             default_initializer)
-        return Parameter(paddle.to_tensor(value.astype(np.float32))._value)
+        return Parameter(paddle.to_tensor(
+            value.astype(np.float32, copy=False))._value)
 
     monkeypatch.setattr(Layer, "create_parameter", create)
 
@@ -146,10 +172,36 @@ def loss_of(out, y, functional):
     return functional.cross_entropy(out, y)
 
 
+def reference_programs(jm, jo):
+    """The reference model's forward and its training step (forward,
+    ``loss_of``, backward, ``jo.step()``; it returns the output and the
+    gradients by parameter name), each under the reference's
+    ``jit.to_static(full_graph=True)`` (see the module docstring)."""
+    names = [n for n, _ in jm.named_parameters()]
+    params = [p for _, p in jm.named_parameters()]
+
+    def step(x, y):
+        out = jm(x)
+        loss_of(out, y, paddle.nn.functional).backward()
+        grads = [p.grad for p in params]
+        jo.step()
+        return out, grads
+
+    static = paddle.jit.to_static(step, full_graph=True)
+
+    def run_step(x, y):
+        out, grads = static(x, y)
+        return out, {n: np.asarray(g._value) for n, g in zip(names, grads)
+                     if g is not None}
+
+    return paddle.jit.to_static(lambda x: jm(x), full_graph=True), run_step
+
+
 def step_matches_reference(name, kw, shape, out_tol, grads_in,
                            grad_tol=GRAD_TOL):
     """One step of ``name(num_classes=10, **kw)`` in both packages from
-    the same weights: the training-mode forward (dropout off) and the
+    the same weights (the reference's through ``reference_programs``):
+    the training-mode forward (dropout off) and the
     batch-norm statistics it leaves within ``out_tol`` (of their max
     |value|, at least ``BUFFER_FLOOR``); with ``grads_in == "eval"`` both
     switch to eval mode for the gradients, from the reference's
@@ -167,8 +219,13 @@ def step_matches_reference(name, kw, shape, out_tol, grads_in,
     jo = jopt.Momentum(learning_rate=LR, momentum=0.9,
                        parameters=jm.parameters())
     to = Momentum(learning_rate=LR, momentum=0.9, parameters=tm.parameters())
+    jforward, jstep = reference_programs(jm, jo)
 
-    jout, tout = jm(jx), tm(tx)
+    tout = tm(tx)
+    if grads_in == "eval":
+        jout = jforward(jx)
+    else:       # the training-mode forward is the step's
+        jout, jgrads = jstep(jx, jy)
     assert isinstance(jout, tuple) == isinstance(tout, tuple)
     for j, t in zip(jout if isinstance(jout, tuple) else [jout],
                     tout if isinstance(tout, tuple) else [tout]):
@@ -183,19 +240,16 @@ def step_matches_reference(name, kw, shape, out_tol, grads_in,
         load_paddle_tpu_state(tm, state(jm))
         jm.eval()
         tm.eval()
-        jout, tout = jm(jx), tm(tx)
+        tout = tm(tx)
+        jout, jgrads = jstep(jx, jy)
         assert share(tout, np.asarray(jout._value)) <= OUT_TOL, "eval"
-    loss_of(jout, jy, paddle.nn.functional).backward()
     loss_of(tout, ty, TF).backward()
-    jgrads = torch_layout({n: np.asarray(p.grad._value)
-                           for n, p in jm.named_parameters()
-                           if p.grad is not None}, tm)
+    jgrads = torch_layout(jgrads, tm)
     tgrads = {n: p.grad for n, p in tm.named_parameters()
               if p.grad is not None}
     assert set(tgrads) == set(jgrads)
     worst = max((share(g, jgrads[n]), n) for n, g in tgrads.items())
     assert worst[0] <= grad_tol, worst
-    jo.step()
     to.step()
     jstate = torch_layout(state(jm), tm)
     for n, p in tm.named_parameters():

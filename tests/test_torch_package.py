@@ -41,6 +41,7 @@ from paddle_tpu_torch.ops.cuda import rms_norm as trn
 from paddle_tpu_torch.ops.cuda import tiled_mm as ttm
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.vision.models import LeNet, mobilenet_v3_small, resnet18
+from paddle_tpu_torch.vision.ops import DeformConv2D, read_file
 from paddle_tpu_torch.serve import default_serving_setup
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -59,7 +60,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "paddle_tpu_torch.tools.conv_calibration, "
             "paddle_tpu_torch.incubate.nn, "
             "paddle_tpu_torch.incubate.nn.memory_efficient_attention, "
-            "paddle_tpu_torch.vision.models; "
+            "paddle_tpu_torch.vision.models, paddle_tpu_torch.vision; "
             "print('\\n'.join(sys.modules))")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -74,6 +75,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert "paddle_tpu_torch.nn.functional.extra_pooling" in out
     assert "paddle_tpu_torch.nn.functional.vision" in out
     assert "paddle_tpu_torch.vision.models.inceptionv3" in out
+    assert "paddle_tpu_torch.vision.ops" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -102,6 +104,25 @@ def test_incubate_all_matches_the_reference(module):
     port = importlib.import_module(f"paddle_tpu_torch.{module}")
     assert sorted(port.__all__) == sorted(ref.__all__)
     assert all(hasattr(port, n) for n in port.__all__)
+
+
+def test_vision_ops_all_matches_the_reference():
+    """``vision.ops.__all__`` is the reference's 18 names, each defined;
+    ``vision`` exports ``ops``, ``image_load`` and the image backend
+    setting, as the reference's ``vision`` does."""
+    from paddle_tpu import vision as ref
+    from paddle_tpu.vision import ops as ref_ops
+
+    from paddle_tpu_torch import vision as port
+    from paddle_tpu_torch.vision import ops as port_ops
+
+    assert sorted(port_ops.__all__) == sorted(ref_ops.__all__)
+    assert len(port_ops.__all__) == 18
+    assert all(hasattr(port_ops, n) for n in port_ops.__all__)
+    for name in ("ops", "image_load", "set_image_backend",
+                 "get_image_backend"):
+        assert hasattr(ref, name) and name in port.__all__
+        assert hasattr(port, name)
 
 
 def _public(module):
@@ -149,7 +170,9 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
                  lambda **k: LeNet(**k),
                  lambda **k: mobilenet_v3_small(scale=0.5, **k),
                  lambda **k: UNet2DConditionModel(UNetConfig.tiny(), **k),
-                 lambda **k: FusedMultiTransformer(16, 2, 32, **k)):
+                 lambda **k: FusedMultiTransformer(16, 2, 32, **k),
+                 lambda **k: DeformConv2D(4, 4, 3, **k),
+                 lambda **k: read_file(__file__, **k)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         make(device="cpu")

@@ -26,10 +26,17 @@ the port's own fp32 run against its fp64 run from the same weights:
   values a channel: ``resnet18``'s own fp32 and fp64 logits are already
   2.1e-4 apart, its gradients 28%. Hence 48 x 48 (eight values a
   channel there).
+
+The reference's models draw their weights with numpy and run their
+forward and step under the reference's ``jit.to_static``
+(``_torch_zoo.numpy_init`` and ``reference_programs``: one XLA program
+each instead of one for every op at every shape).
 """
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import (  # noqa: F401
+    numpy_init, one_torch_thread, reference_programs)
 
 import paddle_tpu as paddle
 import paddle_tpu.optimizer as jopt
@@ -46,6 +53,11 @@ PARAM_TOL = 1e-6
 LR = 0.1
 #: resnet50's training-mode forward (see the module docstring)
 DEEP_OUT_TOL = 5e-4
+
+
+@pytest.fixture(autouse=True)
+def _fast_reference(monkeypatch):
+    numpy_init(monkeypatch)
 
 
 def _share(got, want):
@@ -84,8 +96,14 @@ def test_resnet_step_matches_reference(name, out_tol, grads_in):
                        parameters=jm.parameters())
     to = Momentum(learning_rate=LR, momentum=0.9,
                   parameters=tm.parameters())
+    jforward, jstep = reference_programs(jm, jo)
+    jy = paddle.to_tensor(y)
 
-    jlog, tlog = jm(jx), tm(tx)
+    tlog = tm(tx)
+    if grads_in == "eval":
+        jlog = jforward(jx)
+    else:       # the training-mode forward is the step's
+        jlog, jgrads = jstep(jx, jy)
     assert _share(tlog, np.asarray(jlog._value)) <= out_tol
     jstate = _state(jm)
     for n, b in tm.named_buffers():
@@ -94,16 +112,14 @@ def test_resnet_step_matches_reference(name, out_tol, grads_in):
     if grads_in == "eval":
         jm.eval()
         tm.eval()
-        jlog, tlog = jm(jx), tm(tx)
+        tlog = tm(tx)
+        jlog, jgrads = jstep(jx, jy)
         assert _share(tlog, np.asarray(jlog._value)) <= OUT_TOL
-    paddle.nn.functional.cross_entropy(jlog, paddle.to_tensor(y)).backward()
     TF.cross_entropy(tlog, torch.from_numpy(y)).backward()
-    jgrads = _torch_layout({n: np.asarray(p.grad._value)
-                            for n, p in jm.named_parameters()})
+    jgrads = _torch_layout(jgrads)
     worst = max((_share(p.grad, jgrads[n]), n)
                 for n, p in tm.named_parameters())
     assert worst[0] <= GRAD_TOL, worst
-    jo.step()
     to.step()
     jstate = _torch_layout(_state(jm))
     for n, p in tm.named_parameters():
@@ -118,7 +134,7 @@ def test_resnet_step_matches_reference(name, out_tol, grads_in):
     tm.eval()
     with torch.no_grad():
         tlog = tm(tx).numpy()
-    jlog = np.asarray(jm(jx)._value)
+    jlog = np.asarray(jforward(jx)._value)
     np.testing.assert_array_equal(np.isnan(tlog), np.isnan(jlog))
     ok = ~np.isnan(jlog)
     if ok.any():

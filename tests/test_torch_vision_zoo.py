@@ -13,7 +13,7 @@ constructor's state names in ``test_torch_vision_zoo_names.py``.
 """
 import pytest
 
-from _torch_zoo import family_step, numpy_init
+from _torch_zoo import family_step, numpy_init, one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

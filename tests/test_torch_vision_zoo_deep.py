@@ -4,7 +4,8 @@ step of ``densenet121`` at 64 x 64, as ``test_torch_vision_zoo.py``
 import pytest
 import torch
 
-from _torch_zoo import family_step, numpy_init, pair
+from _torch_zoo import (  # noqa: F401
+    family_step, numpy_init, one_torch_thread, pair)
 
 
 @pytest.fixture(autouse=True)

@@ -5,7 +5,8 @@ returns ``(out, aux1, aux2)``, its eval forward ``out``)."""
 import pytest
 import torch
 
-from _torch_zoo import family_step, numpy_init, pair
+from _torch_zoo import (  # noqa: F401
+    family_step, numpy_init, one_torch_thread, pair)
 
 
 @pytest.fixture(autouse=True)

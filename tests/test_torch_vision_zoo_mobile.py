@@ -4,7 +4,7 @@ configuration, as ``test_torch_vision_zoo.py`` (tolerances in
 ``_torch_zoo.py``)."""
 import pytest
 
-from _torch_zoo import family_step, numpy_init
+from _torch_zoo import family_step, numpy_init, one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -3,19 +3,20 @@ reference's (paddle_tpu/vision/models/): every constructor's state names
 and shapes (``nn.Linear`` weights transposed), ``pretrained=True``
 raising for every constructor, the ``with_pool`` / ``num_classes``
 options, and ``dtype`` / ``seed`` / the dropout generator within the
-port. The reference's models are built with ``_torch_zoo.numpy_init``
-(numpy draws; only names and shapes are compared here)."""
+port. The reference's models are built with ``_torch_zoo.numpy_init`` (zero
+weights: only names and shapes are compared here)."""
 import pytest
 import torch
 
-from _torch_zoo import names_and_shapes_match, numpy_init, pair
+from _torch_zoo import (  # noqa: F401
+    names_and_shapes_match, numpy_init, one_torch_thread, pair)
 
 from paddle_tpu_torch import vision as tvision
 
 
 @pytest.fixture(autouse=True)
 def _fast_reference_init(monkeypatch):
-    numpy_init(monkeypatch)
+    numpy_init(monkeypatch, zeros=True)
 
 
 CONSTRUCTORS = [
