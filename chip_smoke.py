@@ -194,6 +194,18 @@ Phases, each fatal on failure:
              and their encoding (``SSD``): each op's device ms forward
              and backward, host syncs a call of each selection op, each
              path's wall ms, peak memory.
+18. observability — the port measuring itself (``phase_observability``):
+             ``phase_train``'s step under a ``StepTimer``, eager and
+             under ``jit.to_static``, each form's ``train.step_seconds``
+             (device time between CUDA events) within 5% of its synced
+             wall, its FLOPs (``measure_flops``) equal to
+             ``llama_step_flops``, its launches the counters'; the
+             memory gauges against the allocator and a faulting step's
+             flight dump with ``device_memory``; a ``Profiler`` window's
+             port kernels by name and class against the counters, its
+             device total within 5% of ``profile_kernels``'; serving
+             under ``run_load`` with and without a ``HealthMonitor`` (one
+             sample an engine step, the hook's host cost).
 
 Each phase prints its seconds.
 
@@ -238,8 +250,8 @@ lost events only where a later one passes and shows every launch it did.
 
 The last lines are the ``train``, ``train_recipe``, ``generate``
 (Llama's beam and speculative numbers), ``gpt``, ``bert``, ``moe``,
-``resnet``, ``sdxl``, ``incubate``, ``functional``, ``vision`` and
-``detection`` JSON,
+``resnet``, ``sdxl``, ``incubate``, ``functional``, ``vision``,
+``detection`` and ``observability`` JSON,
 the
 ``kernels`` JSON, the ``nvidia-smi`` name/power line, and
 ``{"ok": true, "device": {...}}``.
@@ -6927,6 +6939,391 @@ def phase_detection(torch, dev, report):
     check(not ran, f"detection ran kernels of the port: {ran}")
 
 
+#: timed steps of each training form, and the profiler's window (steps
+#: closed, ready and recorded)
+OBS_STEPS = 5
+OBS_PROFILE = dict(closed=1, ready=1, record=3)
+
+
+def llama_step_flops(config, batch, seq, chunk=2048):
+    """The analytic FLOPs of one Llama training step under
+    ``paddle_tpu_torch/utils/flops.py``'s convention: each decoder linear
+    layer 6 * T * in * out (forward, dX, dW); the lm head through the
+    fused loss 8 * Tp * H * V (Tp: T rounded up to the loss's 2048-row
+    chunks; each chunk's product is recomputed in the backward); the
+    flash forward the 4 * B * H * S * S * D that the reference's Pallas
+    call declares, each layer; nothing for the flash backward, RMSNorm,
+    RoPE, SwiGLU, the embedding or AdamW."""
+    h, i = config.hidden_size, config.intermediate_size
+    nl, heads = config.num_hidden_layers, config.num_attention_heads
+    kvh, d = config.num_key_value_heads, config.hidden_size // heads
+    t = batch * seq
+    linear = h * heads * d + 2 * h * kvh * d + heads * d * h + 3 * h * i
+    tp = -(-t // chunk) * chunk
+    return (6 * t * nl * linear + 8 * tp * h * config.vocab_size
+            + 4 * batch * heads * seq * seq * d * nl)
+
+
+def obs_train_forms(torch, dev, model, opt, ids, labels, nl, n_params,
+                    res):
+    """``phase_observability``'s training part: the step under a
+    ``StepTimer`` eagerly and under ``jit.to_static``, each form's gauge
+    against its synced wall, its FLOP count against the analytic one, its
+    launches against the counters."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.device.memory import compiled_memory_stats
+
+    config = model.config
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def step(ids, labels):
+        loss, _ = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    t0 = time.perf_counter()
+    warm = float(step(ids, labels))
+    log(f"  warm-up step {time.perf_counter() - t0:.2f} s, loss {warm:.4f}")
+    timer = obs.StepTimer("train", items_per_step=tokens, unit="tokens",
+                          sample_memory_every=OBS_STEPS)
+    t0 = time.perf_counter()
+    flops = timer.measure_flops(step, ids, labels)
+    torch.cuda.synchronize()
+    want = llama_step_flops(config, TRAIN_BATCH, TRAIN_SEQ)
+    bench = tokens * (6 * n_params + 12 * nl * config.hidden_size * TRAIN_SEQ)
+    log(f"  measure_flops: {flops:,} FLOPs a step ({time.perf_counter() - t0:.2f}"
+        f" s); analytic count {want:,}; bench.py's formula (6 N + 12 L h S "
+        f"a token) {bench:,} ({flops / bench:.4f} of it)")
+    check(flops == want, f"measured FLOPs {flops} != the analytic {want}")
+    peak = obs.default_peak_flops()
+    check(peak == 989e12, f"default_peak_flops {peak}, want 989e12")
+    static = jit.to_static(step, full_graph=True)
+
+    def capture():
+        t0 = time.perf_counter()
+        static(ids, labels)             # the warm-up call and the capture
+        torch.cuda.synchronize()
+        log(f"  to_static: warm-up and capture "
+            f"{time.perf_counter() - t0:.2f} s")
+        return static
+
+    hist = obs.registry.get("train.step_seconds")
+    mfu_g = obs.registry.get("train.mfu")
+    forms = {}
+    # eager first: the capture empties the allocator's cache, and the
+    # eager steps after it would pay cudaMalloc again
+    for form, make, name in (("eager", lambda: step, "train"),
+                             ("to_static", capture, "train_static")):
+        fn = make()
+        t = timer if form == "eager" else obs.StepTimer(
+            name, items_per_step=tokens, unit="tokens", flops_per_step=flops,
+            sample_memory_every=OBS_STEPS)
+        torch.cuda.synchronize()
+        reset_counts()
+        h0 = hist.stats(name=name)
+        t0 = time.perf_counter()
+        for _ in range(OBS_STEPS):
+            with t.region():
+                fn(ids, labels)
+        t.flush()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / OBS_STEPS
+        counts = read_counts()
+        h1 = hist.stats(name=name)
+        n = h1["count"] - h0["count"]
+        gauge = (h1["sum"] - h0["sum"]) / max(n, 1)
+        mfu = mfu_g.value(name=name)
+        log(f"  {form}: train.step_seconds mean {gauge * 1e3:.3f} ms over "
+            f"{n} steps (device time, CUDA events), synced wall mean "
+            f"{wall * 1e3:.3f} ms ({gauge / wall - 1:+.2%}); train.mfu "
+            f"{mfu:.4f} (last step; the mean's "
+            f"{flops / gauge / peak:.4f}); bench.py's formula gives "
+            f"{bench / gauge / peak:.4f}; launches {counts}")
+        check(n == OBS_STEPS, f"{form}: {n} steps recorded, want {OBS_STEPS}")
+        check(abs(gauge / wall - 1) <= 0.05,
+              f"{form}: gauge mean {gauge:.6f} s not within 5% of the "
+              f"synced wall {wall:.6f} s")
+        for key, per in train_launches(nl).items():
+            check(counts[key] == per * OBS_STEPS,
+                  f"{form}: {key} launches {counts[key]}, want {per} x "
+                  f"{OBS_STEPS}")
+        forms[form] = dict(step_seconds_mean=gauge, wall_seconds_mean=wall,
+                           mfu_last=mfu, mfu_mean=flops / gauge / peak,
+                           bench_mfu=bench / gauge / peak, launches=counts)
+    mem = compiled_memory_stats(static)
+    log(f"  compiled_memory_stats(to_static step): {mem}")
+    check(mem.get("temp_size_in_bytes", 0) > 0,
+          f"the captured step's pool reads {mem}")
+    res.update(flops=flops, analytic_flops=want, bench_formula_flops=bench,
+               peak_flops=peak, forms=forms, graph_memory=mem)
+    return step
+
+
+def obs_memory_and_flight(torch, dev, model, step, ids, labels, res):
+    """The device gauges against the allocator, and a step that raises
+    inside a ``step_region`` writing a flight dump with them."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import observability as obs
+
+    s = obs.sample_device_memory()
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    wm = obs.registry.get("device.hbm_watermark_bytes").value(device="0")
+    lim = obs.registry.get("device.hbm_bytes_limit").value(device="0")
+    log(f"  device gauges: in use {s['bytes_in_use'] / 2**30:.2f} GiB, "
+        f"watermark {wm / 2**30:.2f} GiB (max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB), limit {lim / 2**30:.2f} GiB (card "
+        f"{total / 2**30:.2f} GiB)")
+    check(wm >= peak, f"watermark {wm} < max_memory_allocated {peak}")
+    check(lim == total, f"hbm_bytes_limit {lim} != the card's {total}")
+    d = tempfile.mkdtemp()
+    prev = os.environ.get(obs.flight.FLIGHT_DIR_ENV)
+    os.environ[obs.flight.FLIGHT_DIR_ENV] = d
+    try:
+        try:
+            with obs.step_region("train_fault", step=0):
+                step(ids, labels)
+                raise RuntimeError("injected fault")
+        except RuntimeError as exc:
+            check("injected" in str(exc), f"unexpected error {exc!r}")
+        dumps = []
+        for f in sorted(os.listdir(d)):
+            with open(os.path.join(d, f)) as fh:
+                dumps.append(json.load(fh))
+    finally:
+        if prev is None:
+            os.environ.pop(obs.flight.FLIGHT_DIR_ENV, None)
+        else:
+            os.environ[obs.flight.FLIGHT_DIR_ENV] = prev
+        shutil.rmtree(d, ignore_errors=True)
+    mem = dumps[-1].get("device_memory") if dumps else None
+    log(f"  flight dumps after the fault: {[x['reason'] for x in dumps]}, "
+        f"device_memory {mem}")
+    check(len(dumps) == 1 and dumps[0]["reason"] == "step_exception"
+          and mem and mem["bytes_limit"] == total
+          and mem["bytes_in_use"] > 0,
+          f"the step_exception dump holds no device memory: {mem}")
+    res["memory"] = dict(watermark_bytes=wm, max_memory_allocated=peak,
+                         bytes_limit=lim, flight_device_memory=mem)
+
+
+def obs_profiler(torch, dev, step, ids, labels, nl, res):
+    """``Profiler`` over ``OBS_PROFILE``'s window of training steps: the
+    trace file, the port's kernels by name under the port's class with the
+    counters' launches, and the device total against ``profile_kernels``."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch import profiler as P
+    from paddle_tpu_torch.profiler import statistic as S
+
+    rec = OBS_PROFILE["record"]
+    steps = sum(OBS_PROFILE.values())
+    per_step = {"flash_fwd_tc_kernel": nl, "flash_bwd_dq_tc_kernel": nl,
+                "flash_bwd_dkv_tc_kernel": nl,
+                **{k: 2 * nl + 1 for k in RMS_TRAIN_KERNELS}}
+
+    def take():
+        with tempfile.TemporaryDirectory() as d:
+            p = P.Profiler(targets=[P.ProfilerTarget.CPU,
+                                    P.ProfilerTarget.GPU],
+                           scheduler=P.make_scheduler(**OBS_PROFILE),
+                           on_trace_ready=P.export_chrome_tracing(d))
+            reset_counts()
+            p.start()
+            for _ in range(steps):
+                step(ids, labels)
+                torch.cuda.synchronize()
+                p.step()
+            p.stop()
+            files = sorted(os.listdir(d))
+            sizes = [os.path.getsize(os.path.join(d, f)) for f in files]
+        by_op = S.collect_device_statistic(p.device_events, by="op")
+        by_class = S.collect_device_statistic(p.device_events, by="class")
+        return dict(p=p, files=list(zip(files, sizes)), by_op=by_op,
+                    by_class=by_class, counts=read_counts())
+
+    def launches(out):
+        return {k: it.calls for k, it in out["by_op"].items()}
+
+    def check_fn(out):
+        check(len(out["files"]) == 1 and out["files"][0][1] > 0,
+              f"profiler trace files {out['files']}")
+        c = out["counts"]
+        check(c["flash"] == c["flash_bwd"] == nl * steps
+              and c["rms_norm"] == c["rms_norm_bwd"] == (2 * nl + 1) * steps,
+              f"counters over {steps} steps: {c}")
+        got = {k: out["by_op"][k].calls if k in out["by_op"] else 0
+               for k in per_step}
+        log(f"  profiler window ({rec} steps): port kernels by name {got}")
+        check(got == {k: v * rec for k, v in per_step.items()},
+              f"profiler window: port kernels {got}, want "
+              f"{ {k: v * rec for k, v in per_step.items()} }")
+        wrong = {k: S.op_class(k) for k in per_step
+                 if S.op_class(k) != S.PORT_CLASS}
+        check(not wrong, f"port kernels outside {S.PORT_CLASS}: {wrong}")
+        port = out["by_class"].get(S.PORT_CLASS)
+        check(port is not None and port.calls == sum(
+            it.calls for k, it in out["by_op"].items()
+            if S.op_class(k) == S.PORT_CLASS) >= sum(got.values()),
+              f"the class table's {S.PORT_CLASS} row {port and port.calls}")
+
+    out = recorded(take, launches, check_fn, "observability profiler")
+    table = out["p"].summary(op_detail=True)
+    check(all(k in table for k in per_step) and S.PORT_CLASS in table,
+          "summary() lacks the port's kernels or their class")
+    dev_ms = sum(it.total_ns for it in out["by_op"].values()) / rec / 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(ids, labels)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, _ = profile_kernels(torch, lambda: step(ids, labels), 1, wall_ms,
+                              "observability step, profile_kernels")
+    log(f"  Profiler device total {dev_ms:.3f} ms a step; profile_kernels "
+        f"{busy:.3f} ms ({dev_ms / busy - 1:+.2%}); by class " + "; ".join(
+            f"{k} {it.total_ns / rec / 1e6:.3f} ms x{it.calls // rec}"
+            for k, it in sorted(out["by_class"].items(),
+                                key=lambda kv: -kv[1].total_ns)))
+    check(abs(dev_ms / busy - 1) <= 0.05,
+          f"Profiler device total {dev_ms:.3f} ms not within 5% of "
+          f"profile_kernels' {busy:.3f} ms")
+    res["profiler"] = dict(
+        device_ms_per_step=dev_ms, profile_kernels_ms=busy,
+        trace_files=out["files"],
+        by_class_ms={k: it.total_ns / rec / 1e6
+                     for k, it in out["by_class"].items()})
+
+
+def obs_serving(torch, dev, res):
+    """``default_serving_setup`` under ``run_load`` (24 requests, 30
+    req/s, seed 0) without and with a ``HealthMonitor`` of the default
+    rules: one recorder sample per engine step, any PTL60x finding
+    printed, tokens/s both ways."""
+    import dataclasses
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import health
+    from paddle_tpu_torch.serve import (ServeEngine, default_serving_setup,
+                                        run_load, warm_engine)
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    config, prm = default_serving_setup(dev)
+    model = LlamaForCausalLM(dataclasses.replace(config, dtype="bfloat16"),
+                             device=dev, seed=0).eval()
+    eng = ServeEngine(model, max_slots=prm["slots"],
+                      block_size=prm["block_size"],
+                      num_blocks=prm["num_blocks"],
+                      max_seq_len=prm["max_seq_len"], name="obs_serve",
+                      device=dev)
+    warm_engine(eng, max_prompt_len=prm["prompt_len"][1])
+    calls = [0]
+    real = eng.step
+
+    def counted():
+        calls[0] += 1
+        return real()
+
+    eng.step = counted
+    hook_s = [0.0]
+    real_hook = health.maybe_on_step
+
+    def timed_hook(now=None):
+        t0 = time.perf_counter()
+        real_hook(now)
+        hook_s[0] += time.perf_counter() - t0
+
+    out = {}
+    for label, mon in (("without", None),
+                       ("with", health.HealthMonitor(health.default_rules()))):
+        health.install(mon)
+        health.maybe_on_step = timed_hook
+        calls[0], hook_s[0] = 0, 0.0
+        try:
+            r = run_load(eng, rate=prm["rate"], n_requests=24,
+                         prompt_len=prm["prompt_len"], max_new=prm["max_new"],
+                         seed=0)
+        finally:
+            health.install(None)
+            health.maybe_on_step = real_hook
+        torch.cuda.synchronize()
+        out[label] = dict(tokens_per_s=r.tokens_per_sec, steps=calls[0],
+                          ttft_p50=r.ttft_p50, ttft_p99=r.ttft_p99,
+                          hook_us_per_step=hook_s[0] / max(calls[0], 1) * 1e6)
+        done = sum(q.state == "FINISHED" for q in r.requests)
+        check(done == 24, f"serving {label} the monitor: {done}/24 finished")
+        if mon is not None:
+            findings = [f"{d.code} {d.message}" for d in mon.report]
+            log(f"  health monitor: {mon.recorder.samples} samples for "
+                f"{calls[0]} engine steps, {mon.recorder.points_total()} "
+                f"points in {len(mon.recorder.names())} series; findings "
+                f"{findings or 'none'}")
+            check(mon.recorder.samples == calls[0] > 0,
+                  f"recorder took {mon.recorder.samples} samples for "
+                  f"{calls[0]} engine steps")
+            out[label].update(samples=mon.recorder.samples,
+                              findings=findings,
+                              series=mon.recorder.names())
+        log(f"  run_load {label} a health monitor: "
+            f"{r.tokens_per_sec:.1f} tokens/s, {calls[0]} engine steps, "
+            f"TTFT p50 {r.ttft_p50 * 1e3:.2f} ms p99 {r.ttft_p99 * 1e3:.2f} "
+            f"ms; the hook {out[label]['hook_us_per_step']:.1f} us a step "
+            f"(host)")
+    log(f"  the monitor's cost: {out['with']['tokens_per_s'] / out['without']['tokens_per_s'] - 1:+.2%} tokens/s "
+        f"(arrival-bound load: 30 req/s)")
+    res["serving"] = out
+    del eng, model
+    torch.cuda.empty_cache()
+
+
+def phase_observability(torch, dev, report):
+    """Step telemetry, device memory, the flight dump, health monitoring
+    and the profiler of the port on its main paths (``phase_train``'s
+    step: ``bench.py:bench_llama``'s 645M Llama, bf16, 4 x 2048, AdamW;
+    then ``default_serving_setup``'s engine): the ``StepTimer`` gauges of
+    the eager and captured step against their synced walls (5%), the
+    measured FLOPs against ``llama_step_flops`` (exactly) and the
+    launches against the counters; the memory gauges against the
+    allocator and a faulting step's flight dump; a ``Profiler`` window's
+    kernels by name and class and its device total against
+    ``profile_kernels`` (5%); serving with and without a health monitor
+    (one sample an engine step)."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    obs.reset()
+    obs.enable()
+    res = {}
+    try:
+        config = LlamaConfig(**TRAIN_CONFIG, dtype="bfloat16")
+        nl = config.num_hidden_layers
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = LlamaForCausalLM(config, device=dev, seed=0)
+        n_params = model.num_parameters()
+        opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                    multi_precision=True)
+        ids, labels = train_batch(torch, config, dev)
+        step = obs_train_forms(torch, dev, model, opt, ids, labels, nl,
+                               n_params, res)
+        obs_memory_and_flight(torch, dev, model, step, ids, labels, res)
+        obs_profiler(torch, dev, step, ids, labels, nl, res)
+        del model, opt, step
+        torch.cuda.empty_cache()
+        obs_serving(torch, dev, res)
+    finally:
+        obs.disable()
+        obs.reset()
+    report["observability"] = res
+
+
 def main() -> int:
     try:
         import torch
@@ -7020,7 +7417,8 @@ def main() -> int:
                             ("incubate", phase_incubate),
                             ("functional", phase_functional),
                             ("vision", phase_vision),
-                            ("detection", phase_detection)):
+                            ("detection", phase_detection),
+                            ("observability", phase_observability)):
             mark(name)
             phase(torch, dev, report)
             models[name] = report.pop(name)

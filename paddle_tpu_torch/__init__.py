@@ -42,10 +42,16 @@ and ``generate``, dense and beam), with ``nn.functional.one_hot`` and
 and ``models.DDPMScheduler``, with ``nn.functional``'s convolutions,
 pools, batch / group / instance norms and ``interpolate`` (torch's ops,
 as the reference leaves them to XLA; the UNet's attention runs the flash
-kernels).
+kernels). Measurement from inside the program: ``observability`` (step
+telemetry with device-timed ``train.step_seconds``, MFU against the
+card's peak, memory gauges, health detectors fed by training steps and
+the serving engine, the metrics dump and its renderers), ``profiler``
+(host spans and the card's kernels by name and class over
+``torch.profiler``), ``device`` (``paddle.device``: CUDA streams and
+events, the caching allocator's stats) and ``utils.flops``.
 """
-from . import (amp, convert, jit, models, nn, optimizer, regularizer, serve,
-               vision)
+from . import (amp, convert, device, jit, models, nn, observability,
+               optimizer, profiler, regularizer, serve, utils, vision)
 from .convert import load_paddle_tpu_state
 from .core.place import resolve_device
 from .models import (BertConfig, BertForPretraining,
@@ -59,5 +65,6 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "GPTConfig", "GPTForCausalLM",
            "ErnieMoeConfig", "ErnieMoeForCausalLM",
            "ServeEngine", "run_load",
            "warm_engine", "default_serving_setup", "load_paddle_tpu_state",
-           "resolve_device", "amp", "convert", "jit", "models", "nn",
-           "optimizer", "regularizer", "serve", "vision"]
+           "resolve_device", "amp", "convert", "device", "jit", "models",
+           "nn", "observability", "optimizer", "profiler", "regularizer",
+           "serve", "utils", "vision"]

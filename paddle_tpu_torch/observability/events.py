@@ -74,6 +74,12 @@ def clear():
     _buffer().clear()
 
 
+def ring_len() -> int:
+    """Events currently buffered (0 when the ring was never created) —
+    probed by observability/timeseries.py as a host-side leak series."""
+    return len(_events) if _events is not None else 0
+
+
 class span:
     """Context manager bracketing a named runtime moment.
 

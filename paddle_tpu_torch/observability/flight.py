@@ -3,9 +3,11 @@
 The port's copy of ``paddle_tpu/observability/flight.py``. Every
 structured observability event (``events.emit``) also lands in a small
 bounded ring here, and on an unhandled exception (once
-:func:`install_excepthook` has run) or an SLO breach
-(``observability/slo.py``) the ring — plus the exception, a metrics
-snapshot and the dumping site's context — is serialized as one JSON file
+:func:`install_excepthook` has run), a failed ``step_region``, an SLO
+breach (``observability/slo.py``) or a health alert
+(``observability/health.py``) the ring — plus the exception, a metrics
+snapshot, the device-memory gauges (``runtime.sample_device_memory``)
+and the dumping site's context — is serialized as one JSON file
 under the directory named by ``PADDLE_TPU_FLIGHT_DIR`` (the reference's
 variable, so one setting serves both packages).
 
@@ -36,6 +38,10 @@ FLIGHT_VERSION = 1
 #: the reference's spelling): the dump context carries the rule, the
 #: offending value and the tail-exemplar span trees
 REASON_SLO_BREACH = "slo_breach"
+#: the dump reason of a continuous-health detector that fired
+#: (observability/health.py HealthMonitor): the dump context carries
+#: the rule, its PTL6xx code and the offending series window
+REASON_HEALTH_ALERT = "health_alert"
 
 #: ring capacity; read once from core.flags at first record so the flag
 #: can be set before any event lands (same pattern as events._buffer).
@@ -111,8 +117,12 @@ class FlightRecorder:
                 "traceback": traceback.format_exception(
                     type(exc), exc, exc.__traceback__),
             }
-        # the reference adds its runtime module's device-memory gauges
-        # here; the port has no such module yet (ROADMAP item 5)
+        try:
+            from .runtime import sample_device_memory
+
+            d["device_memory"] = sample_device_memory()
+        except Exception:
+            pass
         return d
 
     def dump(self, reason: str, exc: Optional[BaseException] = None,

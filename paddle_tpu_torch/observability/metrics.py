@@ -33,6 +33,14 @@ CLAIMED_SUBSYSTEMS = {
     "trace",       # observability/tracing.py + slo.py — request-scoped
                    # span tracing: per-phase seconds, tail exemplars,
                    # decode-gap accounting, SLO breaches, overhead guard
+    "train",       # observability/runtime.py — step seconds,
+                   # throughput, MFU
+    "device",      # observability/runtime.py — memory gauges
+                   # (device/memory.py)
+    "ts",          # observability/timeseries.py — recorder
+                   # self-metrics (points recorded)
+    "health",      # observability/health.py — latched alerts by
+                   # rule/series, detector evaluations
     "test",        # scratch names registered by the test suite
 }
 

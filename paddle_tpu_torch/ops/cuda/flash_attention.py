@@ -28,6 +28,7 @@ import torch
 from . import _build
 from ...core.autocast import autocast_off
 from ...core.generator import draw_seed
+from ...utils.flops import kernel_work
 
 __all__ = ["flash_attention_bshd", "flash_attention_fused",
            "launches", "bwd_launches", "KERNEL_HEAD_DIMS"]
@@ -326,13 +327,18 @@ def _flash_fwd_bhsd(q, k, v, seed=None, key_bias=None, *, causal, scale,
     over heads and rows, added BEFORE the causal mask. CPU tensors run
     the plain version, CUDA tensors the kernel."""
     _check(q, k, v, seed, key_bias, dropout_rate)
-    if q.device.type == "cpu":
-        return _flash_fwd_reference(q, k, v, seed, key_bias, causal=causal,
-                                    scale=scale, dropout_rate=dropout_rate)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention: unsupported device {q.device}")
-    return _flash_fwd_kernel(q, k, v, seed, key_bias, causal=causal,
-                             scale=scale, dropout_rate=dropout_rate)
+    b, h, sq, d = q.shape
+    # the work the reference's pallas_call declares (utils/flops.py)
+    with kernel_work(4 * b * h * sq * k.shape[2] * d):
+        if q.device.type == "cpu":
+            return _flash_fwd_reference(q, k, v, seed, key_bias,
+                                        causal=causal, scale=scale,
+                                        dropout_rate=dropout_rate)
+        if q.device.type != "cuda":
+            raise ValueError(
+                f"flash attention: unsupported device {q.device}")
+        return _flash_fwd_kernel(q, k, v, seed, key_bias, causal=causal,
+                                 scale=scale, dropout_rate=dropout_rate)
 
 
 def _flash_bwd_bhsd(q, k, v, out, lse, do, seed=None, key_bias=None, *,
@@ -343,12 +349,14 @@ def _flash_bwd_bhsd(q, k, v, out, lse, do, seed=None, key_bias=None, *,
     version, CUDA tensors the kernels."""
     _check(q, k, v, seed, key_bias, dropout_rate)
     kw = dict(causal=causal, scale=scale, dropout_rate=dropout_rate)
-    if q.device.type == "cpu":
-        return _flash_bwd_reference(q, k, v, out, lse, do, seed, key_bias,
-                                    **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention: unsupported device {q.device}")
-    return _flash_bwd_kernel(q, k, v, out, lse, do, seed, key_bias, **kw)
+    with kernel_work(0):        # the reference's call declares no cost
+        if q.device.type == "cpu":
+            return _flash_bwd_reference(q, k, v, out, lse, do, seed,
+                                        key_bias, **kw)
+        if q.device.type != "cuda":
+            raise ValueError(
+                f"flash attention: unsupported device {q.device}")
+        return _flash_bwd_kernel(q, k, v, out, lse, do, seed, key_bias, **kw)
 
 
 def flash_attention_bshd(q, k, v, *extras, causal=False, scale=None,

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ...utils.flops import kernel_work
 
 __all__ = [
     "paged_attention_decode",
@@ -294,12 +295,13 @@ def paged_attention_decode(q, k_pages, v_pages, lengths, block_tables, *,
     """
     if backend == "auto":
         backend = "kernel" if q.device.type == "cuda" else "reference"
-    if backend == "reference":
-        return paged_attention_decode_reference(
-            q, k_pages, v_pages, lengths, block_tables, sm_scale=sm_scale)
-    if backend == "kernel":
-        return paged_attention_decode_kernel(
-            q, k_pages, v_pages, lengths, block_tables, sm_scale=sm_scale)
+    with kernel_work(0):        # the reference's call declares no cost
+        if backend == "reference":
+            return paged_attention_decode_reference(
+                q, k_pages, v_pages, lengths, block_tables, sm_scale=sm_scale)
+        if backend == "kernel":
+            return paged_attention_decode_kernel(
+                q, k_pages, v_pages, lengths, block_tables, sm_scale=sm_scale)
     raise ValueError(
         f"paged_attention_decode: unknown backend {backend!r} "
         f"(use 'auto', 'kernel' or 'reference')")

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from . import _build
+from ...utils.flops import kernel_work
 
 __all__ = ["tiled_mm", "tiled_mm_reference", "launches"]
 
@@ -107,8 +108,9 @@ def tiled_mm(a, b):
     """bf16 ``a @ b`` with fp32 accumulation. CPU tensors run the plain
     version, CUDA tensors the kernel."""
     _check(a, b)
-    if a.device.type == "cpu":
-        return tiled_mm_reference(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"tiled_mm: unsupported device {a.device}")
-    return _tiled_mm_kernel(a, b)
+    with kernel_work(0):        # the reference's call declares no cost
+        if a.device.type == "cpu":
+            return tiled_mm_reference(a, b)
+        if a.device.type != "cuda":
+            raise ValueError(f"tiled_mm: unsupported device {a.device}")
+        return _tiled_mm_kernel(a, b)

@@ -74,9 +74,11 @@ What differs from the reference, and why:
   (seeded from ``seed``), so sampled streams are reproducible within the
   port but differ from the reference's ``jax.random`` streams; greedy
   streams match the reference token for token.
-- The Llama and GPT families, as the reference. The reference's step
-  also feeds its health monitor (``observability.health``), which the
-  port does not have yet (ROADMAP queue A item 5).
+- The Llama and GPT families, as the reference. Each step ends by
+  feeding the installed health monitor (``observability.health
+  .maybe_on_step``, after the SLO evaluation, as the reference): on the
+  host, after the tick's replay and outside any captured graph, reading
+  registry values only (no device value, no sync).
 
 The layer math is ``models/generation``'s (``_decoder_stack``): every
 path (the decode tick, the cold prefill and the suffix prefill) embeds
@@ -464,6 +466,7 @@ class ServeEngine:
             self.slo.on_step(tokens=self._n_tokens - tok0,
                              preemptions=self._n_preempts - pre0,
                              now=self._clock())
+        obs.health.maybe_on_step(self._clock())
         return n_active
 
     def _live_requests(self):

@@ -6,8 +6,9 @@ they share formatting, filtering and test assertions. The whole
 :data:`CODES` table is kept as data, so a code means the same thing in
 both packages; of its emitters the port has the serving ones (PTL4xx:
 ``observability/slo.py``, ``observability/tracing.py``,
-``serve_trace_lint.py``). The program verifier, the lints and the cost
-model (PTL0xx–PTL3xx) wait for the static-graph layer.
+``serve_trace_lint.py``) and the health detectors (PTL601–PTL604:
+``observability/health.py``). The program verifier, the lints and the
+cost model (PTL0xx–PTL3xx) wait for the static-graph layer.
 
 Code namespace (``PTLxxx``):
 
