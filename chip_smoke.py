@@ -206,6 +206,16 @@ Phases, each fatal on failure:
              device total within 5% of ``profile_kernels``'; serving
              under ``run_load`` with and without a ``HealthMonitor`` (one
              sample an engine step, the hook's host cost).
+19. distributed — the port's distributed runtime at world 1 on NCCL
+             (``phase_distributed``): ``init_parallel_env`` must bring
+             up NCCL; every collective on bf16 and fp32 tensors equal to
+             its world-1 value, host us a call, the
+             ``comm.collective_calls`` series counting every call;
+             ``DataParallel`` around ``phase_train``'s step: wrapped =
+             unwrapped bit for bit over 3 steps from one state, the
+             captured wrapped step = its eager twin bit for bit, each
+             form's step ms, busy share, peak memory, the reducer's
+             buckets. One card: no multi-rank path runs here.
 
 Each phase prints its seconds.
 
@@ -222,7 +232,8 @@ the dense greedy call, which reaches no kernel), ResNet-50's
 ``incubate`` path's (the stack's training step and one
 ``fused_rms_norm`` forward and backward), ``sparse_mask`` (one
 ``flash_attention_with_sparse_mask`` forward and backward) and the zoo's
-(``vision_train``: none) and the detection ops' (``detection``: none).
+(``vision_train``: none), the detection ops' (``detection``: none) and
+the ``DataParallel`` step's (``distributed``: its eager timed steps).
 
 The paged kernel is held at the serving, GQA, decode-step and
 suffix-prefill shapes (``PAGED_SHAPES``) with the L2 cold and warm, and
@@ -251,7 +262,7 @@ lost events only where a later one passes and shows every launch it did.
 The last lines are the ``train``, ``train_recipe``, ``generate``
 (Llama's beam and speculative numbers), ``gpt``, ``bert``, ``moe``,
 ``resnet``, ``sdxl``, ``incubate``, ``functional``, ``vision``,
-``detection`` and ``observability`` JSON,
+``detection``, ``observability`` and ``distributed`` JSON,
 the
 ``kernels`` JSON, the ``nvidia-smi`` name/power line, and
 ``{"ok": true, "device": {...}}``.
@@ -7324,6 +7335,333 @@ def phase_observability(torch, dev, report):
     report["observability"] = res
 
 
+# ---------------------------------------------------------------------------
+# distributed: NCCL at world 1
+# ---------------------------------------------------------------------------
+#: the launcher's variables ``phase_distributed`` sets for a world of one
+#: and puts back after
+DIST_ENV = {"PADDLE_TRAINERS_NUM": "1", "PADDLE_TRAINER_ID": "0",
+            "WORLD_SIZE": None, "RANK": None, "PADDLE_MASTER": None}
+#: each collective's tensors, and the calls timed per collective and dtype
+DIST_SHAPE, DIST_CALLS = (1024, 1024), 20
+#: steps from one state held bit for bit (wrapped vs unwrapped, captured
+#: vs its eager twin)
+DIST_COMPARE_STEPS = 3
+
+
+def _dist_cases(torch, dist, x, y):
+    """Each collective at world 1 on ``x`` (and ``y``): name -> (its
+    ``comm.collective_calls`` op label, a call returning what it left,
+    the world-1 value that must come out)."""
+    R = dist.ReduceOp
+    t = x.clone()
+
+    def reduced(op):
+        def call():
+            dist.all_reduce(t, op=op)
+            return [t]
+        return call
+
+    def task():
+        dist.all_reduce(t, op=R.AVG, sync_op=False).wait()
+        return [t]
+
+    def listed(fn):
+        def call():
+            out = []
+            fn(out)
+            return out
+        return call
+
+    o = torch.empty_like(x)
+
+    def into(fn):
+        def call():
+            fn(o)
+            return [o]
+        return call
+
+    cases = {f"all_reduce {op}": ("all_reduce", reduced(op), [x])
+             for op in (R.SUM, R.MAX, R.MIN, R.PROD, R.AVG)}
+    cases.update({
+        "all_reduce async": ("all_reduce", task, [x]),
+        "reduce": ("reduce", lambda: [dist.reduce(t, dst=0)], [x]),
+        "broadcast": ("broadcast", lambda: [dist.broadcast(t, src=0)], [x]),
+        "all_gather": ("all_gather",
+                       listed(lambda out: dist.all_gather(out, x)), [x]),
+        "all_to_all": ("all_to_all",
+                       listed(lambda out: dist.all_to_all(out, [x, y])),
+                       [x, y]),
+        "all_to_all_single": ("all_to_all_single", into(
+            lambda out: dist.all_to_all_single(out, x)), [x]),
+        "reduce_scatter": ("reduce_scatter", into(
+            lambda out: dist.reduce_scatter(out, [x, y])), [x]),
+        "scatter": ("scatter", into(
+            lambda out: dist.scatter(out, [y], src=0)), [y]),
+        "gather": ("gather", listed(
+            lambda out: dist.gather(x, out, dst=0)), [x]),
+    })
+    return cases
+
+
+def dist_collectives(torch, dev, dist, obs):
+    """Every collective on CUDA bf16 and fp32 ``DIST_SHAPE`` tensors at
+    world 1 (NCCL): each result equal to its world-1 value (the input,
+    dtype and shape too), then ``DIST_CALLS`` calls timed on the host
+    (synced at the end); the objects' collectives, ``wait`` and
+    ``barrier``; the ``comm.collective_calls`` series must count every
+    call by op."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    out, want_calls = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(DIST_SHAPE, generator=g, device=dev).to(dtype)
+        y = torch.randn(DIST_SHAPE, generator=g, device=dev).to(dtype)
+        for name, (op, call, want) in _dist_cases(torch, dist, x,
+                                                   y).items():
+            got = call()
+            check(len(got) == len(want) and all(
+                a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b) for a, b in zip(got, want)),
+                f"{name} {dtype}: not its world-1 value")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DIST_CALLS):
+                call()
+            torch.cuda.synchronize()
+            us = (time.perf_counter() - t0) / DIST_CALLS * 1e6
+            out[f"{name} {str(dtype)[6:]}"] = us
+            want_calls[op] = want_calls.get(op, 0) + 1 + DIST_CALLS
+    objs = []
+    dist.all_gather_object(objs, {"rank": 0, "tag": "x"})
+    lst = ["a", {"b": 1}]
+    dist.broadcast_object_list(lst, src=0)
+    check(objs == [{"rank": 0, "tag": "x"}] and lst == ["a", {"b": 1}],
+          f"object collectives: {objs}, {lst}")
+    dist.wait(x)
+    dist.barrier()
+    want_calls.update(all_gather_object=1, broadcast_object_list=1)
+    calls = obs.registry.get("comm.collective_calls")
+    got_calls = {op: calls.value(op=op, group="world") for op in want_calls}
+    log("  host us per call (world 1, each checked first): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out.items()))
+    log(f"  comm.collective_calls by op: {got_calls}")
+    check(got_calls == want_calls,
+          f"comm.collective_calls {got_calls}, want {want_calls}")
+    return dict(host_us=out, collective_calls=got_calls)
+
+
+def _train_state(model, opt):
+    """A training state as one list: parameters, fp32 masters, moments."""
+    ps = list(model.parameters())
+    return ([p.detach() for p in ps]
+            + [opt._master_weights[id(p)] for p in ps]
+            + [opt._accumulators[n][id(p)] for n in opt._accum_names
+               for p in ps])
+
+
+def _same_state(torch, a, b, la, lb, label):
+    """Two runs from one state: losses and every state tensor equal bit
+    for bit."""
+    apart = sum(int((x != y).sum()) for x, y in zip(a, b))
+    log(f"  {label}: losses {[round(v, 5) for v in la]} vs "
+        f"{[round(v, 5) for v in lb]}; {apart} of "
+        f"{sum(x.numel() for x in a)} state entries apart (want 0)")
+    check(la == lb and apart == 0, f"{label}: not equal bit for bit")
+    return apart
+
+
+def dist_timed(torch, dev, call, nl, label):
+    """One warm-up call, then ``TRAIN_STEPS`` timed steps: their launches
+    (flash and RMSNorm forward and backward, each the step's count), the
+    step's wall ms, the busy share of one profiled step and the peak
+    memory from the warm-up on (the caller leaves only this form's model
+    on the card; a captured form's warm-up is a replay)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    call()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        call()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    counts = read_counts()
+    for key, n in train_launches(nl).items():
+        check(counts[key] == n * TRAIN_STEPS,
+              f"{label}: {key} launches {counts[key]} != {n} x "
+              f"{TRAIN_STEPS} steps")
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, _ = profile_kernels(torch, call, 1, step_ms, label)
+    log(f"  {label}: {step_ms:.2f} ms a step, peak memory "
+        f"{peak / 2**30:.2f} GiB allocated")
+    return dict(step_ms=step_ms, peak_bytes=peak,
+                busy_share=None if busy is None else busy / step_ms,
+                launches=counts)
+
+
+def dist_data_parallel(torch, dev, report, dist):
+    """``DataParallel`` around ``phase_train``'s step (``bench_llama``'s
+    645M Llama, bf16, 4 x 2048, ``AdamW(multi_precision=True)``) at
+    world 1 on NCCL, with the default buckets (25 MB, the first 1 MB):
+    ``DIST_COMPARE_STEPS`` wrapped steps equal to as many unwrapped steps
+    from one state (seed 0) bit for bit, losses and state; both forms
+    timed (``dist_timed``; the wrapped run's launches are the
+    ``distributed`` path's); then the wrapped step under
+    ``jit.to_static(full_graph=True)``: one capture, and its steps equal
+    to its eager twin's (``to_static`` under ``enable_capture(False)``)
+    bit for bit, ``jit.fallbacks`` 0; the captured forms timed, wrapped
+    and unwrapped. Each form is timed with only its own model on the
+    card."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    config = LlamaConfig(**TRAIN_CONFIG, dtype="bfloat16")
+    nl = config.num_hidden_layers
+    ids, labels = train_batch(torch, config, dev)
+
+    def trainer(wrapped):
+        model = LlamaForCausalLM(config, device=dev, seed=0)
+        net = dist.DataParallel(model) if wrapped else model
+        opt = AdamW(learning_rate=3e-4, parameters=net.parameters(),
+                    multi_precision=True)
+        opt._ensure_accumulators()
+
+        def step(i, lab):
+            loss, _ = net(i, labels=lab)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+        return net, model, opt, step
+
+    def steps(fn):
+        return [float(fn(ids, labels)) for _ in range(DIST_COMPARE_STEPS)]
+
+    res = {}
+    torch.cuda.empty_cache()
+    _, um, uo, ustep = trainer(False)
+    ul = steps(ustep)
+    dp, wm, wo, wstep = trainer(True)
+    buckets = dp.buckets
+    res["buckets"] = dict(count=len(buckets),
+                          bytes=[nb for _, _, nb in buckets],
+                          params=[n for _, n, _ in buckets])
+    log(f"  reducer: {len(buckets)} buckets, "
+        f"{sum(nb for _, _, nb in buckets) / 1e9:.3f} GB of "
+        f"{buckets[0][0]} gradients (first {buckets[0][2] / 2**20:.2f} "
+        f"MiB, largest {max(nb for _, _, nb in buckets) / 2**20:.2f} MiB)")
+    wl = steps(wstep)
+    _same_state(torch, _train_state(um, uo), _train_state(wm, wo), ul, wl,
+                f"{DIST_COMPARE_STEPS} wrapped vs unwrapped eager steps "
+                f"from seed 0")
+    del um, uo, ustep
+    torch.cuda.empty_cache()
+    res["eager"] = {"wrapped": dist_timed(
+        torch, dev, lambda: wstep(ids, labels), nl,
+        "DataParallel step, eager")}
+    record_launches(report, "distributed",
+                    res["eager"]["wrapped"]["launches"])
+    del dp, wm, wo, wstep
+    torch.cuda.empty_cache()
+    _, um, uo, ustep = trainer(False)
+    res["eager"]["unwrapped"] = dist_timed(
+        torch, dev, lambda: ustep(ids, labels), nl, "unwrapped step, eager")
+    del um, uo, ustep
+    torch.cuda.empty_cache()
+
+    _, cm, co, cstep = trainer(True)
+    cfn = jit.to_static(cstep, full_graph=True)
+    cl = steps(cfn)
+    entries = list(cfn._cache.values())
+    check(len(entries) == 1 and entries[0].graphed.captured,
+          f"DataParallel to_static made {len(entries)} entries, or did not "
+          f"capture")
+    _, em, eo, estep = trainer(True)
+    efn = jit.to_static(estep, full_graph=True)
+    with eager_ticks():
+        el = steps(efn)
+    _same_state(torch, _train_state(cm, co), _train_state(em, eo), cl, el,
+                f"{DIST_COMPARE_STEPS} captured DataParallel steps vs their "
+                f"eager twin")
+    del em, eo, estep, efn
+    torch.cuda.empty_cache()
+    fallbacks = obs.registry.get("jit.fallbacks").total()
+    check(fallbacks == 0, f"jit.fallbacks {fallbacks}")
+    res["captured"] = {"wrapped": dist_timed(
+        torch, dev, lambda: cfn(ids, labels), nl,
+        "DataParallel step, captured")}
+    res["captured"]["wrapped"]["capture_s"] = \
+        entries[0].graphed.capture_seconds
+    del cm, co, cstep, cfn, entries
+    torch.cuda.empty_cache()
+    _, um, uo, ustep = trainer(False)
+    ufn = jit.to_static(ustep, full_graph=True)
+    ufn(ids, labels)                        # the capture
+    res["captured"]["unwrapped"] = dist_timed(
+        torch, dev, lambda: ufn(ids, labels), nl, "unwrapped step, captured")
+    del um, uo, ustep, ufn
+    torch.cuda.empty_cache()
+    for form, r in res["captured"].items():
+        r.pop("launches")
+    for form in ("eager", "captured"):
+        w, u = res[form]["wrapped"], res[form]["unwrapped"]
+        log(f"  {form}: DataParallel {w['step_ms']:.2f} ms vs unwrapped "
+            f"{u['step_ms']:.2f} ms a step "
+            f"({w['step_ms'] / u['step_ms'] - 1:+.2%})")
+    return res
+
+
+def phase_distributed(torch, dev, report):
+    """The port's distributed runtime on the card (``distributed/``):
+    ``init_parallel_env`` at world 1 (the launcher's variables for one
+    rank) must bring up NCCL; every collective (``dist_collectives``);
+    ``DataParallel`` around the training step (``dist_data_parallel``).
+    The machine has one card and NCCL refuses two ranks on one card, so
+    no multi-rank path runs here (the CPU tests run two gloo ranks
+    through the launcher)."""
+    import os
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import observability as obs
+
+    saved = {k: os.environ.get(k) for k in DIST_ENV}
+    for k, v in DIST_ENV.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    obs.reset()
+    obs.enable()
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        group = dist.init_parallel_env()
+        backend = dist.get_backend()
+        res["bring_up"] = dict(backend=backend,
+                               seconds=time.perf_counter() - t0)
+        log(f"  init_parallel_env: backend {backend}, world "
+            f"{dist.get_world_size()}, rank {dist.get_rank()}, "
+            f"{res['bring_up']['seconds']:.2f} s")
+        check(backend == "nccl", f"backend {backend}, want nccl")
+        check((group.nranks, group.rank, dist.get_world_size()) == (1, 0, 1),
+              f"world-1 group {group}")
+        res["collectives"] = dist_collectives(torch, dev, dist, obs)
+        res["data_parallel"] = dist_data_parallel(torch, dev, report, dist)
+    finally:
+        dist.destroy_process_group()
+        obs.disable()
+        obs.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    report["distributed"] = res
+
+
 def main() -> int:
     try:
         import torch
@@ -7418,7 +7756,8 @@ def main() -> int:
                             ("functional", phase_functional),
                             ("vision", phase_vision),
                             ("detection", phase_detection),
-                            ("observability", phase_observability)):
+                            ("observability", phase_observability),
+                            ("distributed", phase_distributed)):
             mark(name)
             phase(torch, dev, report)
             models[name] = report.pop(name)

@@ -48,7 +48,12 @@ card's peak, memory gauges, health detectors fed by training steps and
 the serving engine, the metrics dump and its renderers), ``profiler``
 (host spans and the card's kernels by name and class over
 ``torch.profiler``), ``device`` (``paddle.device``: CUDA streams and
-events, the caching allocator's stats) and ``utils.flops``.
+events, the caching allocator's stats) and ``utils.flops`` (also
+``paddle_tpu_torch.flops``). Distributed training: ``distributed``
+(process groups over ``torch.distributed``, NCCL on the card and gloo on
+the CPU; the collectives, the rendezvous store, the launcher
+``python -m paddle_tpu_torch.distributed.launch`` and ``DataParallel``,
+also ``paddle_tpu_torch.DataParallel``).
 """
 from . import (amp, convert, device, jit, models, nn, observability,
                optimizer, profiler, regularizer, serve, utils, vision)
@@ -68,3 +73,19 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "GPTConfig", "GPTForCausalLM",
            "resolve_device", "amp", "convert", "device", "jit", "models",
            "nn", "observability", "optimizer", "profiler", "regularizer",
            "serve", "utils", "vision"]
+
+
+def __getattr__(name):
+    # resolved on first use, as the reference resolves them
+    # (paddle_tpu/__init__.py:109-123)
+    import sys
+
+    if name == "flops":
+        from .utils.flops import dynamic_flops as value
+    elif name == "DataParallel":
+        from .distributed import DataParallel as value
+    else:
+        raise AttributeError(
+            f"module 'paddle_tpu_torch' has no attribute {name!r}")
+    setattr(sys.modules[__name__], name, value)
+    return value

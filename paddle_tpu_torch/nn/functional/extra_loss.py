@@ -65,6 +65,27 @@ def _shift(a, k):
     return torch.nn.functional.pad(a, (k, 0), value=_NEG_INF)[:, :a.shape[1]]
 
 
+class _LogAddExp(torch.autograd.Function):
+    """``torch.logaddexp`` with jax's derivative rule: each input's share
+    of the gradient is ``exp(x - out)``. The two agree but where both
+    inputs are the ``_NEG_INF`` sentinel: ``out`` rounds to the sentinel,
+    so jax passes the whole gradient to each input, where torch's rule
+    splits it in halves. An infeasible CTC sample (a label longer than
+    its frames allow) runs through such pairs, so its gradient follows
+    the reference's only under this rule."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.logaddexp(a, b)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b, out = ctx.saved_tensors
+        return grad * torch.exp(a - out), grad * torch.exp(b - out)
+
+
 def _ctc_nll(logits, labels, input_lengths, label_lengths, blank):
     t_len, b, c = logits.shape
     dev = logits.device
@@ -87,15 +108,16 @@ def _ctc_nll(logits, labels, input_lengths, label_lengths, blank):
     pos = torch.arange(s, device=dev)[None, :]
     alpha = torch.where((pos < 2) & ext_valid, emit[0], neg)
     for t in range(1, t_len):
-        merged = torch.logaddexp(torch.logaddexp(alpha, _shift(alpha, 1)),
-                                 torch.where(can_skip, _shift(alpha, 2), neg))
+        merged = _LogAddExp.apply(
+            _LogAddExp.apply(alpha, _shift(alpha, 1)),
+            torch.where(can_skip, _shift(alpha, 2), neg))
         new = torch.where(ext_valid, merged + emit[t], neg)
         alpha = torch.where((t < in_len)[:, None], new, alpha)
     last = 2 * lab_len
     final_blank = alpha.gather(1, last[:, None])[:, 0]
     final_label = alpha.gather(1, (last - 1).clamp_min(0)[:, None])[:, 0]
     final_label = torch.where(lab_len > 0, final_label, neg)
-    return -torch.logaddexp(final_blank, final_label)
+    return -_LogAddExp.apply(final_blank, final_label)
 
 
 def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
@@ -115,14 +137,19 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
 
 
 def _rnnt_alpha_nll(blank_lp, emit_lp, input_lengths, label_lengths):
-    """Transducer negative log-likelihood [B] from blank [B, T, U + 1] and
-    emission [B, T, U] log-probabilities."""
+    """Transducer negative log-likelihood [B], float64, from blank
+    [B, T, U + 1] and emission [B, T, U] log-probabilities. The lattice
+    runs in float64, as the reference's does (its ``jnp.zeros((B,))``
+    start row is float64 under jax's x64, and the fp32 log-probabilities
+    are promoted exactly as they are added in)."""
+    blank_lp, emit_lp = blank_lp.double(), emit_lp.double()
     b, t_len, u1 = blank_lp.shape
     dev = blank_lp.device
     in_len = input_lengths.long()
     lab_len = label_lengths.long()
     # prefix sums of each row's emissions: E[t, u] = sum_{j < u} emit[t, j]
-    e = torch.cat([torch.zeros(b, t_len, 1, device=dev),
+    e = torch.cat([torch.zeros(b, t_len, 1, dtype=torch.float64,
+                               device=dev),
                    emit_lp.cumsum(dim=2)], dim=2)
     u_ok = torch.arange(u1, device=dev)[None, :] <= lab_len[:, None]
     alpha = torch.where(u_ok, e[:, 0], _NEG_INF)
@@ -140,7 +167,8 @@ def _rnnt_alpha_nll(blank_lp, emit_lp, input_lengths, label_lengths):
 def rnnt_loss(input, label, input_lengths, label_lengths, blank=0,
               fastemit_lambda=0.001, reduction="mean", name=None):
     """RNN-T loss of joint-network logits ``input`` [B, T, U + 1, V]
-    against ``label`` [B, U]."""
+    against ``label`` [B, U], float64 as the reference's (the lattice
+    runs in float64, ``_rnnt_alpha_nll``)."""
     t_len = input.shape[1]
     logp = torch.log_softmax(input.float(), dim=-1)
     blank_lp = logp[..., int(blank)]

@@ -33,16 +33,18 @@ __all__ = ["affine_grid", "grid_sample", "temporal_shift", "gather_tree"]
 
 
 def _linspace(size, align_corners, device):
+    f64 = dict(dtype=torch.float64, device=device)
     if align_corners:
-        return torch.linspace(-1.0, 1.0, size, device=device)
+        return torch.linspace(-1.0, 1.0, size, **f64)
     step = 2.0 / size
-    return torch.linspace(-1.0 + step / 2, 1.0 - step / 2, size,
-                          device=device)
+    return torch.linspace(-1.0 + step / 2, 1.0 - step / 2, size, **f64)
 
 
 def affine_grid(theta, out_shape, align_corners=True, name=None):
     """``theta`` [N, 2, 3] -> sampling grid [N, H, W, 2] (x, y) for
-    ``out_shape`` ``[N, C, H, W]``."""
+    ``out_shape`` ``[N, C, H, W]``, float64 as the reference's (its
+    ``jnp.linspace`` is float64 under jax's x64; ``theta`` is rounded to
+    fp32 first, as there)."""
     if isinstance(out_shape, torch.Tensor):
         out_shape = out_shape.tolist()
     n, _, h, w = (int(v) for v in out_shape)
@@ -50,7 +52,7 @@ def affine_grid(theta, out_shape, align_corners=True, name=None):
     gy, gx = torch.meshgrid(_linspace(h, align_corners, dev),
                             _linspace(w, align_corners, dev), indexing="ij")
     base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1).reshape(-1, 3)
-    grid = torch.einsum("hk,nrk->nhr", base, theta.float())
+    grid = torch.einsum("hk,nrk->nhr", base, theta.float().double())
     return grid.reshape(n, h, w, 2)
 
 

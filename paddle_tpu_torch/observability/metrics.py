@@ -22,6 +22,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 #: subsystems that have claimed a metric-name prefix in the port
 CLAIMED_SUBSYSTEMS = {
+    "comm",        # distributed/communication — collectives + watchdog
     "jit",         # jit/_capture.py — CUDA graph captures and their
                    # seconds, by site
     "serve",       # serve/engine.py — continuous-batching server: queue

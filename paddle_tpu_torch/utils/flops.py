@@ -192,6 +192,7 @@ def _handlers():
     port's layers (``torch.nn`` and the vision zoo's own)."""
     from torch import nn
 
+    from ..nn.functional.norm import BatchNorm
     from ..vision.models import _layers as zoo
 
     def count_linear(layer, inp, out):
@@ -208,7 +209,7 @@ def _handlers():
 
     table = {nn.Linear: count_linear, nn.Conv2d: count_conv,
              nn.BatchNorm2d: count_norm, nn.BatchNorm1d: count_norm,
-             nn.LayerNorm: count_norm}
+             BatchNorm: count_norm, nn.LayerNorm: count_norm}
     for cls in (nn.ReLU, nn.GELU, nn.Sigmoid, nn.Softmax, zoo.ReLU,
                 nn.MaxPool2d, nn.AvgPool2d, nn.AdaptiveAvgPool2d,
                 zoo.MaxPool2D, zoo.AvgPool2D, zoo.AdaptiveAvgPool2D):

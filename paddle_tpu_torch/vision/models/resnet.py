@@ -8,7 +8,10 @@ NCHW at the API, as the reference. Modules are ``torch.nn``; the
 convolutions run ``nn.functional.conv2d`` (torch's convolution, with
 cuDNN's deterministic algorithms on the card), batch norm the port's
 ``BatchNorm`` (paddle's momentum, the ``_mean`` / ``_variance``
-buffers), the pools ``nn.functional``'s. The reference leaves all of
+buffers), the pools ``nn.functional``'s. The activation and the pools
+are modules where the reference's are (``relu``, ``maxpool``,
+``avgpool``), so ``paddle_tpu_torch.flops`` counts them as the reference
+counts its layers. The reference leaves all of
 them to XLA, so no kernel of the port is on this path. ``fc`` is an
 ``nn.Linear`` (``[out, in]``; ``convert.load_paddle_tpu_state``
 transposes the reference's ``[in, out]``).
@@ -23,10 +26,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...nn import functional as F
 from ...nn.functional.conv import Conv2d
 from ...nn.functional.norm import BatchNorm
-from ._layers import finish, refuse_pretrained, start
+from ._layers import (AdaptiveAvgPool2D, MaxPool2D, ReLU, finish,
+                      refuse_pretrained, start)
 
 __all__ = [
     "ResNet", "BasicBlock", "BottleneckBlock",
@@ -53,13 +56,14 @@ class BasicBlock(nn.Module):
         self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False,
                             **factory)
         self.bn2 = norm_layer(planes, **factory)
+        self.relu = ReLU()
         self.downsample = downsample
         self.stride = stride
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        return F.relu(self.bn2(self.conv2(out)) + identity)
+        out = self.relu(self.bn1(self.conv1(x)))
+        return self.relu(self.bn2(self.conv2(out)) + identity)
 
 
 class BottleneckBlock(nn.Module):
@@ -79,14 +83,15 @@ class BottleneckBlock(nn.Module):
         self.conv3 = Conv2d(width, planes * self.expansion, 1, bias=False,
                             **factory)
         self.bn3 = norm_layer(planes * self.expansion, **factory)
+        self.relu = ReLU()
         self.downsample = downsample
         self.stride = stride
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        return F.relu(self.bn3(self.conv3(out)) + identity)
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        return self.relu(self.bn3(self.conv3(out)) + identity)
 
 
 class ResNet(nn.Module):
@@ -115,10 +120,14 @@ class ResNet(nn.Module):
         self.conv1 = Conv2d(3, self.inplanes, 7, stride=2, padding=3,
                             bias=False, **factory)
         self.bn1 = BatchNorm(self.inplanes, **factory)
+        self.relu = ReLU()
+        self.maxpool = MaxPool2D(kernel_size=3, stride=2, padding=1)
         self.layer1 = self._make_layer(block, 64, layers[0], 1, factory)
         self.layer2 = self._make_layer(block, 128, layers[1], 2, factory)
         self.layer3 = self._make_layer(block, 256, layers[2], 2, factory)
         self.layer4 = self._make_layer(block, 512, layers[3], 2, factory)
+        if with_pool:
+            self.avgpool = AdaptiveAvgPool2D((1, 1))
         if num_classes > 0:
             self.fc = nn.Linear(512 * block.expansion, num_classes, **factory)
         finish(self, dev, dtype, seed)
@@ -140,11 +149,10 @@ class ResNet(nn.Module):
         return nn.Sequential(*layers)
 
     def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         if self.with_pool:
-            x = F.adaptive_avg_pool2d(x, (1, 1))
+            x = self.avgpool(x)
         if self.num_classes > 0:
             x = self.fc(x.flatten(1))
         return x

@@ -317,3 +317,52 @@ def test_class_center_sample_matches_reference_when_all_positive():
     tr, ts = TF.class_center_sample(torch.from_numpy(lab), 12, 4)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js._value))
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr._value))
+
+
+def test_rnnt_long_lattice_runs_in_float64():
+    """``rnnt_loss`` at a real length, [2, 200, 41, 32] with 40 labels:
+    the reference's lattice runs in float64 (jax's x64) and returns
+    float64; an fp32 lattice parts from it by about 2e-4 of max |g| here.
+    The loss within ``OUT_TOL`` and the gradient of the summed loss
+    within ``GRAD_TOL`` of max |g|; both dtypes float64."""
+    r = np.random.default_rng(11)
+    x = _f(r, 2, 200, 41, 32)
+    inputs = [x, r.integers(1, 32, (2, 40)), _i(200, 200), _i(40, 40)]
+    _, (out,) = run_case("rnnt_loss", inputs, dict(reduction="sum"))
+    ref = JF.rnnt_loss(*[paddle.to_tensor(a) for a in inputs],
+                       reduction="sum")
+    assert str(ref._value.dtype) == "float64"
+    assert out.dtype == torch.float64
+
+
+def test_ctc_infeasible_sample_gradient_follows_the_reference():
+    """A label that needs more frames than the sample has (T 3, labels
+    ``[1, 1, 1, 1]``): its loss is the 1e30 sentinel in both packages,
+    and its gradient runs through ``logaddexp`` of two equal sentinels,
+    where jax gives each input the whole gradient (``exp(x - out)``) and
+    torch's own rule half. Per sample, the gradient of the summed loss:
+    the infeasible one within ``GRAD_TOL`` of its max |g|, the feasible
+    one beside it within 1e-6 of its max |g|; the loss float32 in
+    both."""
+    r = np.random.default_rng(5)
+    logits = _f(r, 3, 2, 5)
+    labels = np.array([[1, 1, 1, 1], [2, 3, 0, 0]], np.int64)
+    lens, lab_lens = _i(3, 3), _i(4, 2)
+    jx = paddle.to_tensor(logits, stop_gradient=False)
+    jl = JF.ctc_loss(jx, paddle.to_tensor(labels), paddle.to_tensor(lens),
+                     paddle.to_tensor(lab_lens), reduction="none")
+    jl.sum().backward()
+    tx = torch.from_numpy(logits).requires_grad_()
+    tl = TF.ctc_loss(tx, torch.from_numpy(labels), torch.from_numpy(lens),
+                     torch.from_numpy(lab_lens), reduction="none")
+    tl.sum().backward()
+    assert str(jl._value.dtype) == "float32" and tl.dtype == torch.float32
+    want_loss = np.asarray(jl._value)
+    assert want_loss[0] == tl[0].item() == np.float32(1e30)
+    _close(tl[1].item(), want_loss[1], OUT_TOL, "feasible loss")
+    want = np.asarray(jx.grad._value)
+    got = tx.grad.numpy()
+    for b, tol in ((0, GRAD_TOL), (1, 1e-6)):
+        scale = float(np.abs(want[:, b]).max())
+        err = float(np.abs(got[:, b] - want[:, b]).max())
+        assert err <= tol * scale, (b, err, tol * scale)

@@ -192,6 +192,12 @@ def test_affine_grid_matches_reference(align_corners):
                                           align_corners=align_corners))
     grid = TF.affine_grid(torch.from_numpy(theta), torch.tensor([2, 3, 5, 4]))
     assert grid.shape == (2, 5, 4, 2)
+    # fp32 theta gives a float64 grid in both (the reference's linspace
+    # is float64 under jax's x64)
+    ref = JF.affine_grid(paddle.to_tensor(theta), [2, 3, 5, 4],
+                         align_corners=align_corners)
+    assert str(ref._value.dtype) == "float64"
+    assert grid.dtype == torch.float64
 
 
 @pytest.mark.parametrize("fmt, ratio", [("NCHW", 0.25), ("NHWC", 0.2),

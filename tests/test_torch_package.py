@@ -274,3 +274,55 @@ def test_chip_smoke_fails_without_the_package_or_a_card(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+#: the reference's ``paddle.distributed`` names that wait for later parts
+#: of ROADMAP queue A item 4 (placements and the semi-auto API (b),
+#: sharding (c), checkpoints, elastic training, the parameter server,
+#: RPC and the fleet executor (f)) and for item 7 (``passes`` rewrite
+#: static programs)
+DISTRIBUTED_LATER = {
+    "4b": ["DistModel", "Partial", "Placement", "ProcessMesh", "Replicate",
+           "Shard", "ShardDataloader", "Strategy", "auto_parallel",
+           "dtensor_from_fn", "reshard", "shard_dataloader", "shard_layer",
+           "shard_optimizer", "shard_tensor", "to_static",
+           "unshard_dtensor"],
+    "4c": ["ShardingStage1", "ShardingStage2", "ShardingStage3",
+           "group_sharded_parallel", "save_group_sharded_model",
+           "sharding"],
+    "4f": ["checkpoint", "elastic", "elastic_train", "fleet_executor",
+           "load_state_dict", "ps", "rpc", "save_state_dict"],
+    "7": ["passes"],
+}
+
+
+def test_distributed_exports_the_reference_names():
+    """``paddle_tpu_torch.distributed`` exports only reference names,
+    each defined; the reference's names it lacks are exactly those of
+    the later parts (``DISTRIBUTED_LATER``). ``DataParallel`` and
+    ``flops`` resolve at top level, as ``paddle.DataParallel`` and
+    ``paddle.flops`` do."""
+    import importlib
+
+    import paddle_tpu
+
+    # the reference's names as its import makes them, in a fresh
+    # interpreter: other tests of a process import more of its submodules
+    code = ("import paddle_tpu.distributed as d; "
+            "print(' '.join(n for n in dir(d) if not n.startswith('_')))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "JAX_PLATFORMS": "cpu"}
+    public = set(subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=str(ROOT), timeout=120, check=True).stdout.split())
+    public -= {"annotations"}
+    port = importlib.import_module("paddle_tpu_torch.distributed")
+    later = sorted(n for names in DISTRIBUTED_LATER.values() for n in names)
+    assert sorted(public - set(port.__all__)) == later
+    assert set(port.__all__) <= public
+    assert {n for n in dir(port) if not n.startswith("_")} - {
+        "annotations"} <= public
+    assert all(hasattr(port, n) for n in port.__all__)
+    flops = importlib.import_module("paddle_tpu_torch.utils.flops")
+    assert paddle_tpu_torch.DataParallel is port.DataParallel
+    assert paddle_tpu_torch.flops is flops.dynamic_flops
+    assert callable(paddle_tpu.DataParallel) and callable(paddle_tpu.flops)

@@ -82,3 +82,24 @@ def test_dtype_seed_and_dropout_generator():
     x = torch.randn(2, 3, 48, 48, generator=torch.Generator().manual_seed(0))
     assert torch.equal(c.train()(x), d.train()(x))
     assert not torch.equal(c(x), c.eval()(x))
+
+
+@pytest.mark.parametrize("name", ["resnet18", "mobilenet_v2"])
+def test_flops_counts_batch_norm_as_the_reference(name, capsys):
+    """``paddle_tpu_torch.flops`` (``utils.flops.dynamic_flops``, resolved
+    at top level as ``paddle.flops`` is) counts each batch norm as
+    ``5 * numel(out)`` plus its parameters, as the reference does: the
+    port's models normalise through ``nn.functional.norm.BatchNorm``, a
+    plain ``torch.nn.Module``, which the table must name. FLOPs and the
+    printed parameter count equal the reference's exactly."""
+    import importlib
+
+    import paddle_tpu_torch
+
+    jflops = importlib.import_module("paddle_tpu.utils.flops")
+    jm, tm = pair(name)
+    ref = jflops.dynamic_flops(jm, [1, 3, 64, 64])
+    port = paddle_tpu_torch.flops(tm, [1, 3, 64, 64])
+    assert port == ref > 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == out[1]        # "Total Flops: ... Total Params: ..."
