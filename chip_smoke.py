@@ -215,7 +215,17 @@ Phases, each fatal on failure:
              unwrapped bit for bit over 3 steps from one state, the
              captured wrapped step = its eager twin bit for bit, each
              form's step ms, busy share, peak memory, the reducer's
-             buckets. One card: no multi-rank path runs here.
+             buckets. One card: no multi-rank NCCL path runs here.
+20. tensor_parallel — the shard plans (``phase_tensor_parallel``):
+             ``fleet.init`` at mp 1 on NCCL; ``bench_llama``'s step
+             under ``llama_shard_plan`` and GPT-2 medium's under
+             ``gpt_shard_plan``, each = its unsharded step bit for bit
+             over 3 steps from one state, eager and captured, rows 2-5
+             by name as often, no op reaching a ``DTensor``, step ms,
+             busy share, peak memory and host µs both ways (the eager
+             forms also timed in turns); then mp 2 as two gloo ranks on
+             the one card (``--tp-rank``), the Llama's width at 2
+             layers, each rank's kernels at its local shapes.
 
 Each phase prints its seconds.
 
@@ -233,7 +243,9 @@ the dense greedy call, which reaches no kernel), ResNet-50's
 ``fused_rms_norm`` forward and backward), ``sparse_mask`` (one
 ``flash_attention_with_sparse_mask`` forward and backward) and the zoo's
 (``vision_train``: none), the detection ops' (``detection``: none) and
-the ``DataParallel`` step's (``distributed``: its eager timed steps).
+the ``DataParallel`` step's (``distributed``: its eager timed steps) and
+the shard plans' (``tensor_parallel``, ``gpt_tensor_parallel``: their
+sharded eager timed steps).
 
 The paged kernel is held at the serving, GQA, decode-step and
 suffix-prefill shapes (``PAGED_SHAPES``) with the L2 cold and warm, and
@@ -337,6 +349,9 @@ def _dev_us(e) -> float:
 
 #: host pause after recording starts, before the first recorded call (s)
 PROFILE_START_GAP = 0.05
+#: host pause after the last recorded call has finished on the card,
+#: before recording stops (s)
+PROFILE_END_GAP = 0.05
 
 
 def profiled(fn, n: int, cpu: bool = False):
@@ -345,8 +360,11 @@ def profiled(fn, n: int, cpu: bool = False):
     ``PROFILE_START_GAP`` once recording has started: a recorded call that
     begins at the start of recording can lose its first kernels (a bf16
     forward once lost its first layer, one flash launch of 10) or the
-    whole trace. The schedule's own ``ProfilerStep#`` ranges, which span
-    each step on the device too, are left out."""
+    whole trace. Recording stops ``PROFILE_END_GAP`` after the last call
+    has finished on the card, so that the records of its last kernels are
+    complete when the profiler collects them. The schedule's own
+    ``ProfilerStep#`` ranges, which span each step on the device too, are
+    left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -358,6 +376,8 @@ def profiled(fn, n: int, cpu: bool = False):
         for i in range(n + 1):
             fn()
             torch.cuda.synchronize()
+            if i == n:          # recording stops at this step
+                time.sleep(PROFILE_END_GAP)
             prof.step()
             if i == 0:          # recording starts at this step
                 time.sleep(PROFILE_START_GAP)
@@ -1808,18 +1828,20 @@ def named_launches(per_kernel, names):
                    if re.search(rf"(?<![a-z]){n}", key)) for n in names}
 
 
-def check_flash_route(per_kernel, want, label):
+def check_flash_route(per_kernel, want, label, lost=0):
     """Fail unless the profile ran each tensor-core flash kernel ``want``
-    (step -> count) times and no CUDA-core flash kernel."""
+    (step -> count) times, or as many less at most ``lost`` that the
+    profiler lost, and no CUDA-core flash kernel."""
     got = named_launches(per_kernel,
                          [n for pair in FLASH_KERNELS.values() for n in pair])
     log(f"  {label}: dense flash kernels {got}")
     for step, (tc, cc) in FLASH_KERNELS.items():
         check(got[cc] == 0, f"{label}: the CUDA-core {cc} ran ({got[cc]} "
                             f"launches) on a half-precision path")
-        check(got[tc] == want.get(step, 0),
-              f"{label}: {tc} launched {got[tc]} times, want "
-              f"{want.get(step, 0)}")
+        n = want.get(step, 0)
+        check(n - min(lost, n) <= got[tc] <= n,
+              f"{label}: {tc} launched {got[tc]} times, want {n}"
+              + (f" ({lost} lost to the profiler admitted)" if lost else ""))
 
 
 #: the varlen kernels of each step, (tensor cores: bf16/fp16, CUDA cores:
@@ -3890,7 +3912,8 @@ def update_card_vs_cpu(torch, dev, config, ids, labels):
     before = {n: (p.detach().cpu().clone(), p.grad.detach().cpu().clone())
               for n, p in named.items()}
     clip = opt._grad_clip
-    card_scale = clip._scale([p.grad for p in named.values()])
+    card_scale = clip._scale([p.grad for p in named.values()],
+                             list(named.values()))
 
     def cpu_update(scale):
         cpu = {}
@@ -3899,9 +3922,10 @@ def update_card_vs_cpu(torch, dev, config, ids, labels):
             cpu[n].grad = grad.clone()
         cpu_opt = recipe_optimizer(list(cpu.items()))[0]
         cpu_opt.set_state_dict(state)
-        own = cpu_opt._grad_clip._scale([p.grad for p in cpu.values()])
+        own = cpu_opt._grad_clip._scale([p.grad for p in cpu.values()],
+                                        list(cpu.values()))
         if scale is not None:
-            cpu_opt._grad_clip._scale = lambda grads: scale
+            cpu_opt._grad_clip._scale = lambda *a: scale
         cpu_opt.step()
         return cpu, cpu_opt, own
 
@@ -3955,7 +3979,7 @@ def update_card_vs_cpu(torch, dev, config, ids, labels):
                 f"lie at |value| <= {r['beyond']:.3g})")
 
     if low:
-        clip._scale = lambda grads: card_scale
+        clip._scale = lambda *a: card_scale
     opt.step()
     torch.cuda.synchronize()
     if low:
@@ -5647,6 +5671,8 @@ def phase_incubate(torch, dev, report):
 # ---------------------------------------------------------------------------
 #: ``flash_attention_with_sparse_mask``'s shape, [B, S, H, D], bf16, causal
 SPARSE_SHAPE = (4, 2048, 16, 128)
+#: the calls of ``flash_attention_with_sparse_mask`` its route check profiles
+SPARSE_PROFILED = 5
 
 
 def sparse_start_rows(torch, dev, b, h, s, seed):
@@ -5675,7 +5701,8 @@ def functional_sparse_mask(torch, dev, report):
     causal, no start rows: one forward and backward must launch rows 2
     and 4 once each by counter (the ``sparse_mask`` path) and
     ``flash_fwd_tc_kernel``, ``flash_bwd_dq_tc_kernel`` and
-    ``flash_bwd_dkv_tc_kernel`` once each by name. Each kernel is held
+    ``flash_bwd_dkv_tc_kernel`` once each a call by name (over
+    ``SPARSE_PROFILED`` profiled calls). Each kernel is held
     against its plain version on the same inputs at ``tolerance(bf16,
     1e-4)``: the output against the call on the plain versions, the
     gradients against the call whose backward alone is the plain version
@@ -5701,11 +5728,20 @@ def functional_sparse_mask(torch, dev, report):
         f"launches {counts}")
     check(counts == want, f"sparse-mask call launches {counts}, want {want}")
     record_launches(report, "sparse_mask", counts)
-    recorded(lambda: kernel_counts(
-        torch, lambda: sparse_mask_call(torch, q, k, v, do), 1),
+    # the route by name over SPARSE_PROFILED calls: the profile of one
+    # call lost its dkv launch in each of three recordings of one run, so
+    # one launch of each kernel lost to the profiler is admitted and a
+    # second one a call is not (the counters above show one launch each)
+    from torch.autograd import DeviceType
+
+    n = SPARSE_PROFILED
+    recorded(lambda: {e.key: e.count for e in profiled(
+        lambda: sparse_mask_call(torch, q, k, v, do), n)
+        if e.device_type == DeviceType.CUDA},
         lambda pk: pk,
-        lambda pk: check_flash_route(pk, {"fwd": 1, "dq": 1, "dkv": 1},
-                                     "flash_attention_with_sparse_mask"),
+        lambda pk: check_flash_route(pk, {"fwd": n, "dq": n, "dkv": n},
+                                     "flash_attention_with_sparse_mask",
+                                     lost=1),
         "flash_attention_with_sparse_mask")
     # each kernel against its plain version on the same inputs: the
     # forward on q, k, v; the backward on the kernel forward's out and lse
@@ -7470,32 +7506,58 @@ def _same_state(torch, a, b, la, lb, label):
     return apart
 
 
-def dist_timed(torch, dev, call, nl, label):
+@contextlib.contextmanager
+def gc_pauses():
+    """The ms the Python garbage collector ran inside the block, as a
+    one-element list (``gc.callbacks``): a host-bound step's wall grows
+    by its collections."""
+    import gc
+
+    total, start = [0.0], [0.0]
+
+    def timer(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            total[0] += (time.perf_counter() - start[0]) * 1e3
+
+    gc.callbacks.append(timer)
+    try:
+        yield total
+    finally:
+        gc.callbacks.remove(timer)
+
+
+def dist_timed(torch, dev, call, nl, label, want=None):
     """One warm-up call, then ``TRAIN_STEPS`` timed steps: their launches
     (flash and RMSNorm forward and backward, each the step's count), the
-    step's wall ms, the busy share of one profiled step and the peak
-    memory from the warm-up on (the caller leaves only this form's model
-    on the card; a captured form's warm-up is a replay)."""
+    step's wall ms and the ms of it in the garbage collector, the busy
+    share of one profiled step and the peak memory from the warm-up on
+    (the caller leaves only this form's model on the card; a captured
+    form's warm-up is a replay)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     call()
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        call()
-    torch.cuda.synchronize()
+    with gc_pauses() as gc_ms:
+        for _ in range(TRAIN_STEPS):
+            call()
+        torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
     counts = read_counts()
-    for key, n in train_launches(nl).items():
+    for key, n in (want or train_launches(nl)).items():
         check(counts[key] == n * TRAIN_STEPS,
               f"{label}: {key} launches {counts[key]} != {n} x "
               f"{TRAIN_STEPS} steps")
     peak = torch.cuda.max_memory_allocated(dev)
     busy, _ = profile_kernels(torch, call, 1, step_ms, label)
-    log(f"  {label}: {step_ms:.2f} ms a step, peak memory "
-        f"{peak / 2**30:.2f} GiB allocated")
-    return dict(step_ms=step_ms, peak_bytes=peak,
+    log(f"  {label}: {step_ms:.2f} ms a step ({gc_ms[0] / TRAIN_STEPS:.2f} "
+        f"in the garbage collector), peak memory {peak / 2**30:.2f} GiB "
+        f"allocated")
+    return dict(step_ms=step_ms, gc_ms=gc_ms[0] / TRAIN_STEPS,
+                peak_bytes=peak,
                 busy_share=None if busy is None else busy / step_ms,
                 launches=counts)
 
@@ -7662,6 +7724,670 @@ def phase_distributed(torch, dev, report):
     report["distributed"] = res
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the shard plans at mp 1 on NCCL, mp 2 over gloo
+# ---------------------------------------------------------------------------
+#: the two-rank run (gloo carries the mp-2 step's collectives on CUDA
+#: tensors on the card: PERF.md PR 22): bench_llama's width at this
+#: depth, 3 AdamW steps
+TP_MP2_LAYERS, TP_MP2_STEPS = 2, 3
+#: the parameters whose step-1 gradients and values before and after the
+#: steps each rank gathers and holds against the unsharded run's: the
+#: whole tensor, or of the vocabulary-sharded ones the rows about the
+#: boundary of the two shards (16000)
+TP_MP2_PARAMS = {
+    "llama.embed_tokens.weight": (15872, 16128),
+    "llama.layers.0.self_attn.q_proj.weight": None,
+    "llama.layers.0.self_attn.o_proj.weight": None,
+    "llama.layers.1.mlp.gate_proj.weight": None,
+    "llama.layers.1.mlp.down_proj.weight": None,
+    "llama.layers.1.input_layernorm.weight": None,
+    "lm_head.weight": (15872, 16128),
+}
+#: the two ranks against the unsharded model, all in bf16 with the
+#: row-parallel partial sums rounded to bf16 before their all-reduce,
+#: each about 3x the largest gap measured on the H100 (PERF.md PR 22:
+#: 3.23e-4, 0.0144, 0.0739): |loss - unsharded loss| at every step; the
+#: step-1 gradients, max |g - unsharded g| over max |unsharded g|; the
+#: updates of the steps (fp32 masters), ||dw - unsharded dw|| over
+#: ||unsharded dw||
+TP_MP2_LOSS_TOL = 1e-3
+TP_MP2_GRAD_TOL = 0.05
+TP_MP2_UPDATE_TOL = 0.25
+
+
+def _tp_env(world, rank, master=None):
+    import os
+
+    env = {"PADDLE_TRAINERS_NUM": str(world), "PADDLE_TRAINER_ID": str(rank),
+           "WORLD_SIZE": None, "RANK": None, "PADDLE_MASTER": master}
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return saved
+
+
+def _restore_env(saved):
+    import os
+
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def dtensor_dispatches(torch):
+    """A dispatch mode counting the ops that reach a ``DTensor`` (each one
+    runs torch's sharding propagation on the host) and, to show the mode
+    saw the step, every op; ``.count`` is [DTensor ops, all ops]."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.count = [0, 0]
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.count[1] += 1
+            if any(issubclass(t, DTensor) for t in types):
+                self.count[0] += 1
+            return func(*args, **(kwargs or {}))
+    return Counter()
+
+
+def interleaved(torch, calls, n=TRAIN_STEPS):
+    """Each of ``calls`` (name -> function) ``n`` times, in turns (the
+    order flipped every round), the card idle before each: the median
+    host µs from the call to its return (``issue_us``: the host's own
+    time where a call launches fewer kernels than the launch queue holds,
+    as a forward does) and to the card's end (``wall_ms``). Turns put the
+    host's drift on every form alike. ``gc_ms``: the mean ms a call in
+    the garbage collector."""
+    import statistics
+
+    got = {name: ([], [], []) for name in calls}
+    for i in range(n):
+        order = list(calls) if i % 2 == 0 else list(calls)[::-1]
+        for name in order:
+            torch.cuda.synchronize()
+            with gc_pauses() as gc_ms:
+                t0 = time.perf_counter()
+                calls[name]()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+            got[name][0].append((t1 - t0) * 1e6)
+            got[name][1].append((time.perf_counter() - t0) * 1e3)
+            got[name][2].append(gc_ms[0])
+    return {name: {"issue_us": statistics.median(a),
+                   "wall_ms": statistics.median(b), "gc_ms": sum(c) / n}
+            for name, (a, b, c) in got.items()}
+
+
+def tp_model_forms(torch, dev, report, spec):
+    """One model family under its shard plan at mp 1 against the same
+    model unsharded (``spec``: label, make(), batch, loss(model, ids,
+    labels), make_opt(model), plan, nl, want (launch counts a step),
+    check_kernels(per_kernel, label), names (row kernels by name), path):
+    ``DIST_COMPARE_STEPS`` eager steps from one state equal bit for bit,
+    then the captured forms (``jit.to_static(full_graph=True)``) equal bit
+    for bit, and the captured sharded steps equal to their eager twin
+    (``eager_ticks``); each form built afresh and timed with only its
+    model on the card (``dist_timed``: step ms, busy share, peak memory,
+    launches by counter), the eager forms' launches of the row kernels by
+    name through ``recorded``, the ops of a step that reach a ``DTensor``
+    (each form's step under the counting mode, so both have taken the same
+    steps), and, both models on the card after those same steps and timed
+    in turns (``interleaved``), the host µs to issue a forward and loss
+    and the eager step ms."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import observability as obs
+
+    from paddle_tpu_torch.distributed import fleet
+
+    label, ids, labels = spec["label"], *spec["batch"]
+    hcg = fleet.get_hybrid_communicate_group()
+
+    def trainer(sharded):
+        model = spec["make"]()
+        if sharded:
+            spec["plan"](model, hcg.mesh)
+        opt = spec["make_opt"](model)
+        opt._ensure_accumulators()
+
+        def step(i, lab):
+            loss = spec["loss"](model, i, lab)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+        return model, opt, step
+
+    def steps(fn):
+        return [float(fn(ids, labels)) for _ in range(DIST_COMPARE_STEPS)]
+
+    res = {}
+    torch.cuda.empty_cache()
+    um, uo, ustep = trainer(False)
+    ul = steps(ustep)
+    sm, so, sstep = trainer(True)
+    kinds = sorted({type(p).__name__ for p in sm.parameters()})
+    check(kinds == ["DistParameter"], f"{label}: parameters {kinds}")
+    sl = steps(sstep)
+    _same_state(torch, _train_state(um, uo), _train_state(sm, so), ul, sl,
+                f"{label}: {DIST_COMPARE_STEPS} sharded (mp 1) vs unsharded "
+                f"eager steps from seed 0")
+    counted = {}
+    for form, step in (("sharded", sstep), ("unsharded", ustep)):
+        with dtensor_dispatches(torch) as mode:       # the same history
+            step(ids, labels)
+        counted[form] = mode.count
+    n = counted["sharded"]
+    check(n[1] > 0, f"{label}: the dispatch mode saw no op")
+    check(counted["unsharded"][0] == 0, f"{label}: unsharded DTensor ops")
+    res["dtensor_dispatches_a_step"], res["ops_a_step"] = n
+    res["unsharded_ops_a_step"] = counted["unsharded"][1]
+    fwd = interleaved(torch, {
+        "sharded": lambda: spec["loss"](sm, ids, labels),
+        "unsharded": lambda: spec["loss"](um, ids, labels)})
+    res["forward_issue_us"] = {k: v["issue_us"] for k, v in fwd.items()}
+    h = res["forward_issue_us"]
+    log(f"  {label}: {n[0]} of {n[1]} ops a sharded step reach a DTensor "
+        f"({counted['unsharded'][1]} ops an unsharded step); "
+        f"host {h['sharded']:.0f} µs to issue a sharded forward and loss vs "
+        f"{h['unsharded']:.0f} µs unsharded "
+        f"({h['sharded'] - h['unsharded']:+.0f} µs; medians of turns)")
+    steps_in_turn = interleaved(torch, {
+        "sharded": lambda: sstep(ids, labels),
+        "unsharded": lambda: ustep(ids, labels)})
+    res["eager_in_turns_ms"] = {k: v["wall_ms"]
+                                for k, v in steps_in_turn.items()}
+    res["eager_in_turns_gc_ms"] = {k: v["gc_ms"]
+                                   for k, v in steps_in_turn.items()}
+    t, gt = res["eager_in_turns_ms"], res["eager_in_turns_gc_ms"]
+    log(f"  {label}: eager steps in turns, sharded {t['sharded']:.2f} ms vs "
+        f"unsharded {t['unsharded']:.2f} ms "
+        f"({t['sharded'] / t['unsharded'] - 1:+.2%}; medians); in the "
+        f"garbage collector {gt['sharded']:.2f} vs {gt['unsharded']:.2f} ms "
+        f"a step (means)")
+    del um, uo, ustep, sm, so, sstep
+    torch.cuda.empty_cache()
+    names = spec["names"]
+    res["eager"] = {}
+    for form in ("sharded", "unsharded"):
+        model, opt, step = trainer(form == "sharded")
+        timed = dist_timed(torch, dev, lambda: step(ids, labels),
+                           spec["nl"], f"{label} {form} step, eager",
+                           want=spec["want"])
+        out = recorded(
+            lambda: profile_kernels(torch, lambda: step(ids, labels), 1,
+                                    timed["step_ms"], f"{label} {form}"),
+            _per_kernel,
+            lambda o: spec["check_kernels"](o[1], f"{label} {form}"),
+            f"{label} {form}")
+        timed["by_name"] = named_launches(out[1], names)
+        res["eager"][form] = timed
+        del model, opt, step
+        torch.cuda.empty_cache()
+    record_launches(report, spec["path"],
+                    res["eager"]["sharded"].pop("launches"))
+    res["eager"]["unsharded"].pop("launches")
+    by = {f: res["eager"][f]["by_name"] for f in ("sharded", "unsharded")}
+    log(f"  {label}: row kernels by name, sharded {by['sharded']} vs "
+        f"unsharded {by['unsharded']}")
+    check(by["sharded"] == by["unsharded"],
+          f"{label}: row kernels by name differ {by}")
+
+    captured = {}
+    for form in ("sharded", "unsharded", "sharded eager twin"):
+        model, opt, step = trainer(form != "unsharded")
+        fn = jit.to_static(step, full_graph=True)
+        if form.endswith("twin"):
+            with eager_ticks():
+                losses = steps(fn)
+        else:
+            losses = steps(fn)
+            entries = list(fn._cache.values())
+            check(len(entries) == 1 and entries[0].graphed.captured,
+                  f"{label} {form}: to_static made {len(entries)} entries, "
+                  f"or did not capture")
+            del entries
+        captured[form] = (_train_state(model, opt), losses)
+        del model, opt, step, fn
+        torch.cuda.empty_cache()
+    (a, la), (b, lb), (c, lc) = (captured[k] for k in (
+        "sharded", "unsharded", "sharded eager twin"))
+    _same_state(torch, a, b, la, lb,
+                f"{label}: {DIST_COMPARE_STEPS} captured sharded vs captured "
+                f"unsharded steps from seed 0")
+    _same_state(torch, a, c, la, lc,
+                f"{label}: {DIST_COMPARE_STEPS} captured sharded steps vs "
+                f"their eager twin")
+    del captured, a, b, c
+    torch.cuda.empty_cache()
+    fallbacks = obs.registry.get("jit.fallbacks").total() \
+        if obs.registry.get("jit.fallbacks") else 0
+    check(not fallbacks, f"{label}: jit.fallbacks {fallbacks}")
+    res["captured"] = {}
+    for form in ("sharded", "unsharded"):
+        model, opt, step = trainer(form == "sharded")
+        fn = jit.to_static(step, full_graph=True)
+        fn(ids, labels)                        # the capture
+        timed = dist_timed(torch, dev, lambda: fn(ids, labels), spec["nl"],
+                           f"{label} {form} step, captured",
+                           want=spec["want"])
+        timed.pop("launches")
+        res["captured"][form] = timed
+        del model, opt, step, fn
+        torch.cuda.empty_cache()
+    for form in ("eager", "captured"):
+        s_, u_ = res[form]["sharded"], res[form]["unsharded"]
+        log(f"  {label} {form}: sharded {s_['step_ms']:.2f} ms vs unsharded "
+            f"{u_['step_ms']:.2f} ms a step "
+            f"({s_['step_ms'] / u_['step_ms'] - 1:+.2%}; in the garbage "
+            f"collector {s_['gc_ms']:.2f} vs {u_['gc_ms']:.2f}); peak "
+            f"{s_['peak_bytes'] / 2**30:.2f} vs "
+            f"{u_['peak_bytes'] / 2**30:.2f} GiB")
+    return res
+
+
+def tp_mp2_steps(torch, dev, mesh=None):
+    """``TP_MP2_STEPS`` AdamW steps of ``tp_two_ranks``'s model
+    (``bench_llama``'s width at ``TP_MP2_LAYERS`` layers, bf16, seed 0,
+    ``phase_train``'s batch), under ``llama_shard_plan`` over ``mesh``
+    unless it is None: the losses; ``TP_MP2_PARAMS``' values before the
+    steps, their step-1 gradients and their fp32 masters after the steps
+    (a bf16 norm weight moves less than its ulp in 3 steps), whole (a
+    rank gathers its shards) on the host; the mean ms of the steps
+    after the first (the first gathers); the launches of the steps; and
+    the shapes, dtypes and keyword arguments of each flash and RMSNorm
+    kernel's first call (``first_kernel_calls``)."""
+    from paddle_tpu_torch.distributed.auto_parallel.api import DistParameter
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         llama_shard_plan)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    config = LlamaConfig(**{**TRAIN_CONFIG,
+                            "num_hidden_layers": TP_MP2_LAYERS},
+                         dtype="bfloat16")
+    ids, labels = train_batch(torch, config, dev)
+    model = LlamaForCausalLM(config, device=dev, seed=0)
+    if mesh is not None:
+        llama_shard_plan(model, mesh)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                multi_precision=True)
+    named = dict(model.named_parameters())
+
+    def whole(name, t):
+        if isinstance(named[name], DistParameter):
+            t = gather_shards(torch, named[name], t)
+        rows = TP_MP2_PARAMS[name]
+        t = t if rows is None else t[rows[0]:rows[1]]
+        return t.detach().cpu().clone()
+
+    out = dict(init={n: whole(n, named[n]) for n in TP_MP2_PARAMS},
+               losses=[], local_heads=named[
+                   "llama.layers.0.self_attn.q_proj.weight"].shape[0]
+               // (config.hidden_size // config.num_attention_heads))
+    reset_counts()
+    ms = []
+    with first_kernel_calls() as calls:
+        for i in range(TP_MP2_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = model(ids, labels=labels)
+            loss.backward()
+            if i == 0:
+                out["grads"] = {n: whole(n, named[n].grad)
+                                for n in TP_MP2_PARAMS}
+            opt.step()
+            opt.clear_grad()
+            out["losses"].append(float(loss.detach()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(launches=read_counts(), calls=calls,
+               step_ms=sum(ms[1:]) / len(ms[1:]),
+               final={n: whole(n, opt._master_weights[id(named[n])])
+                      for n in TP_MP2_PARAMS})
+    del model, opt, named
+    torch.cuda.empty_cache()
+    return out
+
+
+def gather_shards(torch, p, t):
+    """The whole tensor of which ``t`` is this rank's shard of the
+    ``DistParameter`` ``p``, by ``torch.distributed.all_gather`` over the
+    group of each mesh dimension that shards it. Not ``p.gather`` /
+    ``full_tensor()``: DTensor's functional all-gather ends the process
+    with a segmentation fault in ``wait_tensor`` under gloo on CUDA
+    tensors (torch 2.11, PERF.md PR 22); NCCL and gloo on the CPU run
+    it."""
+    from torch.distributed.tensor import Shard
+
+    dm = p.device_mesh
+    t = t.detach().contiguous()
+    for m, pl in reversed(list(enumerate(p.torch_placements))):
+        if dm.size(m) == 1 or pl.is_replicate():
+            continue
+        check(type(pl) is Shard, f"gather_shards: placement {pl}")
+        parts = [torch.empty_like(t) for _ in range(dm.size(m))]
+        torch.distributed.all_gather(parts, t, group=dm.get_group(m))
+        t = torch.cat(parts, dim=pl.dim)
+    return t
+
+
+@contextlib.contextmanager
+def first_kernel_calls():
+    """The shapes and dtypes of the positional tensor arguments (other
+    arguments as given) and the keyword arguments of the first call of
+    each flash and RMSNorm kernel in the block, by count key; the kernels
+    still launch and count."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rn
+
+    sites = {"flash": (fa, "_flash_fwd_kernel"),
+             "flash_bwd": (fa, "_flash_bwd_kernel"),
+             "rms_norm": (rn, "rms_norm_fwd"),
+             "rms_norm_bwd": (rn, "rms_norm_bwd")}
+    calls = {}
+    saved = {key: getattr(mod, attr) for key, (mod, attr) in sites.items()}
+
+    def recorder(key, fn):
+        def call(*args, **kw):
+            calls.setdefault(key, (
+                [(tuple(a.shape), a.dtype) if hasattr(a, "shape") else a
+                 for a in args], dict(kw)))
+            return fn(*args, **kw)
+        return call
+
+    for key, (mod, attr) in sites.items():
+        setattr(mod, attr, recorder(key, saved[key]))
+    try:
+        yield calls
+    finally:
+        for key, (mod, attr) in sites.items():
+            setattr(mod, attr, saved[key])
+
+
+def kernels_at_calls(torch, dev, calls):
+    """Each kernel of ``first_kernel_calls`` again, on seeded random
+    inputs of its recorded shapes and dtypes with its recorded keyword
+    arguments, against its plain version, at the tolerances of its own
+    phase: flash out and dq, dk, dv within ``tolerance(dtype, 1e-4)``,
+    lse within 1e-4 (``phase_flash``, ``phase_flash_bwd``); RMSNorm y and
+    dx within ``tolerance(dtype, 1e-5)``, dw ``tolerance(w dtype, 1e-3)``
+    (``phase_rms_norm``). Returns, by count key, the first argument's
+    shape, the worst error and the worst share of the tolerance (lse's
+    error over 1e-4)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rn
+
+    g = torch.Generator(device=dev).manual_seed(22)
+
+    def rnd(spec):
+        shape, dt = spec
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    def weight(spec):
+        shape, dt = spec
+        return (1 + 0.1 * torch.randn(*shape, generator=g,
+                                      device=dev)).to(dt)
+
+    def worst(pairs, tols):
+        errs = [close_err(a, b, *t) for (a, b), t in zip(pairs, tols)]
+        return max(e for e, _ in errs), max(sh for _, sh in errs)
+
+    out = {}
+    for key in ("flash", "flash_bwd"):
+        args, kw = calls[key]
+        check(args[-2:] == [None, None],
+              f"{key}: a seed or key bias in the call ({args[-2:]})")
+        q, k, v = (rnd(a) for a in args[:3])
+        fo, flse = fa._flash_fwd_kernel(q, k, v, None, None, **kw)
+        tol = tolerance(q.dtype, 1e-4)
+        if key == "flash":
+            ro, rlse = fa._flash_fwd_reference(q, k, v, None, None, **kw)
+            e, sh = worst([(fo, ro)], [tol])
+            sh = max(sh, max_err(flse, rlse) / 1e-4)
+        else:
+            do = rnd(args[5])
+            got = fa._flash_bwd_kernel(q, k, v, fo, flse, do, None, None,
+                                       **kw)
+            ref = fa._flash_bwd_reference(q, k, v, fo, flse, do, None,
+                                          None, **kw)
+            e, sh = worst(list(zip(got, ref)), [tol] * 3)
+        out[key] = dict(shape=list(args[0][0]), max_abs_err=e, share=sh)
+    for key in ("rms_norm", "rms_norm_bwd"):
+        args, kw = calls[key]
+        x, w = rnd(args[0]), weight(args[1])
+        tol_x, tol_w = tolerance(x.dtype, 1e-5), tolerance(w.dtype, 1e-3)
+        if key == "rms_norm":
+            e, sh = worst([(rn.rms_norm_fwd(x, w, **kw),
+                            rn.rms_norm_reference(x, w, **kw))], [tol_x])
+        else:
+            gy = rnd(args[2])
+            e, sh = worst(list(zip(rn.rms_norm_bwd(x, w, gy, **kw),
+                                   rn.rms_norm_bwd_reference(x, w, gy,
+                                                             **kw))),
+                          [tol_x, tol_w])
+        out[key] = dict(shape=list(args[0][0]), max_abs_err=e, share=sh)
+    torch.cuda.synchronize()
+    return out
+
+
+def tp_two_ranks(torch, dev):
+    """mp 2 as two processes on the one card over gloo: ``tp_mp2_steps``
+    under ``llama_shard_plan`` on dp 1 x mp 2 in each rank
+    (``--tp-rank``), against ``tp_mp2_steps`` unsharded in this process.
+    Each rank's kernels run at its local shapes (8 of 16 heads, the MLP at
+    2816 of 5632). Held: the gathered values before the steps equal the
+    unsharded ones bit for bit, and both ranks gather the same bits; every
+    step's loss within ``TP_MP2_LOSS_TOL``, the step-1 gradients within
+    ``TP_MP2_GRAD_TOL`` and the updates within ``TP_MP2_UPDATE_TOL`` of
+    the unsharded run's; each rank's flash and RMSNorm launches the step's
+    counts, flash at 8 heads; and each of those kernels against its plain
+    version at the shapes of its first call in the rank
+    (``kernels_at_calls``)."""
+    import os
+    import socket
+    import tempfile
+
+    ref = tp_mp2_steps(torch, dev)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    with tempfile.TemporaryDirectory() as d:
+        env = {**os.environ, "PADDLE_TRAINERS_NUM": "2",
+               "PADDLE_MASTER": f"127.0.0.1:{port}"}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--tp-rank",
+             str(r), d], env={**env, "PADDLE_TRAINER_ID": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            for line in out.strip().splitlines()[-(8 if p.returncode == 0
+                                                   else 60):]:
+                log(f"    rank {r}: {line}")
+            check(p.returncode == 0, f"mp-2 rank {r} exited {p.returncode}")
+        got = [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(2)]
+    return tp_mp2_verdict(torch, ref, got, wall)
+
+
+def tp_mp2_verdict(torch, ref, got, wall):
+    """``tp_two_ranks``' checks of the ranks' ``got`` against the
+    unsharded ``ref``; its report."""
+    def rel_max(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def rel_update(r, n):
+        dw = got[r]["final"][n].float() - got[r]["init"][n].float()
+        want = ref["final"][n].float() - ref["init"][n].float()
+        return float((dw - want).norm() / want.norm())
+
+    loss_err = [abs(a - b) for a, b in zip(got[0]["losses"],
+                                           ref["losses"])]
+    grad_err = {n: rel_max(got[0]["grads"][n], ref["grads"][n])
+                for n in TP_MP2_PARAMS}
+    upd_err = {n: rel_update(0, n) for n in TP_MP2_PARAMS}
+    local = [g["local_kernels"] for g in got]
+    log(f"  mp 2 on one card over gloo: losses {got[0]['losses']} vs "
+        f"unsharded {ref['losses']}, apart {[f'{e:.3g}' for e in loss_err]}"
+        f" (tol {TP_MP2_LOSS_TOL}); local heads {got[0]['local_heads']}; "
+        f"{got[0]['step_ms']:.1f} / {got[1]['step_ms']:.1f} ms a step "
+        f"(ranks 0 / 1; unsharded {ref['step_ms']:.1f}), {wall:.1f} s wall")
+    log("  mp 2 step-1 gradients, max |g - unsharded g| / max |unsharded "
+        f"g| (tol {TP_MP2_GRAD_TOL}): "
+        + ", ".join(f"{n} {e:.3g}" for n, e in grad_err.items()))
+    log(f"  mp 2 updates of {TP_MP2_STEPS} steps, ||dw - unsharded dw|| / "
+        f"||unsharded dw|| (tol {TP_MP2_UPDATE_TOL}): "
+        + ", ".join(f"{n} {e:.3g}" for n, e in upd_err.items()))
+    for r, lk in enumerate(local):
+        log(f"  mp 2 rank {r}, kernels vs plain at its first calls' shapes: "
+            + ", ".join(f"{k} {v['shape']} err {v['max_abs_err']:.3g} "
+                        f"({v['share']:.3g} of the tolerance)"
+                        for k, v in lk.items()))
+    for part in ("init", "grads", "final"):
+        apart = [n for n in TP_MP2_PARAMS
+                 if not torch.equal(got[0][part][n], got[1][part][n])]
+        check(not apart, f"mp-2: the ranks gather different {part} of "
+                         f"{apart}")
+    apart = [n for n in TP_MP2_PARAMS
+             if not torch.equal(got[0]["init"][n], ref["init"][n])]
+    check(not apart, f"mp-2: gathered initial values of {apart} differ "
+                     f"from the unsharded model's")
+    check(all(e <= TP_MP2_LOSS_TOL for e in loss_err),
+          f"mp-2 losses {loss_err} from unsharded")
+    check(all(e <= TP_MP2_GRAD_TOL for e in grad_err.values()),
+          f"mp-2 step-1 gradients {grad_err}")
+    check(all(e <= TP_MP2_UPDATE_TOL for e in upd_err.values()),
+          f"mp-2 updates {upd_err}")
+    heads = TRAIN_CONFIG["num_attention_heads"] // 2
+    for r, g in enumerate(got):
+        check(g["launches"] == {k: v * TP_MP2_STEPS for k, v in
+                                train_launches(TP_MP2_LAYERS).items()},
+              f"mp-2 rank {r} launches {g['launches']}")
+        check(g["local_kernels"]["flash"]["shape"][1] == heads
+              and g["local_heads"] == heads,
+              f"mp-2 rank {r}: flash at {g['local_kernels']['flash']}")
+        bad = {k: v for k, v in g["local_kernels"].items()
+               if not v["share"] <= 1.0}
+        check(not bad, f"mp-2 rank {r}: kernels vs plain {bad}")
+    return dict(losses=got[0]["losses"], unsharded_losses=ref["losses"],
+                loss_err=loss_err, grad_err=grad_err, update_err=upd_err,
+                step_ms=[g["step_ms"] for g in got],
+                unsharded_step_ms=ref["step_ms"], wall_s=wall,
+                local_heads=got[0]["local_heads"],
+                local_kernels=local, launches=got[0]["launches"])
+
+
+def tp_rank_main(rank, out_dir):
+    """One rank of ``tp_two_ranks`` (``python chip_smoke.py --tp-rank R
+    DIR``): gloo on the card, ``tp_mp2_steps`` under the plan at mp 2,
+    then ``kernels_at_calls``; writes ``DIR/rank<R>.pt``."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as tdist
+
+    faulthandler.enable()               # a crash prints where it was
+    sys.path.insert(0, str(HERE))
+    from paddle_tpu_torch.distributed import fleet
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    host, port = __import__("os").environ["PADDLE_MASTER"].split(":")
+    tdist.init_process_group("gloo", init_method=f"tcp://{host}:{port}",
+                             rank=rank, world_size=2)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2}
+    hcg = fleet.init(is_collective=True, strategy=strategy)
+    print(f"rank {rank}: fleet.init done", flush=True)
+    out = tp_mp2_steps(torch, dev, hcg.mesh)
+    print(f"rank {rank}: steps done", flush=True)
+    out["local_kernels"] = kernels_at_calls(torch, dev, out.pop("calls"))
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    print(f"rank {rank}: losses {out['losses']}, {out['step_ms']:.1f} ms a "
+          f"step, {out['local_heads']} local heads", flush=True)
+    tdist.destroy_process_group()
+    return 0
+
+
+def phase_tensor_parallel(torch, dev, report):
+    """Tensor parallelism on the card (``distributed/fleet``,
+    ``auto_parallel``, the models' shard plans): ``fleet.init`` at mp 1 on
+    NCCL (world 1), then ``phase_train``'s Llama (``bench_llama``: 645M,
+    bf16, 4 x 2048, ``AdamW(multi_precision=True)``) under
+    ``llama_shard_plan`` and GPT-2 medium (``GptTrain``: 8 x 1024, dropout
+    0.1) under ``gpt_shard_plan``, each against itself unsharded
+    (``tp_model_forms``), then mp 2 as two gloo ranks on the card
+    (``tp_two_ranks``)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import (GPTConfig, LlamaConfig,
+                                         LlamaForCausalLM, gpt_shard_plan,
+                                         llama_shard_plan)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    saved = _tp_env(1, 0)
+    obs.reset()
+    obs.enable()
+    res = {}
+    try:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1}
+        hcg = fleet.init(is_collective=True, strategy=strategy)
+        check(dist.get_backend() == "nccl", "fleet.init: backend not nccl")
+        check(hcg.get_model_parallel_world_size() == 1, "mp degree")
+        config = LlamaConfig(**TRAIN_CONFIG, dtype="bfloat16")
+        nl = config.num_hidden_layers
+        flash_names = [n for pair in FLASH_KERNELS.values() for n in pair]
+        res["llama"] = tp_model_forms(torch, dev, report, dict(
+            label="Llama", make=lambda: LlamaForCausalLM(config, device=dev,
+                                                         seed=0),
+            batch=train_batch(torch, config, dev), loss=_llama_loss,
+            make_opt=lambda m: AdamW(learning_rate=3e-4,
+                                     parameters=m.parameters(),
+                                     multi_precision=True),
+            plan=llama_shard_plan, nl=nl, want=train_launches(nl),
+            check_kernels=lambda pk, lb: check_train_kernels(pk, nl, lb),
+            names=flash_names + list(RMS_TRAIN_KERNELS),
+            path="tensor_parallel"))
+        gpt = GptTrain()
+        gcfg = GPTConfig.gpt2_medium()
+        gnl = gcfg.num_hidden_layers
+        res["gpt"] = tp_model_forms(torch, dev, report, dict(
+            label="GPT-2 medium", make=lambda: gpt.model(torch, dev),
+            batch=gpt.batch(torch, gcfg, dev), loss=gpt.loss,
+            make_opt=gpt.opt, plan=gpt_shard_plan, nl=gnl,
+            want={**{k: 0 for k in train_launches(gnl)},
+                  "flash": gnl, "flash_bwd": gnl},
+            check_kernels=lambda pk, lb: check_flash_route(
+                pk, {"fwd": gnl, "dq": gnl, "dkv": gnl}, lb),
+            names=flash_names, path="gpt_tensor_parallel"))
+        fleet.set_hybrid_communicate_group(None)
+    finally:
+        dist.destroy_process_group()
+        obs.disable()
+        obs.reset()
+        _restore_env(saved)
+    res["mp2"] = tp_two_ranks(torch, dev)
+    report["tensor_parallel"] = res
+
+
 def main() -> int:
     try:
         import torch
@@ -7757,7 +8483,8 @@ def main() -> int:
                             ("vision", phase_vision),
                             ("detection", phase_detection),
                             ("observability", phase_observability),
-                            ("distributed", phase_distributed)):
+                            ("distributed", phase_distributed),
+                            ("tensor_parallel", phase_tensor_parallel)):
             mark(name)
             phase(torch, dev, report)
             models[name] = report.pop(name)
@@ -7791,4 +8518,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -132,6 +132,16 @@ class GradScaler:
         # reference's trace fails here the same way)
         no_host_read("GradScaler's found_inf check")
         max_abs = torch.stack(torch._foreach_norm(grads, math.inf))
+        if getattr(self, "_sync_found_inf", False):
+            # distributed.shard_scaler: every rank of a sharded model
+            # skips the same steps
+            import torch.distributed as tdist
+
+            bad = (~torch.isfinite(max_abs)).any().float()
+            if tdist.is_available() and tdist.is_initialized():
+                tdist.all_reduce(bad, op=tdist.ReduceOp.MAX)
+            self._found_inf = bool(bad)
+            return
         self._found_inf = not bool(torch.isfinite(max_abs).all())
 
     def step(self, optimizer):

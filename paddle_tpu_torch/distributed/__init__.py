@@ -9,17 +9,22 @@ rank (the reference drives a device mesh from one process a host). Run
 --master host:port train.py`` on each node, or set the launcher's
 variables yourself; ``init_parallel_env()`` brings the group up.
 
-The reference's names that are not here belong to later parts of ROADMAP
-queue A item 4: placements, meshes and the semi-auto API (b), sharding
-(c), checkpointing, elastic training, the parameter server, RPC and the
+Placements, meshes and the semi-auto API (``auto_parallel``), the
+hybrid topology, tensor and sequence parallelism (``fleet``) and the
+model-parallel ``split`` are ROADMAP queue A item 4 (b). The reference's
+names that are not here belong to later parts of item 4: sharding (c),
+checkpointing, elastic training, the parameter server, RPC and the
 fleet executor (f); ``passes`` rewrite static programs (item 7).
-``split``, ``DistAttr`` and ``shard_scaler`` are here and raise, naming
-part (b).
 """
 from __future__ import annotations
 
-from . import communication, env, fleet, launch_utils, parallel_wrapper
-from . import store, utils  # noqa: F401
+from . import auto_parallel, communication, env, fleet  # noqa: F401
+from . import launch_utils, parallel_wrapper, store, utils  # noqa: F401
+from .auto_parallel import (  # noqa: F401
+    DistModel, Partial, Placement, ProcessMesh, Replicate, Shard,
+    ShardDataloader, ShardingStage1, ShardingStage2, ShardingStage3,
+    Strategy, dtensor_from_fn, reshard, shard_dataloader, shard_layer,
+    shard_optimizer, shard_tensor, to_static, unshard_dtensor)
 from .communication import (  # noqa: F401
     P2POp, ReduceOp, all_gather, all_gather_object, all_reduce, all_to_all,
     all_to_all_single, batch_isend_irecv, broadcast, broadcast_object_list,
@@ -37,9 +42,12 @@ from .store import InMemoryStore, Store, TCPStore, create_store  # noqa: F401
 parallel = env
 
 __all__ = [
-    "CountFilterEntry", "DataParallel", "DistAttr", "InMemoryStore", "P2POp",
-    "ParallelEnv", "ParallelMode", "ProbabilityEntry", "ReduceOp",
-    "ReduceType", "ShowClickEntry", "Store", "TCPStore", "all_gather",
+    "CountFilterEntry", "DataParallel", "DistAttr", "DistModel",
+    "InMemoryStore", "P2POp", "ParallelEnv", "ParallelMode", "Partial",
+    "Placement", "ProbabilityEntry", "ProcessMesh", "ReduceOp",
+    "ReduceType", "Replicate", "Shard", "ShardDataloader",
+    "ShardingStage1", "ShardingStage2", "ShardingStage3",
+    "ShowClickEntry", "Store", "Strategy", "TCPStore", "all_gather",
     "all_gather_object", "all_reduce", "all_to_all", "all_to_all_single",
     "alltoall", "alltoall_single", "barrier", "batch_isend_irecv",
     "broadcast", "broadcast_object_list", "communication", "create_store",
@@ -50,7 +58,9 @@ __all__ = [
     "is_initialized", "isend", "launch", "launch_utils", "new_group",
     "parallel", "parallel_wrapper", "recv", "reduce", "reduce_scatter",
     "scatter", "scatter_object_list", "send", "shard_scaler", "spawn",
-    "split", "store", "utils", "wait",
+    "split", "store", "utils", "wait", "auto_parallel", "dtensor_from_fn",
+    "reshard", "shard_dataloader", "shard_layer", "shard_optimizer",
+    "shard_tensor", "to_static", "unshard_dtensor",
 ]
 
 
@@ -148,30 +158,82 @@ def gloo_release():
     ``destroy_process_group``."""
 
 
-def _part_b(name):
-    raise NotImplementedError(
-        f"paddle.distributed.{name} comes with placements and model "
-        f"parallelism (ROADMAP.md queue A item 4 (b))")
+_split_layers: dict = {}
 
 
 def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
           weight_attr=None, bias_attr=None, name=None):
-    """Model-parallel ``split`` (the mp layers): ROADMAP queue A item 4
-    (b)."""
-    _part_b("split")
+    """Model-parallel ``split`` (Paddle's ``mp_ops.py`` ``split``): a
+    vocab-parallel embedding (``operation="embedding"``) or a row
+    (``axis=0``) / column (``axis=1``) parallel linear of ``size`` over
+    the hybrid group's mp axis, applied to ``x``. The layer is made once
+    per (``name``, configuration), so calls reuse its parameters, as the
+    reference's cache does; pass ``name`` to tell apart two splits of one
+    configuration. ``num_partitions`` must be the mp degree."""
+    from .fleet.mp_layers import (ColumnParallelLinear, RowParallelLinear,
+                                  VocabParallelEmbedding, _degree,
+                                  _mp_group)
+
+    degree = _degree(_mp_group())
+    if int(num_partitions) not in (1, degree):
+        raise ValueError(f"split: num_partitions={num_partitions} but the "
+                         f"mp degree is {degree}")
+    key = (name, operation, tuple(size), axis, num_partitions, gather_out)
+    layer = _split_layers.get(key)
+    if layer is None:
+        kw = dict(device=x.device)
+        if operation == "embedding":
+            layer = VocabParallelEmbedding(size[0], size[1],
+                                           weight_attr=weight_attr, **kw)
+        elif operation == "linear":
+            has_bias = bias_attr is not False
+            if axis == 0:
+                layer = RowParallelLinear(size[0], size[1],
+                                          weight_attr=weight_attr,
+                                          has_bias=has_bias, **kw)
+            else:
+                layer = ColumnParallelLinear(size[0], size[1],
+                                             weight_attr=weight_attr,
+                                             has_bias=has_bias,
+                                             gather_output=gather_out, **kw)
+        else:
+            raise ValueError(f"unsupported operation {operation!r}")
+        _split_layers[key] = layer
+    return layer(x)
 
 
 class DistAttr:
-    """A tensor's mesh and dims mapping: ROADMAP queue A item 4 (b)."""
+    """A tensor's mesh and sharding specs (Paddle's ``DistAttr``): one
+    mesh dim name or None per tensor dim; ``dims_mapping`` gives each
+    tensor dim's mesh dim (-1 replicated) and ``placements`` the same as
+    placements (one per mesh dim)."""
 
     def __init__(self, mesh, sharding_specs):
-        _part_b("DistAttr")
+        self.process_mesh = mesh
+        self.sharding_specs = list(sharding_specs)
+
+    @property
+    def dims_mapping(self):
+        names = list(getattr(self.process_mesh, "dim_names", []))
+        return [(names.index(s) if s in names else -1)
+                for s in self.sharding_specs]
+
+    @property
+    def placements(self):
+        from .auto_parallel.placement import spec_to_placements
+
+        return spec_to_placements(self.sharding_specs, self.process_mesh,
+                                  len(self.sharding_specs))
 
 
 def shard_scaler(scaler):
-    """``GradScaler`` over sharded gradients: ROADMAP queue A item 4
-    (b)."""
-    _part_b("shard_scaler")
+    """A ``GradScaler`` for sharded gradients. The port's scaler already
+    works on them: each rank's gradients are its shards, and its
+    ``found_inf`` is made the same on every rank by an all-reduce (MAX)
+    over the world when a process group is up, so every rank skips the
+    same steps. Returns the scaler."""
+    scaler._sync_found_inf = True
+    return scaler
 
 
 # PS-mode sparse-table entry configs (Paddle's distributed/entry_attr.py)

@@ -29,8 +29,10 @@ Every collective records ``comm.collective_calls``,
 ``op`` and ``group`` while observability is on (the reference's
 series). ``send`` / ``recv`` and their kin raise, as the reference's
 do; point-to-point comes with the pipeline (ROADMAP.md queue A item 4
-(e)). The in-trace helpers (``psum``, ``ppermute``, ...) wait for
-item 4 (b).
+(e)). The in-trace helpers (``psum``, ``all_gather_in_trace``,
+``ppermute``, ``all_to_all_in_trace``) take an ``axis_name`` of the
+current mesh or the hybrid group and are differentiable
+(``communication/functional.py``).
 """
 from __future__ import annotations
 
@@ -394,13 +396,56 @@ def barrier(group=None):
     env.barrier(group)
 
 
-def _in_trace(*args, **kwargs):
-    raise NotImplementedError(
-        "the in-trace collectives (psum, all_gather_in_trace, ppermute, "
-        "all_to_all_in_trace) come with placements and model parallelism "
-        "(ROADMAP.md queue A item 4 (b))")
+def _axis(axis_name) -> Group:
+    """The group of ``axis_name``: an axis of the current mesh (``with
+    mesh:``), else of the hybrid group's (``fleet.init``)."""
+    from ..auto_parallel.placement import get_current_mesh
+    from ..fleet.topology import get_hybrid_communicate_group
+    from .group import axis_group
+
+    mesh = get_current_mesh()
+    if mesh is None or axis_name not in mesh.dim_names:
+        hcg = get_hybrid_communicate_group()
+        mesh = None if hcg is None else hcg.mesh
+    if mesh is None or axis_name not in mesh.dim_names:
+        raise ValueError(
+            f"axis {axis_name!r} names no axis of the current mesh or the "
+            f"hybrid group (enter a ProcessMesh or call fleet.init)")
+    return axis_group(mesh, axis_name)
 
 
-psum = all_gather_in_trace = ppermute = all_to_all_in_trace = _in_trace
+def psum(x, axis_name):
+    """``lax.psum`` over an axis, differentiable; its gradient is the one
+    ``jax.grad`` gives (the all-reduced cotangent)."""
+    from . import functional
+
+    return functional.psum(x, _axis(axis_name))
+
+
+def all_gather_in_trace(x, axis_name, axis=0, tiled=True):
+    """``lax.all_gather``: concatenated along ``axis`` (``tiled``) or
+    stacked in a new ``axis``; the gradient is the reduce-scatter of the
+    cotangent."""
+    from . import functional
+
+    if not tiled:
+        x = x.unsqueeze(axis)
+    return functional.all_gather(x, _axis(axis_name), dim=axis)
+
+
+def ppermute(x, axis_name, perm):
+    """``lax.ppermute``: rank ``d`` of each ``(s, d)`` pair of ``perm``
+    gets rank ``s``'s ``x``, the others zeros."""
+    from . import functional
+
+    return functional.permute(x, _axis(axis_name), perm)
+
+
+def all_to_all_in_trace(x, axis_name, split_axis, concat_axis):
+    """``lax.all_to_all(..., tiled=True)``."""
+    from . import functional
+
+    return functional.all_to_all(x, _axis(axis_name), split_axis,
+                                 concat_axis)
 
 from . import stream  # noqa: E402,F401

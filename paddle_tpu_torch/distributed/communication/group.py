@@ -13,8 +13,7 @@ one process: the default group has ``world_size`` ranks (the
 reference's has one a device); ``Group.rank`` is this process's rank in
 the group and -1 outside it (the reference's is always 0 and its
 ``is_member`` always True); ``get_backend`` names the torch backend.
-Groups over one axis of a mesh (``axis_group``) wait for ROADMAP queue
-A item 4 (b).
+``axis_group`` gives the group of one axis of a ``ProcessMesh``.
 """
 from __future__ import annotations
 
@@ -132,10 +131,33 @@ def get_group(gid: int = 0) -> Group:
     return _groups.get(gid) or _get_or_create_default_group()
 
 
+_axis_groups: dict = {}
+
+
 def axis_group(mesh, axis_name: str) -> Group:
-    raise NotImplementedError(
-        "axis_group: groups over a mesh axis come with placements and "
-        "model parallelism (ROADMAP.md queue A item 4 (b))")
+    """The group of this rank's line along ``axis_name`` of ``mesh`` (a
+    ``ProcessMesh``), over the ``DeviceMesh``'s group of that dimension
+    (``DeviceMesh.get_group``); made once per mesh and axis. Outside
+    the mesh the rank is -1 and there is no process group."""
+    key = (mesh, axis_name)
+    if key in _axis_groups:
+        return _axis_groups[key]
+    axis = mesh.dim_names.index(axis_name)
+    dm = mesh.device_mesh
+    coord = mesh.get_coordinate()
+    grid = mesh.mesh
+    line = [0] * mesh.ndim if coord is None else list(coord)
+    ranks = []
+    for i in range(mesh.shape[axis]):
+        line[axis] = i
+        ranks.append(int(grid[tuple(line)]))
+    pg = None if coord is None else dm.get_group(axis)
+    _group_counter[0] += 1
+    g = Group(-1 if coord is None else coord[axis], _group_counter[0],
+              ranks, mesh=mesh, axis_name=axis_name, process_group=pg)
+    _groups[g.id] = g
+    _axis_groups[key] = g
+    return g
 
 
 def is_initialized() -> bool:
@@ -150,6 +172,10 @@ def destroy_process_group(group=None):
     otherwise that group alone."""
     if group is None:
         _groups.clear()
+        _axis_groups.clear()
+        from ..auto_parallel.placement import _forget_device_meshes
+
+        _forget_device_meshes()
         from .. import env
 
         env._shutdown()

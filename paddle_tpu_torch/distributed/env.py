@@ -18,7 +18,9 @@ the process group). One process a rank, each with its own card
   is no TCP store, as in the reference: the group sits on a
   ``HashStore``.
 - The backend is NCCL when the port's device is the card and gloo when
-  it is the CPU. Nothing falls back from one to the other.
+  it is the CPU. Nothing falls back from one to the other. A default
+  group the caller brought up before (``torch.distributed.
+  init_process_group``) is adopted as it is, with its backend.
 - ``barrier`` is the reference's counter rendezvous through the store,
   watched by the communication watchdog.
 """
@@ -103,6 +105,12 @@ def init_parallel_env(strategy=None):
     import torch
     import torch.distributed as dist
 
+    if dist.is_available() and dist.is_initialized():
+        # a default group the caller brought up itself (say gloo for two
+        # ranks on one card, which NCCL refuses): adopted as it is
+        _initialized = True
+        return _default_group()
+
     from ..core.place import resolve_device
     from .communication.watchdog import get_comm_task_manager
     from .store import _TorchStoreView, create_store
@@ -171,7 +179,13 @@ def barrier(group=None):
     reference's rendezvous), under the watchdog. A no-op at world 1."""
     global _barrier_epoch
     nprocs = get_world_size()
-    if _gen_store is None or nprocs <= 1:
+    if nprocs <= 1:
+        return
+    if _gen_store is None:
+        if _initialized:         # an adopted group: no store of ours
+            import torch.distributed as dist
+
+            dist.barrier()
         return
     from .communication.watchdog import get_comm_task_manager
 

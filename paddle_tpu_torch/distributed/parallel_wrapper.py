@@ -34,8 +34,10 @@ when each rank's loss is a mean over equal shares.
 - Before ``init_parallel_env`` (no process group) the wrapper reduces
   nothing: a one-rank world's mean is its gradient.
 
-``mesh=`` (a data-parallel mesh axis in one process) waits for ROADMAP
-queue A item 4 (b). ``strategy`` is accepted as the reference accepts
+``mesh=`` (a ``ProcessMesh``) reduces over the mesh's ``dp`` axis (its
+first axis when it has none): this rank's line along it
+(``communication.group.axis_group``), so a dp x mp mesh averages each
+gradient shard over the ranks that hold the same shard. ``strategy`` is accepted as the reference accepts
 it. ``state_dict``, ``set_state_dict``, ``parameters`` and
 ``named_parameters`` are the wrapped layer's; ``scale_loss`` is the
 identity and ``apply_collective_grads`` does nothing, as there.
@@ -183,10 +185,12 @@ class DataParallel(torch.nn.Module):
                  find_unused_parameters=False, group=None, mesh=None):
         super().__init__()
         if mesh is not None:
-            raise NotImplementedError(
-                "DataParallel(mesh=...): data parallelism over a mesh axis "
-                "comes with placements (ROADMAP.md queue A item 4 (b)); one "
-                "process a rank needs no mesh")
+            if group is not None:
+                raise ValueError("DataParallel: pass mesh or group, not both")
+            from .communication.group import axis_group
+
+            axis = "dp" if "dp" in mesh.dim_names else mesh.dim_names[0]
+            group = axis_group(mesh, axis)
         self._layers = layers
         self._strategy = strategy
         self.find_unused_parameters = find_unused_parameters

@@ -245,7 +245,7 @@ def _no_group(group):
     if group is not None:
         raise NotImplementedError(
             "a gate's expert-parallel group waits for ROADMAP.md queue A "
-            "item 4 (distributed training) of the port")
+            "item 4 (b2), expert parallelism")
 
 
 class GShardGate(NaiveGate):

@@ -25,8 +25,8 @@ Counterpart of ``paddle_tpu/incubate/distributed/models/moe/moe_layer.py``.
 
 The reference leaves all of this to XLA, so here it is plain PyTorch:
 the expert products are ``torch.bmm``. Expert parallelism (``moe_group``)
-waits for ``ROADMAP.md`` queue A item 4: a ``moe_group`` other than
-None raises.
+waits for ``ROADMAP.md`` queue A item 4 (b2): a ``moe_group`` other
+than None raises.
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ def _ep_mesh(moe_group, num_expert: int):
     if moe_group is not None:
         raise NotImplementedError(
             "moe_group (expert parallelism) waits for ROADMAP.md queue A "
-            "item 4 (distributed training) of the port")
+            "item 4 (b2), expert parallelism")
     return None, None
 
 

@@ -10,11 +10,13 @@ from .generation import generate
 from .gpt import (GPTAttention, GPTConfig, GPTDecoderLayer, GPTForCausalLM,
                   GPTModel, gpt_shard_plan)
 from .llama import (LlamaAttention, LlamaConfig, LlamaDecoderLayer,
-                    LlamaForCausalLM, LlamaMLP, LlamaModel, LlamaRMSNorm)
+                    LlamaForCausalLM, LlamaMLP, LlamaModel, LlamaRMSNorm,
+                    llama_shard_plan)
 from .unet_diffusion import DDPMScheduler, UNet2DConditionModel, UNetConfig
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP", "LlamaRMSNorm",
+           "llama_shard_plan",
            "GPTConfig", "GPTForCausalLM", "GPTModel", "GPTDecoderLayer",
            "GPTAttention", "gpt_shard_plan", "BertConfig", "BertModel",
            "BertForPretraining", "BertForSequenceClassification",

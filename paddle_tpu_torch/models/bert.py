@@ -22,8 +22,8 @@ from the model's one explicit generator, ``dropout_generator``, through
 ``use_generator``, so ``recompute`` replays the same draws.
 
 The reference has no ``dtype`` field: bf16 comes from
-``model.to(torch.bfloat16)``. ``bert_shard_plan`` waits for the
-distributed slice.
+``model.to(torch.bfloat16)``. ``bert_shard_plan`` is the reference's
+Megatron plan.
 """
 from __future__ import annotations
 
@@ -34,6 +34,14 @@ from torch import nn
 
 from ..core.generator import make_generator
 from ..core.place import resolve_device
+from ..distributed.auto_parallel.api import DistParameter
+from ..distributed.communication.group import axis_group
+from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
+                                           RowParallelLinear,
+                                           VocabParallelEmbedding,
+                                           check_divides,
+                                           column_projections, global_numel,
+                                           mp_shard_)
 from ..distributed.fleet.utils import recompute
 from ..nn import functional as F
 from ..nn.functional.common import Embedding
@@ -142,15 +150,16 @@ class BertSelfAttention(nn.Module):
         if self.config.fused_qkv:
             q, k, v = fused_qkv_linear(x, projs)
         else:
-            q, k, v = (p(x) for p in projs)
-        shape = (b, s, self.num_heads, self.head_dim)
+            q, k, v = column_projections(x, projs)
+        # -1: a tensor-parallel rank holds its share of the heads
+        shape = (b, s, -1, self.head_dim)
         out = F.scaled_dot_product_attention(
             q.reshape(shape), k.reshape(shape), v.reshape(shape),
             attn_mask=attention_mask,
             dropout_p=self.config.attention_probs_dropout_prob,
             is_causal=False, training=self.training,
             generator=self.generator)
-        return self.dropout(self.out_proj(out.reshape(b, s, h)))
+        return self.dropout(self.out_proj(out.reshape(b, s, -1)))
 
 
 class BertEncoderLayer(nn.Module):
@@ -199,7 +208,7 @@ class BertModel(nn.Module):
         return x, pooled
 
     def num_parameters(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        return sum(global_numel(p) for p in self.parameters())
 
 
 class _BertRoot(nn.Module):
@@ -231,7 +240,7 @@ class _BertRoot(nn.Module):
                 p.normal_(0.0, 0.02, generator=gen)
 
     def num_parameters(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        return sum(global_numel(p) for p in self.parameters())
 
 
 class BertForPretraining(_BertRoot):
@@ -292,8 +301,36 @@ class BertForSequenceClassification(_BertRoot):
 
 
 def bert_shard_plan(model, mesh, dp_axis="dp", mp_axis="mp"):
-    """The reference's Megatron tensor-parallel layout; it waits for the
-    distributed slice."""
-    raise NotImplementedError(
-        "bert_shard_plan waits for ROADMAP.md queue A item 4 (distributed "
-        "training) of the port")
+    """Megatron tensor parallelism over ``mesh``'s ``mp_axis``, the
+    reference's plan (``paddle_tpu/models/bert.py`` ``bert_shard_plan``) in
+    torch's ``[out, in]`` layout: ``q/k/v_proj`` and ``linear1`` column
+    parallel (weight ``Shard(0)``; their biases ``Shard(0)`` too, where the
+    reference leaves q/k/v's replicated for GSPMD: a rank adds the bias
+    of its own columns), ``out_proj`` and ``linear2`` row parallel (weight
+    ``Shard(1)``, bias replicated, added after the all-reduce), the word
+    embeddings vocab parallel, the rest (positions, token types, norms,
+    pooler and heads) replicated. Sharded in place, computed on local
+    tensors, as ``llama_shard_plan``."""
+    cfg = model.config
+    check_divides("bert_shard_plan", {
+        "vocab_size": cfg.vocab_size,
+        "num_attention_heads": cfg.num_attention_heads,
+        "intermediate_size": cfg.intermediate_size},
+        mesh.get_dim_size(mp_axis))
+    group = axis_group(mesh, mp_axis)
+    bert = model.bert if hasattr(model, "bert") else model
+    emb = bert.embeddings
+    emb.word_embeddings = VocabParallelEmbedding.from_embedding(
+        emb.word_embeddings, group)
+    for layer in bert.encoder:
+        attn = layer.self_attn
+        for name in ("q_proj", "k_proj", "v_proj"):
+            setattr(attn, name, ColumnParallelLinear.from_linear(
+                getattr(attn, name), group))
+        attn.out_proj = RowParallelLinear.from_linear(attn.out_proj, group)
+        layer.linear1 = ColumnParallelLinear.from_linear(layer.linear1, group)
+        layer.linear2 = RowParallelLinear.from_linear(layer.linear2, group)
+    for p in model.parameters():
+        if not isinstance(p, DistParameter):
+            mp_shard_(p, group, None)
+    return model

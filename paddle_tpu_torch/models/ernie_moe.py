@@ -18,7 +18,7 @@ PyTorch, as the reference leaves them to XLA. Every routing draw (GShard's
 random second expert) comes from the model's one explicit generator,
 ``routing_generator``. Under ``recompute`` the MoE layers run without
 the checkpoint, as in the reference. ``ernie_moe_shard_plan`` and a
-``moe_group`` wait for the distributed slice.
+``moe_group`` wait for ROADMAP queue A item 4 (b2), expert parallelism.
 """
 from __future__ import annotations
 
@@ -227,8 +227,8 @@ class ErnieMoeForCausalLM(nn.Module):
 
 def ernie_moe_shard_plan(model: ErnieMoeForCausalLM, mesh, mp_axis="mp",
                          ep_axis="ep"):
-    """The reference's mp x ep layout; it waits for the distributed
-    slice."""
+    """The reference's mp x ep layout; its all-to-all expert dispatch
+    waits for ROADMAP queue A item 4 (b2), expert parallelism."""
     raise NotImplementedError(
-        "ernie_moe_shard_plan waits for ROADMAP.md queue A item 4 "
-        "(distributed training) of the port")
+        "ernie_moe_shard_plan waits for ROADMAP.md queue A item 4 (b2), "
+        "expert parallelism")

@@ -19,8 +19,8 @@ generator, ``dropout_generator``, through ``use_generator``, so
 head is ``hidden @ wte.weight.T`` and there is no ``lm_head``.
 
 The reference has no ``dtype`` field: bf16 comes from
-``model.to(torch.bfloat16)`` or ``amp``. ``gpt_shard_plan`` waits for
-the distributed slice.
+``model.to(torch.bfloat16)`` or ``amp``. ``gpt_shard_plan`` is the
+reference's Megatron plan (see there for the fused ``qkv_proj``).
 """
 from __future__ import annotations
 
@@ -31,6 +31,14 @@ from torch import nn
 
 from ..core.generator import make_generator
 from ..core.place import resolve_device
+from ..distributed.auto_parallel.api import DistParameter
+from ..distributed.communication.functional import reduce_bwd
+from ..distributed.communication.group import axis_group
+from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
+                                           RowParallelLinear,
+                                           VocabParallelEmbedding,
+                                           check_divides, global_numel,
+                                           lm_cross_entropy, mp_shard_)
 from ..distributed.fleet.utils import recompute
 from ..nn import functional as F
 from ..nn.functional.common import Embedding
@@ -94,12 +102,13 @@ class GPTAttention(nn.Module):
 
     def forward(self, x):
         b, s, h = x.shape
-        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        # -1: a tensor-parallel rank holds its share of the heads
+        qkv = self.qkv_proj(x).reshape(b, s, 3, -1, self.head_dim)
         q, k, v = qkv.unbind(2)
         out = F.scaled_dot_product_attention(
             q, k, v, dropout_p=self.config.attention_probs_dropout_prob,
             is_causal=True, training=self.training, generator=self.generator)
-        return self.out_proj(out.reshape(b, s, h))
+        return self.out_proj(out.reshape(b, s, -1))
 
 
 class GPTDecoderLayer(nn.Module):
@@ -187,18 +196,18 @@ class GPTForCausalLM(nn.Module):
         logits)``, the mean token cross-entropy."""
         hidden = self.gpt(input_ids, position_ids)
         if self.config.tie_word_embeddings:
-            logits = torch.nn.functional.linear(hidden, self.gpt.wte.weight)
+            group = getattr(self.gpt.wte, "mp_group", None)
+            logits = torch.nn.functional.linear(reduce_bwd(hidden, group),
+                                                self.gpt.wte.weight)
         else:
+            group = getattr(self.lm_head, "mp_group", None)
             logits = self.lm_head(hidden)
         if labels is not None:
-            v = self.config.vocab_size
-            loss = F.cross_entropy(logits.reshape(-1, v), labels.reshape(-1),
-                                   ignore_index=-100)
-            return loss, logits
+            return lm_cross_entropy(logits, labels, group), logits
         return logits
 
     def num_parameters(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        return sum(global_numel(p) for p in self.parameters())
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  do_sample: bool = False, temperature: float = 1.0,
@@ -228,8 +237,44 @@ class GPTForCausalLM(nn.Module):
 
 
 def gpt_shard_plan(model: GPTForCausalLM, mesh, dp_axis="dp", mp_axis="mp"):
-    """The Megatron tensor-parallel layout of the reference; it waits for
-    the distributed slice."""
-    raise NotImplementedError(
-        "gpt_shard_plan waits for ROADMAP.md queue A item 4 (distributed "
-        "training) of the port")
+    """Megatron tensor parallelism over ``mesh``'s ``mp_axis``, the
+    reference's plan (``paddle_tpu/models/gpt.py`` ``gpt_shard_plan``) in
+    torch's ``[out, in]`` layout: ``qkv_proj`` and ``linear1`` column
+    parallel (weight and bias ``Shard(0)``), ``out_proj`` and ``linear2``
+    row parallel (weight ``Shard(1)``, bias replicated), ``wte`` vocab
+    parallel (and with it the tied head, whose logits stay sharded into a
+    vocab-parallel cross-entropy; an untied ``lm_head`` is column
+    parallel), the rest replicated. Sharded in place, computed on local
+    tensors, as ``llama_shard_plan``.
+
+    The fused ``qkv_proj`` ``[3h, h]`` is laid out as ``_StridedShard(0,
+    split_factor=3)``: the rows are viewed as the three blocks q, k, v and
+    each block is sharded, so a rank holds the rows of its heads of q,
+    then of k, then of v (a contiguous ``Shard(0)`` would give rank 0 all
+    of q and half of k). ``full_tensor()`` is the whole ``[3h, h]``
+    weight, the reference's transposed. With dropout above 0, a rank
+    draws the attention dropout of its heads from the model's generator,
+    so at mp above 1 the draws differ from the unsharded model's.
+    """
+    cfg = model.config
+    check_divides("gpt_shard_plan", {
+        "vocab_size": cfg.vocab_size,
+        "num_attention_heads": cfg.num_attention_heads,
+        "intermediate_size": cfg.intermediate_size},
+        mesh.get_dim_size(mp_axis))
+    group = axis_group(mesh, mp_axis)
+    gpt = model.gpt
+    gpt.wte = VocabParallelEmbedding.from_embedding(gpt.wte, group)
+    for layer in gpt.layers:
+        attn = layer.attn
+        attn.qkv_proj = ColumnParallelLinear.from_linear(
+            attn.qkv_proj, group, split_factor=3)
+        attn.out_proj = RowParallelLinear.from_linear(attn.out_proj, group)
+        layer.linear1 = ColumnParallelLinear.from_linear(layer.linear1, group)
+        layer.linear2 = RowParallelLinear.from_linear(layer.linear2, group)
+    if not cfg.tie_word_embeddings:
+        model.lm_head = ColumnParallelLinear.from_linear(model.lm_head, group)
+    for p in model.parameters():
+        if not isinstance(p, DistParameter):
+            mp_shard_(p, group, None)
+    return model

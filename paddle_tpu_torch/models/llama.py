@@ -26,6 +26,11 @@ from torch import nn
 
 from ..core.generator import make_generator
 from ..core.place import resolve_device
+from ..distributed.communication.group import axis_group
+from ..distributed.fleet.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    check_divides, column_projections, global_numel, lm_cross_entropy,
+    mp_shard_, vocab_parallel_fused_linear_cross_entropy)
 from ..distributed.fleet.utils import recompute
 from ..incubate.nn.functional import (fused_linear_cross_entropy,
                                       fused_rotary_position_embedding, swiglu)
@@ -34,7 +39,7 @@ from ..nn.functional.common import Embedding
 
 __all__ = ["LlamaConfig", "LlamaRMSNorm", "LlamaAttention", "LlamaMLP",
            "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
-           "fused_qkv_linear"]
+           "fused_qkv_linear", "llama_shard_plan"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -116,6 +121,9 @@ def fused_qkv_linear(x, projs):
             "fused_qkv for this model)")
     else:
         b = None
+    enter = getattr(projs[0], "enter", None)   # a tensor-parallel layer
+    if enter is not None:
+        x = enter(x)
     out = torch.nn.functional.linear(x, w, b)
     return list(out.split([p.weight.shape[0] for p in projs], dim=-1))
 
@@ -142,17 +150,18 @@ class LlamaAttention(nn.Module):
         if self.config.fused_qkv:
             q, k, v = fused_qkv_linear(hidden_states, projs)
         else:
-            q, k, v = (p(hidden_states) for p in projs)
-        q = q.reshape(b, s, self.num_heads, self.head_dim)
-        k = k.reshape(b, s, self.num_kv_heads, self.head_dim)
-        v = v.reshape(b, s, self.num_kv_heads, self.head_dim)
+            q, k, v = column_projections(hidden_states, projs)
+        # -1: a tensor-parallel rank holds its share of the heads
+        q = q.reshape(b, s, -1, self.head_dim)
+        k = k.reshape(b, s, -1, self.head_dim)
+        v = v.reshape(b, s, -1, self.head_dim)
         q, k, v = fused_rotary_position_embedding(
             q, k, v, position_ids=position_ids, use_neox_rotary_style=True,
             rotary_emb_base=self.config.rope_theta)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attention_mask,
             is_causal=attention_mask is None, training=self.training)
-        return self.o_proj(out.reshape(b, s, h))
+        return self.o_proj(out.reshape(b, s, -1))
 
 
 class LlamaMLP(nn.Module):
@@ -166,7 +175,8 @@ class LlamaMLP(nn.Module):
         self.down_proj = nn.Linear(i, h, bias=False, **factory)
 
     def forward(self, x):
-        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
+        gate, up = column_projections(x, (self.gate_proj, self.up_proj))
+        return self.down_proj(swiglu(gate, up))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -248,21 +258,25 @@ class LlamaForCausalLM(nn.Module):
         cross-entropy, or ``(loss, logits)`` when
         ``config.fused_lm_head_ce`` is off."""
         hidden_states = self.llama(input_ids, position_ids, attention_mask)
-        h, v = self.config.hidden_size, self.config.vocab_size
+        h = self.config.hidden_size
+        group = getattr(self.lm_head, "mp_group", None)
         if labels is not None and self.config.fused_lm_head_ce:
-            loss = fused_linear_cross_entropy(
-                hidden_states.reshape(-1, h), self.lm_head.weight,
-                labels.reshape(-1), ignore_index=-100)
+            if group is None:
+                loss = fused_linear_cross_entropy(
+                    hidden_states.reshape(-1, h), self.lm_head.weight,
+                    labels.reshape(-1), ignore_index=-100)
+            else:
+                loss = vocab_parallel_fused_linear_cross_entropy(
+                    hidden_states.reshape(-1, h), self.lm_head.weight,
+                    labels.reshape(-1), group, ignore_index=-100)
             return loss, None
         logits = self.lm_head(hidden_states)
         if labels is not None:
-            loss = F.cross_entropy(logits.reshape(-1, v), labels.reshape(-1),
-                                   ignore_index=-100)
-            return loss, logits
+            return lm_cross_entropy(logits, labels, group), logits
         return logits
 
     def num_parameters(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        return sum(global_numel(p) for p in self.parameters())
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  do_sample: bool = False, temperature: float = 1.0,
@@ -292,3 +306,57 @@ class LlamaForCausalLM(nn.Module):
                          length_penalty=length_penalty,
                          repetition_penalty=repetition_penalty,
                          min_length=min_length)
+
+
+def llama_shard_plan(model: LlamaForCausalLM, mesh, dp_axis="dp",
+                     mp_axis="mp"):
+    """Megatron tensor parallelism over ``mesh``'s ``mp_axis``, the
+    reference's plan (``paddle_tpu/models/llama.py`` ``llama_shard_plan``)
+    in torch's ``[out, in]`` layout:
+
+    - ``embed_tokens.weight``: ``Shard(0)``, vocab parallel
+      (``VocabParallelEmbedding``);
+    - ``q/k/v/gate/up_proj.weight``: ``Shard(0)`` (the reference's
+      ``Shard(1)`` of ``[in, out]``), column parallel;
+    - ``o_proj/down_proj.weight``: ``Shard(1)`` (its ``Shard(0)``), row
+      parallel;
+    - ``lm_head.weight``: ``Shard(0)``, vocab parallel, with the
+      vocab-parallel fused cross-entropy;
+    - the norms replicated.
+
+    Every parameter is sharded in place (``DistParameter``: an optimizer
+    built before sees it), and each rank computes on its shard: the
+    attention on ``num_heads / mp`` heads and ``num_key_value_heads /
+    mp`` key-value heads, the MLP on ``intermediate_size / mp``, so the
+    kernels get local tensors. Where mp does not divide the vocabulary,
+    the heads, the key-value heads or the MLP width the plan raises
+    ``ValueError`` naming both numbers (the reference's GSPMD pads
+    instead). The data-parallel axis is left to ``DataParallel(mesh=)``.
+    """
+    cfg = model.config
+    check_divides("llama_shard_plan", {
+        "vocab_size": cfg.vocab_size,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads,
+        "intermediate_size": cfg.intermediate_size},
+        mesh.get_dim_size(mp_axis))
+    group = axis_group(mesh, mp_axis)
+    replicate = dict(group=group, dim=None)
+    llama = model.llama
+    llama.embed_tokens = VocabParallelEmbedding.from_embedding(
+        llama.embed_tokens, group)
+    for layer in llama.layers:
+        attn, mlp = layer.self_attn, layer.mlp
+        for name in ("q_proj", "k_proj", "v_proj"):
+            setattr(attn, name, ColumnParallelLinear.from_linear(
+                getattr(attn, name), group))
+        attn.o_proj = RowParallelLinear.from_linear(attn.o_proj, group)
+        for name in ("gate_proj", "up_proj"):
+            setattr(mlp, name, ColumnParallelLinear.from_linear(
+                getattr(mlp, name), group))
+        mlp.down_proj = RowParallelLinear.from_linear(mlp.down_proj, group)
+        mp_shard_(layer.input_layernorm.weight, **replicate)
+        mp_shard_(layer.post_attention_layernorm.weight, **replicate)
+    mp_shard_(llama.norm.weight, **replicate)
+    model.lm_head = ColumnParallelLinear.from_linear(model.lm_head, group)
+    return model

@@ -13,7 +13,9 @@ fp32 on the card, fp64 on the CPU, rounded to fp32), the global norm
 and the scale ``clip / max(norm, clip)`` as device tensors, then a
 multi-tensor scale (``core/foreach.py::scaled_in_fp32``) that multiplies
 in fp32 and rounds back to each gradient's dtype, as the reference does.
-Nothing is read back to the host, so it runs in a captured step
+A tensor-parallel gradient is a shard: its squares are summed over the
+mesh axes it is sharded on (``sharded_global_norm_fp32``), so the norm
+is the whole model's on every rank. Nothing is read back to the host, so it runs in a captured step
 (``jit.to_static``); ``error_if_nonfinite=True`` reads the norm on the
 host and raises ``jit.CaptureError`` there. Like the other two classes
 it returns clipped copies and leaves ``p.grad`` alone, as the reference
@@ -83,19 +85,51 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    def _scale(self, grads):
+    def _scale(self, grads, params):
         """``clip_norm / max(global_norm, clip_norm)``, an fp32 tensor on
-        the gradients' device."""
-        return self.clip_norm / torch.clamp(global_norm_fp32(grads),
-                                            min=self.clip_norm)
+        the gradients' device (``params`` tell sharded gradients)."""
+        norm = sharded_global_norm_fp32(params, grads)
+        return self.clip_norm / torch.clamp(norm, min=self.clip_norm)
 
     def _dygraph_clip(self, params_grads):
-        grads = [g for _, g in params_grads if g is not None]
-        if not grads:
+        pairs = [(p, g) for p, g in params_grads if g is not None]
+        if not pairs:
             return params_grads
-        clipped = iter(scaled_in_fp32(grads, self._scale(grads)))
+        grads = [g for _, g in pairs]
+        clipped = iter(scaled_in_fp32(
+            grads, self._scale(grads, [p for p, _ in pairs])))
         return [(p, g if g is None else next(clipped))
                 for p, g in params_grads]
+
+
+def sharded_global_norm_fp32(params, grads):
+    """The global norm of ``grads`` where a gradient may be a shard: the
+    gradient of a ``distributed.DistParameter`` sharded over mesh
+    dimensions of more than one rank is this rank's part, so the sum of
+    squares of such gradients is all-reduced over those dimensions, and
+    a replicated one is counted once. With no such gradient (one rank a
+    mesh dimension) it is ``global_norm_fp32(grads)``, the same ops."""
+    from ..distributed.auto_parallel.api import DistParameter
+
+    groups: dict = {}
+    for p, g in zip(params, grads):
+        dims = ()
+        if isinstance(p, DistParameter):
+            dm = p.device_mesh
+            dims = tuple(m for m, pl in enumerate(p.placements)
+                         if not pl.is_replicated() and dm.size(m) > 1)
+        key = (id(p.device_mesh), dims) if dims else None
+        groups.setdefault(key, (p, dims, []))[2].append(g)
+    if list(groups) == [None]:
+        return global_norm_fp32(grads)
+    total = None
+    for p, dims, gs in groups.values():
+        sq = global_norm_fp32(gs).square()
+        for m in dims:
+            torch.distributed.all_reduce(sq,
+                                         group=p.device_mesh.get_group(m))
+        total = sq if total is None else total + sq
+    return total.sqrt()
 
 
 def _grads(parameters):

@@ -2,7 +2,9 @@
 version and a launch count. Sources live in ``paddle_tpu_torch/csrc/``.
 
 Each wrapper adds one to its module's count where it launches its
-kernel. A captured graph (``jit/_capture.py``) replays launches without
+kernel. A wrapper takes a rank's local tensors only: a
+``torch.distributed`` ``DTensor`` argument raises ``TypeError``
+(:func:`refuse_dtensors`), never its whole tensor nor the plain version. A captured graph (``jit/_capture.py``) replays launches without
 running the wrappers, so it adds each count's change during its capture
 once per replay (:func:`launch_counters`).
 """
@@ -10,7 +12,8 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["launch_counters", "read_launch_counts", "add_launch_counts"]
+__all__ = ["launch_counters", "read_launch_counts", "add_launch_counts",
+           "refuse_dtensors"]
 
 #: (module under ``ops/cuda``, attribute) of every launch count
 _COUNTERS = (("flash_attention", "launches"),
@@ -24,6 +27,22 @@ _COUNTERS = (("flash_attention", "launches"),
 
 
 _counters = []
+_dtensor_type = []
+
+
+def refuse_dtensors(name, *tensors):
+    """Raise ``TypeError`` when an argument of kernel wrapper ``name`` is a
+    ``DTensor``: a kernel computes on a rank's local tensors (a
+    tensor-parallel layer hands it its shard)."""
+    if not _dtensor_type:
+        from torch.distributed.tensor import DTensor
+
+        _dtensor_type.append(DTensor)
+    for t in tensors:
+        if isinstance(t, _dtensor_type[0]):
+            raise TypeError(
+                f"{name}: a DTensor argument; the kernel takes this rank's "
+                f"local tensor (DTensor.to_local())")
 
 
 def launch_counters():

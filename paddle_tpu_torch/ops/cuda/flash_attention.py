@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, refuse_dtensors
 from ...core.autocast import autocast_off
 from ...core.generator import draw_seed
 from ...utils.flops import kernel_work
@@ -117,6 +117,7 @@ def _dropout_keep(seed, bh, i, j, block_q, block_k, rate):
 
 
 def _check(q, k, v, seed, key_bias, dropout_rate):
+    refuse_dtensors("flash attention", q, k, v, seed, key_bias)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(
             f"flash attention wants q [B,H,Sq,D] and k/v [B,Hkv,Sk,D], got "

@@ -40,7 +40,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, refuse_dtensors
 from ...core.autocast import autocast_off
 from ...utils.flops import kernel_work
 from .flash_attention import NEG_INF, _as_int64, _keep_mask
@@ -115,6 +115,7 @@ def _seg_vectors(cu_q, cu_k, n_q, n_k):
 
 
 def _check(q, k, v, cu_q, cu_k, seed, dropout_rate):
+    refuse_dtensors("varlen flash attention", q, k, v, cu_q, cu_k, seed)
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError(
             f"varlen flash attention wants q [Tq,H,D] and k/v [Tk,Hkv,D], got "

@@ -35,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, refuse_dtensors
 from ...utils.flops import kernel_work
 
 __all__ = [
@@ -164,6 +164,8 @@ def _workspace_of(dev, stream):
 
 
 def _check_shapes(q, k_pages, v_pages, lengths, block_tables):
+    refuse_dtensors("paged attention", q, k_pages, v_pages, lengths,
+                    block_tables)
     if q.ndim != 3:
         raise ValueError(f"q must be [B, NH, DH], got {tuple(q.shape)}")
     if k_pages.ndim != 4 or v_pages.shape != k_pages.shape:

@@ -20,7 +20,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from . import _build
+from . import _build, refuse_dtensors
 
 __all__ = ["rms_norm_fwd", "rms_norm_reference", "rms_norm_bwd",
            "rms_norm_bwd_reference", "launches", "bwd_launches"]
@@ -171,6 +171,7 @@ def rms_norm_bwd_reference(x, w, g, *, eps):
 
 
 def _check(x, w):
+    refuse_dtensors("rms_norm", x, w)
     if x.ndim < 1 or w.ndim != 1 or w.shape[0] != x.shape[-1]:
         raise ValueError(
             f"rms_norm: w must be [hidden]={x.shape[-1:]} for x "

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, refuse_dtensors
 from ...utils.flops import kernel_work
 
 __all__ = ["tiled_mm", "tiled_mm_reference", "launches"]
@@ -48,6 +48,7 @@ def _kernel():
 
 
 def _check(a, b):
+    refuse_dtensors("tiled_mm", a, b)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"tiled_mm wants a [m, k] and b [k, n], got "
                          f"{tuple(a.shape)} / {tuple(b.shape)}")

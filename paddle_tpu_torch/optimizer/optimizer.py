@@ -28,6 +28,13 @@ read-only, so a torch parameter cannot carry a name the way a reference
 reference's ``p.name or f"param_{i}"``). ``state_dict`` keys and AdamW's
 ``apply_decay_param_fun`` see that one name.
 
+Sharded parameters. A ``distributed.DistParameter`` (tensor parallel) is
+this rank's shard, so its update and its states are the shard's. After
+``distributed.shard_optimizer`` at stage 1 or 2 (``_row_shards``) a
+parameter sharded over the data-parallel axis is updated in this rank's
+rows only, with states of those rows, and the rows are all-gathered
+after the step.
+
 Groups. As in the reference, a group's keys other than ``params`` are
 stored in ``_param_groups`` and never read: they change nothing.
 
@@ -159,8 +166,11 @@ class Optimizer:
     def _ensure_accumulators(self):
         """Make every accumulator and master weight a step would make, for
         every parameter that takes gradients (a capture must find them)."""
+        rows = getattr(self, "_row_shards", None)
         for p in self._parameter_list:
             if p.requires_grad:
+                if rows is not None and id(p) in rows.views:
+                    p = rows.views[id(p)][1]
                 self._master(p)
                 for name in self._accum_names:
                     self._accum(name, p, self._accum_fill(name))
@@ -182,6 +192,9 @@ class Optimizer:
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         params_grads = [(p, g) for p, g in params_grads if g is not None]
+        rows = getattr(self, "_row_shards", None)
+        if rows is not None:
+            params_grads = rows.slice(params_grads)
         if params_grads:
             lr = self._lr_now()
             params = [p for p, _ in params_grads]
@@ -191,6 +204,8 @@ class Optimizer:
                    else lr * r for r in ratios]
             self._update(params, self._regularized(params_grads), lrs)
         self._step_count += 1
+        if rows is not None:
+            rows.gather()
 
     minimize_step = step
 
@@ -248,8 +263,13 @@ class Optimizer:
 
     # ------------------------------------------------------------------
     def _names(self) -> Dict[int, str]:
-        return {id(p): n for p, n in zip(self._parameter_list,
-                                         self._param_names)}
+        names = {id(p): n for p, n in zip(self._parameter_list,
+                                          self._param_names)}
+        rows = getattr(self, "_row_shards", None)
+        if rows is not None:
+            for pid, (_, view) in rows.views.items():
+                names[id(view)] = names[pid]
+        return names
 
     def state_dict(self) -> Dict[str, Any]:
         """Accumulators and master weights keyed ``<name>__<accumulator>``
@@ -271,6 +291,9 @@ class Optimizer:
     def set_state_dict(self, state_dict: Dict[str, Any]):
         by_name = {n: pid for pid, n in self._names().items()}
         params = {id(p): p for p in self._parameter_list}
+        rows = getattr(self, "_row_shards", None)
+        if rows is not None:
+            params.update({id(v): v for _, v in rows.views.values()})
         for key, value in state_dict.items():
             if key == "LR_Scheduler":
                 if isinstance(self._learning_rate, LRScheduler):

@@ -31,6 +31,7 @@ package's (paddle_tpu/amp), on the CPU.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.core.tensor import Parameter

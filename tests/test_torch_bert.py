@@ -40,6 +40,7 @@ from paddle_tpu_torch import load_paddle_tpu_state
 from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
                                      BertForSequenceClassification,
                                      bert_shard_plan)
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 LOSS_TOL = 2e-5
 REL = 1e-5
@@ -321,5 +322,8 @@ def test_state_round_trip_and_shard_plan():
         np.testing.assert_array_equal(
             tm.bert.encoder[0].linear1.weight.detach().numpy().T,
             state["bert.encoder.0.linear1.weight"])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        bert_shard_plan(tm, None)
+    # the plan checks mp against the model before it touches the mesh's
+    # process group: 3 divides neither the heads nor the vocabulary
+    from paddle_tpu_torch.distributed import ProcessMesh
+    with pytest.raises(ValueError, match="does not divide over mp = 3"):
+        bert_shard_plan(tm, ProcessMesh([[0, 1, 2]], ["dp", "mp"]))

@@ -1,5 +1,6 @@
 """chip_smoke.py's ``recorded``: how a check of launches by name treats a
-profiler recording that failed it.
+profiler recording that failed it; and ``check_flash_route``'s admission
+of launches lost to the profiler.
 
 A recording that fails is taken again, at most ``PROFILE_TRIES`` times in
 all. A failed recording counts as lost events only where a later one
@@ -59,3 +60,29 @@ def test_a_failure_that_is_no_loss_stands(tables, match):
     with pytest.raises(CHIP_SMOKE.PhaseError, match=match):
         _record(tables)
     assert CHIP_SMOKE.PROFILE_TRIES == 3
+
+
+ROUTE = {"flash_fwd_tc_kernel": 5, "flash_bwd_dq_tc_kernel": 5,
+         "flash_bwd_dkv_tc_kernel": 5, "elementwise_kernel": 9}
+WANT_ROUTE = {"fwd": 5, "dq": 5, "dkv": 5}
+
+
+@pytest.mark.parametrize("table, lost, passes", [
+    (ROUTE, 0, True),
+    (ROUTE, 1, True),
+    (dict(ROUTE, flash_bwd_dkv_tc_kernel=4), 1, True),
+    (dict(ROUTE, flash_bwd_dkv_tc_kernel=4), 0, False),
+    (dict(ROUTE, flash_bwd_dkv_tc_kernel=3), 1, False),
+    (dict(ROUTE, flash_bwd_dkv_tc_kernel=6), 1, False),
+    (dict(ROUTE, flash_bwd_dkv_kernel=1), 1, False),
+], ids=["exact", "exact-admitting", "one-lost", "one-lost-not-admitted",
+        "two-lost", "one-extra", "cuda-core-ran"])
+def test_flash_route_admits_at_most_the_lost_launches(table, lost, passes):
+    def run():
+        CHIP_SMOKE.check_flash_route(table, WANT_ROUTE, "test", lost=lost)
+
+    if passes:
+        run()
+    else:
+        with pytest.raises(CHIP_SMOKE.PhaseError):
+            run()

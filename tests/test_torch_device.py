@@ -18,6 +18,7 @@ core/place.py) against the reference's (paddle_tpu/device).
 """
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu.device as jdev
 

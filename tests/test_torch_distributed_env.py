@@ -30,6 +30,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 import paddle_tpu.distributed as jdist
@@ -327,18 +328,50 @@ def test_batch_isend_irecv_raises_as_the_reference():
             pkg.batch_isend_irecv([])
 
 
+def _part_b_split():
+    # without fleet.init the split layer is whole: x @ W.T + b
+    x = torch.ones(2, 4)
+    out = dist.split(x, (4, 3), "linear", axis=1, name="part_b_case")
+    assert out.shape == (2, 3)
+
+
+def _part_b_dist_attr():
+    attr = dist.DistAttr(dist.ProcessMesh([[0, 1]], ["dp", "mp"]),
+                         ["mp", None])
+    assert attr.dims_mapping == [1, -1]
+    assert attr.placements == [dist.Replicate(), dist.Shard(0)]
+
+
+def _part_b_shard_scaler():
+    scaler = paddle_tpu_torch.amp.GradScaler()
+    assert dist.shard_scaler(scaler) is scaler and scaler._sync_found_inf
+
+
+def _part_b_raises(call, exc, match):
+    with pytest.raises(exc, match=match):
+        call()
+
+
 @pytest.mark.parametrize("call", [
-    lambda: dist.split(None, (4, 4), "linear"),
-    lambda: dist.DistAttr(None, []),
-    lambda: dist.shard_scaler(None),
-    lambda: dist.communication.group.axis_group(None, "dp"),
-    lambda: dist.communication.psum(None, "dp"),
-    lambda: dist.DataParallel(torch.nn.Linear(2, 2), mesh=object()),
+    _part_b_split,
+    _part_b_dist_attr,
+    _part_b_shard_scaler,
+    # an axis the mesh lacks is refused before any process group comes up
+    lambda: _part_b_raises(lambda: dist.communication.group.axis_group(
+        dist.ProcessMesh([0], ["x"]), "dp"), ValueError, "dp"),
+    lambda: _part_b_raises(lambda: dist.communication.psum(
+        torch.zeros(2), "dp"), ValueError, "'dp' names no axis"),
+    lambda: _part_b_raises(lambda: dist.DataParallel(
+        torch.nn.Linear(2, 2), mesh=dist.ProcessMesh([0], ["dp"]),
+        group=dist.get_group(0)), ValueError, "mesh or group"),
 ], ids=["split", "DistAttr", "shard_scaler", "axis_group", "psum",
         "DataParallel_mesh"])
 def test_later_parts_raise_naming_part_b(call):
-    with pytest.raises(NotImplementedError, match=r"item 4 \(b\)"):
-        call()
+    """Part (b)'s names, which raised until it came, without a process
+    group: ``split`` of a whole layer, ``DistAttr``'s mapping,
+    ``shard_scaler``, and the refusals of an unknown axis and of a mesh
+    beside a group (the mp-2 runs are in test_torch_tensor_parallel.py)."""
+    call()
 
 
 def test_all_to_all_single_splits_over_two_ranks_raise(clean_env):

@@ -45,6 +45,7 @@ from paddle_tpu_torch import load_paddle_tpu_state
 from paddle_tpu_torch.models import (ErnieMoeConfig, ErnieMoeForCausalLM,
                                      ernie_moe_shard_plan)
 from paddle_tpu_torch.models import generation as tgen
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 LOSS_TOL = 2e-5
 REL = 1e-5

@@ -29,6 +29,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 from paddle_tpu_torch.ops.cuda import flash_attention_varlen as tvf

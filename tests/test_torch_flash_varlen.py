@@ -16,6 +16,7 @@ card by chip_smoke.py.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 import paddle_tpu as paddle

@@ -18,6 +18,7 @@ dense composition run segment by segment, within the same 2e-5.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 from paddle_tpu.ops.pallas import flash_attention_varlen as jvf

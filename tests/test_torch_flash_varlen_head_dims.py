@@ -23,6 +23,7 @@ test_torch_flash_varlen_backward.py (dq, dk, dv 2e-5).
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 from paddle_tpu_torch.ops.cuda import flash_attention_varlen as tvf
 import jax.numpy as jnp

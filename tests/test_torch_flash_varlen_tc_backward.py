@@ -30,6 +30,7 @@ import torch
 from paddle_tpu_torch.ops.cuda import flash_attention_varlen as tvf
 from test_torch_flash_tc_numerics import (BLOCK, NEG_INF, _cu, _mm, _share,
                                           _split, _tile_keys)
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 STEP = 32           # q rows of a dk/dv step
 

@@ -25,6 +25,7 @@ CPU, from the same numpy inputs.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.nn import functional as JF

@@ -18,6 +18,7 @@ mean and variance on standard-normal input.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.nn import functional as JF

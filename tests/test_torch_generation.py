@@ -13,6 +13,7 @@ port's own full-prefix forward at every step.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.models import BertConfig as JBertConfig

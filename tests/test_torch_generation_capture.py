@@ -26,6 +26,7 @@ import contextlib
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 from torch.overrides import TorchFunctionMode
 
 import paddle_tpu as paddle

@@ -22,6 +22,7 @@ drives them on the card.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.incubate.nn import functional as JF

@@ -42,6 +42,7 @@ import paddle_tpu_torch.optimizer as topt
 from paddle_tpu_torch import jit as tjit
 from paddle_tpu_torch import load_paddle_tpu_state
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, gpt_shard_plan
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 LOSS_TOL = 2e-5
 LOGIT_REL = 1e-5
@@ -257,8 +258,11 @@ def test_untied_head_and_tp_plan():
                             hidden_dropout_prob=0.0)
     model = GPTForCausalLM(config, device="cpu", seed=7)
     assert hasattr(model, "lm_head")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        gpt_shard_plan(model, mesh=None)
+    # the plan checks mp against the model before it touches the mesh's
+    # process group: 3 divides neither the heads nor the vocabulary
+    from paddle_tpu_torch.distributed import ProcessMesh
+    with pytest.raises(ValueError, match="does not divide over mp = 3"):
+        gpt_shard_plan(model, mesh=ProcessMesh([[0, 1, 2]], ["dp", "mp"]))
     ids = np.random.default_rng(8).integers(0, config.vocab_size, (4, 8))
     l1, l2 = _static_losses(model, 2, torch.from_numpy(ids),
                             torch.from_numpy(np.roll(ids, -1, 1)))

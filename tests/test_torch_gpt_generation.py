@@ -34,6 +34,7 @@ from paddle_tpu_torch import load_paddle_tpu_state
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
                                      LlamaForCausalLM)
 from paddle_tpu_torch.models import generation as tgen
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 _CFG = dict(vocab_size=89, hidden_size=32, num_hidden_layers=2,
             num_attention_heads=4, intermediate_size=64,

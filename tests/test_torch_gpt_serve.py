@@ -27,6 +27,7 @@ from paddle_tpu_torch import load_paddle_tpu_state
 from paddle_tpu_torch import observability as tobs
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.serve import ServeEngine
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 _CFG = dict(vocab_size=83, hidden_size=32, num_hidden_layers=2,
             num_attention_heads=4, max_position_embeddings=64)

@@ -29,6 +29,7 @@ arguments and ``trans_qkvw=False``.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.incubate.nn import functional as JIF

@@ -21,6 +21,7 @@ CPU in fp32.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.incubate import nn as JNN

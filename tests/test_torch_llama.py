@@ -12,6 +12,7 @@ routes to its kernels' plain versions (a CPU tensor never launches).
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.core import flags as jflags

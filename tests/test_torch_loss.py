@@ -19,6 +19,7 @@ port's gradient is compared transposed.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.incubate.nn.functional import \

@@ -8,6 +8,7 @@ held bit for bit (``==``), no tolerance.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.optimizer import lr as jlr

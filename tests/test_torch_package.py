@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu_torch
 from paddle_tpu_torch import (BertConfig, BertForPretraining,
@@ -82,7 +83,14 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     for mod in ("observability.runtime", "observability.timeseries",
                 "observability.health", "observability.report",
                 "profiler.kineto", "profiler.statistic", "device.memory",
-                "device.cuda", "device.xpu", "utils.flops"):
+                "device.cuda", "device.xpu", "utils.flops",
+                "distributed.auto_parallel.api",
+                "distributed.auto_parallel.spmd_rules",
+                "distributed.auto_parallel.engine",
+                "distributed.fleet.mp_layers",
+                "distributed.fleet.sequence_parallel",
+                "distributed.fleet.topology",
+                "distributed.communication.functional"):
         assert f"paddle_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
 
@@ -115,6 +123,38 @@ def test_item5_packages_export_the_reference_names(module):
     assert sorted(set(ref.__all__) - set(port.__all__)) == NOT_PORTED[module]
     assert set(port.__all__) <= set(ref.__all__)
     assert all(hasattr(port, n) for n in port.__all__)
+
+
+#: the reference's ``fleet`` names that wait for ROADMAP queue A item 4
+#: (f): its utilities, the parameter server's role and data generators,
+#: and the elastic launch
+FLEET_LATER = ["MultiSlotStringDataGenerator", "Role", "UtilBase",
+               "elastic_train", "launch", "run_elastic"]
+
+
+def test_fleet_exports_the_reference_collective_names():
+    """``distributed.fleet`` exports the reference's ``__all__`` but the
+    names of part (f), each defined; the tensor- and sequence-parallel
+    layers and the topology resolve there as in the reference."""
+    import importlib
+
+    ref = importlib.import_module("paddle_tpu.distributed.fleet")
+    port = importlib.import_module("paddle_tpu_torch.distributed.fleet")
+    assert sorted(set(ref.__all__) - set(port.__all__)) == FLEET_LATER
+    assert set(port.__all__) <= set(ref.__all__)
+    assert all(hasattr(port, n) for n in port.__all__)
+    for name in ("ColumnParallelLinear", "RowParallelLinear",
+                 "VocabParallelEmbedding", "ParallelCrossEntropy",
+                 "ColumnSequenceParallelLinear", "RowSequenceParallelLinear",
+                 "ScatterOp", "GatherOp", "AllGatherOp", "ReduceScatterOp",
+                 "mark_as_sequence_parallel_parameter",
+                 "register_sequence_parallel_allreduce_hooks",
+                 "set_hybrid_communicate_group"):
+        assert hasattr(ref, name) and hasattr(port, name), name
+    with pytest.raises(NotImplementedError, match=r"item 4 \(f\)"):
+        port.init()
+    with pytest.raises(NotImplementedError, match=r"item 4 \(f\)"):
+        port.init_server()
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -277,18 +317,11 @@ def test_chip_smoke_fails_without_the_package_or_a_card(tmp_path):
 
 
 #: the reference's ``paddle.distributed`` names that wait for later parts
-#: of ROADMAP queue A item 4 (placements and the semi-auto API (b),
-#: sharding (c), checkpoints, elastic training, the parameter server,
-#: RPC and the fleet executor (f)) and for item 7 (``passes`` rewrite
-#: static programs)
+#: of ROADMAP queue A item 4 (sharding (c), checkpoints, elastic
+#: training, the parameter server, RPC and the fleet executor (f)) and
+#: for item 7 (``passes`` rewrite static programs)
 DISTRIBUTED_LATER = {
-    "4b": ["DistModel", "Partial", "Placement", "ProcessMesh", "Replicate",
-           "Shard", "ShardDataloader", "Strategy", "auto_parallel",
-           "dtensor_from_fn", "reshard", "shard_dataloader", "shard_layer",
-           "shard_optimizer", "shard_tensor", "to_static",
-           "unshard_dtensor"],
-    "4c": ["ShardingStage1", "ShardingStage2", "ShardingStage3",
-           "group_sharded_parallel", "save_group_sharded_model",
+    "4c": ["group_sharded_parallel", "save_group_sharded_model",
            "sharding"],
     "4f": ["checkpoint", "elastic", "elastic_train", "fleet_executor",
            "load_state_dict", "ps", "rpc", "save_state_dict"],

@@ -12,6 +12,7 @@ against the same plain version on the card by chip_smoke.py.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 from paddle_tpu.ops.pallas import paged_attention as jpa

@@ -23,6 +23,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 from paddle_tpu.ops.pallas import paged_attention as jpa

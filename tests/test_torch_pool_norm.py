@@ -22,6 +22,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu import nn as jnn

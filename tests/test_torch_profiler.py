@@ -21,6 +21,7 @@ import os
 
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu.profiler as jprof
 from paddle_tpu.profiler import host_tracer as jht

@@ -15,6 +15,7 @@ are held against the same plain versions on the card by chip_smoke.py.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 from paddle_tpu.ops.pallas import rms_norm as jrn

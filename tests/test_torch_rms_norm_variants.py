@@ -21,6 +21,7 @@ The kernels run only on the card; here are held what surrounds them:
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 from paddle_tpu.ops.pallas import rms_norm as jrn

@@ -28,6 +28,7 @@ import json
 
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu.observability as jobs
 from paddle_tpu.observability import health as jhealth

@@ -18,6 +18,7 @@ kernel path is driven on the card by chip_smoke.py.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.models import LlamaConfig as JConfig

@@ -23,6 +23,7 @@ serving phase runs the graphs. fp32 throughout.
 """
 import numpy as np
 import pytest
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 import paddle_tpu.observability as jobs

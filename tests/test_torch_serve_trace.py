@@ -16,6 +16,7 @@ import json
 
 import numpy as np
 import pytest
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu.observability as jobs
 from paddle_tpu.observability.tracing import validate_trace as jvalidate

@@ -26,6 +26,7 @@ fp32 throughout. Tolerances:
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 import paddle_tpu.optimizer as jopt

@@ -12,6 +12,7 @@ from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 from paddle_tpu_torch.ops.cuda import rms_norm as trn
 
 from test_torch_train import _check, _train
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 GATED = dict(hidden_size=128, intermediate_size=256, num_attention_heads=2,
              num_key_value_heads=1, max_position_embeddings=256)

@@ -12,6 +12,7 @@ interpreted. Tolerances and the coverage rule are test_torch_train.py's.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 import paddle_tpu.nn as jnn

@@ -8,7 +8,10 @@ composition) and a tiny config at head dim 64 (64 query tokens against
 77 context tokens, Sk != Sq: the port routes it to the flash kernels'
 entry points, whose plain versions run on the CPU) the forward and the
 gradients of an MSE training loss, and for the first the parameters
-after one ``AdamW`` step. Sampled ``step`` noise is held within the port (an
+after one ``AdamW`` step. The reference's weights are numpy draws at its
+initializers' scales (``_torch_zoo.numpy_init``: its per-shape
+``jax.random`` init took 24 s of the head-dim-64 case) and its step runs
+as one program under its own ``jit.to_static`` (``_reference_step``). Sampled ``step`` noise is held within the port (an
 explicit generator: seed reproducible).
 
 Tolerances: the embedding within 999 x 2 ** -23 absolute (XLA's fp32
@@ -38,6 +41,7 @@ from paddle_tpu_torch.models import UNetConfig
 from paddle_tpu_torch.models.unet_diffusion import timestep_embedding
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.optimizer import AdamW
+from _torch_zoo import numpy_init, one_torch_thread  # noqa: F401
 
 OUT_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -110,10 +114,36 @@ def test_scheduler_sampled_step_within_the_port():
         ts.step(eps, 3, x)
 
 
+def _reference_step(jm, jo):
+    """The reference's forward, MSE loss, backward and (with ``jo``) AdamW
+    step as one program under its own ``jit.to_static(full_graph=True)``
+    (its eager dispatch compiles one XLA program per op and shape):
+    returns (output, loss, gradients by parameter name)."""
+    names = [n for n, _ in jm.named_parameters()]
+    params = [p for _, p in jm.named_parameters()]
+
+    def step(x, t, ctx, target):
+        out = jm(x, t, ctx)
+        loss = ((out - target) ** 2).mean()
+        loss.backward()
+        grads = [p.grad for p in params]
+        if jo is not None:
+            jo.step()
+        return out, loss, grads
+
+    static = paddle.jit.to_static(step, full_graph=True)
+
+    def run(*args):
+        out, loss, grads = static(*args)
+        return out, loss, {n: np.asarray(g._value)
+                           for n, g in zip(names, grads)}
+    return run
+
+
 @pytest.mark.parametrize("case", sorted(CONFIGS))
 def test_unet_train_step_matches_reference(case, monkeypatch):
     fields, b, ctx_len, flash_calls, adamw = CONFIGS[case]
-    paddle.seed(11)
+    numpy_init(monkeypatch, seed=11)
     jm = JUNet(JConfig.tiny(**fields))
     tm = UNet2DConditionModel(UNetConfig.tiny(**fields), device="cpu")
     state = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
@@ -138,29 +168,27 @@ def test_unet_train_step_matches_reference(case, monkeypatch):
     import paddle_tpu_torch.nn.functional.attention as tattn
     monkeypatch.setattr(tattn, "flash_attention_fused", counting)
 
-    jout = jm(paddle.to_tensor(x), paddle.to_tensor(t), paddle.to_tensor(ctx))
+    jo = jopt.AdamW(learning_rate=1e-3, parameters=jm.parameters())
+    jout, jl, jgrads = _reference_step(jm, jo if adamw else None)(
+        paddle.to_tensor(x), paddle.to_tensor(t), paddle.to_tensor(ctx),
+        paddle.to_tensor(target))
     tout = tm(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx))
     assert len(calls) == flash_calls
     if flash_calls:      # self-attention Sq = Sk, cross-attention Sk = 77
         assert {k[1] for _, k in calls} == {(hw // 2) ** 2, ctx_len}
     assert _share(tout, np.asarray(jout._value)) <= OUT_TOL
 
-    jl = ((jout - paddle.to_tensor(target)) ** 2).mean()
     tl = ((tout - torch.from_numpy(target)) ** 2).mean()
     assert abs(float(jl) - tl.item()) <= OUT_TOL * float(jl)
-    jl.backward()
     tl.backward()
     linear = _linear_names(tm)
-    jgrads = {n: np.asarray(p.grad._value) for n, p in jm.named_parameters()}
     jgrads = {n: g.T if n in linear else g for n, g in jgrads.items()}
     worst = max((_share(p.grad, jgrads[n]), n)
                 for n, p in tm.named_parameters())
     assert worst[0] <= GRAD_TOL, worst
     if not adamw:
         return
-    jo = jopt.AdamW(learning_rate=1e-3, parameters=jm.parameters())
     to = AdamW(learning_rate=1e-3, parameters=tm.parameters())
-    jo.step()
     to.step()
     for n, p in tm.named_parameters():
         want = np.asarray(jm.state_dict()[n]._value)

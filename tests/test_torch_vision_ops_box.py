@@ -14,6 +14,7 @@ truths on one cell, rows of zero width (invalid, weighted 0), a
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.vision import ops as JV

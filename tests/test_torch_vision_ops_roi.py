@@ -25,6 +25,7 @@ accumulating scatter.
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import paddle_tpu as paddle

@@ -20,6 +20,7 @@ the reference's weights (``convert.load_paddle_tpu_state``).
 import numpy as np
 import pytest
 import torch
+from _torch_zoo import one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu import vision as jvision
