@@ -226,6 +226,24 @@ Phases, each fatal on failure:
              forms also timed in turns); then mp 2 as two gloo ranks on
              the one card (``--tp-rank``), the Llama's width at 2
              layers, each rank's kernels at its local shapes.
+21. expert_parallel — expert parallelism (``phase_expert_parallel``):
+             NCCL at world 1; ``bench_moe``'s ERNIE-MoE under
+             ``ernie_moe_shard_plan`` on dp 1 x ep 1 = itself unplanned
+             bit for bit over 3 steps, eager and captured, as in 20;
+             ``FusedMoELayer`` with a ``moe_group`` (the einsum path)
+             against its plain dense dispatch, timed beside the index
+             path; then ep 2 as two gloo ranks on the one card
+             (``--ep-rank``), 2 layers, 4 of the 8 experts a rank,
+             held as 20's mp 2.
+22. sharding — ZeRO (``phase_sharding``): ``group_sharded_parallel``
+             at ``"os"``, ``"os_g"`` and ``"p_g_os"`` at world 1 on NCCL
+             (nothing to shard at one rank: each = the plain step bit for
+             bit, eager and captured; step ms, peak memory); then each
+             level as two gloo ranks on the card (``--zero-rank``),
+             the Llama's width at 2 layers, each rank on half of the
+             batch, held against the unsharded full batch as 20's mp 2,
+             with each rank's bytes of parameters and optimizer states
+             over its own at no sharding.
 
 Each phase prints its seconds.
 
@@ -244,8 +262,8 @@ the dense greedy call, which reaches no kernel), ResNet-50's
 ``flash_attention_with_sparse_mask`` forward and backward) and the zoo's
 (``vision_train``: none), the detection ops' (``detection``: none) and
 the ``DataParallel`` step's (``distributed``: its eager timed steps) and
-the shard plans' (``tensor_parallel``, ``gpt_tensor_parallel``: their
-sharded eager timed steps).
+the shard plans' (``tensor_parallel``, ``gpt_tensor_parallel``,
+``expert_parallel``: their sharded eager timed steps).
 
 The paged kernel is held at the serving, GQA, decode-step and
 suffix-prefill shapes (``PAGED_SHAPES``) with the L2 cold and warm, and
@@ -274,7 +292,8 @@ lost events only where a later one passes and shows every launch it did.
 The last lines are the ``train``, ``train_recipe``, ``generate``
 (Llama's beam and speculative numbers), ``gpt``, ``bert``, ``moe``,
 ``resnet``, ``sdxl``, ``incubate``, ``functional``, ``vision``,
-``detection``, ``observability`` and ``distributed`` JSON,
+``detection``, ``observability``, ``distributed``, ``tensor_parallel``,
+``expert_parallel`` and ``sharding`` JSON,
 the
 ``kernels`` JSON, the ``nvidia-smi`` name/power line, and
 ``{"ok": true, "device": {...}}``.
@@ -8178,24 +8197,14 @@ def kernels_at_calls(torch, dev, calls):
     return out
 
 
-def tp_two_ranks(torch, dev):
-    """mp 2 as two processes on the one card over gloo: ``tp_mp2_steps``
-    under ``llama_shard_plan`` on dp 1 x mp 2 in each rank
-    (``--tp-rank``), against ``tp_mp2_steps`` unsharded in this process.
-    Each rank's kernels run at its local shapes (8 of 16 heads, the MLP at
-    2816 of 5632). Held: the gathered values before the steps equal the
-    unsharded ones bit for bit, and both ranks gather the same bits; every
-    step's loss within ``TP_MP2_LOSS_TOL``, the step-1 gradients within
-    ``TP_MP2_GRAD_TOL`` and the updates within ``TP_MP2_UPDATE_TOL`` of
-    the unsharded run's; each rank's flash and RMSNorm launches the step's
-    counts, flash at 8 heads; and each of those kernels against its plain
-    version at the shapes of its first call in the rank
-    (``kernels_at_calls``)."""
+def spawn_two_ranks(torch, flag):
+    """``chip_smoke.py FLAG R DIR`` for ranks 0 and 1 over gloo on the
+    card, run to their end (their last lines printed): (what each rank
+    saved, the wall seconds)."""
     import os
     import socket
     import tempfile
 
-    ref = tp_mp2_steps(torch, dev)
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
@@ -8205,8 +8214,8 @@ def tp_two_ranks(torch, dev):
                "PADDLE_MASTER": f"127.0.0.1:{port}"}
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
-            [sys.executable, str(HERE / "chip_smoke.py"), "--tp-rank",
-             str(r), d], env={**env, "PADDLE_TRAINER_ID": str(r)},
+            [sys.executable, str(HERE / "chip_smoke.py"), flag, str(r), d],
+            env={**env, "PADDLE_TRAINER_ID": str(r)},
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(2)]
         try:
@@ -8220,60 +8229,109 @@ def tp_two_ranks(torch, dev):
             for line in out.strip().splitlines()[-(8 if p.returncode == 0
                                                    else 60):]:
                 log(f"    rank {r}: {line}")
-            check(p.returncode == 0, f"mp-2 rank {r} exited {p.returncode}")
-        got = [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(2)]
+            check(p.returncode == 0, f"{flag} rank {r} exited {p.returncode}")
+        return [torch.load(os.path.join(d, f"rank{r}.pt"))
+                for r in range(2)], wall
+
+
+def held_against(torch, ref, got, names, tols, label):
+    """One two-rank run (``got``: rank 0's whole tensors, as gathered)
+    against the unsharded ``ref``: every step's loss (``got["losses"]``),
+    the step-1 gradients by max |g - ref g| / max |ref g| and the updates
+    of the steps by ||dw - ref dw|| / ||ref dw||, each within its limit
+    of ``tols`` (loss, gradient, update); the initial values equal bit
+    for bit. Logs and returns the gaps."""
+    def rel_max(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def rel_update(n):
+        dw = got["final"][n].float() - got["init"][n].float()
+        want = ref["final"][n].float() - ref["init"][n].float()
+        return float((dw - want).norm() / want.norm())
+
+    loss_err = [abs(a - b) for a, b in zip(got["losses"], ref["losses"])]
+    grad_err = {n: rel_max(got["grads"][n], ref["grads"][n]) for n in names}
+    upd_err = {n: rel_update(n) for n in names}
+    log(f"  {label}: losses {[round(v, 5) for v in got['losses']]} vs "
+        f"unsharded {[round(v, 5) for v in ref['losses']]}, apart "
+        f"{[f'{e:.3g}' for e in loss_err]} (tol {tols[0]})")
+    log(f"  {label} step-1 gradients, max |g - unsharded g| / max "
+        f"|unsharded g| (tol {tols[1]}): "
+        + ", ".join(f"{n} {e:.3g}" for n, e in grad_err.items()))
+    log(f"  {label} updates, ||dw - unsharded dw|| / ||unsharded dw|| "
+        f"(tol {tols[2]}): "
+        + ", ".join(f"{n} {e:.3g}" for n, e in upd_err.items()))
+    apart = [n for n in names
+             if not torch.equal(got["init"][n], ref["init"][n])]
+    check(not apart, f"{label}: initial values of {apart} differ from the "
+                     f"unsharded model's")
+    check(all(e <= tols[0] for e in loss_err),
+          f"{label}: losses {loss_err} from unsharded")
+    check(all(e <= tols[1] for e in grad_err.values()),
+          f"{label}: step-1 gradients {grad_err}")
+    check(all(e <= tols[2] for e in upd_err.values()),
+          f"{label}: updates {upd_err}")
+    return dict(losses=got["losses"], loss_err=loss_err, grad_err=grad_err,
+                update_err=upd_err)
+
+
+def rank_setup(rank):
+    """A rank of a two-rank run: the card, gloo over ``PADDLE_MASTER``."""
+    import faulthandler
+    import os
+
+    import torch
+    import torch.distributed as tdist
+
+    faulthandler.enable()               # a crash prints where it was
+    sys.path.insert(0, str(HERE))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    host, port = os.environ["PADDLE_MASTER"].split(":")
+    tdist.init_process_group("gloo", init_method=f"tcp://{host}:{port}",
+                             rank=rank, world_size=2)
+    return torch, tdist, dev
+
+
+def tp_two_ranks(torch, dev):
+    """mp 2 as two processes on the one card over gloo: ``tp_mp2_steps``
+    under ``llama_shard_plan`` on dp 1 x mp 2 in each rank
+    (``--tp-rank``), against ``tp_mp2_steps`` unsharded in this process.
+    Each rank's kernels run at its local shapes (8 of 16 heads, the MLP at
+    2816 of 5632). Held: the gathered values before the steps equal the
+    unsharded ones bit for bit, and both ranks gather the same bits; every
+    step's loss within ``TP_MP2_LOSS_TOL``, the step-1 gradients within
+    ``TP_MP2_GRAD_TOL`` and the updates within ``TP_MP2_UPDATE_TOL`` of
+    the unsharded run's; each rank's flash and RMSNorm launches the step's
+    counts, flash at 8 heads; and each of those kernels against its plain
+    version at the shapes of its first call in the rank
+    (``kernels_at_calls``)."""
+    ref = tp_mp2_steps(torch, dev)
+    got, wall = spawn_two_ranks(torch, "--tp-rank")
     return tp_mp2_verdict(torch, ref, got, wall)
 
 
 def tp_mp2_verdict(torch, ref, got, wall):
     """``tp_two_ranks``' checks of the ranks' ``got`` against the
     unsharded ``ref``; its report."""
-    def rel_max(a, b):
-        a, b = a.float(), b.float()
-        return float((a - b).abs().max() / b.abs().max())
-
-    def rel_update(r, n):
-        dw = got[r]["final"][n].float() - got[r]["init"][n].float()
-        want = ref["final"][n].float() - ref["init"][n].float()
-        return float((dw - want).norm() / want.norm())
-
-    loss_err = [abs(a - b) for a, b in zip(got[0]["losses"],
-                                           ref["losses"])]
-    grad_err = {n: rel_max(got[0]["grads"][n], ref["grads"][n])
-                for n in TP_MP2_PARAMS}
-    upd_err = {n: rel_update(0, n) for n in TP_MP2_PARAMS}
-    local = [g["local_kernels"] for g in got]
-    log(f"  mp 2 on one card over gloo: losses {got[0]['losses']} vs "
-        f"unsharded {ref['losses']}, apart {[f'{e:.3g}' for e in loss_err]}"
-        f" (tol {TP_MP2_LOSS_TOL}); local heads {got[0]['local_heads']}; "
-        f"{got[0]['step_ms']:.1f} / {got[1]['step_ms']:.1f} ms a step "
-        f"(ranks 0 / 1; unsharded {ref['step_ms']:.1f}), {wall:.1f} s wall")
-    log("  mp 2 step-1 gradients, max |g - unsharded g| / max |unsharded "
-        f"g| (tol {TP_MP2_GRAD_TOL}): "
-        + ", ".join(f"{n} {e:.3g}" for n, e in grad_err.items()))
-    log(f"  mp 2 updates of {TP_MP2_STEPS} steps, ||dw - unsharded dw|| / "
-        f"||unsharded dw|| (tol {TP_MP2_UPDATE_TOL}): "
-        + ", ".join(f"{n} {e:.3g}" for n, e in upd_err.items()))
-    for r, lk in enumerate(local):
-        log(f"  mp 2 rank {r}, kernels vs plain at its first calls' shapes: "
-            + ", ".join(f"{k} {v['shape']} err {v['max_abs_err']:.3g} "
-                        f"({v['share']:.3g} of the tolerance)"
-                        for k, v in lk.items()))
     for part in ("init", "grads", "final"):
         apart = [n for n in TP_MP2_PARAMS
                  if not torch.equal(got[0][part][n], got[1][part][n])]
         check(not apart, f"mp-2: the ranks gather different {part} of "
                          f"{apart}")
-    apart = [n for n in TP_MP2_PARAMS
-             if not torch.equal(got[0]["init"][n], ref["init"][n])]
-    check(not apart, f"mp-2: gathered initial values of {apart} differ "
-                     f"from the unsharded model's")
-    check(all(e <= TP_MP2_LOSS_TOL for e in loss_err),
-          f"mp-2 losses {loss_err} from unsharded")
-    check(all(e <= TP_MP2_GRAD_TOL for e in grad_err.values()),
-          f"mp-2 step-1 gradients {grad_err}")
-    check(all(e <= TP_MP2_UPDATE_TOL for e in upd_err.values()),
-          f"mp-2 updates {upd_err}")
+    out = held_against(torch, ref, got[0], TP_MP2_PARAMS,
+                       (TP_MP2_LOSS_TOL, TP_MP2_GRAD_TOL, TP_MP2_UPDATE_TOL),
+                       "mp 2 on one card over gloo")
+    local = [g["local_kernels"] for g in got]
+    log(f"  mp 2: local heads {got[0]['local_heads']}; "
+        f"{got[0]['step_ms']:.1f} / {got[1]['step_ms']:.1f} ms a step "
+        f"(ranks 0 / 1; unsharded {ref['step_ms']:.1f}), {wall:.1f} s wall")
+    for r, lk in enumerate(local):
+        log(f"  mp 2 rank {r}, kernels vs plain at its first calls' shapes: "
+            + ", ".join(f"{k} {v['shape']} err {v['max_abs_err']:.3g} "
+                        f"({v['share']:.3g} of the tolerance)"
+                        for k, v in lk.items()))
     heads = TRAIN_CONFIG["num_attention_heads"] // 2
     for r, g in enumerate(got):
         check(g["launches"] == {k: v * TP_MP2_STEPS for k, v in
@@ -8285,32 +8343,21 @@ def tp_mp2_verdict(torch, ref, got, wall):
         bad = {k: v for k, v in g["local_kernels"].items()
                if not v["share"] <= 1.0}
         check(not bad, f"mp-2 rank {r}: kernels vs plain {bad}")
-    return dict(losses=got[0]["losses"], unsharded_losses=ref["losses"],
-                loss_err=loss_err, grad_err=grad_err, update_err=upd_err,
-                step_ms=[g["step_ms"] for g in got],
-                unsharded_step_ms=ref["step_ms"], wall_s=wall,
-                local_heads=got[0]["local_heads"],
-                local_kernels=local, launches=got[0]["launches"])
+    out.update(unsharded_losses=ref["losses"],
+               step_ms=[g["step_ms"] for g in got],
+               unsharded_step_ms=ref["step_ms"], wall_s=wall,
+               local_heads=got[0]["local_heads"],
+               local_kernels=local, launches=got[0]["launches"])
+    return out
 
 
 def tp_rank_main(rank, out_dir):
     """One rank of ``tp_two_ranks`` (``python chip_smoke.py --tp-rank R
     DIR``): gloo on the card, ``tp_mp2_steps`` under the plan at mp 2,
     then ``kernels_at_calls``; writes ``DIR/rank<R>.pt``."""
-    import faulthandler
-
-    import torch
-    import torch.distributed as tdist
-
-    faulthandler.enable()               # a crash prints where it was
-    sys.path.insert(0, str(HERE))
+    torch, tdist, dev = rank_setup(rank)
     from paddle_tpu_torch.distributed import fleet
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    host, port = __import__("os").environ["PADDLE_MASTER"].split(":")
-    tdist.init_process_group("gloo", init_method=f"tcp://{host}:{port}",
-                             rank=rank, world_size=2)
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2}
     hcg = fleet.init(is_collective=True, strategy=strategy)
@@ -8386,6 +8433,563 @@ def phase_tensor_parallel(torch, dev, report):
         _restore_env(saved)
     res["mp2"] = tp_two_ranks(torch, dev)
     report["tensor_parallel"] = res
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism: ERNIE-MoE under its plan at ep 1 on NCCL, a
+# moe_group's einsum path at world 1, ep 2 as two gloo ranks
+# ---------------------------------------------------------------------------
+#: the two-rank run: bench_moe's width at 2 layers (layer 0 dense, layer
+#: 1 MoE with 4 of the 8 experts a rank, attention tensor parallel over
+#: the same axis), random routing off, 3 AdamW steps
+EP2_LAYERS, EP2_STEPS = 2, 3
+#: the parameters held against the unsharded run (rows of the
+#: vocabulary-sharded ones about the shards' boundary, 16000)
+EP2_PARAMS = {
+    "model.embed_tokens.weight": (15872, 16128),
+    "model.layers.0.self_attn.q_proj.weight": None,
+    "model.layers.0.mlp.down_proj.weight": None,
+    "model.layers.1.mlp.gate.weight": None,
+    "model.layers.1.mlp.experts.w0": None,
+    "model.layers.1.mlp.experts.w1": None,
+    "model.layers.1.post_attention_layernorm.weight": None,
+    "lm_head.weight": (15872, 16128),
+}
+#: ep 2 against the unsharded model (|loss - unsharded loss| at every
+#: step; max |g - unsharded g| / max |unsharded g| of the step-1
+#: gradients; ||dw - unsharded dw|| / ||unsharded dw|| of the 3-step
+#: updates of the fp32 masters), all in bf16 with the experts' partial
+#: outputs rounded to bf16 before their all-reduce: about 3x the largest
+#: gaps measured on the H100 (PERF.md PR 23: 3.81e-6, 0.0828, 0.159)
+EP2_LOSS_TOL = 1.5e-5
+EP2_GRAD_TOL = 0.25
+EP2_UPDATE_TOL = 0.5
+#: [expert_parallel] (ii): ``FusedMoELayer`` at bench_moe's width on its
+#: 4 x 2048 tokens, random routing off; the einsum path against its
+#: plain dense dispatch within ``tolerance(bf16, 1e-2)`` (bf16 products
+#: summed over d = 2048 in another order)
+EP_LAYER_TOL = 1e-2
+
+
+def ep2_steps(torch, dev, mesh=None):
+    """``EP2_STEPS`` AdamW steps of ``ep2_two_ranks``' model
+    (``MOE_CONFIG`` at ``EP2_LAYERS`` layers, bf16, seed 0, random
+    routing off, ``MoeTrain``'s batch), under ``ernie_moe_shard_plan``
+    over ``mesh`` (``mp_axis = ep_axis = "ep"``) unless it is None: as
+    ``tp_mp2_steps`` returns, for ``EP2_PARAMS``, with the expert bank's
+    local shape."""
+    from paddle_tpu_torch.distributed.auto_parallel.api import DistParameter
+    from paddle_tpu_torch.models import ernie_moe_shard_plan
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = moe_model(torch, dev, layers=EP2_LAYERS)
+    for layer in model.model.layers:
+        if layer.is_moe:
+            layer.mlp.gate._random2 = False
+    ids, labels = _ids_and_labels(torch, model.config, dev, MOE_BATCH,
+                                  MOE_SEQ)
+    if mesh is not None:
+        ernie_moe_shard_plan(model, mesh, mp_axis="ep", ep_axis="ep")
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                multi_precision=True)
+    named = dict(model.named_parameters())
+
+    def whole(name, t):
+        if isinstance(named[name], DistParameter):
+            t = gather_shards(torch, named[name], t)
+        rows = EP2_PARAMS[name]
+        t = t if rows is None else t[rows[0]:rows[1]]
+        return t.detach().cpu().clone()
+
+    out = dict(init={n: whole(n, named[n]) for n in EP2_PARAMS},
+               losses=[], bank=list(named["model.layers.1.mlp.experts.w0"]
+                                    .shape))
+    reset_counts()
+    ms = []
+    with first_kernel_calls() as calls:
+        for i in range(EP2_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = model(ids, labels=labels)
+            loss.backward()
+            if i == 0:
+                out["grads"] = {n: whole(n, named[n].grad)
+                                for n in EP2_PARAMS}
+            opt.step()
+            opt.clear_grad()
+            out["losses"].append(float(loss.detach()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(launches=read_counts(), calls=calls,
+               step_ms=sum(ms[1:]) / len(ms[1:]),
+               final={n: whole(n, opt._master_weights[id(named[n])])
+                      for n in EP2_PARAMS})
+    del model, opt, named
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep2_two_ranks(torch, dev):
+    """ep 2 as two processes on the one card over gloo (``--ep-rank``):
+    ``ep2_steps`` under ``ernie_moe_shard_plan`` on dp 1 x ep 2 in each
+    rank (each holds experts [4, 2048, 1408] of the 8 and 8 of the 16
+    heads), against ``ep2_steps`` unsharded in this process: the gaps
+    within ``EP2_*_TOL`` (``held_against``), both ranks gather the same
+    bits, each rank launches the step's flash and RMSNorm counts (flash
+    at 8 heads), and each of those kernels against its plain version at
+    the shapes of its first call in the rank (``kernels_at_calls``)."""
+    ref = ep2_steps(torch, dev)
+    got, wall = spawn_two_ranks(torch, "--ep-rank")
+    for part in ("init", "grads", "final"):
+        apart = [n for n in EP2_PARAMS
+                 if not torch.equal(got[0][part][n], got[1][part][n])]
+        check(not apart, f"ep 2: the ranks gather different {part} of "
+                         f"{apart}")
+    out = held_against(torch, ref, got[0], EP2_PARAMS,
+                       (EP2_LOSS_TOL, EP2_GRAD_TOL, EP2_UPDATE_TOL),
+                       "ep 2 on one card over gloo")
+    experts = MOE_CONFIG["num_experts"] // 2
+    heads = MOE_CONFIG["num_attention_heads"] // 2
+    for r, g in enumerate(got):
+        log(f"  ep 2 rank {r}: bank {g['bank']}, {g['step_ms']:.1f} ms a "
+            f"step (unsharded {ref['step_ms']:.1f}); kernels vs plain at "
+            f"its first calls' shapes: "
+            + ", ".join(f"{k} {v['shape']} err {v['max_abs_err']:.3g} "
+                        f"({v['share']:.3g} of the tolerance)"
+                        for k, v in g["local_kernels"].items()))
+        check(g["bank"] == [experts, MOE_CONFIG["hidden_size"],
+                            MOE_CONFIG["moe_intermediate_size"]],
+              f"ep 2 rank {r}: expert bank {g['bank']}")
+        check(g["launches"] == {k: v * EP2_STEPS for k, v in
+                                train_launches(EP2_LAYERS).items()},
+              f"ep 2 rank {r} launches {g['launches']}")
+        check(g["local_kernels"]["flash"]["shape"][1] == heads,
+              f"ep 2 rank {r}: flash at {g['local_kernels']['flash']}")
+        bad = {k: v for k, v in g["local_kernels"].items()
+               if not v["share"] <= 1.0}
+        check(not bad, f"ep 2 rank {r}: kernels vs plain {bad}")
+    out.update(step_ms=[g["step_ms"] for g in got],
+               unsharded_step_ms=ref["step_ms"], wall_s=wall,
+               bank=got[0]["bank"],
+               local_kernels=[g["local_kernels"] for g in got],
+               launches=got[0]["launches"])
+    return out
+
+
+def ep_rank_main(rank, out_dir):
+    """One rank of ``ep2_two_ranks`` (``python chip_smoke.py --ep-rank R
+    DIR``): ``ep2_steps`` under the plan on dp 1 x ep 2, then
+    ``kernels_at_calls``; writes ``DIR/rank<R>.pt``."""
+    torch, tdist, dev = rank_setup(rank)
+    from paddle_tpu_torch import distributed as dist
+
+    out = ep2_steps(torch, dev, dist.ProcessMesh([[0, 1]], ["dp", "ep"]))
+    out["local_kernels"] = kernels_at_calls(torch, dev, out.pop("calls"))
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    print(f"rank {rank}: losses {out['losses']}, {out['step_ms']:.1f} ms a "
+          f"step, bank {out['bank']}", flush=True)
+    tdist.destroy_process_group()
+    return 0
+
+
+def ep_layer_paths(torch, dev):
+    """``FusedMoELayer`` at bench_moe's width (d 2048, experts 8 x 1408,
+    top-2 GShard, random routing off, bf16) on its 4 x 2048 tokens: with
+    ``moe_group`` over a one-rank ``ep`` axis it takes the einsum path
+    (the dense ``[N, E, C]`` dispatch), held against the plain dense
+    dispatch computed here expert by expert from the same routing
+    (``tolerance(bf16, EP_LAYER_TOL)``); forward and forward + backward
+    ms of it and of the same layer on the index path, and each path's
+    peak memory above the inputs."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.communication.group import axis_group
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        FusedMoELayer, gate as moe_gate)
+
+    d, h, e = (MOE_CONFIG["hidden_size"], MOE_CONFIG["moe_intermediate_size"],
+               MOE_CONFIG["num_experts"])
+    n = MOE_BATCH * MOE_SEQ
+    group = axis_group(dist.ProcessMesh([0], ["ep"]), "ep")
+    make = functools.partial(
+        FusedMoELayer, d, h, e, gate={"type": "gshard", "topk": 2,
+                                      "random_routing": False},
+        device=dev, dtype=torch.bfloat16, seed=0)
+    einsum, index = make(moe_group=group), make()
+    check(einsum._mesh is not None and index._mesh is None,
+          "FusedMoELayer paths")
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        got = einsum(x)
+        gate, ex = einsum.gate, einsum.experts
+        probs, cap, u = gate.route(x)
+        combine, dispatch = moe_gate._dispatch_from_probs(
+            probs, u, k=2, capacity=cap, normalize=True, random2=False)
+        ys = []
+        for i in range(e):
+            xe = dispatch[:, i].t() @ x                     # [C, d]
+            hid = torch.nn.functional.gelu(xe @ ex.w0[i] + ex.b0[i])
+            ys.append(hid @ ex.w1[i] + ex.b1[i])
+        want = torch.einsum("nec,ecd->nd", combine, torch.stack(ys))
+    err, share = close_err(got, want, *tolerance(torch.bfloat16,
+                                                 EP_LAYER_TOL))
+    log(f"  FusedMoELayer(moe_group) einsum path at [{n}, {d}], "
+        f"capacity {cap}: vs the plain dense dispatch err {err:.3g} "
+        f"({share:.3g} of the tolerance)")
+    check(share <= 1.0, f"einsum path vs plain: {err} ({share} of tol)")
+    out = dict(capacity=cap, max_abs_err=err, share=share)
+    w = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+    for name, layer in (("einsum", einsum), ("index", index)):
+        xg = x.clone().requires_grad_()
+
+        def fwd():
+            with torch.no_grad():
+                layer(x)
+
+        def step():
+            (layer(xg) * w).sum().backward()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        out[name] = dict(forward_ms=time_ms(fwd, iters=5, warmup=1),
+                         step_ms=time_ms(step, iters=5, warmup=1),
+                         peak_bytes=peak)
+        o = out[name]
+        log(f"  FusedMoELayer {name} path: forward {o['forward_ms']:.2f} ms, "
+            f"forward + backward {o['step_ms']:.2f} ms, peak "
+            f"{peak / 2**30:.2f} GiB above the inputs")
+    del einsum, index, x, w, combine, dispatch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_expert_parallel(torch, dev, report):
+    """Expert parallelism on the card (``incubate.distributed.models.moe``
+    with a mesh axis, ``ernie_moe_shard_plan``): NCCL at world 1, then (i)
+    ``bench_moe``'s ERNIE-MoE (``MoeTrain``: bf16, 4 x 2048,
+    ``AdamW(multi_precision=True)``) under ``ernie_moe_shard_plan`` on
+    dp 1 x ep 1 against the same model unplanned (``tp_model_forms``:
+    equal bit for bit over 3 steps, eager and captured; step ms, busy
+    share, peak memory, rows 2-5 by name); (ii) ``FusedMoELayer`` with a
+    ``moe_group`` (``ep_layer_paths``); (iii) ep 2 as two gloo ranks on
+    the card (``ep2_two_ranks``)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import ErnieMoeConfig, ernie_moe_shard_plan
+
+    saved = _tp_env(1, 0)
+    obs.reset()
+    obs.enable()
+    res = {}
+    try:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1}
+        fleet.init(is_collective=True, strategy=strategy)
+        check(dist.get_backend() == "nccl", "fleet.init: backend not nccl")
+        mesh = dist.ProcessMesh([[0]], ["dp", "ep"])
+        spec = MoeTrain()
+        nl = MOE_CONFIG["num_hidden_layers"]
+        flash_names = [n for pair in FLASH_KERNELS.values() for n in pair]
+        res["planned"] = tp_model_forms(torch, dev, report, dict(
+            label="ERNIE-MoE", make=lambda: moe_model(torch, dev),
+            batch=spec.batch(torch, ErnieMoeConfig(**MOE_CONFIG), dev),
+            loss=spec.loss, make_opt=spec.opt,
+            plan=lambda m, _: ernie_moe_shard_plan(m, mesh, mp_axis="ep",
+                                                   ep_axis="ep"),
+            nl=nl, want=train_launches(nl),
+            check_kernels=lambda pk, lb: check_train_kernels(pk, nl, lb),
+            names=flash_names + list(RMS_TRAIN_KERNELS),
+            path="expert_parallel"))
+        res["layer"] = ep_layer_paths(torch, dev)
+        fleet.set_hybrid_communicate_group(None)
+    finally:
+        dist.destroy_process_group()
+        obs.disable()
+        obs.reset()
+        _restore_env(saved)
+    res["ep2"] = ep2_two_ranks(torch, dev)
+    report["expert_parallel"] = res
+
+
+# ---------------------------------------------------------------------------
+# ZeRO sharding: group_sharded_parallel at world 1 on NCCL, two gloo ranks
+# ---------------------------------------------------------------------------
+ZERO_LEVELS = ("os", "os_g", "p_g_os")
+#: each level's two ranks against the unsharded model (the gaps as
+#: ``held_against`` measures them; each rank on half of the batch in
+#: bf16, the unsharded run on all of it): about 3x the largest gaps
+#: measured on the H100, the same at every level (PERF.md PR 23:
+#: 1.82e-4, 0.00649, 0.0176)
+ZERO_LOSS_TOL = 5.5e-4
+ZERO_GRAD_TOL = 0.02
+ZERO_UPDATE_TOL = 0.055
+
+
+def zero_forms(torch, dev, report):
+    """``phase_train``'s Llama (``bench_llama``: 645M, bf16, 4 x 2048,
+    ``AdamW(multi_precision=True)``) through ``group_sharded_parallel``
+    at each level at world 1: ``DIST_COMPARE_STEPS`` eager steps equal
+    bit for bit to the plain step's from one state, then the captured
+    step (``jit.to_static(full_graph=True)``) equal to the captured
+    plain step; each level's eager step timed (``dist_timed``: step ms,
+    busy share, peak memory) with only its model on the card, the
+    ``"p_g_os"`` steps' launches kept as the ``sharding`` path's."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    config = LlamaConfig(**TRAIN_CONFIG, dtype="bfloat16")
+    nl = config.num_hidden_layers
+    ids, labels = train_batch(torch, config, dev)
+
+    def trainer(level, captured=False):
+        model = LlamaForCausalLM(config, device=dev, seed=0)
+        opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                    multi_precision=True)
+        wrapped = model
+        if level is not None:
+            wrapped, opt, _ = dist.group_sharded_parallel(model, opt, level)
+        opt._ensure_accumulators()
+
+        def step(i, lab):
+            loss = _llama_loss(wrapped, i, lab)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+        return model, opt, jit.to_static(step, full_graph=True) \
+            if captured else step
+
+    res = {}
+    for captured in (False, True):
+        form = "captured" if captured else "eager"
+        torch.cuda.empty_cache()
+        pm, po, pstep = trainer(None, captured)
+        pl = [float(pstep(ids, labels)) for _ in range(DIST_COMPARE_STEPS)]
+        plain = (_train_state(pm, po), pl)
+        del pm, po, pstep
+        for level in ZERO_LEVELS:
+            torch.cuda.empty_cache()
+            m, o, step = trainer(level, captured)
+            ll = [float(step(ids, labels)) for _ in range(DIST_COMPARE_STEPS)]
+            _same_state(torch, plain[0], _train_state(m, o), plain[1], ll,
+                        f"Llama {level} ({form}): {DIST_COMPARE_STEPS} "
+                        f"steps at world 1 vs the plain step")
+            del m, o, step
+        del plain
+    for level in (None,) + ZERO_LEVELS:
+        torch.cuda.empty_cache()
+        m, o, step = trainer(level)
+        timed = dist_timed(torch, dev, lambda: step(ids, labels), nl,
+                           f"Llama {level or 'plain'} step, eager")
+        launches = timed.pop("launches")
+        if level == "p_g_os":
+            record_launches(report, "sharding", launches)
+        res[level or "plain"] = timed
+        del m, o, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def zero_bytes(model, opt):
+    """This rank's bytes of parameters and of optimizer states (moments
+    and fp32 masters), from the tensors' own sizes."""
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    states = sum(t.numel() * t.element_size()
+                 for store in (*opt._accumulators.values(),
+                               opt._master_weights)
+                 for t in store.values())
+    return params, states
+
+
+def zero_rank_steps(torch, dev, rank):
+    """One rank's ``tp_mp2_steps`` model (``bench_llama``'s width at
+    ``TP_MP2_LAYERS`` layers, bf16, seed 0) at no sharding and at each
+    level, ``TP_MP2_STEPS`` AdamW steps on its half of the batch: per
+    level the losses, ``TP_MP2_PARAMS``' values before, the ranks' mean
+    step-1 gradients and the fp32 masters after (whole, on the host),
+    this rank's bytes of parameters and states after the first step
+    (``zero_bytes``) and ``memory_allocated``, and the mean ms of the
+    steps after the first."""
+    import gc
+
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    config = LlamaConfig(**{**TRAIN_CONFIG,
+                            "num_hidden_layers": TP_MP2_LAYERS},
+                         dtype="bfloat16")
+    ids, labels = (t.chunk(2)[rank] for t in train_batch(torch, config, dev))
+
+    def gathered(t, pg=None):
+        parts = [torch.empty_like(t) for _ in range(2)]
+        tdist.all_gather(parts, t.contiguous(), group=pg)
+        return torch.cat(parts)
+
+    out = {}
+    for level in (None,) + ZERO_LEVELS:
+        gc.collect()            # the last level's model leaves in cycles
+        torch.cuda.empty_cache()
+        model = LlamaForCausalLM(config, device=dev, seed=0)
+        opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                    multi_precision=True)
+        named = dict(model.named_parameters())
+        init = {n: named[n].detach().cpu().clone() for n in TP_MP2_PARAMS}
+        wrapped = model
+        if level is not None:
+            wrapped, opt, _ = dist.group_sharded_parallel(model, opt, level)
+        rows = getattr(opt, "_row_shards", None)
+
+        def whole(n, t, of=None):
+            p = named[n]
+            if rows is not None and (id(p) in rows.views
+                                     or id(p) in rows.sharded):
+                t = gathered(t, rows.group)
+            span = TP_MP2_PARAMS[n]
+            t = t if span is None else t[span[0]:span[1]]
+            return t.detach().cpu().clone()
+
+        def mean_grad(n):
+            p = named[n]
+            if rows is not None and id(p) in rows.sharded:
+                return whole(n, p.grad)
+            g = p.grad.detach().clone()
+            tdist.all_reduce(g)
+            g /= 2
+            span = TP_MP2_PARAMS[n]
+            return (g if span is None else g[span[0]:span[1]]).cpu()
+
+        def master(p):
+            key = rows.views[id(p)][1] if rows is not None \
+                and id(p) in rows.views else p
+            return opt._master_weights[id(key)]
+
+        res = dict(init={n: init[n] if span is None
+                         else init[n][span[0]:span[1]]
+                         for n, span in TP_MP2_PARAMS.items()},
+                   losses=[])
+        ms = []
+        for i in range(TP_MP2_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = wrapped(ids, labels=labels)
+            loss.backward()
+            if i == 0:
+                res["grads"] = {n: mean_grad(n) for n in TP_MP2_PARAMS}
+            opt.step()
+            opt.clear_grad()
+            lo = loss.detach().float().reshape(1)
+            tdist.all_reduce(lo)
+            res["losses"].append(float(lo) / 2)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                torch.cuda.synchronize()
+                res["bytes"] = zero_bytes(model, opt)
+                res["allocated"] = torch.cuda.memory_allocated(dev)
+        res["step_ms"] = sum(ms[1:]) / len(ms[1:])
+        res["final"] = {n: whole(n, master(named[n]))
+                        for n in TP_MP2_PARAMS}
+        out[level or "plain"] = res
+        del model, opt, wrapped, named, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_rank_main(rank, out_dir):
+    """One rank of ``zero_two_ranks`` (``python chip_smoke.py --zero-rank
+    R DIR``): ``zero_rank_steps``; writes ``DIR/rank<R>.pt``."""
+    torch, tdist, dev = rank_setup(rank)
+    out = zero_rank_steps(torch, dev, rank)
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    print(f"rank {rank}: " + ", ".join(
+        f"{k} losses {[round(v, 4) for v in r['losses']]}"
+        for k, r in out.items()), flush=True)
+    tdist.destroy_process_group()
+    return 0
+
+
+def zero_two_ranks(torch, dev):
+    """Each level as two processes on the one card over gloo
+    (``--zero-rank``), each on half of the batch, against ``tp_mp2_steps``
+    unsharded in this process on all of it: the gaps within
+    ``ZERO_*_TOL`` (``held_against``), both ranks gather the same
+    masters; each rank's bytes of parameters and states after the first
+    step over the same rank's at no sharding (the prediction: states
+    halved at ``"os"`` and ``"os_g"``, parameters and states at
+    ``"p_g_os"``)."""
+    ref = tp_mp2_steps(torch, dev)
+    ref.pop("calls")
+    got, wall = spawn_two_ranks(torch, "--zero-rank")
+    out = dict(wall_s=wall, unsharded_step_ms=ref["step_ms"])
+    for level in ZERO_LEVELS:
+        g0, g1 = (g[level] for g in got)
+        apart = [n for n in TP_MP2_PARAMS
+                 if not torch.equal(g0["final"][n], g1["final"][n])]
+        check(not apart, f"ZeRO {level}: the ranks gather different masters "
+                         f"of {apart}")
+        res = held_against(torch, ref, g0, TP_MP2_PARAMS,
+                           (ZERO_LOSS_TOL, ZERO_GRAD_TOL, ZERO_UPDATE_TOL),
+                           f"ZeRO {level}, two ranks over gloo")
+        ratios = []
+        for r, g in enumerate(got):
+            (p, s), (p0, s0) = g[level]["bytes"], g["plain"]["bytes"]
+            ratios.append(dict(params=p / p0, states=s / s0,
+                               total=(p + s) / (p0 + s0),
+                               allocated=g[level]["allocated"]
+                               / g["plain"]["allocated"]))
+        log(f"  ZeRO {level}: bytes after the first step over no "
+            f"sharding, by rank: " + "; ".join(
+                f"params {q['params']:.3f}, states {q['states']:.3f}, "
+                f"both {q['total']:.3f}, memory_allocated "
+                f"{q['allocated']:.3f}" for q in ratios)
+            + f"; {g0['step_ms']:.1f} ms a step (plain two ranks "
+            f"{got[0]['plain']['step_ms']:.1f}, unsharded one process "
+            f"{ref['step_ms']:.1f})")
+        want_p = 0.5 if level == "p_g_os" else 1.0
+        check(all(q["states"] == 0.5 and q["params"] == want_p
+                  for q in ratios),
+              f"ZeRO {level}: byte ratios {ratios}")
+        res.update(ratios=ratios, step_ms=g0["step_ms"],
+                   bytes=[g[level]["bytes"] for g in got])
+        out[level] = res
+    out["plain"] = dict(step_ms=got[0]["plain"]["step_ms"],
+                        bytes=[g["plain"]["bytes"] for g in got],
+                        loss_err=[abs(a - b) for a, b in zip(
+                            got[0]["plain"]["losses"], ref["losses"])])
+    return out
+
+
+def phase_sharding(torch, dev, report):
+    """ZeRO on the card (``distributed.sharding``,
+    ``auto_parallel.api``'s stages): NCCL at world 1, (i) ``zero_forms``;
+    then (ii) each level as two gloo ranks on the card
+    (``zero_two_ranks``)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import observability as obs
+
+    saved = _tp_env(1, 0)
+    obs.reset()
+    obs.enable()
+    res = {}
+    try:
+        dist.init_parallel_env()
+        check(dist.get_backend() == "nccl", "backend not nccl")
+        res["world1"] = zero_forms(torch, dev, report)
+    finally:
+        dist.destroy_process_group()
+        obs.disable()
+        obs.reset()
+        _restore_env(saved)
+    res["two_ranks"] = zero_two_ranks(torch, dev)
+    report["sharding"] = res
 
 
 def main() -> int:
@@ -8484,7 +9088,9 @@ def main() -> int:
                             ("detection", phase_detection),
                             ("observability", phase_observability),
                             ("distributed", phase_distributed),
-                            ("tensor_parallel", phase_tensor_parallel)):
+                            ("tensor_parallel", phase_tensor_parallel),
+                            ("expert_parallel", phase_expert_parallel),
+                            ("sharding", phase_sharding)):
             mark(name)
             phase(torch, dev, report)
             models[name] = report.pop(name)
@@ -8518,6 +9124,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--tp-rank"]:
-        sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3]))
+    RANK_MAINS = {"--tp-rank": tp_rank_main, "--ep-rank": ep_rank_main,
+                  "--zero-rank": zero_rank_main}
+    if sys.argv[1:2] and sys.argv[1] in RANK_MAINS:
+        sys.exit(RANK_MAINS[sys.argv[1]](int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -53,11 +53,15 @@ events, the caching allocator's stats) and ``utils.flops`` (also
 (process groups over ``torch.distributed``, NCCL on the card and gloo on
 the CPU; the collectives, the rendezvous store, the launcher
 ``python -m paddle_tpu_torch.distributed.launch`` and ``DataParallel``,
-also ``paddle_tpu_torch.DataParallel``).
+also ``paddle_tpu_torch.DataParallel``; tensor, sequence and expert
+parallelism and ZeRO sharding). ``save`` / ``load`` (``framework``)
+write and read the reference's checkpoint format, bf16 included.
 """
-from . import (amp, convert, device, jit, models, nn, observability,
-               optimizer, profiler, regularizer, serve, utils, vision)
+from . import (amp, convert, device, framework, jit, models, nn,
+               observability, optimizer, profiler, regularizer, serve, utils,
+               vision)
 from .convert import load_paddle_tpu_state
+from .framework.io_ import load, save
 from .core.place import resolve_device
 from .models import (BertConfig, BertForPretraining,
                      BertForSequenceClassification, ErnieMoeConfig,
@@ -70,7 +74,8 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "GPTConfig", "GPTForCausalLM",
            "ErnieMoeConfig", "ErnieMoeForCausalLM",
            "ServeEngine", "run_load",
            "warm_engine", "default_serving_setup", "load_paddle_tpu_state",
-           "resolve_device", "amp", "convert", "device", "jit", "models",
+           "resolve_device", "save", "load", "amp", "convert", "device",
+           "framework", "jit", "models",
            "nn", "observability", "optimizer", "profiler", "regularizer",
            "serve", "utils", "vision"]
 

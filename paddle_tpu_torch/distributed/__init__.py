@@ -11,15 +11,20 @@ variables yourself; ``init_parallel_env()`` brings the group up.
 
 Placements, meshes and the semi-auto API (``auto_parallel``), the
 hybrid topology, tensor and sequence parallelism (``fleet``) and the
-model-parallel ``split`` are ROADMAP queue A item 4 (b). The reference's
-names that are not here belong to later parts of item 4: sharding (c),
+model-parallel ``split`` are ROADMAP queue A item 4 (b); expert
+parallelism (``incubate.distributed.models.moe``'s ``moe_group``) is
+(b2); ZeRO sharding (``sharding``: ``group_sharded_parallel``,
+``save_group_sharded_model``; ``shard_optimizer``'s stages 1 to 3;
+``fleet.meta_parallel`` and ``fleet.meta_optimizers``) is (c). The
+reference's names that are not here belong to later parts of item 4:
 checkpointing, elastic training, the parameter server, RPC and the
 fleet executor (f); ``passes`` rewrite static programs (item 7).
 """
 from __future__ import annotations
 
 from . import auto_parallel, communication, env, fleet  # noqa: F401
-from . import launch_utils, parallel_wrapper, store, utils  # noqa: F401
+from . import launch_utils, parallel_wrapper, sharding, store  # noqa: F401
+from . import utils  # noqa: F401
 from .auto_parallel import (  # noqa: F401
     DistModel, Partial, Placement, ProcessMesh, Replicate, Shard,
     ShardDataloader, ShardingStage1, ShardingStage2, ShardingStage3,
@@ -36,6 +41,8 @@ from .env import (barrier, get_backend, get_rank, get_store,  # noqa: F401
                   get_world_size, init_parallel_env, is_initialized)
 from .launch_utils import launch, spawn  # noqa: F401
 from .parallel_wrapper import DataParallel  # noqa: F401
+from .sharding import (group_sharded_parallel,  # noqa: F401
+                       save_group_sharded_model)
 from .store import InMemoryStore, Store, TCPStore, create_store  # noqa: F401
 
 # paddle.distributed.parallel compat namespace
@@ -59,6 +66,7 @@ __all__ = [
     "parallel", "parallel_wrapper", "recv", "reduce", "reduce_scatter",
     "scatter", "scatter_object_list", "send", "shard_scaler", "spawn",
     "split", "store", "utils", "wait", "auto_parallel", "dtensor_from_fn",
+    "sharding", "group_sharded_parallel", "save_group_sharded_model",
     "reshard", "shard_dataloader", "shard_layer", "shard_optimizer",
     "shard_tensor", "to_static", "unshard_dtensor",
 ]

@@ -26,11 +26,19 @@ reference's does under GSPMD.
 Other tensors become ``DTensor``\\ s; ``reshard`` redistributes them (every
 pairwise r<->s, s->s', p->r conversion), differentiably.
 ``shard_optimizer`` lays each state out like its parameter (the states
-of a :class:`DistParameter` are its shard's) and, at stages 1 and 2,
-shards them over the data-parallel axis: each rank updates its rows of
-the parameter and the rows are all-gathered after the step. Stage 3
-also shards the parameters between steps, which is ZeRO's part of
-ROADMAP queue A item 4 (c): it raises, naming it.
+of a :class:`DistParameter` are its shard's) and shards them over the
+data-parallel axis (ZeRO). A parameter whose dim 0 the axis divides is
+updated in this rank's rows only, with states of those rows:
+
+- stage 1: the gradients arrive averaged (``DataParallel``, or a layer
+  computing on ``DTensor``\\ s); each rank updates its rows and the rows
+  are all-gathered after the step (``restore_param_layouts``);
+- stage 2: each rank's gradient rows come from a reduce-scatter of the
+  ranks' whole gradients at the step, the other gradients from an
+  all-reduce (each divided by the ranks: the mean), then as stage 1;
+- stage 3: those parameters are sharded between steps too
+  (``Shard(0)`` on the axis); see :class:`ShardingStage3` for what
+  gathers them, and when.
 """
 from __future__ import annotations
 
@@ -45,7 +53,8 @@ __all__ = [
     "shard_tensor", "dtensor_from_fn", "reshard", "shard_layer",
     "shard_optimizer", "ShardingStage0", "ShardingStage1", "ShardingStage2",
     "ShardingStage3", "unshard_dtensor", "shard_dataloader",
-    "ShardDataloader", "DistParameter",
+    "ShardDataloader", "DistParameter", "restore_param_layouts",
+    "gather_rows",
 ]
 
 
@@ -261,7 +270,15 @@ def unshard_dtensor(x):
 def _dtensor_params_pre(module, args):
     for name, p in module._parameters.items():
         if isinstance(p, DistParameter):
-            object.__setattr__(module, name, p.as_dtensor())
+            d = p.as_dtensor()
+            axis = p.__dict__.get("_zero3_axis")
+            if axis is not None:            # ZeRO-3: gathered for use
+                from torch.distributed import tensor as tdt
+
+                tpl = list(d.placements)
+                tpl[axis] = tdt.Replicate()
+                d = d.redistribute(d.device_mesh, tpl)
+            object.__setattr__(module, name, d)
 
 
 def _dtensor_params_post(module, args, out):
@@ -345,33 +362,65 @@ class ShardingStage1(ShardingStage0):
 
 
 class ShardingStage2(ShardingStage1):
-    """ZeRO-2. The states are sharded as at stage 1; the gradients are
-    still reduced whole (a reduce-scatter of them comes with ROADMAP
-    queue A item 4 (c)), which changes no value."""
+    """ZeRO-2: the states sharded as at stage 1, and each rank's gradient
+    rows the mean over the axis by a reduce-scatter at the step (module
+    docstring). The stage averages the gradients itself, so the model
+    needs no ``DataParallel``; with one, the mean of equal gradients
+    changes nothing."""
 
 
 class ShardingStage3(ShardingStage1):
-    """ZeRO-3: the parameters sharded between steps too (ROADMAP queue A
-    item 4 (c))."""
+    """ZeRO-3: every parameter whose dim 0 the axis divides is sharded
+    between steps (a :class:`DistParameter`, ``Shard(0)`` on the axis:
+    this rank's rows and their states); the others stay replicated and
+    their gradients are averaged over the axis at the step. Nothing is
+    gathered after the update. What gathers a sharded parameter, and
+    when:
+
+    - a layer that computes on ``DTensor``\\ s (``shard_layer``,
+      ``DistModel``) all-gathers it to replicated on the axis
+      (``reshard``) in the forward pre-hook of the module that owns it;
+      the gathered tensor is what that module's backward uses, and the
+      backward's reduce-scatter gives the shard its gradient;
+    - ``group_sharded_parallel(level="p_g_os")`` wraps the model in
+      ``GroupShardedStage3``, which gathers it (``gather_rows``: an
+      all-gather whose backward reduce-scatters the gradient and divides
+      it by the ranks) when a module reads it during the model's
+      forward, drops the whole tensor when the owning module's forward
+      returns, keeps none for the backward (a saved-tensor hook stores a
+      reference to the shard in its place) and all-gathers it again
+      where the backward unpacks it
+      (``fleet/meta_parallel/sharding``).
+
+    A layer that computes on local tensors and goes through neither
+    would read the shard itself: use one of the two."""
 
 
 class _RowShards:
-    """Stage 1/2 state sharding: each sharded parameter's rows of this
-    rank (``view``, a view of the parameter's local data), the states
-    made for the view, and an ``all_gather`` of the rows after the
-    update."""
+    """ZeRO state sharding over one axis (module docstring, stage 1 to
+    3): each row-sharded parameter's rows of this rank (``view``, a view
+    of the parameter's local data) and the states made for the view, an
+    ``all_gather`` of the rows after the update; at stage 3 the
+    parameters sharded between steps (``sharded``)."""
 
-    def __init__(self, optimizer, group, rank, nranks):
+    def __init__(self, optimizer, group, rank, nranks, stage=1):
         self.group, self.rank, self.nranks = group, rank, nranks
+        self.stage = stage
         self.views = {}
+        self.sharded = set()
         for p in optimizer._parameter_list:
-            if p.ndim > 0 and p.shape[0] % nranks == 0 and p.shape[0]:
-                rows = p.shape[0] // nranks
-                view = p.data.narrow(0, rank * rows, rows)
-                for attr in ("optimize_attr", "regularizer"):
-                    if hasattr(p, attr):
-                        setattr(view, attr, getattr(p, attr))
-                self.views[id(p)] = (p, view)
+            if not (p.ndim > 0 and p.shape[0] % nranks == 0 and p.shape[0]):
+                continue
+            if stage == 3:
+                self.sharded.add(id(p))
+                continue
+            rows = p.shape[0] // nranks
+            view = p.data.narrow(0, rank * rows, rows)
+            for attr in ("optimize_attr", "regularizer"):
+                if hasattr(p, attr):
+                    setattr(view, attr, getattr(p, attr))
+            view._zero_groups = _norm_groups(p) + (group,)
+            self.views[id(p)] = (p, view)
 
     def slice(self, pairs):
         out = []
@@ -384,21 +433,110 @@ class _RowShards:
             out.append((entry[1], g.narrow(0, self.rank * rows, rows)))
         return out
 
+    def reduce(self, pairs):
+        """Stages 2 and 3, before the clip: each gradient's mean over the
+        axis, paired with what the update writes: this rank's rows of a
+        row-sharded parameter (a reduce-scatter), a stage-3 shard's
+        gradient as it is (its backward reduce-scattered it), every
+        other gradient whole (an all-reduce)."""
+        out = []
+        for p, g in pairs:
+            if g is None or id(p) in self.sharded:
+                out.append((p, g))
+                continue
+            entry = self.views.get(id(p))
+            g = g.contiguous()
+            if entry is None:
+                mean = g.clone()
+                torch.distributed.all_reduce(mean, group=self.group)
+            else:
+                p = entry[1]
+                mean = g.new_empty(p.shape)
+                torch.distributed.reduce_scatter_tensor(mean, g,
+                                                        group=self.group)
+            out.append((p, mean.div_(self.nranks)))
+        return out
+
     def gather(self):
         for p, view in self.views.values():
             torch.distributed.all_gather_into_tensor(
                 p.data, view.clone(), group=self.group)
 
 
+def _norm_groups(p):
+    """The process groups over which ``p``'s gradient is a part of the
+    whole (a :class:`DistParameter`'s sharded mesh dimensions of more
+    than one rank, and a row view's ZeRO axis): a global norm sums its
+    squares over them."""
+    groups = tuple(getattr(p, "_zero_groups", ()))
+    if isinstance(p, DistParameter):
+        dm = p.device_mesh
+        groups += tuple(dm.get_group(m) for m, pl in enumerate(p.placements)
+                        if not pl.is_replicated() and dm.size(m) > 1)
+    return groups
+
+
+def restore_param_layouts(optimizer) -> None:
+    """Give every parameter its recorded layout after an update: the rows
+    that each rank updated at ZeRO stage 1 or 2 all-gathered into the
+    whole parameter (the reference re-constrains each parameter to its
+    placement, which XLA lowers to the same all-gather). Stage 3's
+    shards stay sharded; without ``shard_optimizer`` nothing moves."""
+    rows = getattr(optimizer, "_row_shards", None)
+    if rows is not None:
+        rows.gather()
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, pg, n):
+        ctx.pg, ctx.n = pg, n
+        whole = shard.new_empty((n * shard.shape[0],) + shard.shape[1:])
+        torch.distributed.all_gather_into_tensor(whole, shard.contiguous(),
+                                                 group=pg)
+        return whole
+
+    @staticmethod
+    def backward(ctx, g):
+        part = g.new_empty((g.shape[0] // ctx.n,) + g.shape[1:])
+        torch.distributed.reduce_scatter_tensor(part, g.contiguous(),
+                                                group=ctx.pg)
+        return part.div_(ctx.n), None, None
+
+
+def gather_rows(p, differentiable=True):
+    """The whole tensor of a ZeRO-3 parameter ``p`` (sharded ``Shard(0)``
+    on its ZeRO axis), all-gathered from the axis; differentiable: the
+    backward reduce-scatters the gradient and divides it by the ranks
+    (the mean over the data-parallel ranks)."""
+    pg, n = p.__dict__["_zero3"]
+    if not differentiable:
+        whole = p.new_empty((n * p.shape[0],) + p.shape[1:])
+        torch.distributed.all_gather_into_tensor(whole, p.detach(),
+                                                 group=pg)
+        return whole
+    return _GatherRows.apply(p, pg, n)
+
+
+def _shard_rows_(p, mesh: ProcessMesh, axis: int):
+    """Stage 3: shard ``p`` in place ``Shard(0)`` on mesh dimension
+    ``axis``, on top of its placements on the other dimensions."""
+    placements = list(p.placements) if isinstance(p, DistParameter) else \
+        [Replicate()] * mesh.ndim
+    placements[axis] = Shard(0)
+    _shard_param_(p, mesh, placements)
+    dm = mesh.device_mesh
+    p.__dict__["_zero3"] = (dm.get_group(axis), dm.size(axis))
+    p.__dict__["_zero3_axis"] = axis
+    return p
+
+
 def shard_optimizer(optimizer, shard_fn=None):
     """Lay each optimizer state out like its parameter and, at stages 1
-    and 2, shard them over ``shard_fn.mesh_dim`` of the parameters' mesh
+    to 3, shard them over ``shard_fn.mesh_dim`` of the parameters' mesh
+    (``shard_fn.mesh`` where given); stage 3 also shards the parameters
     (module docstring). The states are made now."""
     stage = shard_fn if shard_fn is not None else ShardingStage0()
-    if isinstance(stage, ShardingStage3):
-        raise NotImplementedError(
-            "shard_optimizer(ShardingStage3): sharding the parameters "
-            "between steps is ZeRO stage 3 (ROADMAP.md queue A item 4 (c))")
     if isinstance(stage, ShardingStage1):
         mesh = stage.mesh
         if mesh is None:
@@ -416,9 +554,14 @@ def shard_optimizer(optimizer, shard_fn=None):
         axis = mesh.dim_names.index(stage.mesh_dim)
         nranks = dm.size(axis)
         if nranks > 1:
-            optimizer._row_shards = _RowShards(
-                optimizer, dm.get_group(axis), dm.get_local_rank(axis),
-                nranks)
+            level = 3 if isinstance(stage, ShardingStage3) else \
+                2 if isinstance(stage, ShardingStage2) else 1
+            rows = _RowShards(optimizer, dm.get_group(axis),
+                              dm.get_local_rank(axis), nranks, level)
+            for p in optimizer._parameter_list:
+                if id(p) in rows.sharded:
+                    _shard_rows_(p, mesh, axis)
+            optimizer._row_shards = rows
     optimizer._ensure_accumulators()
     return optimizer
 

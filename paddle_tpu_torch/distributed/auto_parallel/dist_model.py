@@ -11,7 +11,10 @@ sharding propagation, whose backward reduces each replicated
 parameter's gradient over the axes its inputs were sharded on, so no
 partition pass is needed, as GSPMD needs none in the reference. A loss
 or output that is a ``DTensor`` is returned whole (``full_tensor``).
-``strategy.sharding`` applies ``shard_optimizer`` at its stage.
+``strategy.sharding`` applies ``shard_optimizer`` at its stage (1 to 3):
+at stage 3 the parameters whose dim 0 the ``dp`` axis divides are
+sharded between steps, and each module all-gathers its own for its
+forward (``api.ShardingStage3``).
 """
 from __future__ import annotations
 

@@ -8,17 +8,20 @@ Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``.
 ``init`` brings the process group up (``init_parallel_env``) and builds
 the ``HybridCommunicateGroup`` of ``strategy.hybrid_configs``; a
 ``dp_degree`` left at 1 takes the ranks the other degrees leave, as
-Paddle's does. Not here yet, each raising and naming its part of
-ROADMAP queue A item 4: the pipeline (``PipelineParallel`` in
-``distributed_model``), (e); ZeRO sharding (``distributed_optimizer``
-at a ``sharding_degree`` above 1, the ``HybridParallelOptimizer``), (c);
-context parallelism, (d); the parameter server (``init`` without
-``is_collective``, ``init_server`` / ``init_worker`` and their kin),
-the data generators and elastic launch, (f).
+Paddle's does. ``distributed_optimizer`` at a ``sharding_degree`` above
+1 returns the ``HybridParallelOptimizer`` (``meta_optimizers``: the
+states sharded over the ``sharding`` axis); ``meta_parallel`` has the
+group-sharded wrappers. Not here yet, each raising and naming its part
+of ROADMAP queue A item 4: the pipeline (``PipelineParallel`` in
+``distributed_model``, ``meta_parallel``'s pipeline names), (e); context
+parallelism (``SegmentParallel``), (d); the parameter server (``init``
+without ``is_collective``, ``init_server`` / ``init_worker`` and their
+kin), the data generators and elastic launch, (f).
 """
 from __future__ import annotations
 
-from . import mp_layers, sequence_parallel, topology, utils  # noqa: F401
+from . import (meta_optimizers, meta_parallel, mp_layers,  # noqa: F401
+               sequence_parallel, topology, utils)
 from .mp_layers import (  # noqa: F401
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     VocabParallelEmbedding)
@@ -144,11 +147,14 @@ def distributed_model(model):
 def distributed_optimizer(optimizer, strategy=None):
     """The optimizer as it is at a sharding degree of 1: its
     ``ClipGradByGlobalNorm`` already sums sharded gradients over their
-    mesh axes. Above 1 it is Paddle's ``HybridParallelOptimizer`` with
-    ZeRO sharding (ROADMAP queue A item 4 (c)), and raises."""
+    mesh axes. Above 1 Paddle's ``HybridParallelOptimizer``, its states
+    sharded over the ``sharding`` axis (``meta_optimizers``)."""
     hcg = get_hybrid_communicate_group()
     if hcg is not None and hcg.get_sharding_parallel_world_size() > 1:
-        _later_part("HybridParallelOptimizer (sharding_degree > 1)", "c")
+        from .meta_optimizers import HybridParallelOptimizer
+
+        return HybridParallelOptimizer(
+            optimizer, hcg, strategy or _fleet_state.get("strategy"))
     return optimizer
 
 

@@ -34,6 +34,11 @@ when each rank's loss is a mean over equal shares.
 - Before ``init_parallel_env`` (no process group) the wrapper reduces
   nothing: a one-rank world's mean is its gradient.
 
+MoE gates route over the global batch, as the reference's do: the
+wrapper hands its group to every gate of the model
+(``BaseGate.set_batch_group``), whose capacity, slot positions and
+balance loss then count every rank's tokens.
+
 ``mesh=`` (a ``ProcessMesh``) reduces over the mesh's ``dp`` axis (its
 first axis when it has none): this rank's line along it
 (``communication.group.axis_group``), so a dp x mp mesh averages each
@@ -195,6 +200,9 @@ class DataParallel(torch.nn.Module):
         self._strategy = strategy
         self.find_unused_parameters = find_unused_parameters
         self._group = group if group is not None else get_group(0)
+        for m in layers.modules():
+            if hasattr(type(m), "set_batch_group"):
+                m.set_batch_group(self._group)
         self._reducer = None
         if self._group.process_group is not None:
             self._sync_params_and_buffers()

@@ -20,6 +20,26 @@ CUDA graph replay them. They are the port's own stream, not
 
 Top-k takes ``lax.top_k``'s order (the lower expert first among equal
 scores) through ``models.generation._topk``.
+
+Routing over the global batch. The reference routes the whole batch
+that GSPMD sees: under data parallelism its capacity counts every
+rank's tokens, the slot positions run over all of them (rank 0's first,
+as the batch is ``Shard(0)`` on ``dp``) and the balance loss takes its
+two means over all of them. A rank of the port sees only its own
+tokens, so a gate routes over the ranks of its *batch group*: the
+gate's ``group`` where given, else the group of the ``DataParallel``
+or ZeRO wrapper (``GroupShardedStage2`` / ``3``) around the model (each
+hands it to every gate through :meth:`BaseGate.set_batch_group`), else
+none (this rank's tokens alone). Over a group of ``n`` ranks (each with the same number of
+tokens, as ``Shard(0)`` of a batch gives) the capacity is that of ``n``
+times this rank's tokens; each pass of the k choices all-gathers every
+rank's per-expert counts, and this rank's positions start after the
+counts of the ranks before it (``_route``); the balance loss's mean of
+the probabilities is all-reduced differentiably (``psum``, whose
+backward all-reduces, so after ``DataParallel``'s average the gate's
+gradient is the reference's) and the top-1 fractions without gradient.
+Tokens replicated over an expert-parallel axis share one routing: the
+batch group is the data-parallel one, not the expert group.
 """
 from __future__ import annotations
 
@@ -30,6 +50,7 @@ from torch import nn
 
 from .....core.generator import make_generator, use_generator
 from .....core.place import resolve_device
+from .....distributed.communication import functional as cf
 
 __all__ = ["BaseGate", "NaiveGate", "GShardGate", "SwitchGate"]
 
@@ -88,10 +109,23 @@ def _random_second(top_vals, u):
                      dim=1), keep2
 
 
-def _route(probs, u, *, k, capacity, normalize, random2):
+def _group_counts(counts, group):
+    """(the counts of the batch group's ranks before this one, their sum
+    over every rank): ``counts`` [E] of each rank all-gathered."""
+    pg, n = cf._pg(group)
+    every = counts.new_empty(n * counts.numel())
+    torch.distributed.all_gather_into_tensor(every, counts.contiguous(),
+                                             group=pg)
+    every = every.reshape(n, -1)
+    return every[:torch.distributed.get_rank(pg)].sum(dim=0), every.sum(dim=0)
+
+
+def _route(probs, u, *, k, capacity, normalize, random2, group=None):
     """GShard routing, shared by the dense dispatch and the index path's
     forward and backward. ``u`` [N] is random routing's uniform draw (read only with
-    ``random2`` and ``k >= 2``). Returns (tv, raw_tv, top_idx, keep,
+    ``random2`` and ``k >= 2``). ``group`` is the batch group (module
+    docstring): this rank's tokens take their positions after those of
+    the group's earlier ranks, pass by pass. Returns (tv, raw_tv, top_idx, keep,
     flat, token_of_slot, j_of_slot, keep2): ``tv`` the (normalized)
     weights of the k choices before the keep mask, ``raw_tv`` before the
     normalization, ``keep`` [N, k] the choices that got a slot, ``flat``
@@ -111,12 +145,18 @@ def _route(probs, u, *, k, capacity, normalize, random2):
     tv = (top_vals / torch.clamp(top_vals.sum(dim=1, keepdim=True), min=1e-9)
           if normalize else top_vals)
     prior = torch.zeros(e, dtype=torch.long, device=probs.device)
+    many = cf._pg(group)[1] > 1
     slots, keeps = [], []
     for j in range(k):
         live = top_vals[:, j] > 0
         mask = _one_hot(top_idx[:, j], e, torch.long) * live.long()[:, None]
-        pos = _positions(mask, prior)
-        prior = prior + mask.sum(dim=0)
+        if many:
+            before, total = _group_counts(mask.sum(dim=0), group)
+            pos = _positions(mask, prior + before)
+            prior = prior + total
+        else:
+            pos = _positions(mask, prior)
+            prior = prior + mask.sum(dim=0)
         pos_j = (pos * mask).sum(dim=1)
         keeps.append((pos_j < c) & live)
         slots.append(pos_j)
@@ -134,15 +174,16 @@ def _route(probs, u, *, k, capacity, normalize, random2):
     return tv, raw_tv, top_idx, keep, flat, token_of_slot, j_of_slot, keep2
 
 
-def _dispatch_from_probs(probs, u, *, k, capacity, normalize, random2):
+def _dispatch_from_probs(probs, u, *, k, capacity, normalize, random2,
+                         group=None):
     """``[N, E, C]`` (combine, dispatch) from ``[N, E]`` probs (GShard
     Algorithm 1): each kept choice's weight (combine) and 1 (dispatch)
-    at its slot from :func:`_route`."""
+    at its slot from :func:`_route` (over the batch ``group``)."""
     n, e = probs.shape
     slots = e * capacity
     tv, _, _, keep, flat, _, _, _ = _route(
         probs, u, k=k, capacity=capacity, normalize=normalize,
-        random2=random2)
+        random2=random2, group=group)
 
     def at_slots(vals):
         return probs.new_zeros(n, slots + 1).scatter(1, flat, vals)[
@@ -153,15 +194,31 @@ def _dispatch_from_probs(probs, u, *, k, capacity, normalize, random2):
 
 
 class BaseGate(nn.Module):
-    """Holds ``(num_expert, world_size)`` and the aux loss that the
-    trainer reads with ``get_loss`` (which clears it by default)."""
+    """Holds ``(num_expert, world_size)``, the batch group (module
+    docstring) and the aux loss that the trainer reads with ``get_loss``
+    (which clears it by default)."""
 
-    def __init__(self, num_expert: int, world_size: int):
+    def __init__(self, num_expert: int, world_size: int, group=None):
         super().__init__()
         self.world_size = world_size
         self.num_expert = num_expert
         self.tot_expert = num_expert * world_size
+        self.group = group
+        self._wrapper_group = None
         self.loss = None
+
+    def set_batch_group(self, group):
+        """The group of the data-parallel wrapper around the model;
+        routed over unless the gate has its own ``group``."""
+        self._wrapper_group = group
+
+    def batch_group(self):
+        """The ranks whose tokens this gate routes as one batch (module
+        docstring), or None."""
+        group = self.group if self.group is not None else \
+            self._wrapper_group
+        pg, n = cf._pg(group)
+        return group if pg is not None and n > 1 else None
 
     def set_loss(self, loss):
         self.loss = loss
@@ -183,9 +240,9 @@ class NaiveGate(BaseGate):
     draws (one made from ``seed`` when None)."""
 
     def __init__(self, d_model, num_expert, world_size, topk=2,
-                 capacity_factor=2.0, *, device=None, dtype=torch.float32,
-                 seed=0, generator=None):
-        super().__init__(num_expert, world_size)
+                 capacity_factor=2.0, *, group=None, device=None,
+                 dtype=torch.float32, seed=0, generator=None):
+        super().__init__(num_expert, world_size, group)
         dev = resolve_device(device)
         self.d_model = d_model
         self.topk = topk
@@ -217,13 +274,15 @@ class NaiveGate(BaseGate):
         probs = torch.softmax(torch.matmul(x, self.weight) + self.bias,
                               dim=-1)
         n = x.shape[0]
-        cap = _capacity(n, self.tot_expert, self.topk, self._train_factor())
+        group = self.batch_group()
+        cap = _capacity(n * cf._pg(group)[1], self.tot_expert, self.topk,
+                        self._train_factor())
         u = None
         if self._random2 and self.training and self.topk >= 2:
             u = torch.rand(n, generator=use_generator(self.generator),
                            device=x.device)
         if self._loss_kind is not None:
-            self.set_loss(self._balance_loss(probs))
+            self.set_loss(self._balance_loss(probs, group))
         return probs, cap, u
 
     def forward(self, x):
@@ -231,21 +290,21 @@ class NaiveGate(BaseGate):
         probs, cap, u = self.route(x)
         return _dispatch_from_probs(
             probs, u, k=self.topk, capacity=cap, normalize=self._normalize,
-            random2=self._random2 and self.training)
+            random2=self._random2 and self.training,
+            group=self.batch_group())
 
-    def _balance_loss(self, probs):
-        # E * sum_e mean_tokens(prob_e) * frac_tokens(top1 == e)
+    def _balance_loss(self, probs, group=None):
+        # E * sum_e mean_tokens(prob_e) * frac_tokens(top1 == e), the
+        # means over the batch group's tokens (module docstring)
         me = probs.mean(dim=0)
         ce = _one_hot(probs.argmax(dim=-1), self.tot_expert,
                       torch.float32).mean(dim=0)
+        if group is not None:
+            n = cf._pg(group)[1]
+            me = cf.psum(me, group) / n
+            with torch.no_grad():
+                ce = cf.psum(ce, group) / n
         return (me * ce).sum() * float(self.tot_expert)
-
-
-def _no_group(group):
-    if group is not None:
-        raise NotImplementedError(
-            "a gate's expert-parallel group waits for ROADMAP.md queue A "
-            "item 4 (b2), expert parallelism")
 
 
 class GShardGate(NaiveGate):
@@ -254,8 +313,8 @@ class GShardGate(NaiveGate):
 
     def __init__(self, d_model, num_expert, world_size, topk=2,
                  capacity=(1.2, 2.4), random_routing=True, group=None, **kw):
-        _no_group(group)
-        super().__init__(d_model, num_expert, world_size, topk=topk, **kw)
+        super().__init__(d_model, num_expert, world_size, topk=topk,
+                         group=group, **kw)
         self.capacity = capacity
         self._random2 = random_routing
         self._loss_kind = "gshard"
@@ -271,8 +330,8 @@ class SwitchGate(NaiveGate):
 
     def __init__(self, d_model, num_expert, world_size, topk=1,
                  switch_eps=0.1, capacity=(1.2, 2.4), group=None, **kw):
-        _no_group(group)
-        super().__init__(d_model, num_expert, world_size, topk=1, **kw)
+        super().__init__(d_model, num_expert, world_size, topk=1,
+                         group=group, **kw)
         self.switch_eps = switch_eps
         self.capacity = capacity
         self._normalize = False

@@ -24,9 +24,33 @@ Counterpart of ``paddle_tpu/incubate/distributed/models/moe/moe_layer.py``.
   ``jax.nn.gelu``, whose default is ``approximate=True``.
 
 The reference leaves all of this to XLA, so here it is plain PyTorch:
-the expert products are ``torch.bmm``. Expert parallelism (``moe_group``)
-waits for ``ROADMAP.md`` queue A item 4 (b2): a ``moe_group`` other
-than None raises.
+the expert products are ``torch.bmm``.
+
+Expert parallelism. The experts shard over a mesh axis (``_ep_mesh``):
+an explicit ``moe_group`` that carries one (``axis_group(mesh, "ep")``,
+or a group given ``.mesh`` and ``.axis_name``), else the hybrid group's
+``ep`` or ``mp`` axis of degree above 1 that divides ``num_expert`` (the
+reference's fallback; ``fleet.init``'s topology has no ``ep`` axis, so
+``mp``). With one, ``ExpertsFFN`` holds its banks ``Shard(0)`` on that
+axis (``DistParameter``\\ s, ``E / ep`` experts a rank) and
+``FusedMoELayer`` takes the einsum path, as the reference's does. The
+layout is the reference's: the tokens are replicated over the expert
+axis. So on an expert rank the gate routes all of the group's tokens,
+the dispatch is this rank's slice of the ``E`` experts, the experts run
+locally, and the partial combine is all-reduced over the expert group
+(``reduce_fwd``); ``x`` and the gate's probabilities enter through
+``reduce_bwd`` (identity forward, all-reduce backward), so the gate and
+everything upstream (attention too) end with the same gradient on every
+expert rank. No all-to-all: a token batch sharded over the expert axis
+itself would need one, and the layer raises, naming both placements.
+``ernie_moe_shard_plan`` shards the banks without a ``moe_group``: as in
+the reference the layer then keeps the index path, which computes this
+rank's experts' slots alone in the same way (``_bank_split``). At one
+rank an axis changes nothing: the same ops as without it.
+``MoELayer``'s experts are whole modules, replicated on every rank (the
+reference lays out only the activations), so under a ``moe_group`` every
+rank runs every expert: the reference's values and gradients, no
+split.
 """
 from __future__ import annotations
 
@@ -37,22 +61,74 @@ from torch import nn
 
 from .....core.generator import make_generator
 from .....core.place import resolve_device
+from .....distributed.auto_parallel.api import DistParameter, shard_tensor
+from .....distributed.auto_parallel.placement import Replicate, Shard
+from .....distributed.communication import functional as cf
+from .....distributed.communication.group import axis_group
+from .....distributed.fleet.topology import get_hybrid_communicate_group
 from .....distributed.fleet.utils import recompute
 from .....nn import functional as F
-from .gate import (BaseGate, GShardGate, NaiveGate, SwitchGate, _one_hot,
-                   _route, _xavier_uniform_)
+from .gate import (BaseGate, GShardGate, NaiveGate, SwitchGate,
+                   _dispatch_from_probs, _one_hot, _route, _xavier_uniform_)
 
 __all__ = ["MoELayer", "ExpertsFFN", "FusedMoELayer"]
 
 
 def _ep_mesh(moe_group, num_expert: int):
-    """The mesh axis the experts shard over: none until the port has
-    distributed training."""
-    if moe_group is not None:
-        raise NotImplementedError(
-            "moe_group (expert parallelism) waits for ROADMAP.md queue A "
-            "item 4 (b2), expert parallelism")
+    """(mesh, axis name) the experts shard over, or (None, None) (module
+    docstring). An explicit ``moe_group`` opts in at any degree; the
+    hybrid fallback only takes an axis whose degree divides
+    ``num_expert``."""
+    if moe_group is not None and getattr(moe_group, "mesh", None) is not None:
+        return moe_group.mesh, moe_group.axis_name
+    hcg = get_hybrid_communicate_group()
+    if hcg is None:
+        return None, None
+    for axis in ("ep", "mp"):
+        if axis in hcg.mesh.dim_names:
+            degree = hcg.mesh.get_dim_size(axis)
+            if degree > 1 and num_expert % degree == 0:
+                return hcg.mesh, axis
     return None, None
+
+
+def _shard_expert_dim(t, mesh, axis_name: str, dim: int = 0):
+    """``t`` laid out ``Shard(dim)`` on ``axis_name`` of ``mesh``,
+    replicated on its other axes (a parameter in place)."""
+    placements = [Replicate() for _ in range(mesh.ndim)]
+    placements[mesh.dim_names.index(axis_name)] = Shard(dim)
+    return shard_tensor(t, mesh, placements)
+
+
+def _bank_split(w0):
+    """(the expert group, this rank's first expert) of a bank sharded on
+    its expert dimension over an axis of more than one rank, else
+    (None, 0)."""
+    if isinstance(w0, DistParameter):
+        mesh = w0.process_mesh
+        for axis, pl in enumerate(w0.placements):
+            if pl.is_shard(0) and mesh.shape[axis] > 1:
+                group = axis_group(mesh, mesh.dim_names[axis])
+                return group, group.rank * w0.shape[0]
+    return None, 0
+
+
+def _check_tokens_replicated(gate, ep_group):
+    """The layer's layout needs the tokens replicated over the expert
+    group: a batch group (a data-parallel axis) that shares a rank other
+    than this one with it means the batch is sharded over the expert
+    axis, which would need the token all-to-all."""
+    batch = gate.batch_group()
+    if batch is None:
+        return
+    shared = set(batch.ranks) & set(ep_group.ranks)
+    if len(shared) > 1:
+        raise NotImplementedError(
+            f"MoE: tokens Shard(0) over the expert axis "
+            f"{ep_group.axis_name!r} (batch group {batch.ranks}) with the "
+            f"experts Shard(0) on it (group {ep_group.ranks}) needs the "
+            f"token all-to-all, which the port does not do; replicate "
+            f"the tokens over {ep_group.axis_name!r}")
 
 
 def _make_gate(gate, d_model: int, num_expert: int, **factory) -> BaseGate:
@@ -73,7 +149,9 @@ class MoELayer(nn.Module):
     dense dispatch. ``recompute_interval > 0`` recomputes each expert in
     the backward. The gate is made on the experts' device and dtype
     (``device`` where they have no parameters: None is the card) from
-    ``seed``, its draws from ``generator``."""
+    ``seed``, its draws from ``generator``. A ``moe_group`` is recorded
+    (``_mesh``, ``_ep_axis``); every rank runs every expert (module
+    docstring)."""
 
     def __init__(self, d_model: int, experts: Sequence[nn.Module],
                  gate=None, moe_group=None, mp_group=None,
@@ -110,13 +188,19 @@ class MoELayer(nn.Module):
 
 class ExpertsFFN(nn.Module):
     """The stacked expert bank (see the module docstring); ``forward``
-    maps ``[E, C, d]`` to ``[E, C, d]`` with two batched products."""
+    maps ``[E, C, d]`` to ``[E, C, d]`` with two batched products, on
+    this rank's experts of a bank sharded over an expert axis (the whole
+    bank is drawn from ``seed`` on every rank, then sharded)."""
 
     def __init__(self, num_expert: int, d_model: int, d_hidden: int,
                  activation: str = "gelu", moe_group=None, *, device=None,
                  dtype=torch.float32, seed=0):
         super().__init__()
-        _ep_mesh(moe_group, num_expert)
+        mesh, axis = _ep_mesh(moe_group, num_expert)
+        if mesh is not None and num_expert % mesh.get_dim_size(axis):
+            raise ValueError(
+                f"ExpertsFFN: num_expert = {num_expert} does not divide "
+                f"over the {mesh.get_dim_size(axis)} ranks of {axis!r}")
         dev = resolve_device(device)
         self.num_expert = num_expert
         self.activation = activation
@@ -132,6 +216,9 @@ class ExpertsFFN(nn.Module):
         with torch.no_grad():
             _xavier_uniform_(self.w0, gen)
             _xavier_uniform_(self.w1, gen)
+        if mesh is not None:
+            for p in (self.w0, self.b0, self.w1, self.b1):
+                _shard_expert_dim(p, mesh, axis)
 
     def forward(self, dispatched):
         h = torch.einsum("ecd,edh->ech", dispatched, self.w0) + self.b0
@@ -144,9 +231,11 @@ class ExpertsFFN(nn.Module):
 
 
 class FusedMoELayer(nn.Module):
-    """MoE with a stacked ``ExpertsFFN`` bank, on the index path (see the
-    module docstring). Extra arguments as ``NaiveGate``'s: ``device``,
-    ``dtype``, ``seed`` and ``generator`` (the gate's draws)."""
+    """MoE with a stacked ``ExpertsFFN`` bank: the index path, or the
+    einsum path where the experts shard over a ``moe_group``'s or the
+    hybrid group's axis (see the module docstring). Extra arguments as
+    ``NaiveGate``'s: ``device``, ``dtype``, ``seed`` and ``generator``
+    (the gate's draws)."""
 
     def __init__(self, d_model: int, d_hidden: int, num_expert: int,
                  gate=None, activation: str = "gelu", moe_group=None, *,
@@ -165,18 +254,36 @@ class FusedMoELayer(nn.Module):
 
     def forward(self, inp):
         x = inp.reshape(-1, self.d_model)
-        if isinstance(self.gate, NaiveGate):
-            probs, cap, u = self.gate.route(x)
-            ex = self.experts
+        gate, ex = self.gate, self.experts
+        group, lo = _bank_split(ex.w0)
+        if group is not None:
+            _check_tokens_replicated(gate, group)
+        if self._mesh is None and isinstance(gate, NaiveGate):
+            probs, cap, u = gate.route(x)
             out = moe_idx_ffn(
-                probs, x, ex.w0, ex.b0, ex.w1, ex.b1, u, k=self.gate.topk,
-                capacity=cap, activation=ex.activation,
-                normalize=self.gate._normalize,
-                random2=self.gate._random2 and self.gate.training)
-            return out.reshape(*inp.shape[:-1], self.d_model)
-        combine, dispatch = self.gate(x)
-        y = self.experts(torch.einsum("nec,nd->ecd", dispatch, x))
-        out = torch.einsum("nec,ecd->nd", combine, y)
+                cf.reduce_bwd(probs, group), cf.reduce_bwd(x, group),
+                ex.w0, ex.b0, ex.w1, ex.b1, u, k=gate.topk, capacity=cap,
+                activation=ex.activation, normalize=gate._normalize,
+                random2=gate._random2 and gate.training,
+                group=gate.batch_group(), first_expert=lo)
+        elif group is None:
+            combine, dispatch = gate(x)
+            y = ex(torch.einsum("nec,nd->ecd", dispatch, x))
+            out = torch.einsum("nec,ecd->nd", combine, y)
+        else:
+            # this rank's experts' slice of the dense dispatch; the
+            # partial combine summed over the expert group
+            probs, cap, u = gate.route(x)
+            combine, dispatch = _dispatch_from_probs(
+                cf.reduce_bwd(probs, group), u, k=gate.topk, capacity=cap,
+                normalize=gate._normalize,
+                random2=gate._random2 and gate.training,
+                group=gate.batch_group())
+            local = slice(lo, lo + ex.w0.shape[0])
+            y = ex(torch.einsum("nec,nd->ecd", dispatch[:, local],
+                                cf.reduce_bwd(x, group)))
+            out = torch.einsum("nec,ecd->nd", combine[:, local], y)
+        out = cf.reduce_fwd(out, group)
         return out.reshape(*inp.shape[:-1], self.d_model)
 
 
@@ -203,18 +310,38 @@ def _pad_row(t):
     return torch.cat([t, t.new_zeros(1, t.shape[1])])
 
 
+def _local_route(route, n, capacity, first, count):
+    """``_route``'s result restricted to the experts ``first`` ..
+    ``first + count - 1`` (a rank's share of a sharded bank): the other
+    experts' choices dropped from ``keep``, ``flat`` and the slot maps
+    over the rank's ``count * C`` slots (and the overflow bin)."""
+    tv, raw_tv, top_idx, keep, flat, token_of_slot, j_of_slot, keep2 = route
+    c = capacity
+    mine = keep & (top_idx >= first) & (top_idx < first + count)
+    span = slice(first * c, (first + count) * c)
+    return (tv, raw_tv, top_idx, mine,
+            torch.where(mine, flat - first * c, count * c),
+            torch.cat([token_of_slot[span], token_of_slot.new_full((1,), n)]),
+            torch.cat([j_of_slot[span], j_of_slot.new_zeros(1)]), keep2)
+
+
 def _moe_idx_ffn_fwd(probs, x, w0, b0, w1, b1, u, *, k, capacity,
-                     activation, normalize, random2, saved=None):
+                     activation, normalize, random2, group=None,
+                     first_expert=0, saved=None):
     """The routed expert FFN by row gathers: x [N, d] -> [N, d]. Each
     expert's buffer is gathered through slot -> token (empty slots read
     the zero row), the two products run on the stacked bank (bmm, then
     the bias, in x's dtype), and each token sums its kept choices'
-    outputs, weighted. ``saved`` (a dict) receives what the backward
-    needs."""
+    outputs, weighted. Routing is over the batch ``group``; a bank of
+    fewer experts than ``probs`` has is a rank's share starting at
+    ``first_expert``, and the sum then is this rank's part. ``saved``
+    (a dict) receives what the backward needs."""
     n, d = x.shape
-    e, c = probs.shape[-1], capacity
+    e, c = w0.shape[0], capacity
     route = _route(probs, u, k=k, capacity=capacity, normalize=normalize,
-                   random2=random2)
+                   random2=random2, group=group)
+    if e < probs.shape[-1]:
+        route = _local_route(route, n, c, first_expert, e)
     tv, _, _, keep, flat, token_of_slot, _, _ = route
     w = torch.where(keep, tv, 0.0)
     disp = _pad_row(x)[token_of_slot[:e * c]].reshape(e, c, d)
@@ -229,7 +356,8 @@ def _moe_idx_ffn_fwd(probs, x, w0, b0, w1, b1, u, *, k, capacity,
 
 
 def _moe_idx_ffn_bwd(g, probs, w0, w1, b0, b1, st, *, k, capacity,
-                     activation, normalize, random2):
+                     activation, normalize, random2, group=None,
+                     first_expert=0):
     """The reference's manual backward (``_moe_idx_ffn_vjp``): every
     dispatch and combine adjoint is a gather through the slot maps, the
     expert adjoints are batched products, and no gradient flows through
@@ -237,7 +365,7 @@ def _moe_idx_ffn_bwd(g, probs, w0, w1, b0, b1, st, *, k, capacity,
     tv, raw_tv, top_idx, keep, flat, token_of_slot, j_of_slot, keep2 = \
         st["route"]
     n, d = g.shape
-    e, c = probs.shape[-1], capacity
+    e, c = w0.shape[0], capacity
     f32 = torch.float32
     disp, h1, a, yf = st["disp"], st["h1"], st["a"], st["yf"]
     w_comb = torch.where(keep, tv, 0.0)
@@ -277,7 +405,8 @@ def _moe_idx_ffn_bwd(g, probs, w0, w1, b0, b1, st, *, k, capacity,
         draw = torch.cat([draw[:, :1],
                           torch.where(keep2, draw[:, 1], 0.0)[:, None],
                           draw[:, 2:]], dim=1)
-    dprobs = (_one_hot(top_idx, e, f32) * draw[..., None]).sum(dim=1)
+    dprobs = (_one_hot(top_idx, probs.shape[-1], f32)
+              * draw[..., None]).sum(dim=1)
     return (dprobs.to(probs.dtype), dx.to(g.dtype), dw0, db0, dw1, db1)
 
 
@@ -302,11 +431,14 @@ class _MoeIdxFFN(torch.autograd.Function):
 
 
 def moe_idx_ffn(probs, x, w0, b0, w1, b1, u=None, *, k, capacity,
-                activation, normalize, random2):
+                activation, normalize, random2, group=None, first_expert=0):
     """The index path of ``FusedMoELayer``: probs [N, E] and x [N, d] to
     [N, d], differentiable in probs, x and the bank through the manual
     backward. ``u`` [N] is random routing's uniform draw (with
-    ``random2``)."""
+    ``random2``); ``group`` the batch group routed over; a bank of fewer
+    than E experts is a rank's share from ``first_expert`` (its part of
+    the output, and of the gradients of probs and x)."""
     statics = dict(k=k, capacity=capacity, activation=activation,
-                   normalize=normalize, random2=random2)
+                   normalize=normalize, random2=random2, group=group,
+                   first_expert=first_expert)
     return _MoeIdxFFN.apply(probs, x, w0, b0, w1, b1, u, statics)

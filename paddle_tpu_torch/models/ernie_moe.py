@@ -17,8 +17,11 @@ backward, as Llama's do; routing and the expert products are plain
 PyTorch, as the reference leaves them to XLA. Every routing draw (GShard's
 random second expert) comes from the model's one explicit generator,
 ``routing_generator``. Under ``recompute`` the MoE layers run without
-the checkpoint, as in the reference. ``ernie_moe_shard_plan`` and a
-``moe_group`` wait for ROADMAP queue A item 4 (b2), expert parallelism.
+the checkpoint, as in the reference. A ``moe_group`` (or the hybrid
+group's ``mp`` axis after ``fleet.init``) shards the expert banks and
+puts the MoE layers on the einsum path; ``ernie_moe_shard_plan`` lays
+out the reference's mp x ep plan and leaves them on the index path
+(``incubate/distributed/models/moe/moe_layer.py``).
 """
 from __future__ import annotations
 
@@ -30,7 +33,15 @@ from torch import nn
 
 from ..core.generator import make_generator
 from ..core.place import resolve_device
+from ..distributed.auto_parallel.api import DistParameter, _shard_param_
+from ..distributed.auto_parallel.placement import Replicate
+from ..distributed.communication.group import axis_group
+from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
+                                           RowParallelLinear,
+                                           VocabParallelEmbedding,
+                                           check_divides, lm_cross_entropy)
 from ..distributed.fleet.utils import recompute
+from ..incubate.distributed.models.moe.moe_layer import _shard_expert_dim
 from ..incubate.distributed.models.moe import FusedMoELayer
 from ..incubate.distributed.models.moe.gate import _xavier_uniform_
 from ..nn import functional as F
@@ -188,9 +199,8 @@ class ErnieMoeForCausalLM(nn.Module):
         hidden_states = self.model(input_ids, position_ids, attention_mask)
         logits = self.lm_head(hidden_states)
         if labels is not None:
-            loss = F.cross_entropy(
-                logits.reshape(-1, self.config.vocab_size),
-                labels.reshape(-1), ignore_index=-100)
+            loss = lm_cross_entropy(logits, labels,
+                                    getattr(self.lm_head, "mp_group", None))
             aux = self.moe_aux_loss()
             if aux is not None:
                 loss = loss + self.config.aux_loss_weight * aux
@@ -227,8 +237,66 @@ class ErnieMoeForCausalLM(nn.Module):
 
 def ernie_moe_shard_plan(model: ErnieMoeForCausalLM, mesh, mp_axis="mp",
                          ep_axis="ep"):
-    """The reference's mp x ep layout; its all-to-all expert dispatch
-    waits for ROADMAP queue A item 4 (b2), expert parallelism."""
-    raise NotImplementedError(
-        "ernie_moe_shard_plan waits for ROADMAP.md queue A item 4 (b2), "
-        "expert parallelism")
+    """The reference's mp x ep layout (``paddle_tpu/models/ernie_moe.py``
+    ``ernie_moe_shard_plan``) in torch's ``[out, in]`` layout, each
+    parameter sharded in place (``DistParameter``):
+
+    - over ``mp_axis`` (where the mesh has it) Megatron tensor
+      parallelism as ``llama_shard_plan``'s: the vocabulary of the
+      embedding and the lm head (with the vocab-parallel loss), q/k/v and
+      the dense MLP's gate and up projections column parallel, o_proj and
+      down_proj row parallel;
+    - the expert banks ``w0``, ``b0``, ``w1``, ``b1`` ``Shard(0)`` (the
+      expert dimension) over ``ep_axis`` where the mesh has it;
+    - everything else (the gates, the norms) replicated.
+
+    ``mp_axis`` may be ``ep_axis`` (the reference test's layout). As in
+    the reference the plan does not touch the layers' ``moe_group``, so
+    the MoE layers keep the index path, each rank routing all of its
+    expert group's tokens to its own experts. A width the mp degree does
+    not divide raises ``ValueError`` naming both numbers, as
+    ``llama_shard_plan``'s; so does an expert count the ep degree does
+    not divide. The data-parallel axis is left to
+    ``DataParallel(mesh=)``."""
+    cfg = model.config
+    mp = mesh.get_dim_size(mp_axis) if mp_axis in mesh.dim_names else 1
+    if ep_axis in mesh.dim_names:
+        check_divides("ernie_moe_shard_plan",
+                      {"num_experts": cfg.num_experts},
+                      mesh.get_dim_size(ep_axis))
+    check_divides("ernie_moe_shard_plan", {
+        "vocab_size": cfg.vocab_size,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads,
+        "intermediate_size": cfg.intermediate_size}, mp)
+    ernie = model.model
+    if mp_axis in mesh.dim_names:
+        group = axis_group(mesh, mp_axis)
+        ernie.embed_tokens = VocabParallelEmbedding.from_embedding(
+            ernie.embed_tokens, group)
+        model.lm_head = ColumnParallelLinear.from_linear(model.lm_head,
+                                                         group)
+        for layer in ernie.layers:
+            attn = layer.self_attn
+            for name in ("q_proj", "k_proj", "v_proj"):
+                setattr(attn, name, ColumnParallelLinear.from_linear(
+                    getattr(attn, name), group))
+            attn.o_proj = RowParallelLinear.from_linear(attn.o_proj, group)
+            if not layer.is_moe:
+                mlp = layer.mlp
+                for name in ("gate_proj", "up_proj"):
+                    setattr(mlp, name, ColumnParallelLinear.from_linear(
+                        getattr(mlp, name), group))
+                mlp.down_proj = RowParallelLinear.from_linear(mlp.down_proj,
+                                                              group)
+    if ep_axis in mesh.dim_names:
+        for layer in ernie.layers:
+            if layer.is_moe:
+                ex = layer.mlp.experts
+                for p in (ex.w0, ex.b0, ex.w1, ex.b1):
+                    _shard_expert_dim(p, mesh, ep_axis)
+    replicated = [Replicate()] * mesh.ndim
+    for p in model.parameters():
+        if not isinstance(p, DistParameter):
+            _shard_param_(p, mesh, replicated)
+    return model

@@ -174,8 +174,16 @@ def _moe_views(mlp):
     """An MoE layer's decode views: the gate's raw ``[d, E]`` weight and
     bias, the expert bank, and the routing statics (top-k, the gate's
     capacity factor in its current mode, the activation,
-    normalization)."""
+    normalization). A bank sharded over more than one rank (expert
+    parallelism) raises: decoding routes over the whole bank."""
+    from ..incubate.distributed.models.moe.moe_layer import _bank_split
+
     gate, ex = mlp.gate, mlp.experts
+    if _bank_split(ex.w0)[0] is not None:
+        raise NotImplementedError(
+            "generate: the MoE expert banks are sharded over ranks "
+            "(ernie_moe_shard_plan / moe_group at ep > 1); decoding needs "
+            "every expert on the rank")
     return dict(
         gw=gate.weight.detach(), gb=gate.bias.detach(),
         w0=ex.w0.detach(), b0=ex.b0.detach(),

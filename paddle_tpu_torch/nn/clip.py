@@ -107,27 +107,24 @@ def sharded_global_norm_fp32(params, grads):
     gradient of a ``distributed.DistParameter`` sharded over mesh
     dimensions of more than one rank is this rank's part, so the sum of
     squares of such gradients is all-reduced over those dimensions, and
-    a replicated one is counted once. With no such gradient (one rank a
-    mesh dimension) it is ``global_norm_fp32(grads)``, the same ops."""
-    from ..distributed.auto_parallel.api import DistParameter
+    a replicated one is counted once; so is a ZeRO row view's over its
+    axis (``auto_parallel.api._norm_groups``). With no such gradient
+    (one rank a mesh dimension) it is ``global_norm_fp32(grads)``, the
+    same ops."""
+    from ..distributed.auto_parallel.api import _norm_groups
 
     groups: dict = {}
     for p, g in zip(params, grads):
-        dims = ()
-        if isinstance(p, DistParameter):
-            dm = p.device_mesh
-            dims = tuple(m for m, pl in enumerate(p.placements)
-                         if not pl.is_replicated() and dm.size(m) > 1)
-        key = (id(p.device_mesh), dims) if dims else None
-        groups.setdefault(key, (p, dims, []))[2].append(g)
+        pgs = _norm_groups(p)
+        key = tuple(id(pg) for pg in pgs) or None
+        groups.setdefault(key, (pgs, []))[1].append(g)
     if list(groups) == [None]:
         return global_norm_fp32(grads)
     total = None
-    for p, dims, gs in groups.values():
+    for pgs, gs in groups.values():
         sq = global_norm_fp32(gs).square()
-        for m in dims:
-            torch.distributed.all_reduce(sq,
-                                         group=p.device_mesh.get_group(m))
+        for pg in pgs:
+            torch.distributed.all_reduce(sq, group=pg)
         total = sq if total is None else total + sq
     return total.sqrt()
 

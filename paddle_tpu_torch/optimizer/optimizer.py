@@ -28,12 +28,15 @@ read-only, so a torch parameter cannot carry a name the way a reference
 reference's ``p.name or f"param_{i}"``). ``state_dict`` keys and AdamW's
 ``apply_decay_param_fun`` see that one name.
 
-Sharded parameters. A ``distributed.DistParameter`` (tensor parallel) is
-this rank's shard, so its update and its states are the shard's. After
-``distributed.shard_optimizer`` at stage 1 or 2 (``_row_shards``) a
-parameter sharded over the data-parallel axis is updated in this rank's
-rows only, with states of those rows, and the rows are all-gathered
-after the step.
+Sharded parameters. A ``distributed.DistParameter`` (tensor parallel, or
+ZeRO-3) is this rank's shard, so its update and its states are the
+shard's. After ``distributed.shard_optimizer`` at stage 1 or 2
+(``_row_shards``) a parameter sharded over the data-parallel axis is
+updated in this rank's rows only, with states of those rows, and the
+rows are all-gathered after the step (``restore_param_layouts``); at
+stages 2 and 3 the step first averages the gradients over that axis
+(``_RowShards.reduce``: a reduce-scatter for the rows), before the
+clip.
 
 Groups. As in the reference, a group's keys other than ``params`` are
 stored in ``_param_groups`` and never read: they change nothing.
@@ -189,11 +192,13 @@ class Optimizer:
     def step(self):
         params_grads = [(p, p.grad) for p in self._parameter_list
                         if p.requires_grad]
+        rows = getattr(self, "_row_shards", None)
+        if rows is not None and rows.stage > 1:
+            params_grads = rows.reduce(params_grads)
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         params_grads = [(p, g) for p, g in params_grads if g is not None]
-        rows = getattr(self, "_row_shards", None)
-        if rows is not None:
+        if rows is not None and rows.stage == 1:
             params_grads = rows.slice(params_grads)
         if params_grads:
             lr = self._lr_now()
@@ -205,7 +210,9 @@ class Optimizer:
             self._update(params, self._regularized(params_grads), lrs)
         self._step_count += 1
         if rows is not None:
-            rows.gather()
+            from ..distributed.auto_parallel.api import restore_param_layouts
+
+            restore_param_layouts(self)
 
     minimize_step = step
 

@@ -338,7 +338,7 @@ def dist_model_and_engine(rank, inp, out):
 
 def fleet_model_and_optimizer(rank, inp, out):
     """``fleet.distributed_model`` / ``distributed_optimizer`` at mp 2,
-    and the ZeRO refusal at a sharding degree of 2."""
+    and ``distributed_optimizer`` at a sharding degree of 2."""
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2}
     fleet.init(is_collective=True, strategy=strategy)
@@ -351,10 +351,10 @@ def fleet_model_and_optimizer(rank, inp, out):
     strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
                                "sharding_degree": 2}
     fleet.init(is_collective=True, strategy=strategy)
-    try:
-        fleet.distributed_optimizer(opt)
-    except NotImplementedError as e:
-        out["fleet_sharding"] = np.array(str(e))
+    sharded = fleet.distributed_optimizer(opt)
+    out["fleet_sharding"] = np.array(
+        [type(sharded).__name__,
+         str(sharded._inner_opt is opt and opt._row_shards.stage)])
     fleet.set_hybrid_communicate_group(None)
 
 

@@ -20,8 +20,9 @@ numpy batches.
   exception types and messages; sampled streams within the port (one
   seed twice, ``top_k=1`` = greedy).
 - The weight bridge (the expert banks and the gate's ``[d, E]`` weight
-  copied as they are) and ``ernie_moe_shard_plan`` / ``moe_group``
-  raising until the distributed slice.
+  copied as they are), and a ``moe_group`` without a mesh keeping the
+  index path (``ernie_moe_shard_plan`` and the meshes of two ranks are
+  ``test_torch_expert_parallel.py``'s).
 
 fp32 throughout. Tolerances: logits 1e-5 of their max |value|; losses
 2e-5 absolute; step-1 gradients 1e-4 of each gradient's max |g|; weights
@@ -318,8 +319,21 @@ def test_state_round_trip_and_shard_plan():
     np.testing.assert_array_equal(moe.gate.weight.detach().numpy(),
                                   state["model.layers.1.mlp.gate.weight"])
     assert tuple(moe.experts.b0.shape) == (4, 1, 256)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ernie_moe_shard_plan(tm, None)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ErnieMoeForCausalLM(ErnieMoeConfig.tiny(), moe_group=object(),
-                            device="cpu")
+    # a moe_group without a mesh axis and no hybrid group keeps the index
+    # path in both packages: the same logits as the reference built with
+    # it (the plan and the meshes of two ranks are
+    # test_torch_expert_parallel.py's)
+    paddle.seed(2)
+    jg = JMoe(JConfig.tiny(**cfg), moe_group=object())
+    tg = ErnieMoeForCausalLM(ErnieMoeConfig.tiny(**cfg), moe_group=object(),
+                             device="cpu")
+    load_paddle_tpu_state(tg, _state(jg))
+    _no_random_routing(jg, tg)
+    assert tg.model.layers[1].mlp._mesh is None
+    assert callable(ernie_moe_shard_plan)
+    ids, _ = _batch()
+    want = jg(paddle.to_tensor(ids)).numpy()
+    with torch.no_grad():
+        got = tg(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=REL * np.abs(want).max())

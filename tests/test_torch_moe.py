@@ -14,8 +14,10 @@ reference's (paddle_tpu/incubate/distributed/models/moe) on the CPU.
   tight (dropping) capacities, normalized or not, random routing, relu,
   gelu (tanh form) and swiglu experts; the manual backward against
   torch autograd of the port's own forward; every real slot owned once.
-- ``MoELayer`` over a list of experts, ``fused_ec_moe``, and ``moe_group``
-  raising until the distributed slice.
+- ``MoELayer`` over a list of experts, ``fused_ec_moe``, and a
+  ``moe_group`` / gate ``group`` without a mesh (the layers keep their
+  paths, as the reference's do; the meshes of two ranks are
+  ``test_torch_expert_parallel.py``'s).
 
 fp32 throughout. Tolerances: outputs 1e-5 absolute (the products sum in
 another order), gradients 2e-4 relative + 2e-5 absolute (the reference's
@@ -380,12 +382,68 @@ def test_fused_ec_moe_matches_reference():
         fused_ec_moe(*(_t(a) for a in arrs), act_type="silu")
 
 
+class _Group:
+    """A group of one rank without a mesh (``moe_group`` / a gate's
+    ``group`` outside a mesh, as the reference accepts them)."""
+
+    ranks, nranks, mesh, process_group = [0], 1, None, None
+
+
 def test_expert_parallel_waits_for_the_distributed_slice():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        FusedMoELayer(D, 32, 4, moe_group=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        MoELayer(D, [_Expert()], moe_group=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        GShardGate(D, 4, 1, group=object(), **CPU)
+    """A ``moe_group`` or gate ``group`` without a mesh axis and no hybrid
+    group (one process, no process group): as in the reference the
+    layers keep their paths (``FusedMoELayer`` the index path) and the
+    gate routes this rank's tokens; each output and gradient equals the
+    reference layer's built with the same argument. The meshes of two
+    ranks are tests/test_torch_expert_parallel.py's."""
+    g = _Group()
+    paddle.seed(3)
+    jf = JFused(D, 32, 4, gate={"type": "gshard", "random_routing": False},
+                moe_group=g)
+    tf = FusedMoELayer(D, 32, 4, gate={"type": "gshard",
+                                       "random_routing": False},
+                       moe_group=g, **CPU)
+    load_paddle_tpu_state(tf, _state(jf))
+    assert jf._mesh is None and tf._mesh is None
+    assert tf.gate.batch_group() is None
+    paddle.seed(4)
+    jl = JMoE(D, [_JExpert() for _ in range(4)],
+              gate={"type": "gshard", "random_routing": False}, moe_group=g)
+    tl = MoELayer(D, [_Expert() for _ in range(4)],
+                  gate={"type": "gshard", "random_routing": False},
+                  moe_group=g)
+    load_paddle_tpu_state(tl, _state(jl))
+    jg, tg = JGShard(D, 4, 1, random_routing=False, group=g), GShardGate(
+        D, 4, 1, random_routing=False, group=g, **CPU)
+    load_paddle_tpu_state(tg, _state(jg))
+    x = np.random.default_rng(5).standard_normal((2, 8, D)).astype("float32")
+    linear = {n for n, m in tl.named_modules()
+              if isinstance(m, torch.nn.Linear)}
+    for jm, tm in ((jf, tf), (jl, tl)):
+        jx = paddle.to_tensor(x)
+        jx.stop_gradient = False
+        jy = jm(jx)
+        jy.mean().backward()
+        tx = _t(x).requires_grad_(True)
+        ty = tm(tx)
+        ty.mean().backward()
+        np.testing.assert_allclose(ty.detach().numpy(), jy.numpy(), rtol=0,
+                                   atol=OUT_TOL)
+        np.testing.assert_allclose(tx.grad.numpy(), jx.grad.numpy(),
+                                   rtol=G_RTOL, atol=G_ATOL)
+        jp = dict(jm.named_parameters())
+        for name, p in tm.named_parameters():
+            grad = p.grad.numpy()
+            if name.rsplit(".", 1)[0] in linear and grad.ndim == 2:
+                grad = grad.T
+            np.testing.assert_allclose(grad, jp[name].grad.numpy(),
+                                       rtol=G_RTOL, atol=G_ATOL,
+                                       err_msg=name)
+    jc, jd = jg(paddle.to_tensor(x.reshape(16, D)))
+    tc, td = tg(_t(x.reshape(16, D)))
+    np.testing.assert_allclose(tc.detach().numpy(), jc.numpy(), rtol=0,
+                               atol=OUT_TOL)
+    np.testing.assert_array_equal(td.numpy(), jd.numpy())
+    assert abs(tg.get_loss().item() - float(jg.get_loss())) <= OUT_TOL
     with pytest.raises(TypeError, match="gate spec"):
         FusedMoELayer(D, 32, 4, gate=3, **CPU)

@@ -90,7 +90,11 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "distributed.fleet.mp_layers",
                 "distributed.fleet.sequence_parallel",
                 "distributed.fleet.topology",
-                "distributed.communication.functional"):
+                "distributed.communication.functional",
+                "distributed.sharding",
+                "distributed.fleet.meta_parallel.sharding",
+                "distributed.fleet.meta_optimizers.dygraph_optimizer",
+                "framework.io_"):
         assert f"paddle_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
 
@@ -317,12 +321,10 @@ def test_chip_smoke_fails_without_the_package_or_a_card(tmp_path):
 
 
 #: the reference's ``paddle.distributed`` names that wait for later parts
-#: of ROADMAP queue A item 4 (sharding (c), checkpoints, elastic
-#: training, the parameter server, RPC and the fleet executor (f)) and
-#: for item 7 (``passes`` rewrite static programs)
+#: of ROADMAP queue A item 4 (checkpoints, elastic training, the
+#: parameter server, RPC and the fleet executor (f)) and for item 7
+#: (``passes`` rewrite static programs)
 DISTRIBUTED_LATER = {
-    "4c": ["group_sharded_parallel", "save_group_sharded_model",
-           "sharding"],
     "4f": ["checkpoint", "elastic", "elastic_train", "fleet_executor",
            "load_state_dict", "ps", "rpc", "save_state_dict"],
     "7": ["passes"],

@@ -29,7 +29,7 @@ worker runs:
   batches runs its three steps); ``shard_layer`` with row- and
   column-sharded weights against the dense MLP;
 - ``fleet.distributed_model`` / ``distributed_optimizer`` at mp 2, and
-  the ZeRO refusal at a sharding degree of 2;
+  the ``HybridParallelOptimizer`` at a sharding degree of 2;
 - tiny Llama, GPT and BERT (dropout 0) under their shard plans on
   dp 1 x mp 2, three AdamW steps, the last with a
   ``ClipGradByGlobalNorm`` that bites, against the reference's plans on
@@ -588,11 +588,14 @@ def test_shard_layer_computes_on_dtensors(two_ranks):
 def test_fleet_distributed_model_and_optimizer(two_ranks):
     """At dp 1 x mp 2 ``distributed_model`` replicates every parameter
     (``DistParameter``s) and returns the model, ``distributed_optimizer``
-    the optimizer; at a sharding degree of 2 it raises, naming (c)."""
+    the optimizer; at a sharding degree of 2 it returns the
+    ``HybridParallelOptimizer`` over the optimizer, sharded in place at
+    ZeRO stage 2 (its training is test_torch_sharding.py's)."""
     for g in two_ranks[3]:
         assert g["fleet_model"].tolist() == ["MLP", "['DistParameter']"]
         assert bool(g["fleet_opt_same"])
-        assert r"item 4 (c)" in str(g["fleet_sharding"])
+        assert g["fleet_sharding"].tolist() == ["HybridParallelOptimizer",
+                                                "2"]
 
 
 #: params compared after three steps where each step's |g| is at least
