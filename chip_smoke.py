@@ -7547,13 +7547,14 @@ def gc_pauses():
         gc.callbacks.remove(timer)
 
 
-def dist_timed(torch, dev, call, nl, label, want=None):
+def dist_timed(torch, dev, call, nl, label, want=None, keep_profile=False):
     """One warm-up call, then ``TRAIN_STEPS`` timed steps: their launches
     (flash and RMSNorm forward and backward, each the step's count), the
     step's wall ms and the ms of it in the garbage collector, the busy
     share of one profiled step and the peak memory from the warm-up on
     (the caller leaves only this form's model on the card; a captured
-    form's warm-up is a replay)."""
+    form's warm-up is a replay); with ``keep_profile``, that profile too
+    (``profile_kernels``' pair, for a check of the kernels by name)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     call()
@@ -7571,14 +7572,18 @@ def dist_timed(torch, dev, call, nl, label, want=None):
               f"{label}: {key} launches {counts[key]} != {n} x "
               f"{TRAIN_STEPS} steps")
     peak = torch.cuda.max_memory_allocated(dev)
-    busy, _ = profile_kernels(torch, call, 1, step_ms, label)
+    profile = profile_kernels(torch, call, 1, step_ms, label)
+    busy = profile[0]
     log(f"  {label}: {step_ms:.2f} ms a step ({gc_ms[0] / TRAIN_STEPS:.2f} "
         f"in the garbage collector), peak memory {peak / 2**30:.2f} GiB "
         f"allocated")
-    return dict(step_ms=step_ms, gc_ms=gc_ms[0] / TRAIN_STEPS,
-                peak_bytes=peak,
-                busy_share=None if busy is None else busy / step_ms,
-                launches=counts)
+    out = dict(step_ms=step_ms, gc_ms=gc_ms[0] / TRAIN_STEPS,
+               peak_bytes=peak,
+               busy_share=None if busy is None else busy / step_ms,
+               launches=counts)
+    if keep_profile:
+        out["profile"] = profile
+    return out
 
 
 def dist_data_parallel(torch, dev, report, dist):
@@ -8099,11 +8104,13 @@ def gather_shards(torch, p, t):
 
 
 @contextlib.contextmanager
-def first_kernel_calls():
+def first_kernel_calls(split=()):
     """The shapes and dtypes of the positional tensor arguments (other
     arguments as given) and the keyword arguments of the first call of
     each flash and RMSNorm kernel in the block, by count key; the kernels
-    still launch and count."""
+    still launch and count. ``split`` names flash keyword arguments whose
+    every value keeps a first call of its own, under ``key/name=value``
+    (the ring's causal and full blocks)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
@@ -8116,7 +8123,9 @@ def first_kernel_calls():
 
     def recorder(key, fn):
         def call(*args, **kw):
-            calls.setdefault(key, (
+            name = "/".join([key] + [f"{n}={kw.get(n)}" for n in split]) \
+                if key.startswith("flash") else key
+            calls.setdefault(name, (
                 [(tuple(a.shape), a.dtype) if hasattr(a, "shape") else a
                  for a in args], dict(kw)))
             return fn(*args, **kw)
@@ -8160,14 +8169,14 @@ def kernels_at_calls(torch, dev, calls):
         return max(e for e, _ in errs), max(sh for _, sh in errs)
 
     out = {}
-    for key in ("flash", "flash_bwd"):
+    for key in sorted(k for k in calls if k.startswith("flash")):
         args, kw = calls[key]
         check(args[-2:] == [None, None],
               f"{key}: a seed or key bias in the call ({args[-2:]})")
         q, k, v = (rnd(a) for a in args[:3])
         fo, flse = fa._flash_fwd_kernel(q, k, v, None, None, **kw)
         tol = tolerance(q.dtype, 1e-4)
-        if key == "flash":
+        if key.split("/")[0] == "flash":
             ro, rlse = fa._flash_fwd_reference(q, k, v, None, None, **kw)
             e, sh = worst([(fo, ro)], [tol])
             sh = max(sh, max_err(flse, rlse) / 1e-4)
@@ -8992,6 +9001,838 @@ def phase_sharding(torch, dev, report):
     report["sharding"] = res
 
 
+# ---------------------------------------------------------------------------
+# context parallelism: ring and Ulysses at sep 1 on NCCL, the ring at sep 2
+# as two gloo ranks
+# ---------------------------------------------------------------------------
+#: the two-rank ring: bench_llama's width at 2 layers, one sequence of
+#: 8192 tokens (4096 a rank), 3 AdamW steps
+CP2_LAYERS, CP2_SEQ, CP2_STEPS = 2, 8192, 3
+#: the parameters held against the unsharded run (rows of the
+#: embedding and the head: the first 2048)
+CP2_PARAMS = {
+    "llama.embed_tokens.weight": (0, 2048),
+    "llama.layers.0.self_attn.q_proj.weight": None,
+    "llama.layers.0.self_attn.k_proj.weight": None,
+    "llama.layers.1.mlp.down_proj.weight": None,
+    "llama.layers.1.input_layernorm.weight": None,
+    "lm_head.weight": (0, 2048),
+}
+#: sep 2 against the unsharded model on the whole sequence, in bf16
+#: (|loss - unsharded loss| at every step; the step-1 gradients, max |g -
+#: unsharded g| over max |unsharded g|; the 3-step updates of the fp32
+#: masters, ||dw - unsharded dw|| over ||unsharded dw||): about 3x the
+#: largest gaps measured on the H100 (PERF.md PR 24: 7.33e-4, 0.0118,
+#: 0.0552)
+CP2_LOSS_TOL = 2.2e-3
+CP2_GRAD_TOL = 0.036
+CP2_UPDATE_TOL = 0.17
+
+
+def timed_by_name(torch, dev, step, nl, label, want, check_kernels):
+    """``dist_timed`` of ``step``, whose profile is also the first
+    recording of ``recorded``'s check of the kernels by name (a failed one
+    is retaken); the flash kernels' launches by name go under
+    ``by_name``."""
+    timed = dist_timed(torch, dev, step, nl, label, want=want,
+                       keep_profile=True)
+    first = [timed.pop("profile")]
+    out = recorded(
+        lambda: first.pop() if first else profile_kernels(
+            torch, step, 1, timed["step_ms"], label),
+        _per_kernel, lambda o: check_kernels(o[1], label), label)
+    timed["by_name"] = named_launches(
+        out[1], [n for pair in FLASH_KERNELS.values() for n in pair])
+    return timed
+
+
+def busy(timed):
+    """``dist_timed``'s busy share as words."""
+    share = timed["busy_share"]
+    return "busy not measured" if share is None else f"{share:.1%} busy"
+
+
+def cp_forms(torch, dev, report):
+    """``bench_llama``'s model (``TRAIN_CONFIG``: 10 layers, 16 heads of
+    128, bf16, 4 x 2048, ``AdamW(multi_precision=True)``) with
+    ``context_parallel="ring"`` and ``"ulysses"`` at sep 1 (NCCL, world
+    1) against the same model without: ``DIST_COMPARE_STEPS`` eager steps
+    from seed 0 equal bit for bit (the ring at one rank is one causal
+    flash call whose merge weights are exactly 0 and 1; Ulysses' two
+    all-to-alls are the identity), each form's flash and RMSNorm
+    launches the step's (10 + 10, 21 + 21), and the captured steps
+    (``jit.to_static``) equal bit for bit; the three eager steps timed in
+    turns (``interleaved``); then the ring's alone (``timed_by_name``:
+    step ms, busy share, peak memory, the tensor-core kernels by name;
+    Ulysses runs the flash entry points as the model without does)."""
+    import gc
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    nl = TRAIN_CONFIG["num_hidden_layers"]
+    ids, labels = train_batch(torch, LlamaConfig(**TRAIN_CONFIG), dev)
+    modes = (None, "ring", "ulysses")
+
+    def trainer(mode):
+        config = LlamaConfig(**TRAIN_CONFIG, dtype="bfloat16",
+                             context_parallel=mode)
+        model = LlamaForCausalLM(config, device=dev, seed=0)
+        opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                    multi_precision=True)
+        opt._ensure_accumulators()
+
+        def step(i=ids, lab=labels):
+            loss = _llama_loss(model, i, lab)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+        return model, opt, step
+
+    res = {}
+    for form in ("eager", "captured"):
+        base, kept = None, {}
+        for mode in modes:
+            model, opt, step = trainer(mode)
+            fn = jit.to_static(step, full_graph=True) \
+                if form == "captured" else step
+            reset_counts()
+            losses = [float(fn(ids, labels))
+                      for _ in range(DIST_COMPARE_STEPS)]
+            if form == "eager":
+                want = {k: v * DIST_COMPARE_STEPS
+                        for k, v in train_launches(nl).items()}
+                check(read_counts() == want,
+                      f"context_parallel={mode}: launches {read_counts()}, "
+                      f"want {want}")
+                if mode is not None:
+                    record_launches(report, f"context_parallel_{mode}_sep1",
+                                    read_counts())
+            if form == "captured":
+                entries = list(fn._cache.values())
+                check(len(entries) == 1 and entries[0].graphed.captured,
+                      f"context_parallel={mode}: to_static made "
+                      f"{len(entries)} entries, or did not capture")
+                del entries
+            else:
+                kept[str(mode)] = step
+            state = (_train_state(model, opt), losses)
+            if base is None:
+                base = state
+            else:
+                _same_state(torch, base[0], state[0], base[1], state[1],
+                            f"{form} context_parallel={mode} (sep 1) vs "
+                            f"without, {DIST_COMPARE_STEPS} steps from "
+                            f"seed 0")
+            del model, opt, step, fn, state
+        del base
+        if kept:
+            turns = interleaved(torch, kept)
+            res["in_turns_ms"] = {k: v["wall_ms"] for k, v in turns.items()}
+            log("  context parallelism at sep 1, eager steps in turns "
+                "(medians): " + ", ".join(
+                    f"{k} {v['wall_ms']:.2f} ms" for k, v in turns.items()))
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    label = "context_parallel=ring (sep 1) eager step"
+    model, opt, step = trainer("ring")
+    timed = timed_by_name(torch, dev, step, nl, label, train_launches(nl),
+                          lambda pk, lb: check_train_kernels(pk, nl, lb))
+    timed.pop("launches")
+    res["ring"] = timed
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  the ring at sep 1, eager step alone: {timed['step_ms']:.2f} ms "
+        f"({busy(timed)}, peak {timed['peak_bytes'] / 2**30:.2f} GiB)")
+    return res
+
+
+def cp_steps(torch, dev, hcg=None):
+    """``CP2_STEPS`` AdamW steps of ``cp_two_ranks``' model
+    (``bench_llama``'s width at ``CP2_LAYERS`` layers, bf16, seed 0) on
+    one sequence of ``CP2_SEQ`` tokens (ids from a seeded generator,
+    labels rolled by one): under ``hcg`` (sep 2) with
+    ``context_parallel="ring"`` through ``fleet.distributed_model``
+    (``SegmentParallel``: each rank its half of the sequence), else
+    unsharded. Returns ``tp_mp2_steps``' record for ``CP2_PARAMS``, the
+    peak memory, and the bytes ``_rotate`` moved a step (k, v and the
+    fp32 dk, dv through the permute)."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import context_parallel as cp
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    config = LlamaConfig(**{**TRAIN_CONFIG, "num_hidden_layers": CP2_LAYERS,
+                            "max_position_embeddings": CP2_SEQ},
+                         dtype="bfloat16",
+                         context_parallel=None if hcg is None else "ring")
+    g = torch.Generator(device=dev).manual_seed(9)
+    ids = torch.randint(0, config.vocab_size, (1, CP2_SEQ), generator=g,
+                        device=dev)
+    labels = torch.roll(ids, -1, dims=1)
+    model = LlamaForCausalLM(config, device=dev, seed=0)
+    wrapped = model if hcg is None else fleet.distributed_model(model)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                multi_precision=True)
+    named = dict(model.named_parameters())
+
+    def whole(name, t):
+        rows = CP2_PARAMS[name]
+        t = t if rows is None else t[rows[0]:rows[1]]
+        return t.detach().cpu().clone()
+
+    out = dict(init={n: whole(n, named[n]) for n in CP2_PARAMS}, losses=[],
+               wrapper=type(wrapped).__name__)
+    rotated = [0]
+    rotate = cp._rotate
+
+    def counted(x, group, n):
+        rotated[0] += x.numel() * x.element_size()
+        return rotate(x, group, n)
+
+    cp._rotate = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    ms = []
+    try:
+        with first_kernel_calls(split=("causal",)) as calls:
+            for i in range(CP2_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _ = wrapped(ids, labels=labels)
+                loss.backward()
+                if i == 0:
+                    out["grads"] = {n: whole(n, named[n].grad)
+                                    for n in CP2_PARAMS}
+                opt.step()
+                opt.clear_grad()
+                out["losses"].append(float(loss.detach()))
+                ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        cp._rotate = rotate
+    out.update(launches=read_counts(), calls=calls,
+               step_ms=sum(ms[1:]) / len(ms[1:]),
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               rotated_bytes=rotated[0] // CP2_STEPS,
+               final={n: whole(n, opt._master_weights[id(named[n])])
+                      for n in CP2_PARAMS})
+    del model, wrapped, opt, named
+    torch.cuda.empty_cache()
+    return out
+
+
+def cp_rotated_bytes(layers):
+    """The bytes the ring at sep 2 rotates a step on a rank, from the
+    shapes: a layer's forward rotates k and v once, its backward k, v and
+    the fp32 dk, dv once and dk, dv once more home."""
+    heads = TRAIN_CONFIG["num_attention_heads"]
+    d = TRAIN_CONFIG["hidden_size"] // heads
+    block = CP2_SEQ // 2 * heads * d                  # elements of k
+    bf16, fp32 = 2 * block, 4 * block
+    return layers * (2 * bf16 + (2 * bf16 + 2 * fp32) + 2 * fp32)
+
+
+def cp_two_ranks(torch, dev):
+    """The ring at sep 2 as two processes on the one card over gloo
+    (``--cp-rank``): ``cp_steps`` under ``fleet.init(sep_degree=2)`` in
+    each rank, against ``cp_steps`` unsharded on the whole sequence in
+    this process. Held: the values before the steps equal bit for bit and
+    both ranks hold the same bits after (the gradients are summed over
+    the sep group); every loss, the step-1 gradients and the updates
+    within ``CP2_*_TOL`` (``held_against``); each rank's launches a step
+    (flash forward and backward ``r + 1`` a layer on rank ``r``: the
+    causal ring skips future keys; RMSNorm as the step's); the bytes
+    rotated a step as the shapes say (``cp_rotated_bytes``); and each
+    flash block (causal and full) and RMSNorm kernel against its plain
+    version at the shapes of its first call in the rank
+    (``kernels_at_calls``)."""
+    ref = cp_steps(torch, dev)
+    got, wall = spawn_two_ranks(torch, "--cp-rank")
+    for part in ("init", "grads", "final"):
+        apart = [n for n in CP2_PARAMS
+                 if not torch.equal(got[0][part][n], got[1][part][n])]
+        check(not apart, f"sep 2: the ranks hold different {part} of {apart}")
+    out = held_against(torch, ref, got[0], CP2_PARAMS,
+                       (CP2_LOSS_TOL, CP2_GRAD_TOL, CP2_UPDATE_TOL),
+                       "ring at sep 2 on one card over gloo")
+    want_bytes = cp_rotated_bytes(CP2_LAYERS)
+    base = train_launches(CP2_LAYERS)
+    for r, g in enumerate(got):
+        lk = g["local_kernels"]
+        log(f"  sep 2 rank {r}: {g['step_ms']:.1f} ms a step (unsharded "
+            f"{ref['step_ms']:.1f}), peak {g['peak_bytes'] / 2**30:.2f} GiB "
+            f"(unsharded {ref['peak_bytes'] / 2**30:.2f}), "
+            f"{g['rotated_bytes'] / 2**20:.1f} MiB rotated a step, "
+            f"launches {g['launches']}; kernels vs plain at its first "
+            f"calls' shapes: " + ", ".join(
+                f"{k} {v['shape']} err {v['max_abs_err']:.3g} "
+                f"({v['share']:.3g} of the tolerance)" for k, v in lk.items()))
+        check(g["wrapper"] == "SegmentParallel", f"rank {r}: {g['wrapper']}")
+        want = {**base, "flash": (r + 1) * CP2_LAYERS,
+                "flash_bwd": (r + 1) * CP2_LAYERS}
+        check(g["launches"] == {k: v * CP2_STEPS for k, v in want.items()},
+              f"sep 2 rank {r} launches {g['launches']}, want {want} a step")
+        check(g["rotated_bytes"] == want_bytes,
+              f"sep 2 rank {r}: {g['rotated_bytes']} bytes rotated a step, "
+              f"want {want_bytes}")
+        blocks = {"flash/causal=True", "flash_bwd/causal=True"} | (
+            {"flash/causal=False", "flash_bwd/causal=False"} if r else set())
+        check(blocks <= set(lk) and all(lk[k]["shape"][2] == CP2_SEQ // 2
+                                        for k in blocks),
+              f"sep 2 rank {r}: flash blocks {sorted(lk)}")
+        bad = {k: v for k, v in lk.items() if not v["share"] <= 1.0}
+        check(not bad, f"sep 2 rank {r}: kernels vs plain {bad}")
+    log(f"  sep 2: Ulysses on gloo: {got[0]['all_to_all']}")
+    out.update(unsharded_losses=ref["losses"],
+               step_ms=[g["step_ms"] for g in got],
+               unsharded_step_ms=ref["step_ms"],
+               peak_bytes=[g["peak_bytes"] for g in got],
+               unsharded_peak_bytes=ref["peak_bytes"],
+               rotated_bytes=[g["rotated_bytes"] for g in got],
+               launches=[g["launches"] for g in got],
+               local_kernels=[g["local_kernels"] for g in got],
+               all_to_all=got[0]["all_to_all"], wall_s=wall)
+    return out
+
+
+def all_to_all_probe(torch, tdist, dev):
+    """Whether gloo carries ``all_to_all`` of CUDA tensors (Ulysses' two
+    exchanges): a plain sentence either way."""
+    ins = list(torch.arange(4.0, device=dev).chunk(2))
+    outs = [torch.empty(2, device=dev) for _ in range(2)]
+    try:
+        tdist.all_to_all(outs, ins)
+    except RuntimeError as exc:
+        return (f"gloo refused all_to_all on CUDA tensors "
+                f"({str(exc).splitlines()[0][:120]}), so Ulysses at sep 2 "
+                f"runs only in the CPU tests "
+                f"(tests/test_torch_context_parallel.py); on the card it "
+                f"runs at sep 1 on NCCL")
+    return ("gloo ran all_to_all on CUDA tensors; Ulysses at sep 2 is not "
+            "driven here: it runs in the CPU tests "
+            "(tests/test_torch_context_parallel.py), and at sep 1 on NCCL")
+
+
+def cp_rank_main(rank, out_dir):
+    """One rank of ``cp_two_ranks`` (``python chip_smoke.py --cp-rank R
+    DIR``): gloo on the card, ``fleet.init(sep_degree=2)``, ``cp_steps``,
+    ``kernels_at_calls`` and the all-to-all probe; writes
+    ``DIR/rank<R>.pt``."""
+    torch, tdist, dev = rank_setup(rank)
+    from paddle_tpu_torch.distributed import fleet
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "sep_degree": 2}
+    hcg = fleet.init(is_collective=True, strategy=strategy)
+    print(f"rank {rank}: fleet.init done", flush=True)
+    out = cp_steps(torch, dev, hcg)
+    print(f"rank {rank}: steps done", flush=True)
+    out["local_kernels"] = kernels_at_calls(torch, dev, out.pop("calls"))
+    out["all_to_all"] = all_to_all_probe(torch, tdist, dev)
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    print(f"rank {rank}: losses {out['losses']}, {out['step_ms']:.1f} ms a "
+          f"step", flush=True)
+    tdist.destroy_process_group()
+    return 0
+
+
+def phase_context_parallel(torch, dev, report):
+    """Context parallelism on the card (``fleet.context_parallel``,
+    ``SegmentParallel``, Llama's ``context_parallel``): (i) ring and
+    Ulysses at sep 1 on NCCL (``cp_forms``); (ii) the ring at sep 2 as
+    two gloo ranks (``cp_two_ranks``)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import fleet
+
+    import gc
+
+    gc.collect()           # an earlier phase's models left in cycles
+    torch.cuda.empty_cache()
+    log(f"  allocated on the card at the start: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    saved = _tp_env(1, 0)
+    obs.reset()
+    obs.enable()
+    res = {}
+    try:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "sep_degree": 1}
+        hcg = fleet.init(is_collective=True, strategy=strategy)
+        check(dist.get_backend() == "nccl", "fleet.init: backend not nccl")
+        check(hcg.get_sep_parallel_world_size() == 1, "sep degree")
+        res["sep1"] = cp_forms(torch, dev, report)
+        fleet.set_hybrid_communicate_group(None)
+    finally:
+        dist.destroy_process_group()
+        obs.disable()
+        obs.reset()
+        _restore_env(saved)
+    res["sep2"] = cp_two_ranks(torch, dev)
+    for r, counts in enumerate(res["sep2"]["launches"]):
+        record_launches(report, f"context_parallel_ring_sep2_rank{r}",
+                        counts)
+    report["context_parallel"] = res
+
+
+# ---------------------------------------------------------------------------
+# the pipeline: a PipelineLayer at pp 1 on NCCL, pp 2 as two gloo ranks
+# ---------------------------------------------------------------------------
+#: micro-batches a step (bench_llama's 4 x 2048 batch as 4 of 1 x 2048)
+PIPE_MICRO = 4
+#: q's [B, H, S, D] at a flash call of a micro-batch
+PIPE_FLASH_SHAPE = [TRAIN_BATCH // PIPE_MICRO,
+                    TRAIN_CONFIG["num_attention_heads"], TRAIN_SEQ,
+                    TRAIN_CONFIG["hidden_size"]
+                    // TRAIN_CONFIG["num_attention_heads"]]
+#: the two-rank pipeline: bench_llama's width at 4 decoder layers (2 a
+#: stage), 3 AdamW steps under each schedule
+PP2_LAYERS, PP2_STEPS = 4, 3
+PP2_SCHEDULES = ("1F1B", "FThenB")
+#: the parameters held against the unsharded run, by the pipeline's
+#: names (layer index first: 0 the embedding, 1-4 the decoder layers, 5
+#: the norm and head; rows of the embedding and the head: the first 2048)
+PP2_PARAMS = {
+    0: {"0.weight": (0, 2048), "1.self_attn.q_proj.weight": None,
+        "2.mlp.down_proj.weight": None},
+    1: {"3.self_attn.q_proj.weight": None,
+        "4.post_attention_layernorm.weight": None,
+        "5.lm_head.weight": (0, 2048)},
+}
+#: pp 2 and the pipeline at pp 1 against the unsharded model: the same
+#: kernels on the same micro-batches in the same order, the activations
+#: and gradients moved whole, so equal bit for bit (0: losses, gradients
+#: and updates)
+PP_LOSS_TOL = PP_GRAD_TOL = PP_UPDATE_TOL = 0.0
+
+
+def pipeline_llama(torch, dev, nl, num_stages=1):
+    """``bench_llama``'s model as a ``PipelineLayer`` over ``num_stages``
+    stages: the embedding, ``nl`` decoder layers as ``LayerDesc``s, then
+    the final norm and the head, whose fused lm-head cross-entropy is the
+    ``loss_fn``; the weights of ``LlamaForCausalLM`` at seed 0 (the layers
+    this rank holds). Returns (pipeline, plain model)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer)
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_linear_cross_entropy
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import (LlamaDecoderLayer,
+                                               LlamaRMSNorm)
+    from paddle_tpu_torch.nn.functional.common import Embedding
+
+    config = LlamaConfig(**{**TRAIN_CONFIG, "num_hidden_layers": nl},
+                         dtype="bfloat16")
+    factory = dict(device=dev, dtype=torch.bfloat16)
+    h, v = config.hidden_size, config.vocab_size
+
+    class Head(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.norm = LlamaRMSNorm(config, **factory)
+            self.lm_head = torch.nn.Linear(h, v, bias=False, **factory)
+
+        def forward(self, x):
+            return self.norm(x)
+
+    held = {}
+
+    def loss_fn(x, labels):
+        return fused_linear_cross_entropy(
+            x.reshape(-1, h), held["pipe"].run_function[-1].lm_head.weight,
+            labels.reshape(-1), ignore_index=-100)
+
+    pipe = PipelineLayer(
+        [LayerDesc(Embedding, v, h, **factory)]
+        + [LayerDesc(LlamaDecoderLayer, config, **factory)
+           for _ in range(nl)] + [LayerDesc(Head)],
+        num_stages=num_stages, loss_fn=loss_fn)
+    held["pipe"] = pipe
+    plain = LlamaForCausalLM(config, device=dev, seed=0)
+
+    def plain_name(name):
+        i, rest = name.split(".", 1)
+        i = int(i)
+        if i == 0:
+            return "llama.embed_tokens.weight"
+        if i == nl + 1:
+            return "lm_head.weight" if rest.startswith("lm_head") \
+                else "llama.norm.weight"
+        return f"llama.layers.{i - 1}.{rest}"
+
+    src = dict(plain.named_parameters())
+    with torch.no_grad():
+        for name, p in pipe.named_parameters():
+            p.copy_(src[plain_name(name)])
+    return pipe, plain
+
+
+def _pipe_strategy(schedule):
+    return type("Strategy", (), {"pipeline_configs": {
+        "accumulate_steps": PIPE_MICRO, "schedule_mode": schedule}})()
+
+
+def pipe_launches(nl, micro=PIPE_MICRO):
+    return {k: v * micro for k, v in train_launches(nl).items()}
+
+
+def pipeline_forms(torch, dev, report):
+    """``bench_llama``'s model as a ``PipelineLayer`` at pp 1 (NCCL,
+    world 1), ``accumulate_steps`` 4 (micro-batches of 1 x 2048): under
+    FThenB and 1F1B, ``DIST_COMPARE_STEPS`` ``train_batch`` steps against
+    the plain model's step of the same 4 micro-batches with the gradients
+    accumulated (losses and the whole state within ``PP_*_TOL``), each
+    form's launches the step's (flash 40 + 40) and each flash and
+    RMSNorm kernel against its plain version at the shapes of its first
+    call in the form (``kernels_at_calls``: flash at [1, 16, 2048, 128],
+    a micro-batch); the three forms' steps
+    timed in turns (``interleaved``, all three on the card: the eager
+    step is host-bound, so walls compare only in turns); then each form
+    alone: the peak memory above the training state of a forward and
+    backward (the activations: 1F1B at one stage keeps one micro-batch's,
+    FThenB four) and of a whole step; and FThenB's step through
+    ``timed_by_name`` (step ms, busy share, the kernels by name; 1F1B
+    launches the same kernels)."""
+    import gc
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineParallel
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.optimizer import AdamW
+
+    nl = TRAIN_CONFIG["num_hidden_layers"]
+    ids, labels = train_batch(torch, LlamaConfig(**TRAIN_CONFIG), dev)
+    forms = (None, "FThenB", "1F1B")
+
+    def trainer(schedule):
+        """(model, optimizer, the step, its forward and backward alone)."""
+        pipe, plain = pipeline_llama(torch, dev, nl)
+        model = plain if schedule is None else pipe
+        del pipe, plain
+        gc.collect()               # the unused pipeline's loss_fn cycle
+        opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                    multi_precision=True)
+        opt._ensure_accumulators()
+        if schedule is None:
+            def fb():
+                losses = []
+                for m in range(PIPE_MICRO):
+                    rows = slice(m, m + 1)
+                    loss = _llama_loss(model, ids[rows], labels[rows])
+                    (loss * (1.0 / PIPE_MICRO)).backward()
+                    losses.append(loss.detach())
+                # the mean as PipelineParallel reports it
+                return torch.stack(losses).sum() * (1.0 / PIPE_MICRO)
+        else:
+            pp = PipelineParallel(model, strategy=_pipe_strategy(schedule))
+
+            def fb():
+                return pp.forward_backward_pipeline([ids, labels])
+
+        def step():
+            loss = fb()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return model, opt, step, fb
+
+    res = {"vs_plain": {}}
+    trainers, base = {}, None
+    want = pipe_launches(nl)
+    for schedule in forms:
+        model, opt, step, fb = trainers[str(schedule)] = trainer(schedule)
+        reset_counts()
+        with first_kernel_calls() as calls:
+            losses = [float(step()) for _ in range(DIST_COMPARE_STEPS)]
+        counts = read_counts()
+        check(counts == {k: v * DIST_COMPARE_STEPS for k, v in want.items()},
+              f"pipeline {schedule}: launches {counts}, want {want} a step")
+        if schedule is not None:
+            record_launches(report, f"pipeline_{schedule.lower()}_pp1",
+                            counts)
+            lk = kernels_at_calls(torch, dev, calls)
+            log(f"  pipeline {schedule} at pp 1: kernels vs plain at their "
+                f"first calls' shapes: " + ", ".join(
+                    f"{k} {v['shape']} err {v['max_abs_err']:.3g} "
+                    f"({v['share']:.3g} of the tolerance)"
+                    for k, v in lk.items()))
+            check(all(lk[k]["shape"] == PIPE_FLASH_SHAPE
+                      for k in ("flash", "flash_bwd")),
+                  f"pipeline {schedule}: flash at {lk}")
+            bad = {k: v for k, v in lk.items() if not v["share"] <= 1.0}
+            check(not bad, f"pipeline {schedule}: kernels vs plain {bad}")
+            res.setdefault("local_kernels", {})[schedule] = lk
+        state = (_train_state(model, opt), losses)
+        if base is None:
+            base = state
+            continue
+        gap = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(base[0], state[0]))
+        apart = sum(int((a != b).sum()) for a, b in zip(base[0], state[0]))
+        loss_gap = max(abs(a - b) for a, b in zip(base[1], state[1]))
+        log(f"  PipelineLayer at pp 1 under {schedule} vs the plain model's "
+            f"accumulated step, {DIST_COMPARE_STEPS} steps: losses "
+            f"{[round(x, 5) for x in state[1]]} vs "
+            f"{[round(x, 5) for x in base[1]]} (apart {loss_gap:.3g}); "
+            f"{apart} state entries apart, at most {gap:.3g} (tol "
+            f"{PP_UPDATE_TOL})")
+        check(loss_gap <= PP_LOSS_TOL and gap <= PP_UPDATE_TOL,
+              f"pipeline {schedule} vs plain: losses {loss_gap}, state "
+              f"{gap}")
+        res["vs_plain"][schedule] = dict(loss_gap=loss_gap, state_gap=gap,
+                                         entries_apart=apart)
+        del state
+    del base
+    turns = interleaved(torch, {k: t[2] for k, t in trainers.items()})
+    res["in_turns_ms"] = {k: v["wall_ms"] for k, v in turns.items()}
+    log("  the pipeline at pp 1, steps in turns (medians): " + ", ".join(
+        f"{k} {v['wall_ms']:.2f} ms" for k, v in turns.items()))
+    del trainers, model, opt, step, fb
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["peak_above_state_bytes"] = {}
+    for schedule in forms:
+        model, opt, step, fb = trainer(schedule)
+        peaks = []
+        for call in (fb, step):          # forward and backward; a step
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            call()
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated(dev) - held)
+        res["peak_above_state_bytes"][str(schedule)] = peaks
+        if schedule == "FThenB":
+            label = f"pipeline {schedule} step"
+            timed = timed_by_name(
+                torch, dev, step, nl, label, want,
+                lambda pk, lb: check_flash_route(pk, {
+                    k: PIPE_MICRO * nl for k in ("fwd", "dq", "dkv")}, lb))
+            timed.pop("launches")
+            res[schedule] = timed
+        del model, opt, step, fb
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("  the pipeline at pp 1, peak above the training state (forward "
+        "and backward; a step): " + ", ".join(
+            f"{k} {a / 2**30:.2f} / {b / 2**30:.2f} GiB"
+            for k, (a, b) in res["peak_above_state_bytes"].items())
+        + f"; FThenB alone {res['FThenB']['step_ms']:.2f} ms a step "
+        f"({busy(res['FThenB'])})")
+    return res
+
+
+def pp2_steps(torch, dev, schedule, strategy=None):
+    """``PP2_STEPS`` steps of the ``PP2_LAYERS``-layer pipeline under
+    ``schedule``: over the hybrid group's two pipeline ranks after
+    ``fleet.init(strategy)`` (this rank's stage,
+    ``PP2_PARAMS[stage]``) or in one process (every stage, all of
+    ``PP2_PARAMS``): losses, the step-1 gradients and the fp32 masters
+    before and after, the mean ms of the steps after the first, the peak
+    memory, the activation and gradient bytes this rank sent a step, the
+    launches, and the shapes, dtypes and keyword arguments of each flash
+    and RMSNorm kernel's first call (``first_kernel_calls``)."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.optimizer import AdamW
+
+    num_stages = 1 if strategy is None else 2
+    pipe, plain = pipeline_llama(torch, dev, PP2_LAYERS, num_stages)
+    del plain
+    torch.cuda.empty_cache()
+    stage = pipe.stage
+    names = {**PP2_PARAMS[0], **PP2_PARAMS[1]} if stage is None \
+        else PP2_PARAMS[stage]
+    if strategy is None:
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+            PipelineParallel
+
+        pp = PipelineParallel(pipe, strategy=_pipe_strategy(schedule))
+    else:
+        strategy.pipeline_configs = _pipe_strategy(schedule).pipeline_configs
+        pp = fleet.distributed_model(pipe)
+    opt = AdamW(learning_rate=3e-4, parameters=pipe.parameters(),
+                multi_precision=True)
+    named = dict(pipe.named_parameters())
+    ids, labels = train_batch(torch, LlamaConfig(**TRAIN_CONFIG), dev)
+
+    def whole(name, t):
+        rows = names[name]
+        t = t if rows is None else t[rows[0]:rows[1]]
+        return t.detach().cpu().clone()
+
+    out = dict(init={n: whole(n, named[n]) for n in names}, losses=[],
+               wrapper=type(pp).__name__, stage=stage)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    ms = []
+    with first_kernel_calls() as calls:
+        for i in range(PP2_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = pp.forward_backward_pipeline([ids, labels])
+            if i == 0:
+                out["grads"] = {n: whole(n, named[n].grad) for n in names}
+            opt.step()
+            opt.clear_grad()
+            out["losses"].append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    sent = 0 if pp._exchange is None else pp._exchange.bytes_sent
+    out.update(launches=read_counts(), calls=calls,
+               step_ms=sum(ms[1:]) / len(ms[1:]),
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               sent_bytes=sent // PP2_STEPS,
+               final={n: whole(n, opt._master_weights[id(named[n])])
+                      for n in names})
+    del pipe, pp, opt, named
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp2_two_ranks(torch, dev):
+    """pp 2 as two processes on the one card over gloo (``--pp-rank``):
+    ``pp2_steps`` under each of ``PP2_SCHEDULES`` over
+    ``fleet.init(pp_degree=2)`` (``fleet.distributed_model`` wraps the
+    ``PipelineLayer`` in ``PipelineParallel``; each rank builds and runs
+    its stage: the embedding and layers 0-1, or layers 2-3 and the head),
+    against ``pp2_steps`` in one process. Held: every loss (on both
+    ranks), each rank's step-1 gradients and updates within ``PP_*_TOL``
+    (``held_against``); each rank's launches (flash and RMSNorm per
+    micro-batch and layer it holds, the final norm on the last stage);
+    the activation bytes a rank sends a step (each micro-batch's [1, 2048,
+    2048] bf16 activation down, or its gradient up); and each flash
+    and RMSNorm kernel against its plain version at the shapes of its
+    first call in the rank (``kernels_at_calls``: flash at [1, 16, 2048,
+    128], a micro-batch)."""
+    ref = {s: pp2_steps(torch, dev, s) for s in PP2_SCHEDULES}
+    for r in ref.values():
+        r.pop("calls")
+    got, wall = spawn_two_ranks(torch, "--pp-rank")
+    act = TRAIN_SEQ * TRAIN_CONFIG["hidden_size"] * 2
+    out = {"wall_s": wall}
+    for s in PP2_SCHEDULES:
+        res = {}
+        for r in range(2):
+            g = got[r][s]
+            names = PP2_PARAMS[r]
+            sub = {k: {n: ref[s][k][n] for n in names}
+                   for k in ("init", "grads", "final")}
+            sub["losses"] = ref[s]["losses"]
+            res[f"rank{r}"] = held_against(
+                torch, sub, g, names, (PP_LOSS_TOL, PP_GRAD_TOL,
+                                       PP_UPDATE_TOL),
+                f"pp 2 {s}, rank {r} on one card over gloo")
+            nl = PP2_LAYERS // 2
+            want = {k: 0 for k in train_launches(0)}
+            want.update(flash=nl, flash_bwd=nl, rms_norm=2 * nl + r,
+                        rms_norm_bwd=2 * nl + r)
+            want = {k: v * PIPE_MICRO * PP2_STEPS for k, v in want.items()}
+            check(g["launches"] == want,
+                  f"pp 2 {s} rank {r} launches {g['launches']}, want {want}")
+            check(g["wrapper"] == "PipelineParallel" and g["stage"] == r,
+                  f"pp 2 rank {r}: {g['wrapper']}, stage {g['stage']}")
+            check(g["sent_bytes"] == PIPE_MICRO * act,
+                  f"pp 2 {s} rank {r}: sent {g['sent_bytes']} bytes a step, "
+                  f"want {PIPE_MICRO * act}")
+            lk = g["local_kernels"]
+            check(set(lk) == {"flash", "flash_bwd", "rms_norm",
+                              "rms_norm_bwd"}
+                  and all(lk[k]["shape"] == PIPE_FLASH_SHAPE
+                          for k in ("flash", "flash_bwd")),
+                  f"pp 2 {s} rank {r}: kernels at {lk}")
+            bad = {k: v for k, v in lk.items() if not v["share"] <= 1.0}
+            check(not bad, f"pp 2 {s} rank {r}: kernels vs plain {bad}")
+            log(f"  pp 2 {s} rank {r}: {g['step_ms']:.1f} ms a step "
+                f"(one process: {ref[s]['step_ms']:.1f}), peak "
+                f"{g['peak_bytes'] / 2**30:.2f} GiB (one process: "
+                f"{ref[s]['peak_bytes'] / 2**30:.2f}), sent "
+                f"{g['sent_bytes'] / 2**20:.1f} MiB a step; kernels vs "
+                f"plain at its first calls' shapes: " + ", ".join(
+                    f"{k} {v['shape']} err {v['max_abs_err']:.3g} "
+                    f"({v['share']:.3g} of the tolerance)"
+                    for k, v in lk.items()))
+            res[f"rank{r}"].update(step_ms=g["step_ms"],
+                                   peak_bytes=g["peak_bytes"],
+                                   sent_bytes=g["sent_bytes"],
+                                   launches=g["launches"],
+                                   local_kernels=lk)
+        res.update(one_process_step_ms=ref[s]["step_ms"],
+                   one_process_peak_bytes=ref[s]["peak_bytes"])
+        out[s] = res
+    return out
+
+
+def pp_rank_main(rank, out_dir):
+    """One rank of ``pp2_two_ranks`` (``python chip_smoke.py --pp-rank R
+    DIR``): gloo on the card, ``fleet.init(pp_degree=2)``, ``pp2_steps``
+    under each schedule and ``kernels_at_calls`` at each one's first
+    calls; writes ``DIR/rank<R>.pt``."""
+    torch, tdist, dev = rank_setup(rank)
+    from paddle_tpu_torch.distributed import fleet
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "pp_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    print(f"rank {rank}: fleet.init done", flush=True)
+    out = {s: pp2_steps(torch, dev, s, strategy) for s in PP2_SCHEDULES}
+    print(f"rank {rank}: steps done", flush=True)
+    for o in out.values():
+        o["local_kernels"] = kernels_at_calls(torch, dev, o.pop("calls"))
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    print(f"rank {rank}: " + ", ".join(
+        f"{s} losses {o['losses']} {o['step_ms']:.1f} ms a step"
+        for s, o in out.items()), flush=True)
+    tdist.destroy_process_group()
+    return 0
+
+
+def phase_pipeline(torch, dev, report):
+    """The pipeline on the card (``fleet.meta_parallel``'s
+    ``PipelineLayer`` and ``PipelineParallel``): (i) at pp 1 on NCCL
+    (``pipeline_forms``); (ii) pp 2 as two gloo ranks
+    (``pp2_two_ranks``)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import fleet
+
+    import gc
+
+    gc.collect()           # an earlier phase's models left in cycles
+    torch.cuda.empty_cache()
+    log(f"  allocated on the card at the start: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    saved = _tp_env(1, 0)
+    obs.reset()
+    obs.enable()
+    res = {}
+    try:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "pp_degree": 1}
+        hcg = fleet.init(is_collective=True, strategy=strategy)
+        check(dist.get_backend() == "nccl", "fleet.init: backend not nccl")
+        check(hcg.get_pipe_parallel_world_size() == 1, "pp degree")
+        res["pp1"] = pipeline_forms(torch, dev, report)
+        fleet.set_hybrid_communicate_group(None)
+    finally:
+        dist.destroy_process_group()
+        obs.disable()
+        obs.reset()
+        _restore_env(saved)
+    res["pp2"] = pp2_two_ranks(torch, dev)
+    for s in PP2_SCHEDULES:
+        for r in range(2):
+            record_launches(report, f"pipeline_{s.lower()}_pp2_rank{r}",
+                            res["pp2"][s][f"rank{r}"]["launches"])
+    report["pipeline"] = res
+
+
 def main() -> int:
     try:
         import torch
@@ -9090,7 +9931,9 @@ def main() -> int:
                             ("distributed", phase_distributed),
                             ("tensor_parallel", phase_tensor_parallel),
                             ("expert_parallel", phase_expert_parallel),
-                            ("sharding", phase_sharding)):
+                            ("sharding", phase_sharding),
+                            ("context_parallel", phase_context_parallel),
+                            ("pipeline", phase_pipeline)):
             mark(name)
             phase(torch, dev, report)
             models[name] = report.pop(name)
@@ -9125,7 +9968,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     RANK_MAINS = {"--tp-rank": tp_rank_main, "--ep-rank": ep_rank_main,
-                  "--zero-rank": zero_rank_main}
+                  "--zero-rank": zero_rank_main, "--cp-rank": cp_rank_main,
+                  "--pp-rank": pp_rank_main}
     if sys.argv[1:2] and sys.argv[1] in RANK_MAINS:
         sys.exit(RANK_MAINS[sys.argv[1]](int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

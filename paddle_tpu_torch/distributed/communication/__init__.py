@@ -367,9 +367,11 @@ def gather(tensor, gather_list=None, dst=0, group=None, sync_op=True):
 
 def _point_to_point(*args, **kwargs):
     raise NotImplementedError(
-        "send / recv / isend / irecv / batch_isend_irecv: point-to-point "
-        "communication comes with the pipeline (ROADMAP.md queue A item 4 "
-        "(e)); the reference's raise too")
+        "send / recv / isend / irecv / batch_isend_irecv: public "
+        "point-to-point communication is not supported, as in the "
+        "reference; the pipeline moves activations through its own "
+        "exchanges (fleet.meta_parallel.PipelineParallel, "
+        "fleet.pipeline_spmd)")
 
 
 send = recv = isend = irecv = batch_isend_irecv = _point_to_point

@@ -22,8 +22,9 @@ function             forward                     backward
 ===================  ==========================  =========================
 
 A group of one rank makes each of them the identity (a chunk of one is
-the whole). ``permute`` exchanges through an all-gather (the port's
-point-to-point waits for ROADMAP queue A item 4 (e)).
+the whole). ``permute`` moves each tensor straight to its destination:
+a rank posts its one send and its one receive together (``_p2p``) and
+waits on both, so no order of the ranks' transfers can deadlock.
 """
 from __future__ import annotations
 
@@ -77,17 +78,46 @@ def _reduce_scatter(x, pg, dim):
     return out.movedim(0, dim).contiguous()
 
 
+def _p2p(pg, sends, recvs, device):
+    """Point-to-point transfers over ``pg``, every one of this rank's
+    posted together and then waited on: ``sends`` ``(tensor, dst, tag)``
+    and ``recvs`` ``(shape, dtype, src, tag)``, peers by group rank.
+    The ranks must list their transfers in one order (a sender's i-th
+    send to a peer is that peer's i-th receive from it with the same
+    tag). Returns the received tensors on ``device``. gloo carries no
+    point-to-point transfer of CUDA tensors, so there they go through
+    the host."""
+    host = torch.device(device).type != "cpu" and \
+        tdist.get_backend(pg) == "gloo"
+    ops, bufs = [], []
+    for t, dst, tag in sends:
+        t = t.detach().contiguous()
+        ops.append(tdist.P2POp(tdist.isend, t.cpu() if host else t,
+                               tdist.get_global_rank(pg, dst), pg, tag))
+    for shape, dtype, src, tag in recvs:
+        bufs.append(torch.empty(shape, dtype=dtype,
+                                device="cpu" if host else device))
+        ops.append(tdist.P2POp(tdist.irecv, bufs[-1],
+                               tdist.get_global_rank(pg, src), pg, tag))
+    if ops:
+        for work in tdist.batch_isend_irecv(ops):
+            work.wait()
+    return [b.to(device) for b in bufs] if host else bufs
+
+
 def _permute(x, pg, perm):
     """Rank ``dst`` of each ``(src, dst)`` pair gets rank ``src``'s ``x``;
     a rank no pair sends to gets zeros (``lax.ppermute``)."""
-    n = _size(pg)
-    parts = [torch.empty_like(x) for _ in range(n)]
-    tdist.all_gather(parts, x.contiguous(), group=pg)
     me = _rank(pg)
-    for src, dst in perm:
-        if dst == me:
-            return parts[src]
-    return torch.zeros_like(x)
+    x = x.contiguous()
+    dsts = [d for s, d in perm if s == me and d != me]
+    srcs = [s for s, d in perm if d == me]
+    got = _p2p(pg, [(x, d, 0) for d in dsts],
+               [(x.shape, x.dtype, s, 0) for s in srcs if s != me],
+               x.device)
+    if not srcs:
+        return torch.zeros_like(x)
+    return x.clone() if srcs[0] == me else got[0]
 
 
 def _all_to_all(x, pg, split_axis, concat_axis):

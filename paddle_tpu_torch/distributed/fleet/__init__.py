@@ -8,19 +8,25 @@ Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``.
 ``init`` brings the process group up (``init_parallel_env``) and builds
 the ``HybridCommunicateGroup`` of ``strategy.hybrid_configs``; a
 ``dp_degree`` left at 1 takes the ranks the other degrees leave, as
-Paddle's does. ``distributed_optimizer`` at a ``sharding_degree`` above
-1 returns the ``HybridParallelOptimizer`` (``meta_optimizers``: the
-states sharded over the ``sharding`` axis); ``meta_parallel`` has the
-group-sharded wrappers. Not here yet, each raising and naming its part
-of ROADMAP queue A item 4: the pipeline (``PipelineParallel`` in
-``distributed_model``, ``meta_parallel``'s pipeline names), (e); context
-parallelism (``SegmentParallel``), (d); the parameter server (``init``
-without ``is_collective``, ``init_server`` / ``init_worker`` and their
-kin), the data generators and elastic launch, (f).
+Paddle's does. ``distributed_model`` wraps a ``PipelineLayer`` in
+``PipelineParallel`` at a ``pp_degree`` above 1 and a model in
+``SegmentParallel`` (context parallelism: the sequence cut over the sep
+ranks, the gradients summed over them) at a ``sep_degree`` above 1.
+``distributed_optimizer`` at a ``sharding_degree`` above 1 returns the
+``HybridParallelOptimizer`` (``meta_optimizers``: the states sharded
+over the ``sharding`` axis); ``meta_parallel`` has the pipeline, the
+group-sharded wrappers and ``SegmentParallel``; ``context_parallel``
+the ring and Ulysses attention, ``pipeline_spmd`` and
+``pipeline_spmd_engine`` the pipeline as one function over the ``pp``
+axis. Not here yet, each raising and naming its part of ROADMAP queue A
+item 4 (f): the parameter server (``init`` without ``is_collective``,
+``init_server`` / ``init_worker`` and their kin), the data generators
+and elastic launch.
 """
 from __future__ import annotations
 
-from . import (meta_optimizers, meta_parallel, mp_layers,  # noqa: F401
+from . import (context_parallel, meta_optimizers,  # noqa: F401
+               meta_parallel, mp_layers, pipeline_spmd, pipeline_spmd_engine,
                sequence_parallel, topology, utils)
 from .mp_layers import (  # noqa: F401
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
@@ -116,15 +122,22 @@ def init(role_maker=None, is_collective: bool = False, strategy=None,
 
 
 def distributed_model(model):
-    """Replicate every parameter not yet sharded over the hybrid mesh and,
-    at a data-parallel degree above 1, wrap the model in ``DataParallel``
-    over the dp group. A pipeline degree above 1 raises (ROADMAP queue A
-    item 4 (e))."""
+    """The model for the hybrid group: at a pipeline degree above 1 a
+    ``PipelineLayer`` wrapped in ``PipelineParallel`` (its stages over
+    the pp ranks). Any other model has every parameter not yet sharded
+    replicated over the hybrid mesh, and is wrapped at a sep degree
+    above 1 in ``SegmentParallel`` (which sums the gradients over sep
+    and averages them over dp), else at a data-parallel degree above 1
+    in ``DataParallel`` over the dp group."""
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         return model
-    if hcg.get_pipe_parallel_world_size() > 1:
-        _later_part("PipelineParallel (pp_degree > 1)", "e")
+    strategy = _fleet_state.get("strategy")
+    from .meta_parallel import PipelineLayer, PipelineParallel
+
+    if isinstance(model, PipelineLayer) \
+            and hcg.get_pipe_parallel_world_size() > 1:
+        return PipelineParallel(model, hcg, strategy=strategy)
     from ..auto_parallel.api import DistParameter, shard_tensor
     from ..auto_parallel.placement import Replicate
 
@@ -132,10 +145,13 @@ def distributed_model(model):
     for p in model.parameters():
         if not isinstance(p, DistParameter):
             shard_tensor(p, mesh, [Replicate()] * mesh.ndim)
+    if hcg.get_sep_parallel_world_size() > 1:
+        from .meta_parallel import SegmentParallel
+
+        return SegmentParallel(model, hcg)
     if hcg.get_data_parallel_world_size() > 1:
         from ..parallel_wrapper import DataParallel
 
-        strategy = _fleet_state.get("strategy")
         model = DataParallel(
             model, strategy=strategy,
             group=hcg.get_data_parallel_group(),

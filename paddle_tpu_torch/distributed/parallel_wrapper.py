@@ -82,11 +82,15 @@ class _Bucket:
 
 
 class _Reducer:
-    """The bucketed gradient all-reduce (module docstring)."""
+    """The bucketed gradient all-reduce (module docstring): each bucket
+    through ``reductions``, ``(group, ReduceOp)`` pairs applied in turn
+    (``DataParallel``: the mean over its group;
+    ``fleet.meta_parallel.SegmentParallel``: the sum over the sep group,
+    then the mean over dp)."""
 
-    def __init__(self, params, group, bucket_bytes, first_bucket_bytes,
+    def __init__(self, params, reductions, bucket_bytes, first_bucket_bytes,
                  find_unused_parameters):
-        self.group = group
+        self.reductions = list(reductions)
         self.find_unused = find_unused_parameters
         self.buckets: List[_Bucket] = []
         self._where = {}
@@ -141,18 +145,20 @@ class _Reducer:
     def _launch(self, b):
         from ..jit._capture import CaptureError, is_capturing
 
-        if is_capturing() and b.flat.is_cuda \
-                and self.group.process_group is not None:
+        if is_capturing() and b.flat.is_cuda:
             from .communication.group import get_backend
 
-            backend = get_backend(self.group)
-            if backend != "nccl":
-                raise CaptureError(
-                    f"DataParallel: a {backend} all-reduce of CUDA "
-                    f"gradients cannot be captured in a CUDA graph (NCCL "
-                    f"can); run the step outside jit.to_static")
-        b.task = all_reduce(b.flat, op=ReduceOp.AVG, group=self.group,
-                            sync_op=False)
+            for group, _ in self.reductions:
+                backend = get_backend(group)
+                if group.process_group is not None and backend != "nccl":
+                    raise CaptureError(
+                        f"DataParallel: a {backend} all-reduce of CUDA "
+                        f"gradients cannot be captured in a CUDA graph "
+                        f"(NCCL can); run the step outside jit.to_static")
+        *first, (group, op) = self.reductions
+        for g, o in first:
+            all_reduce(b.flat, op=o, group=g)
+        b.task = all_reduce(b.flat, op=op, group=group, sync_op=False)
 
     def _finish(self):
         try:
@@ -181,6 +187,20 @@ class _Reducer:
             self._armed = False
 
 
+def broadcast_state(layers: torch.nn.Module, group):
+    """``layers``' parameters and persistent buffers from ``group``'s
+    first rank to the others."""
+    src = group.ranks[0]
+    with torch.no_grad():
+        for p in layers.parameters():
+            broadcast(p.data, src=src, group=group)
+        for m in layers.modules():
+            for name, buf in m._buffers.items():
+                if buf is not None \
+                        and name not in m._non_persistent_buffers_set:
+                    broadcast(buf, src=src, group=group)
+
+
 class DataParallel(torch.nn.Module):
     """``paddle.DataParallel(layers)`` (module docstring)."""
 
@@ -207,20 +227,12 @@ class DataParallel(torch.nn.Module):
         if self._group.process_group is not None:
             self._sync_params_and_buffers()
             self._reducer = _Reducer(
-                layers.parameters(), self._group,
+                layers.parameters(), [(self._group, ReduceOp.AVG)],
                 int(comm_buffer_size_MB * _MB),
                 int(last_comm_buffer_size_MB * _MB), find_unused_parameters)
 
     def _sync_params_and_buffers(self):
-        src = self._group.ranks[0]
-        with torch.no_grad():
-            for p in self._layers.parameters():
-                broadcast(p.data, src=src, group=self._group)
-            for m in self._layers.modules():
-                for name, buf in m._buffers.items():
-                    if buf is not None \
-                            and name not in m._non_persistent_buffers_set:
-                        broadcast(buf, src=src, group=self._group)
+        broadcast_state(self._layers, self._group)
 
     def forward(self, *inputs, **kwargs):
         return self._layers(*inputs, **kwargs)

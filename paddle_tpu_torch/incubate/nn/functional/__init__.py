@@ -98,18 +98,25 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     else:
         cos_a = cos.reshape(-1, d)[:s]
         sin_a = sin.reshape(-1, d)[:s]
+    qo, ko = _rotate_qk(q, k, cos_a, sin_a, position_ids,
+                        use_neox_rotary_style)
+    return qo, ko, v
+
+
+def _rotate_qk(q, k, cos_a, sin_a, position_ids, use_neox):
+    """q and k (or None), [B, S, H, D], rotated by the [rows, D] tables
+    at ``position_ids`` (else at 0 .. S - 1)."""
     if position_ids is not None:
         pos = position_ids.long()
         cos_a = cos_a[pos][:, :, None, :]            # [B, S, 1, D]
         sin_a = sin_a[pos][:, :, None, :]
     else:
-        cos_a = cos_a[None, :, None, :]
-        sin_a = sin_a[None, :, None, :]
-    qo = q * cos_a + rotate_half(q, use_neox_rotary_style) * sin_a
+        cos_a = cos_a[None, :q.shape[1], None, :]
+        sin_a = sin_a[None, :q.shape[1], None, :]
+    qo = q * cos_a + rotate_half(q, use_neox) * sin_a
     if k is None:
-        return qo, None, v
-    ko = k * cos_a + rotate_half(k, use_neox_rotary_style) * sin_a
-    return qo, ko, v
+        return qo, None
+    return qo, k * cos_a + rotate_half(k, use_neox) * sin_a
 
 
 def swiglu(x, y=None, name=None):

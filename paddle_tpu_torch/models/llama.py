@@ -13,8 +13,14 @@ returns the loss: through the chunked fused lm-head cross-entropy when
 ``config.fused_lm_head_ce`` is set, through ``cross_entropy`` on full
 logits otherwise. ``recompute=True`` checkpoints each decoder layer.
 ``generate`` decodes with a KV cache (``models/generation.py``).
-Context parallelism waits for the distributed slice and raises
-``NotImplementedError``.
+``context_parallel="ring"`` or ``"ulysses"`` runs the attention over the
+sequence sharded on the ``cp_mesh_axis`` of the hybrid group
+(``fleet.context_parallel``): each rank takes its chunk of the tokens
+(``fleet.meta_parallel.SegmentParallel``, which ``fleet.distributed_model``
+puts around the model at a ``sep_degree`` above 1), and its rotary
+positions are global, rank ``r``'s default ones starting at
+``r * S_local``. Labels are not shifted inside the model, so each rank's
+chunk of labels lines up with its chunk of ids.
 """
 from __future__ import annotations
 
@@ -32,8 +38,10 @@ from ..distributed.fleet.mp_layers import (
     check_divides, column_projections, global_numel, lm_cross_entropy,
     mp_shard_, vocab_parallel_fused_linear_cross_entropy)
 from ..distributed.fleet.utils import recompute
-from ..incubate.nn.functional import (fused_linear_cross_entropy,
-                                      fused_rotary_position_embedding, swiglu)
+from ..incubate.nn.functional import (_rope_tables, _rotate_qk,
+                                      fused_linear_cross_entropy,
+                                      fused_rotary_position_embedding,
+                                      swiglu)
 from ..nn import functional as F
 from ..nn.functional.common import Embedding
 
@@ -63,7 +71,10 @@ class LlamaConfig:
     # parameters stay separate
     fused_qkv: bool = False
     dtype: str = "float32"
+    # context parallelism: "ring" | "ulysses" | None, over the hybrid
+    # group's cp_mesh_axis (fleet.context_parallel)
     context_parallel: Optional[str] = None
+    cp_mesh_axis: str = "sep"
 
     def __post_init__(self):
         if self.context_parallel not in (None, "ring", "ulysses"):
@@ -155,13 +166,46 @@ class LlamaAttention(nn.Module):
         q = q.reshape(b, s, -1, self.head_dim)
         k = k.reshape(b, s, -1, self.head_dim)
         v = v.reshape(b, s, -1, self.head_dim)
-        q, k, v = fused_rotary_position_embedding(
-            q, k, v, position_ids=position_ids, use_neox_rotary_style=True,
-            rotary_emb_base=self.config.rope_theta)
-        out = F.scaled_dot_product_attention(
-            q, k, v, attn_mask=attention_mask,
-            is_causal=attention_mask is None, training=self.training)
+        if self.config.context_parallel:
+            if attention_mask is not None:
+                raise NotImplementedError(
+                    "context_parallel attention is causal-only; custom "
+                    "attention_mask is not supported under ring/ulysses")
+            out = self._cp_attention(q, k, v, position_ids)
+        else:
+            q, k, v = fused_rotary_position_embedding(
+                q, k, v, position_ids=position_ids,
+                use_neox_rotary_style=True,
+                rotary_emb_base=self.config.rope_theta)
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attention_mask,
+                is_causal=attention_mask is None, training=self.training)
         return self.o_proj(out.reshape(b, s, -1))
+
+    def _cp_attention(self, q, k, v, position_ids):
+        """Ring or Ulysses attention over this rank's chunk of the
+        sequence, at global rotary positions (the default ones start at
+        the chunk's first token); the key-value heads are repeated to the
+        query heads first, as in the reference."""
+        from ..distributed.fleet import context_parallel as cp
+
+        axis = self.config.cp_mesh_axis
+        s, d = q.shape[1], q.shape[3]
+        n, start = cp.seq_chunk(s, axis=axis)
+        if position_ids is None:
+            position_ids = torch.arange(start, start + s,
+                                        device=q.device)[None]
+        # the tables span the whole sequence: the positions are global
+        cos, sin = _rope_tables(n * s, d, self.config.rope_theta, True,
+                                q.dtype, q.device)
+        q, k = _rotate_qk(q, k, cos, sin, position_ids, True)
+        if k.shape[2] != q.shape[2]:
+            rep = q.shape[2] // k.shape[2]
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        fn = {"ring": cp.ring_attention, "ulysses": cp.ulysses_attention}[
+            self.config.context_parallel]
+        return fn(q, k, v, axis=axis, causal=True)
 
 
 class LlamaMLP(nn.Module):
@@ -230,10 +274,6 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        if config.context_parallel:
-            raise NotImplementedError(
-                "LlamaConfig.context_parallel waits for the distributed "
-                "slice of the port")
         dev = resolve_device(device)
         factory = dict(device=dev, dtype=_DTYPES[config.dtype])
         self.config = config

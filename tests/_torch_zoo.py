@@ -50,6 +50,8 @@ Tolerances otherwise: logits and statistics ``OUT_TOL`` of their own max
 |value|; each gradient ``GRAD_TOL`` of its own max |g|; each parameter
 after the step within lr x that gradient bound plus ``PARAM_TOL`` of its
 own max |value|."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -85,6 +87,40 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def fresh_hybrid_groups():
+    """Both packages' hybrid groups (``fleet.init``'s process-wide
+    ``HybridCommunicateGroup``) and the reference's fleet strategy reset
+    on entry and again on exit. A reference test that calls
+    ``fleet.init`` and never resets (``tests/test_sharding.py:141``)
+    leaves its eight-device group behind, and a later oracle that reads
+    it takes that mesh: the reference's MoE ``_ep_mesh`` falls back to
+    it (ROADMAP queue C, C7). Every port test whose oracle reads either
+    package's hybrid group or fleet state runs it inside this."""
+    from paddle_tpu.distributed import fleet as jfleet
+    from paddle_tpu.distributed.fleet import topology as jtopology
+    from paddle_tpu_torch.distributed.fleet import topology as ttopology
+
+    def reset():
+        jtopology.set_hybrid_communicate_group(None)
+        ttopology.set_hybrid_communicate_group(None)
+        jfleet._fleet_state.update(initialized=False, strategy=None)
+
+    reset()
+    try:
+        yield
+    finally:
+        reset()
+
+
+@pytest.fixture(autouse=True)
+def no_hybrid_groups():
+    """Each test inside ``fresh_hybrid_groups`` (autouse where
+    imported)."""
+    with fresh_hybrid_groups():
+        yield
 
 
 def numpy_init(monkeypatch, seed=0, zeros=False):

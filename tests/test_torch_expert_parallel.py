@@ -85,6 +85,8 @@ from paddle_tpu.models import ErnieMoeConfig as JConfig
 from paddle_tpu.models import ErnieMoeForCausalLM as JMoe
 from paddle_tpu.models import ernie_moe_shard_plan as jplan
 
+from _torch_zoo import fresh_hybrid_groups
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "_torch_ep_worker.py")
 TIMEOUT = 240
@@ -176,8 +178,16 @@ def _ref_ernie_steps(jm, ids, labels):
     return out
 
 
-def _ref_ernie(state):
-    jm = JMoe(JConfig.tiny())
+def _ref_ernie(state, hybrid=False):
+    """The reference's tiny ERNIE-MoE from ``state``, random routing off.
+    Its MoE layers read the reference's hybrid group when they are built
+    (``moe_layer._ep_mesh``): with ``hybrid`` False they are built with
+    none (``fresh_hybrid_groups``), else under the caller's."""
+    if hybrid:
+        jm = JMoe(JConfig.tiny())
+    else:
+        with fresh_hybrid_groups():
+            jm = JMoe(JConfig.tiny())
     jm.set_state_dict(state)
     for layer in jm.model.layers:
         layer.mlp.gate._random2 = False
@@ -274,7 +284,7 @@ def _ref_results(inp, state, fused, experts, gates):
         jf.set_state_dict(fused)
         ref["c6f_mesh"] = jf._mesh is not None
         ref["c6f"] = _ref_layer_case(jf, inp)
-        jm = _ref_ernie(state)
+        jm = _ref_ernie(state, hybrid=True)
         ref["c6_mesh"] = jm.model.layers[0].mlp._mesh is not None
         ref["c6_cut_loss"] = float(jm(paddle.to_tensor(ids),
                                       labels=paddle.to_tensor(labels))[0])
@@ -295,6 +305,13 @@ def _ref_results(inp, state, fused, experts, gates):
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
+    """``_two_ranks`` with both packages' hybrid groups reset before and
+    after (``fresh_hybrid_groups``, ROADMAP queue C, C7)."""
+    with fresh_hybrid_groups():
+        return _two_ranks(tmp_path_factory)
+
+
+def _two_ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("ep")
     inp = _inputs()
     np.savez(d / "inputs.npz", **inp)

@@ -12,7 +12,7 @@ routes to its kernels' plain versions (a CPU tensor never launches).
 import numpy as np
 import pytest
 import torch
-from _torch_zoo import one_torch_thread  # noqa: F401
+from _torch_zoo import no_hybrid_groups, one_torch_thread  # noqa: F401
 
 import paddle_tpu as paddle
 from paddle_tpu.core import flags as jflags
@@ -112,8 +112,11 @@ def test_bridge_checks_names_and_shapes():
 def test_later_slices_raise():
     # labels= and recompute=True arrived with the training slice: the
     # loss comes back (and matches the reference's, test_torch_train.py),
-    # and a recompute model gives the same loss; context parallelism still
-    # waits for the distributed slice
+    # and a recompute model gives the same loss; context parallelism
+    # arrived with the distributed slice: a context-parallel model builds,
+    # and, as the reference's, refuses a custom attention mask and needs
+    # a mesh (a hybrid group with a sep axis; the sep-2 runs are in
+    # test_torch_context_parallel.py)
     jm, tm, params = _pair()
     ids = np.random.default_rng(3).integers(0, 256, (1, 6))
     want, _ = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(ids))
@@ -124,6 +127,19 @@ def test_later_slices_raise():
     load_paddle_tpu_state(rm, params)
     rloss, _ = rm(torch.from_numpy(ids), labels=torch.from_numpy(ids))
     torch.testing.assert_close(rloss, loss, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="context_parallel"):
-        LlamaForCausalLM(LlamaConfig.tiny(context_parallel="ring"),
-                         device="cpu")
+    cp_ids = np.random.default_rng(4).integers(0, 256, (1, 8))
+    mask = np.zeros((1, 1, 8, 8), np.float32)
+    for mode in ("ring", "ulysses"):
+        jcp = JLlama(JConfig.tiny(context_parallel=mode))
+        tcp = LlamaForCausalLM(LlamaConfig.tiny(context_parallel=mode),
+                               device="cpu")
+        with pytest.raises(NotImplementedError, match="attention_mask"):
+            jcp(paddle.to_tensor(cp_ids),
+                attention_mask=paddle.to_tensor(mask))
+        with pytest.raises(NotImplementedError, match="attention_mask"):
+            tcp(torch.from_numpy(cp_ids),
+                attention_mask=torch.from_numpy(mask))
+        with pytest.raises(ValueError, match="needs a mesh"):
+            jcp(paddle.to_tensor(cp_ids))
+        with pytest.raises(ValueError, match="needs a mesh"):
+            tcp(torch.from_numpy(cp_ids))

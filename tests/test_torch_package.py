@@ -94,7 +94,14 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "distributed.sharding",
                 "distributed.fleet.meta_parallel.sharding",
                 "distributed.fleet.meta_optimizers.dygraph_optimizer",
-                "framework.io_"):
+                "framework.io_",
+                "distributed.fleet.context_parallel",
+                "distributed.fleet.meta_parallel.segment_parallel",
+                "distributed.fleet.meta_parallel.pipeline_schedules",
+                "distributed.fleet.meta_parallel.pp_layers",
+                "distributed.fleet.meta_parallel.pipeline_parallel",
+                "distributed.fleet.pipeline_spmd",
+                "distributed.fleet.pipeline_spmd_engine"):
         assert f"paddle_tpu_torch.{mod}" in out
     assert [m for m in out if _forbidden(m)] == []
 
@@ -159,6 +166,48 @@ def test_fleet_exports_the_reference_collective_names():
         port.init()
     with pytest.raises(NotImplementedError, match=r"item 4 \(f\)"):
         port.init_server()
+
+
+#: ``fleet.meta_parallel``'s names and the port module that defines each
+META_PARALLEL = {
+    "LayerDesc": "pp_layers", "SharedLayerDesc": "pp_layers",
+    "PipelineLayer": "pp_layers", "PipelineParallel": "pipeline_parallel",
+    "SegmentParallel": "segment_parallel",
+    "GroupShardedOptimizerStage2": "sharding",
+    "GroupShardedStage2": "sharding", "GroupShardedStage3": "sharding",
+    "pipeline_spmd_apply": "pipeline_spmd"}
+
+
+def test_meta_parallel_exports_the_reference_names():
+    """``fleet.meta_parallel`` exports the reference's ``__all__``, each
+    name the real one of its module (the pipeline and context
+    parallelism no longer raise), and ``fleet`` has ``context_parallel``,
+    ``pipeline_spmd`` and ``pipeline_spmd_engine`` with the reference's
+    ``__all__``."""
+    import importlib
+
+    ref = importlib.import_module("paddle_tpu.distributed.fleet.meta_parallel")
+    port = importlib.import_module(
+        "paddle_tpu_torch.distributed.fleet.meta_parallel")
+    assert sorted(port.__all__) == sorted(ref.__all__) == sorted(
+        META_PARALLEL)
+    for name, mod in META_PARALLEL.items():
+        assert getattr(port, name).__module__.endswith(mod), name
+    for mod in ("context_parallel", "pipeline_spmd", "pipeline_spmd_engine",
+                "meta_parallel.pipeline_schedules",
+                "meta_parallel.pp_layers",
+                "meta_parallel.pipeline_parallel"):
+        r = importlib.import_module(f"paddle_tpu.distributed.fleet.{mod}")
+        p = importlib.import_module(
+            f"paddle_tpu_torch.distributed.fleet.{mod}")
+        # without an __all__: the classes and functions the module
+        # defines, but the reference's jax helper shard_map
+        names = getattr(r, "__all__", None) or [
+            n for n, o in vars(r).items() if not n.startswith("_")
+            and getattr(o, "__module__", None) == r.__name__
+            and n != "shard_map"]
+        assert set(names) <= set(p.__all__), (mod, names)
+        assert all(hasattr(p, n) for n in p.__all__), mod
 
 
 @pytest.mark.parametrize("path", sorted(

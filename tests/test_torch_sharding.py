@@ -65,7 +65,8 @@ from paddle_tpu.models import LlamaForCausalLM as JLlama
 
 import paddle_tpu_torch.distributed as tdist
 import paddle_tpu_torch.optimizer as topt
-from _torch_zoo import numpy_init, one_torch_thread  # noqa: F401
+from _torch_zoo import (fresh_hybrid_groups, numpy_init,  # noqa: F401
+                        one_torch_thread)
 from test_torch_expert_parallel import _inputs as ep_inputs
 from test_torch_expert_parallel import _ref_ernie, _ref_ernie_steps
 
@@ -236,6 +237,13 @@ def _llama_run(state, inp):
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
+    """``_two_ranks`` with both packages' hybrid groups reset before and
+    after (``fresh_hybrid_groups``, ROADMAP queue C, C7)."""
+    with fresh_hybrid_groups():
+        return _two_ranks(tmp_path_factory)
+
+
+def _two_ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("zero")
     inp = _inputs()
     np.savez(d / "inputs.npz", **inp)

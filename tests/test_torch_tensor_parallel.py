@@ -67,7 +67,7 @@ from paddle_tpu.models.bert import bert_shard_plan as jbert_plan
 from paddle_tpu.models.gpt import gpt_shard_plan as jgpt_plan
 from paddle_tpu.models.llama import llama_shard_plan as jllama_plan
 
-from _torch_zoo import numpy_init
+from _torch_zoo import fresh_hybrid_groups, numpy_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "_torch_tp_worker.py")
@@ -337,6 +337,13 @@ def _ref_data_parallel(inp):
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
+    """``_two_ranks`` with both packages' hybrid groups reset before and
+    after (``fresh_hybrid_groups``, ROADMAP queue C, C7)."""
+    with fresh_hybrid_groups():
+        return _two_ranks(tmp_path_factory)
+
+
+def _two_ranks(tmp_path_factory):
     """The worker's results by rank, and the reference's, computed while
     the two ranks run."""
     d = tmp_path_factory.mktemp("tp")
